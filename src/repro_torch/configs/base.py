@@ -1,0 +1,34 @@
+"""ArchSpec: the contract between configs/, the launchers and the tests.
+
+  make_config(reduced, backbone) -> model config NamedTuple
+  shapes                         -> tuple of shape-cell names
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+
+class ArchSpec(NamedTuple):
+    arch_id: str
+    family: str                    # recsys
+    make_config: Callable          # (reduced: bool, backbone: str) -> config
+    shapes: tuple
+    citation: str = ""
+    notes: str = ""
+
+
+_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register_arch(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    import repro_torch.configs.dlrm_criteo  # noqa: F401  (registers)
+    return _REGISTRY[arch_id]
+
+
+# rows of the recsys serving cells (the reference's launch/cells.py)
+SERVE_ROWS = {"serve_p99": 512, "serve_bulk": 262144}

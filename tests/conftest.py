@@ -48,6 +48,10 @@ def pytest_configure(config):
         "markers",
         "integration: spawns the serving subprocess (run with "
         "REPRO_INTEGRATION=1)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; a fixture in the test decides and skips "
+        "when there is none")
 
 
 def pytest_runtest_setup(item):

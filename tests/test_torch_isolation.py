@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports JAX or the JAX package, and the chip smoke run refuses to report
+without a CUDA card or outside the repository."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
+                       re.MULTILINE)
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               'repro_torch.')]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+print(len(names))
+print(leaked)
+"""
+
+
+def _env(**extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+    return env
+
+
+def test_every_port_module_imports_without_jax_or_reference():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, leaked = proc.stdout.strip().splitlines()[-2:]
+    assert int(n_modules) >= 25
+    assert leaked == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*PORT.rglob("*.py"),
+                                         ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax_or_reference_import(path):
+    text = (ROOT / path).read_text()
+    assert FORBIDDEN.findall(text) == []
+    assert "import jax" not in text
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          env=_env(CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
