@@ -1,24 +1,72 @@
-"""Registry adapter exposing the packed serving table through the common
-compressor API."""
+"""Registry adapters exposing the MPE phases and the packed serving table
+through the common compressor API."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.api import register
+from repro_torch.core.api import BaseCompressor, register
 from repro_torch.core.inference import build_packed_table, packed_lookup
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding
 from repro_torch.core.packing import words_per_row
-from repro_torch.core.sampling import feature_bits, sample_group_bits
+from repro_torch.core.sampling import (MPERetrainEmbedding, feature_bits,
+                                       sample_group_bits)
+from repro_torch.core.sampling import storage_ratio as _ratio
 
 
 def as_mpe_config(cfg) -> MPEConfig:
     """The MPE fields of a compressor config dict (the rest is meta)."""
-    return MPEConfig(**{k: v for k, v in (cfg or {}).items()
-                        if k in MPEConfig._fields})
+    if isinstance(cfg, MPEConfig):
+        return cfg
+    if cfg is None:
+        return MPEConfig()
+    return MPEConfig(**{k: v for k, v in cfg.items() if k in MPEConfig._fields})
+
+
+@register("mpe_search")
+class MPESearch(BaseCompressor):
+    @staticmethod
+    def init(gen, n, d, freqs, cfg):
+        return MPESearchEmbedding.init(gen, n, d, freqs, as_mpe_config(cfg))
+
+    @staticmethod
+    def lookup(params, buffers, ids, cfg, *, train=False, step=None):
+        del train, step
+        return MPESearchEmbedding.lookup(params, buffers, ids, as_mpe_config(cfg))
+
+    @staticmethod
+    def reg_loss(params, buffers, cfg):
+        return MPESearchEmbedding.reg_loss(params, buffers, as_mpe_config(cfg))
+
+    @staticmethod
+    def storage_ratio(params, buffers, cfg):
+        c = as_mpe_config(cfg)
+        gb = sample_group_bits(params, c)
+        fb = feature_bits(gb, buffers["group_of_feature"])
+        return _ratio(fb, c)
+
+
+@register("mpe_retrain")
+class MPERetrain(BaseCompressor):
+    """init() expects cfg to carry the search artifacts (see pipeline.py)."""
+
+    @staticmethod
+    def init(gen, n, d, freqs, cfg):
+        del gen, n, d, freqs
+        return MPERetrainEmbedding.init(cfg["init_emb"], cfg["alpha"],
+                                        cfg["beta"], cfg["bits_idx"])
+
+    @staticmethod
+    def lookup(params, buffers, ids, cfg, *, train=False, step=None):
+        del train, step
+        return MPERetrainEmbedding.lookup(params, buffers, ids, as_mpe_config(cfg))
+
+    @staticmethod
+    def storage_ratio(params, buffers, cfg):
+        return _ratio(buffers["bits_idx"], as_mpe_config(cfg))
 
 
 @register("packed")
-class Packed:
+class Packed(BaseCompressor):
     """Serving-time compressor: the bit-packed table of §4.
 
     params = the packed table from ``build_packed_table``; cfg carries the
@@ -41,7 +89,8 @@ class Packed:
         return table, {"meta": meta}
 
     @staticmethod
-    def lookup(params, buffers, ids, cfg):
+    def lookup(params, buffers, ids, cfg, *, train=False, step=None):
+        del train, step
         meta = (buffers or {}).get("meta") or {"bits": tuple(cfg["bits"]),
                                                "d": cfg["d"]}
         return packed_lookup(params, meta, ids)

@@ -1,18 +1,21 @@
-"""MPE search-phase embedding layer (paper §3.2–§3.3): its parameters, the
-frequency-aware groups and the per-group width distribution.
+"""MPE search-phase embedding layer (paper §3.2–§3.3).
 
-The search lookup (Eq. 9) comes with the training slice and its ``mpe_qat``
-kernels; serving needs only ``init``, ``probabilities`` and the sampling of
-``repro_torch.core.sampling``.
+Holds the full-precision table, per-group bit-width logits γ, per-width step
+sizes α and per-dimension offsets β. Lookup returns the expectation over
+candidate quantizers (Eq. 9) through the fused ``mpe_qat`` kernel (its plain
+version on the CPU); ``reg_loss`` is the frequency-weighted expected
+bit-width (Eq. 10, second term, without λ).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import quantizer
+from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
 from repro_torch.nn import init as initializers
 
 
@@ -20,6 +23,7 @@ class MPEConfig(NamedTuple):
     bits: tuple = (0, 1, 2, 3, 4, 5, 6)  # paper §5.1.5
     group_size: int = 128                # paper §5.1.5
     tau: float = 3e-3                    # paper §5.1.5
+    lam: float = 1e-5                    # swept in {1e-6 .. 3e-4} (paper)
     embed_std: float = initializers.EMBED_STD
 
 
@@ -41,6 +45,14 @@ def make_groups(freqs: np.ndarray, group_size: int, device=None):
     np.add.at(sums, group_of_feature, freqs)
     return (torch.from_numpy(group_of_feature).to(device),
             torch.from_numpy(np.maximum(sums, 1.0).astype(np.float32)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _bits_vector(bits: tuple, device: torch.device) -> torch.Tensor:
+    """The candidate widths as a float32 vector on ``device``, made once: a
+    copy from the host in every step would make the host wait for the
+    device."""
+    return torch.tensor(bits, dtype=torch.float32, device=device)
 
 
 class MPESearchEmbedding:
@@ -71,9 +83,26 @@ class MPESearchEmbedding:
         return torch.softmax(params["gamma"] / cfg.tau, dim=-1)
 
     @staticmethod
+    def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
+        """ids: int of any shape -> (*ids.shape, d) mixed-precision embeddings."""
+        flat = ids.reshape(-1).long()
+        rows = params["emb"][flat]                                # (T, d)
+        p = MPESearchEmbedding.probabilities(params, cfg)        # (g, m)
+        probs = p[buffers["group_of_feature"][flat].long()]      # (T, m)
+        out = mixed_expectation_kernel(rows, probs, params["alpha"],
+                                       params["beta"], cfg.bits)
+        return out.reshape(*ids.shape, out.shape[-1])
+
+    @staticmethod
+    def reg_loss(params, buffers, cfg: MPEConfig) -> torch.Tensor:
+        """Eq. (10): Σ_j (1/s_j) Σ_i b_i p_i^j  (caller multiplies by λ)."""
+        p = MPESearchEmbedding.probabilities(params, cfg)         # (g, m)
+        per_group = p @ _bits_vector(tuple(cfg.bits), p.device)   # (g,)
+        return (per_group / buffers["freq_sum"]).sum()
+
+    @staticmethod
     def expected_bits(params, buffers, cfg: MPEConfig) -> torch.Tensor:
         """Average expected bit-width over features (monitoring/compression)."""
         p = MPESearchEmbedding.probabilities(params, cfg)
-        bits = torch.tensor(cfg.bits, dtype=torch.float32, device=p.device)
-        per_group = p @ bits                                      # (g,)
+        per_group = p @ _bits_vector(tuple(cfg.bits), p.device)   # (g,)
         return per_group[buffers["group_of_feature"].long()].mean()

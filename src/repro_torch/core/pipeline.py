@@ -1,0 +1,139 @@
+"""End-to-end MPE pipeline: search → sample → retrain → packed export (§3.4).
+
+Model-agnostic: the model stores its compressor state under
+``params["embedding"]`` / ``buffers["embedding"]``, so phase transitions are
+key swaps. The pipeline implements the paper's three retraining variants
+(Table 4):
+
+  - "none": quantize the searched embeddings at the sampled widths directly;
+  - "lth":  Lottery-Ticket reset — *all* params back to their initial values;
+  - "mpe":  the paper's scheme — embeddings reset to the search-phase init,
+            step sizes α, offsets β and the interaction network W warm-started
+            from the search phase.
+
+The model is supplied as a builder: build(seed, compressor, comp_cfg) ->
+{"params", "buffers", "state", "loss_fn", "eval_fn"} where loss_fn follows
+the Trainer signature.
+
+Every phase runs where ``build`` puts the model. The trainer never updates a
+tensor in place, so the search phase's initial parameters stay intact and
+serve as the snapshot that "mpe" and "lth" reset to; the search trainer and
+its optimizer state are freed before the retrain phase starts.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core.inference import build_packed_table, packed_storage_bytes
+from repro_torch.core.mpe import MPEConfig
+from repro_torch.core.sampling import (MPERetrainEmbedding, average_bits,
+                                       feature_bits, sample_group_bits,
+                                       storage_ratio)
+from repro_torch.train.loop import Trainer
+
+
+def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
+                     mpe_cfg: MPEConfig, optimizer, search_steps: int,
+                     retrain_steps: int, retrain_mode: str = "mpe",
+                     eval_fn: Callable | None = None, log_fn=print) -> dict:
+    if retrain_mode not in ("none", "lth", "mpe"):
+        raise ValueError(retrain_mode)
+    comp_cfg = mpe_cfg._asdict()
+    seconds = {}
+
+    # ---------------- phase 1: precision search ----------------
+    bundle = build(seed, "mpe_search", comp_cfg)
+    init_params = bundle["params"]
+    device = init_params["embedding"]["emb"].device
+    trainer = Trainer(bundle["loss_fn"], init_params, bundle["buffers"],
+                      bundle["state"], optimizer)
+    log_fn(f"[mpe] search phase: {search_steps} steps")
+    t0 = time.perf_counter()
+    trainer.run(data_fn, search_steps, log_fn=log_fn)
+    seconds["search"] = time.perf_counter() - t0
+    search_params, search_state = trainer.params, trainer.state
+    search_history = trainer.history
+    del trainer  # its optimizer state: two more tables' worth
+
+    # ---------------- phase 2: precision sampling (Eq. 11) ----------------
+    group_bits = sample_group_bits(search_params["embedding"], mpe_cfg)
+    gof = bundle["buffers"]["embedding"]["group_of_feature"]
+    fbits = feature_bits(group_bits, gof)
+    avg_b = average_bits(fbits, mpe_cfg)
+    ratio = storage_ratio(fbits, mpe_cfg)
+    log_fn(f"[mpe] sampled avg bits={avg_b:.3f} ratio={ratio:.4f}")
+
+    # ---------------- phase 3: retraining ----------------
+    searched_alpha = search_params["embedding"]["alpha"]
+    searched_beta = search_params["embedding"]["beta"]
+    if retrain_mode == "none":
+        emb_src = search_params["embedding"]["emb"]
+        base = search_params
+        steps = 0
+    elif retrain_mode == "lth":
+        base = init_params
+        emb_src = base["embedding"]["emb"]
+        searched_alpha = base["embedding"]["alpha"]
+        searched_beta = base["embedding"]["beta"]
+        steps = retrain_steps
+    else:  # "mpe"
+        base = search_params                         # warm-start W (paper §3.4)
+        emb_src = init_params["embedding"]["emb"]
+        steps = retrain_steps
+
+    emb_params, emb_buffers = MPERetrainEmbedding.init(
+        emb_src, searched_alpha, searched_beta, fbits)
+    retrain_params = {k: v for k, v in base.items() if k != "embedding"}
+    retrain_params["embedding"] = emb_params
+    retrain_buffers = {k: v for k, v in bundle["buffers"].items()
+                       if k != "embedding"}
+    retrain_buffers["embedding"] = emb_buffers
+
+    rb = build(seed, "mpe_retrain", {**comp_cfg, "init_emb": emb_src,
+                                     "alpha": searched_alpha,
+                                     "beta": searched_beta, "bits_idx": fbits})
+    # rebuilt only for the loss_fn closure; our params/state are swapped in
+    trainer2 = Trainer(rb["loss_fn"], retrain_params, retrain_buffers,
+                       search_state, optimizer)
+    del rb
+    t0 = time.perf_counter()
+    if steps:
+        log_fn(f"[mpe] retrain phase ({retrain_mode}): {steps} steps")
+        trainer2.run(data_fn, steps, log_fn=log_fn)
+    seconds["retrain"] = time.perf_counter() - t0
+    final_params = trainer2.params
+
+    # ---------------- phase 4: packed export ----------------
+    t0 = time.perf_counter()
+    table, meta = build_packed_table(final_params["embedding"]["emb"], fbits,
+                                     final_params["embedding"]["alpha"],
+                                     final_params["embedding"]["beta"], mpe_cfg)
+    packed_bytes = packed_storage_bytes(table)   # reads sizes only
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds["export"] = time.perf_counter() - t0
+    result = {
+        "search_params": search_params,
+        "final_params": final_params,
+        "buffers": retrain_buffers,
+        "state": trainer2.state,
+        "group_bits": group_bits.cpu().numpy(),
+        "feature_bits_idx": fbits.cpu().numpy(),
+        "avg_bits": avg_b,
+        "storage_ratio": ratio,
+        "packed_table": table,
+        "packed_meta": meta,
+        "packed_bytes": packed_bytes,
+        "search_history": search_history,
+        "retrain_history": trainer2.history,
+        "seconds": seconds,
+    }
+    if eval_fn is not None:
+        t0 = time.perf_counter()
+        result["eval"] = eval_fn(final_params, retrain_buffers, trainer2.state)
+        seconds["eval"] = time.perf_counter() - t0
+        log_fn(f"[mpe] eval: {result['eval']}")
+    return result

@@ -1,8 +1,12 @@
-"""LSQ+ uniform affine quantizer: integer codes and their dequantization.
+"""LSQ+ uniform affine quantizer with the paper's closed-form STE gradients.
 
     v    = (theta - beta) / alpha
     code = clamp(round(v), N_b, P_b),  N_b = -2^(b-1), P_b = 2^(b-1) - 1
     Q    = alpha * code + beta
+
+    dQ/dtheta = 1[N_b < v < P_b]                                   (Eq. 4)
+    dQ/dalpha = N_b | round(v) - v | P_b  (v <= N_b | inside | v >= P_b)  (Eq. 5)
+    dQ/dbeta  = 1[v <= N_b or v >= P_b]                            (Eq. 6)
 
 ``alpha`` is one step size per bit-width, ``beta`` one offset per embedding
 dimension (§3.3). b == 0 is the dropped-feature case, handled by callers.
@@ -45,3 +49,67 @@ def init_alpha(std: float, b: int) -> float:
     _, p_b = int_bounds(b)
     mean_abs = std * 0.7978845608  # E|N(0,std)| = std * sqrt(2/pi)
     return float(2.0 * mean_abs / max(p_b, 1) ** 0.5)
+
+
+def _reduce_to_shape(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum-reduce cotangent ``g`` down to its broadcast source ``shape``."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    extra = g.ndim - len(shape)
+    if extra:
+        g = g.sum(dim=tuple(range(extra)))
+    keep = tuple(i for i, s in enumerate(shape) if s == 1 and g.shape[i] != 1)
+    if keep:
+        g = g.sum(dim=keep, keepdim=True)
+    return g.reshape(shape)
+
+
+class _LSQQuantize(torch.autograd.Function):
+    """Fake quantization at ``b`` bits with the STE backward of Eqs. 4–6."""
+
+    @staticmethod
+    def forward(ctx, theta, alpha, beta, b):
+        n_b, p_b = int_bounds(b)
+        v = (theta - beta) / alpha
+        vbar = torch.clamp(torch.round(v), n_b, p_b)
+        ctx.b = b
+        ctx.shapes = (alpha.shape, beta.shape)
+        ctx.save_for_backward(v, vbar)
+        return dequantize_codes(vbar, alpha, beta)
+
+    @staticmethod
+    def backward(ctx, g):
+        n_b, p_b = int_bounds(ctx.b)
+        v, vbar = ctx.saved_tensors
+        alpha_shape, beta_shape = ctx.shapes
+        inside = (v > n_b) & (v < p_b)
+        d_theta = torch.where(inside, g, 0.0)                         # Eq. 4
+        dq_dalpha = torch.where(v <= n_b, float(n_b),
+                                torch.where(v >= p_b, float(p_b), vbar - v))
+        d_alpha = _reduce_to_shape(g * dq_dalpha, alpha_shape)        # Eq. 5
+        d_beta = _reduce_to_shape(g * torch.where(inside, 0.0, 1.0),     # Eq. 6
+                                  beta_shape)
+        return d_theta, d_alpha, d_beta, None
+
+
+def lsq_quantize(theta: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                 b: int) -> torch.Tensor:
+    """Fake-quantize ``theta`` at ``b`` bits. alpha: scalar tensor, beta: (d,)
+    or scalar tensor. Differentiable in all three through the STE."""
+    return _LSQQuantize.apply(theta, alpha, beta, int(b))
+
+
+def mixed_expectation(rows: torch.Tensor, probs: torch.Tensor,
+                      alpha: torch.Tensor, beta: torch.Tensor,
+                      bits: tuple) -> torch.Tensor:
+    """Paper Eq. (9), ē = Σ_i p_i · Q(e, α_i, β, b_i), as the plain composition
+    of ``lsq_quantize``: rows (..., d), probs (..., m), alpha (m,), beta (d,).
+    The fused kernel is ``repro_torch.kernels.mpe_qat``; this is its oracle."""
+    out = torch.zeros_like(rows)
+    for i, b in enumerate(bits):
+        if b == 0:
+            continue  # zero vector contribution (feature-selection case)
+        q = lsq_quantize(rows, alpha[i], beta, int(b))
+        out = torch.addcmul(out, probs[..., i:i + 1], q)
+    return out

@@ -1,7 +1,10 @@
-"""Precision sampling (paper Eq. 11).
+"""Precision sampling (paper Eq. 11) and the retraining-phase embedding layer.
 
 After the search phase, each group's final bit-width is the *highest*
 candidate whose probability exceeds 1/(2m) — not the argmax (§3.4).
+
+The retrain layer quantizes each row at its sampled width with plain LSQ+/STE;
+it is the mixture layer with a one-hot p, so it shares the fused kernel.
 """
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding
+from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
 
 
 def sample_group_bits(params, cfg: MPEConfig) -> torch.Tensor:
@@ -39,3 +43,32 @@ def average_bits(bits_idx, cfg: MPEConfig) -> float:
 def storage_ratio(bits_idx_per_feature, cfg: MPEConfig) -> float:
     """Bits stored / 32-bit full precision (paper's 'Ratio' column)."""
     return float(_feature_widths(bits_idx_per_feature, cfg).mean() / 32.0)
+
+
+class MPERetrainEmbedding:
+    """Fixed-width QAT layer for the retraining phase (§3.4).
+
+    params: emb (reset to the search phase's *initial* values), alpha, beta
+    (warm-started from the searched values). buffers: per-feature width index.
+    """
+
+    @staticmethod
+    def init(init_emb, searched_alpha, searched_beta, bits_idx_per_feature):
+        params = {"emb": init_emb, "alpha": searched_alpha, "beta": searched_beta}
+        buffers = {"bits_idx": bits_idx_per_feature.to(torch.int32)}
+        return params, buffers
+
+    @staticmethod
+    def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
+        flat = ids.reshape(-1).long()
+        rows = params["emb"][flat]                                # (T, d)
+        widx = buffers["bits_idx"][flat].long()                   # (T,)
+        onehot = torch.nn.functional.one_hot(widx, len(cfg.bits)).to(rows.dtype)
+        out = mixed_expectation_kernel(rows, onehot, params["alpha"],
+                                       params["beta"], cfg.bits)
+        return out.reshape(*ids.shape, out.shape[-1])
+
+    @staticmethod
+    def reg_loss(params, buffers, cfg: MPEConfig) -> torch.Tensor:
+        del params, buffers, cfg
+        return torch.zeros(())

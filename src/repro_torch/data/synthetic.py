@@ -98,3 +98,7 @@ class SyntheticCTR:
         z = self.true_logit(ids)
         label = (rng.random(s.batch_size) < 1.0 / (1.0 + np.exp(-z))).astype(np.int32)
         return {"ids": ids.astype(np.int32), "label": label}
+
+    def eval_set(self, n_batches: int, start_step: int = 1_000_000):
+        """Held-out batches: steps far past any training step."""
+        return [self.batch(start_step + i) for i in range(n_batches)]

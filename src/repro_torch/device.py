@@ -14,3 +14,12 @@ def resolve_device(device=None) -> torch.device:
                                "to run on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def full_float32(device: torch.device):
+    """On the card, keep float32 matrix products and convolutions in full
+    float32 (no TF32), so that training and scores follow the float32
+    reference."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

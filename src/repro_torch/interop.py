@@ -1,11 +1,16 @@
-"""The weight carrier: the reference's DLRM pytrees, as numpy, into the port.
+"""The weight carrier: the reference's pytrees, as numpy, into the port.
 
 ``dlrm_from_numpy`` takes the reference's (params, state, buffers) for a
-packed-table DLRM, already turned into nested dicts/lists of numpy arrays by
-the caller, and returns the port's (params, state, buffers) on ``device``.
-The packed table is ``params["embedding"]``; its uint32 words pass through
-``.view(np.int32)``, so the port holds the same bits. Both packages then
-compute the same function of the same weights.
+DLRM, already turned into nested dicts/lists of numpy arrays by the caller,
+and returns the port's (params, state, buffers) on ``device``. It carries
+the tables of the ``packed``, ``mpe_search``, ``mpe_retrain`` and ``plain``
+compressors with their buffers (``group_of_feature``, ``freq_sum``,
+``bits_idx``) and the BatchNorm state; ``to_torch`` carries any other tree,
+such as an Adam state ({"step", "mu", "nu"}). A packed table's uint32 words
+pass through ``.view(np.int32)``, so the port holds the same bits. Both
+packages then compute the same function of the same weights: ``jax.random``
+and ``torch.Generator`` never agree, so parity tests start both from one
+carried set of parameters.
 """
 from __future__ import annotations
 
@@ -28,16 +33,23 @@ def to_torch(tree, device):
     return torch.tensor(arr, device=device)
 
 
+CARRIED = ("packed", "mpe_search", "mpe_retrain", "plain")
+
+
 def dlrm_from_numpy(params, state, buffers, cfg, device=None):
-    """The port's (params, state, buffers) for a packed DLRM of config
-    ``cfg`` (``compressor="packed"``, ``comp_cfg`` with bits, d and n)."""
-    if cfg.compressor != "packed":
-        raise ValueError(f"the carrier takes packed-table DLRMs, not "
-                         f"{cfg.compressor!r}")
+    """The port's (params, state, buffers) for a DLRM of config ``cfg``
+    whose compressor is one of ``CARRIED``; a packed table's ``comp_cfg``
+    carries its bits, d and n."""
+    if cfg.compressor not in CARRIED:
+        raise ValueError(f"the carrier takes DLRMs with the compressors "
+                         f"{CARRIED}, not {cfg.compressor!r}")
     device = resolve_device(device)
-    meta = {"bits": tuple(cfg.comp_cfg["bits"]), "d": int(cfg.comp_cfg["d"]),
-            "n": int(cfg.comp_cfg["n"])}
     t_buffers = to_torch({k: v for k, v in buffers.items() if k != "embedding"},
                          device)
-    t_buffers["embedding"] = {"meta": meta}
+    if cfg.compressor == "packed":
+        t_buffers["embedding"] = {"meta": {
+            "bits": tuple(cfg.comp_cfg["bits"]), "d": int(cfg.comp_cfg["d"]),
+            "n": int(cfg.comp_cfg["n"])}}
+    else:
+        t_buffers["embedding"] = to_torch(buffers["embedding"], device)
     return to_torch(params, device), to_torch(state, device), t_buffers

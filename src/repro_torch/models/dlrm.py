@@ -1,11 +1,11 @@
-"""The paper's four DLRM backbones: DNN, DCN, DeepFM, IPNN (§5.1.2), eval mode.
+"""The paper's four DLRM backbones: DNN, DCN, DeepFM, IPNN (§5.1.2).
 
 All share: a global embedding table over all feature fields (compressed by a
-registered compressor — the packed table when serving), a 1024-512-256 MLP
-with BatchNorm (§5.1.5), and a sigmoid CTR head. They differ only in the
-interaction branch.
+registered compressor — MPE while training, the packed table when serving),
+a 1024-512-256 MLP with BatchNorm (§5.1.5), and a sigmoid CTR head. They
+differ only in the interaction branch.
 
-batch = {"ids": (B, F) int32 per-field local ids}.
+batch = {"ids": (B, F) int32 per-field local ids, "label": (B,)}.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ class DLRMConfig(NamedTuple):
     mlp_hidden: tuple = (1024, 512, 256)
     backbone: str = "dnn"              # dnn | dcn | deepfm | ipnn
     n_cross_layers: int = 3
-    compressor: str = "packed"
+    compressor: str = "plain"
     comp_cfg: dict | None = None
     use_batchnorm: bool = True
 
@@ -75,31 +75,52 @@ class DLRM:
         return params, buffers, state
 
     @staticmethod
-    def interact(params, state, emb, gids, cfg: DLRMConfig) -> torch.Tensor:
+    def interact(params, state, emb, gids, cfg: DLRMConfig, *,
+                 train: bool = False):
         """The post-lookup half of ``apply``: interaction branch + MLP head
         over gathered embeddings ``emb (B, F, d)``. ``gids`` are the
         globalized ids (only the DeepFM first-order term reads them).
-        Returns logits (B,)."""
+        Returns (logits (B,), new_state)."""
         b, f, d = emb.shape
         flat = emb.reshape(b, f * d)
         if cfg.backbone == "ipnn":
             mlp_in = torch.cat([flat, inner_products(emb)], dim=-1)
         else:
             mlp_in = flat
-        logit = MLP.apply(params["mlp"], state["mlp"], mlp_in)[:, 0]
+        deep, new_mlp_state = MLP.apply(params["mlp"], state["mlp"], mlp_in,
+                                        train=train)
+        logit = deep[:, 0]
         if cfg.backbone == "dcn":
             cross = CrossNetwork.apply(params["cross"], flat)
             logit = logit + cross @ params["cross_head"]
         elif cfg.backbone == "deepfm":
             first = params["fm_linear"][gids.long()].sum(dim=1)
             logit = logit + first + fm_second_order(emb) + params["fm_bias"]
-        return logit
+        return logit, {"mlp": new_mlp_state}
 
     @staticmethod
-    def apply(params, buffers, state, batch, cfg: DLRMConfig) -> torch.Tensor:
-        """Eval-mode forward: logits (B,)."""
+    def apply(params, buffers, state, batch, cfg: DLRMConfig, *,
+              train: bool = False, step=None):
+        """Returns (logits (B,), new_state, reg_loss)."""
         comp = get_compressor(cfg.compressor)
         gids = batch["ids"] + buffers["offsets"][None, :]
         emb = comp.lookup(params["embedding"], buffers["embedding"], gids,
-                          cfg.comp_cfg)                        # (B, F, d)
-        return DLRM.interact(params, state, emb, gids, cfg)
+                          cfg.comp_cfg, train=train, step=step)  # (B, F, d)
+        logit, new_state = DLRM.interact(params, state, emb, gids, cfg,
+                                         train=train)
+        reg = comp.reg_loss(params["embedding"], buffers["embedding"],
+                            cfg.comp_cfg)
+        return logit, new_state, reg
+
+    @staticmethod
+    def loss_fn(params, buffers, state, batch, cfg: DLRMConfig, *,
+                lam: float = 0.0, train: bool = True, step=None):
+        """Mean binary cross-entropy on the logits (the stable form) plus
+        ``lam`` times the compressor's regularizer. Returns
+        (loss, (new_state, ce))."""
+        logits, new_state, reg = DLRM.apply(params, buffers, state, batch, cfg,
+                                            train=train, step=step)
+        labels = batch["label"].to(torch.float32)
+        ce = torch.mean(torch.clamp(logits, min=0) - logits * labels
+                        + torch.log1p(torch.exp(-torch.abs(logits))))
+        return ce + lam * reg, (new_state, ce)

@@ -29,13 +29,18 @@ class MLP:
         return {"bn": [BatchNorm.init_state(h, device) for h in hidden]}
 
     @staticmethod
-    def apply(params, state, x):
-        """Eval-mode forward (BatchNorm reads its running statistics)."""
+    def apply(params, state, x, *, train: bool = False):
+        """Returns (y, new_state); in train mode BatchNorm normalizes with
+        the batch statistics and the new state holds the moved running
+        statistics."""
+        new_bn = []
         for i, layer in enumerate(params["layers"]):
             x = Dense.apply(layer, x)
             if "bn" in params:
-                x = BatchNorm.apply(params["bn"][i], state["bn"][i], x)
+                x, s = BatchNorm.apply(params["bn"][i], state["bn"][i], x,
+                                       train=train)
+                new_bn.append(s)
             x = torch.relu(x)
         if "head" in params:
             x = Dense.apply(params["head"], x)
-        return x
+        return x, ({"bn": new_bn} if "bn" in params else {})

@@ -1,9 +1,9 @@
 """BatchNorm over the last axis, written out by hand (paper §5.1.5).
 
-Eval mode normalizes with the running statistics held in a separate
-``state`` dict. ``torch.nn.BatchNorm1d`` is not used: the reference keeps
-its own state layout and update rule (biased batch variance, momentum 0.9
-on the old value), which the training slice ports with the train mode.
+Running statistics live in a separate ``state`` dict, returned alongside the
+output. ``torch.nn.BatchNorm1d`` is not used: the reference keeps its own
+state layout and update rule — the *biased* batch variance (``correction=0``)
+and ``0.9·old + 0.1·batch`` — which this module follows op for op.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ EPS = 1e-5
 
 
 class BatchNorm:
+    MOMENTUM = 0.9
+
     @staticmethod
     def init(dim: int, device=None):
         return {"scale": torch.ones((dim,), device=device),
@@ -24,7 +26,18 @@ class BatchNorm:
                 "var": torch.ones((dim,), device=device)}
 
     @staticmethod
-    def apply(params, state, x):
-        """Eval mode: normalize with the running mean and variance."""
-        return ((x - state["mean"]) / torch.sqrt(state["var"] + EPS)
-                * params["scale"] + params["bias"])
+    def apply(params, state, x, *, train: bool = False):
+        """Returns (y, new_state). Train mode normalizes with the batch
+        statistics and moves the running ones; eval mode reads them."""
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = x.var(dim=axes, correction=0)
+            mom = BatchNorm.MOMENTUM
+            new_state = {"mean": mom * state["mean"] + (1 - mom) * mean.detach(),
+                         "var": mom * state["var"] + (1 - mom) * var.detach()}
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        y = (x - mean) / torch.sqrt(var + EPS) * params["scale"] + params["bias"]
+        return y, new_state

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.inference import packed_lookup_fn
-from repro_torch.device import resolve_device
+from repro_torch.device import full_float32, resolve_device
 from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.serve.stats import LatencyStats
 
@@ -62,12 +62,7 @@ class Engine:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # serving starts here: keep float32 matrix products and
-            # convolutions in full float32 on the card (no TF32), so that
-            # scores follow the float32 reference
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_float32(self.device)   # serving starts here
         self.stats = LatencyStats()
         self._score: dict[str, ScoreCell] = {}
         self._score_batcher = RequestBatcher()
@@ -86,7 +81,7 @@ class Engine:
         offsets = buffers["offsets"]
 
         def step(ids):
-            return model.apply(params, buffers, state, {"ids": ids}, cfg)
+            return model.apply(params, buffers, state, {"ids": ids}, cfg)[0]
 
         def lookup_step(ids):
             return lookup(params["embedding"], ids + offsets[None, :])

@@ -1,0 +1,39 @@
+"""Evaluation metrics: AUC (rank-based Mann-Whitney) and logloss.
+
+Ties get average ranks (matches sklearn on CTR data). Both run on whatever
+device their inputs lie on; the evaluation loop hands them CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def logloss(labels: torch.Tensor, probs: torch.Tensor,
+            eps: float = 1e-7) -> torch.Tensor:
+    p = torch.clamp(probs, eps, 1 - eps)
+    return -torch.mean(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+
+
+def auc(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Mann-Whitney U AUC with average-rank tie handling."""
+    labels = labels.to(torch.float32).reshape(-1)
+    scores = scores.to(torch.float32).reshape(-1)
+    n = scores.shape[0]
+    order = torch.argsort(scores, stable=True)
+    sorted_scores = scores[order]
+    sorted_labels = labels[order]
+    ranks = torch.arange(1, n + 1, dtype=torch.float32, device=scores.device)
+    # average ranks for ties: group equal scores, mean rank per group
+    is_new = torch.cat([torch.ones((1,), dtype=torch.bool, device=scores.device),
+                        sorted_scores[1:] != sorted_scores[:-1]])
+    group_id = torch.cumsum(is_new, 0) - 1
+    group_sum = torch.zeros_like(ranks).index_add_(0, group_id, ranks)
+    group_cnt = torch.zeros_like(ranks).index_add_(0, group_id,
+                                                   torch.ones_like(ranks))
+    avg_rank = (group_sum / torch.clamp(group_cnt, min=1.0))[group_id]
+    n_pos = torch.sum(sorted_labels)
+    n_neg = n - n_pos
+    sum_pos_ranks = torch.sum(avg_rank * sorted_labels)
+    u = sum_pos_ranks - n_pos * (n_pos + 1) / 2.0
+    return torch.where((n_pos == 0) | (n_neg == 0), 0.5,
+                       u / torch.clamp(n_pos * n_neg, min=1.0))

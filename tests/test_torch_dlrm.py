@@ -83,7 +83,7 @@ def test_eval_logits_match_reference(backbone, rng):
     t_params, t_state, t_buffers = dlrm_from_numpy(params, state, buffers, cfg,
                                                    "cpu")
     got = DLRM.apply(t_params, t_buffers, t_state,
-                     {"ids": torch.from_numpy(ids)}, cfg).numpy()
+                     {"ids": torch.from_numpy(ids)}, cfg)[0].numpy()
     assert got.shape == (96,) and np.isfinite(got).all()
     assert np.std(want) > 1e-3          # the logits carry signal
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -116,7 +116,7 @@ def test_carrier_keeps_packed_bits(rng):
                                               "d": 16, "n": sum(VOCABS)}
     with pytest.raises(ValueError):
         dlrm_from_numpy(params, state, buffers,
-                        cfg._replace(compressor="plain"), "cpu")
+                        cfg._replace(compressor="qr"), "cpu")
 
 
 @pytest.mark.parametrize("backbone", BACKBONES)
@@ -125,7 +125,11 @@ def test_port_init_builds_a_servable_model(backbone, rng):
     params, buffers, state = DLRM.init(cfg, rng.zipf(1.2, sum(VOCABS)),
                                        seed=3, device="cpu")
     ids = torch.from_numpy(_ids(rng, VOCABS, 20))
-    logits = DLRM.apply(params, buffers, state, {"ids": ids}, cfg)
+    logits, new_state, reg = DLRM.apply(params, buffers, state, {"ids": ids},
+                                        cfg)
+    assert float(reg) == 0.0             # eval mode keeps the running stats
+    assert all(n is o for n, o in zip(new_state["mlp"]["bn"],
+                                      state["mlp"]["bn"]))
     assert logits.shape == (20,) and torch.isfinite(logits).all()
     again = DLRM.init(cfg, rng.zipf(1.2, sum(VOCABS)), seed=3, device="cpu")[0]
     torch.testing.assert_close(again["mlp"]["layers"][0]["kernel"],

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA ``mpe_lookup`` kernel against its plain
-PyTorch version, its wrapper's checks and launch count, and the engine on
-the card against the engine on the CPU.
+"""The port on the card: the CUDA ``mpe_lookup`` and ``mpe_qat`` kernels
+against their plain PyTorch versions, their wrappers' checks and launch
+counts, the backward's repeatability, the engine on the card against the
+engine on the CPU, and a training run that goes through the kernels.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -18,6 +19,10 @@ from repro_torch.core.mpe import MPEConfig
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.kernels.mpe_lookup import ops
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref
+from repro_torch.kernels.mpe_qat import ops as qat_ops
+from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
+                                             mixed_expectation_fwd_ref)
+from repro_torch.launch import train as launch_train
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.dlrm import DLRM
 
@@ -119,3 +124,78 @@ def test_model_init_defaults_to_the_card(cuda_device):
     assert params["mlp"]["layers"][0]["kernel"].device.type == "cuda"
     assert params["embedding"]["width_idx"].device.type == "cuda"
     assert buffers["offsets"].device.type == "cuda"
+
+
+def _qat_inputs(rng, t, d, bits, device, onehot=False):
+    m = len(bits)
+    rows = rng.normal(0, 3e-3, (t, d))
+    if onehot:
+        probs = np.eye(m)[rng.integers(0, m, t)]
+    else:
+        z = np.exp(rng.normal(0, 1, (t, m)))
+        probs = z / z.sum(-1, keepdims=True)
+    alpha = np.asarray([4e-3 / max(b, 1) for b in bits]) * rng.uniform(0.7, 1.3, m)
+    beta = rng.normal(0, 1e-4, d)
+    g = rng.normal(0, 1, (t, d))
+    return [torch.from_numpy(x.astype(np.float32)).to(device)
+            for x in (rows, probs, alpha, beta, g)]
+
+
+@pytest.mark.parametrize("onehot", [False, True], ids=["softmax", "onehot"])
+def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
+    """out and drows bit-identical to the plain version (the same FMAs);
+    dprobs, dalpha, dbeta, summed in another order, at rtol 1e-4 / atol 1e-6."""
+    grid = [(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
+    for bits in grid:
+        for d in (8, 16, 50, 64):
+            for t in (1, 255, 257, 4099):
+                rows, probs, alpha, beta, g = _qat_inputs(
+                    rng, t, d, bits, cuda_device, onehot)
+                out = qat_ops.mixed_expectation_fwd(rows, probs, alpha, beta, bits)
+                got = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g,
+                                                    bits)
+                torch.cuda.synchronize()
+                want_out = mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits)
+                want = mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits)
+                torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+                torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+                for x, w in zip(got[1:], want[1:]):
+                    torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6)
+
+
+def test_qat_backward_is_repeatable(cuda_device, rng):
+    bits = (0, 1, 2, 3, 4, 5, 6)
+    rows, probs, alpha, beta, g = _qat_inputs(rng, 100_003, 16, bits, cuda_device)
+    first = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
+    again = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+def test_qat_kernels_count_and_reject(cuda_device, rng):
+    bits = (0, 2, 4)
+    rows, probs, alpha, beta, g = _qat_inputs(rng, 50, 16, bits, cuda_device)
+    fwd0 = qat_ops.mixed_expectation_fwd.launches
+    bwd0 = qat_ops.mixed_expectation_bwd.launches
+    leaves = [x.clone().requires_grad_(True) for x in (rows, probs, alpha, beta)]
+    qat_ops.mixed_expectation_kernel(*leaves, bits).backward(g)
+    assert qat_ops.mixed_expectation_fwd.launches == fwd0 + 1
+    assert qat_ops.mixed_expectation_bwd.launches == bwd0 + 1
+    assert all(x.grad is not None and x.grad.is_cuda for x in leaves)
+    with pytest.raises(ValueError, match="lies on"):
+        qat_ops.mixed_expectation_fwd(rows, probs.cpu(), alpha, beta, bits)
+    with pytest.raises(TypeError):
+        qat_ops.mixed_expectation_fwd(rows.double(), probs, alpha, beta, bits)
+
+
+def test_training_launches_the_qat_kernels(cuda_device):
+    fwd0 = qat_ops.mixed_expectation_fwd.launches
+    bwd0 = qat_ops.mixed_expectation_bwd.launches
+    res = launch_train.main(["--reduced", "--steps", "3", "--retrain-steps", "2",
+                             "--batch", "256"])
+    assert qat_ops.mixed_expectation_fwd.launches - fwd0 >= 5
+    assert qat_ops.mixed_expectation_bwd.launches - bwd0 == 5
+    history = res["search_history"] + res["retrain_history"]
+    assert len(history) == 5 and not any(h["skipped"] for h in history)
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert res["packed_table"]["width_idx"].is_cuda

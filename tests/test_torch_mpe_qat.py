@@ -1,0 +1,173 @@
+"""Port parity for the Eq. 9 mixture and its gradients.
+
+- ``lsq_quantize`` (an ``autograd.Function`` with the Eq. 4–6 STE) against
+  ``jax.vjp`` of the reference's jitted ``lsq_quantize``: the forward and the
+  theta gradient to rtol 1e-5 / atol 1e-7 (the jitted reference may place
+  its fused multiply-adds elsewhere), alpha and beta gradients, which are
+  sums, to rtol 1e-4 / atol 1e-6.
+- The plain forward and backward of ``kernels/mpe_qat/ref.py`` against the
+  reference's Pallas kernels in interpret mode and against ``jax.vjp`` of
+  its jitted ``mixed_expectation``: forward at the kernel contract rtol 1e-5
+  / atol 1e-7, the backward at rtol 1e-4 / atol 1e-6
+  (``tests/test_kernels.py``), the reductions being summed in another order.
+- The CPU path of ``mixed_expectation_kernel`` (the ``autograd.Function``)
+  against autograd through the ``lsq_quantize`` composition.
+
+The CUDA kernels are held against ``ref.py`` on the card in
+``test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantizer as jquantizer
+from repro.kernels.mpe_qat.kernel import (mixed_expectation_bwd as j_bwd,
+                                          mixed_expectation_fwd as j_fwd)
+from repro_torch.core import quantizer
+from repro_torch.kernels.mpe_qat import ops
+from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
+                                             mixed_expectation_fwd_ref)
+
+FWD = dict(rtol=1e-5, atol=1e-7)
+RED = dict(rtol=1e-4, atol=1e-6)
+BITS_GRID = [(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Parallel test workers share the machine's cores: torch's intra-op
+    thread pool in each would oversubscribe them, and its spinning threads
+    then slow these many small ops a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(rng, t, d, bits, onehot=False):
+    m = len(bits)
+    rows = rng.normal(0, 3e-3, (t, d)).astype(np.float32)
+    if onehot:
+        probs = np.eye(m, dtype=np.float32)[rng.integers(0, m, t)]
+    else:
+        logits = rng.normal(0, 1, (t, m))
+        probs = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+                 ).astype(np.float32)
+    alpha = np.asarray([jquantizer.init_alpha(3e-3, b) for b in bits],
+                       np.float32) * rng.uniform(0.7, 1.3, m).astype(np.float32)
+    beta = rng.normal(0, 1e-4, d).astype(np.float32)
+    g = rng.normal(0, 1, (t, d)).astype(np.float32)
+    return rows, probs, alpha, beta, g
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_lsq_quantize_forward_and_ste_grads_match_reference(b, rng):
+    theta = rng.normal(0, 3e-3, (64, 16)).astype(np.float32)
+    alpha = np.float32(jquantizer.init_alpha(3e-3, b) * 0.8)
+    beta = rng.normal(0, 1e-4, 16).astype(np.float32)
+    g = rng.normal(0, 1, (64, 16)).astype(np.float32)
+
+    def ref(th, a, be):
+        return jax.vjp(lambda x, y, z: jquantizer.lsq_quantize(x, y, z, b),
+                       th, a, be)
+
+    out, vjp = jax.jit(ref)(theta, alpha, beta)
+    want = [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    th, a, be = (torch.tensor(x, requires_grad=True)
+                 for x in (theta, alpha, beta))
+    got_out = quantizer.lsq_quantize(th, a, be, b)
+    got_out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got_out.detach().numpy(), want[0], **FWD)
+    np.testing.assert_allclose(th.grad.numpy(), want[1], **FWD)
+    np.testing.assert_allclose(a.grad.numpy(), want[2], **RED)
+    np.testing.assert_allclose(be.grad.numpy(), want[3], **RED)
+    # the STE: gradient g exactly where the value is inside the code range
+    assert set(np.unique(th.grad.numpy() / g)) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("bits", BITS_GRID, ids=str)
+@pytest.mark.parametrize("onehot", [False, True], ids=["softmax", "onehot"])
+def test_plain_version_matches_reference_pallas_interpret(bits, onehot, rng):
+    rows, probs, alpha, beta, g = _inputs(rng, 300, 16, bits, onehot)
+    want_out = np.asarray(j_fwd(rows, probs, alpha, beta, bits=bits))
+    want = [np.asarray(x) for x in j_bwd(rows, probs, alpha, beta, g,
+                                         bits=bits)]
+    got_out = mixed_expectation_fwd_ref(*_t(rows, probs, alpha, beta), bits)
+    got = mixed_expectation_bwd_ref(*_t(rows, probs, alpha, beta, g), bits)
+    np.testing.assert_allclose(got_out.numpy(), want_out, **FWD)
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), w, **RED)
+    assert (got[1].numpy()[:, 0] == 0).all()      # the b = 0 column
+
+
+@pytest.mark.parametrize("d", [8, 16, 50, 64])
+def test_plain_version_matches_jitted_composition_grads(d, rng):
+    bits = (0, 1, 2, 3, 4, 5, 6)
+    rows, probs, alpha, beta, g = _inputs(rng, 257, d, bits)
+
+    def ref(r, p, a, be):
+        return jax.vjp(lambda *x: jquantizer.mixed_expectation(*x, bits),
+                       r, p, a, be)
+
+    out, vjp = jax.jit(ref)(rows, probs, alpha, beta)
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got_out = mixed_expectation_fwd_ref(*_t(rows, probs, alpha, beta), bits)
+    got = mixed_expectation_bwd_ref(*_t(rows, probs, alpha, beta, g), bits)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(out), **FWD)
+    np.testing.assert_allclose(got[0].numpy(), want[0], **FWD)   # drows
+    for x, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(x.numpy(), w, **RED)
+
+
+@pytest.mark.parametrize("onehot", [False, True], ids=["softmax", "onehot"])
+def test_autograd_function_cpu_path_matches_composition(onehot, rng):
+    bits = (0, 1, 2, 3, 4, 5, 6)
+    arrays = _inputs(rng, 120, 16, bits, onehot)
+    g = torch.from_numpy(arrays[-1])
+
+    def run(fn):
+        leaves = [torch.tensor(x, requires_grad=True) for x in arrays[:4]]
+        out = fn(leaves[0].reshape(8, 15, 16), leaves[1].reshape(8, 15, -1),
+                 leaves[2], leaves[3], bits)
+        out.backward(g.reshape(8, 15, 16))
+        return [out.detach().reshape(120, 16)] + [x.grad for x in leaves]
+
+    before = (ops.mixed_expectation_fwd.launches,
+              ops.mixed_expectation_bwd.launches)
+    got = run(ops.mixed_expectation_kernel)
+    want = run(quantizer.mixed_expectation)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)  # same FMAs
+    # drows: autograd sums the widths' p_i·g terms in its own order
+    torch.testing.assert_close(got[1], want[1], **FWD)
+    for x, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(x, w, **RED)
+    # the CPU path is the plain version: no kernel was launched
+    assert (ops.mixed_expectation_fwd.launches,
+            ops.mixed_expectation_bwd.launches) == before
+
+
+def test_wrapper_checks_what_the_kernels_take(rng):
+    bits = (0, 2, 4)
+    rows, probs, alpha, beta, g = _t(*_inputs(rng, 10, 16, bits))
+    ops._check_inputs(rows, probs, alpha, beta, bits, g)
+    with pytest.raises(TypeError):
+        ops._check_inputs(rows.double(), probs, alpha, beta, bits)
+    with pytest.raises(ValueError, match="shape"):
+        ops._check_inputs(rows, probs[:, :2], alpha, beta, bits)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_inputs(rows, probs.t().contiguous().t(), alpha, beta, bits)
+    with pytest.raises(ValueError, match="widths"):
+        ops._check_inputs(rows, probs, alpha, beta, (0, 2, 25))
+    with pytest.raises(ValueError, match="d=300"):
+        ops._check_inputs(torch.zeros(10, 300), probs, alpha,
+                          torch.zeros(300), bits)
+    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
+        ops.mixed_expectation_fwd(rows.to("meta"), probs.to("meta"),
+                                  alpha.to("meta"), beta.to("meta"), bits)

@@ -48,7 +48,7 @@ def _requests(served, n, step=777):
 def _port_unbatched(served, ids):
     params, state, buffers = served["port"]
     return DLRM.apply(params, buffers, state, {"ids": torch.from_numpy(ids)},
-                      served["cfg"]).numpy()
+                      served["cfg"])[0].numpy()
 
 
 def _reference_unbatched(served, ids):
