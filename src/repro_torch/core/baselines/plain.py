@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.api import BaseCompressor, register
 from repro_torch.nn import init as initializers
@@ -18,7 +19,7 @@ class PlainEmbedding(BaseCompressor):
     @staticmethod
     def lookup(params, buffers, ids, cfg, *, train=False, step=None):
         del buffers, cfg, train, step
-        return params["emb"][ids.long()]
+        return F.embedding(ids.long(), params["emb"])
 
     @staticmethod
     def storage_ratio(params, buffers, cfg):

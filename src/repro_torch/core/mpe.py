@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quantizer
 from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
@@ -86,9 +87,14 @@ class MPESearchEmbedding:
     def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
         """ids: int of any shape -> (*ids.shape, d) mixed-precision embeddings."""
         flat = ids.reshape(-1).long()
-        rows = params["emb"][flat]                                # (T, d)
+        # both gathers through F.embedding, not x[idx]: its backward sums
+        # each row's gradient over a sorted segment of indices, where
+        # index_put_'s walks the duplicates one by one, and a Zipf batch
+        # sends a large share of its lookups to the few groups of its most
+        # frequent features; both give the dense gradient
+        rows = F.embedding(flat, params["emb"])                  # (T, d)
         p = MPESearchEmbedding.probabilities(params, cfg)        # (g, m)
-        probs = p[buffers["group_of_feature"][flat].long()]      # (T, m)
+        probs = F.embedding(buffers["group_of_feature"][flat].long(), p)
         out = mixed_expectation_kernel(rows, probs, params["alpha"],
                                        params["beta"], cfg.bits)
         return out.reshape(*ids.shape, out.shape[-1])

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding
 from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
@@ -61,9 +62,9 @@ class MPERetrainEmbedding:
     @staticmethod
     def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
         flat = ids.reshape(-1).long()
-        rows = params["emb"][flat]                                # (T, d)
+        rows = F.embedding(flat, params["emb"])   # (T, d), as in the search
         widx = buffers["bits_idx"][flat].long()                   # (T,)
-        onehot = torch.nn.functional.one_hot(widx, len(cfg.bits)).to(rows.dtype)
+        onehot = F.one_hot(widx, len(cfg.bits)).to(rows.dtype)
         out = mixed_expectation_kernel(rows, onehot, params["alpha"],
                                        params["beta"], cfg.bits)
         return out.reshape(*ids.shape, out.shape[-1])

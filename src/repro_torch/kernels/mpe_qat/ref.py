@@ -1,9 +1,10 @@
 """Plain PyTorch version of the fused Eq. 9 mixture and its backward: the
 oracle the CUDA kernels are held against, and the path CPU tensors take.
 
-Written from the reference's TPU kernel bodies (``_fwd_kernel`` and
-``_bwd_kernel``), width by width. The two products that the CUDA kernels
-round once are ``torch.addcmul`` here (one fused multiply-add): the dequant
+The forward is ``core.quantizer.mixed_expectation`` without autograd. The
+backward is written out from the reference's TPU kernel body
+(``_bwd_kernel``), width by width. The products that the CUDA kernels round
+once are ``torch.addcmul`` in both (one fused multiply-add): the dequant
 ``α_i·code + β`` and the accumulations ``acc + p_i·q`` and
 ``drows + p_i·g_inside``. The division ``(e − β) / α_i`` is IEEE and the
 rounding half-to-even, as in the kernels, so ``out`` and ``drows`` come out
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantizer import int_bounds
+from repro_torch.core.quantizer import int_bounds, mixed_expectation
 
 
 def _quantize(rows, alpha_i, beta, b):
@@ -27,13 +28,8 @@ def _quantize(rows, alpha_i, beta, b):
 
 def mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits) -> torch.Tensor:
     """rows (T, d), probs (T, m), alpha (m,), beta (d,) -> (T, d)."""
-    out = torch.zeros_like(rows)
-    for i, b in enumerate(bits):
-        if b == 0:
-            continue
-        _, _, q = _quantize(rows, alpha[i], beta, int(b))
-        out = torch.addcmul(out, probs[:, i:i + 1], q)
-    return out
+    with torch.no_grad():
+        return mixed_expectation(rows, probs, alpha, beta, bits)
 
 
 def mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits):

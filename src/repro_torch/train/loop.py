@@ -4,12 +4,13 @@ Works with every model through a uniform loss signature:
 
     loss_fn(params, buffers, state, batch, *, step) -> (loss, (new_state, metric))
 
-It keeps the reference loop's global-norm clip, its NaN/inf guard (a step
-whose gradient norm or loss is not finite leaves the parameters and the whole
-optimizer state, Adam's step included, as they were; the BatchNorm state
-still takes its new value, as in the reference), the compressor's
-post-update hook, and data keyed by step. Checkpoints, the device mesh,
-gradient compression and prefetch are not ported yet.
+It keeps the reference loop's global-norm clip (at its default norm,
+``CLIP_NORM``), its NaN/inf guard (a step whose gradient norm or loss is not
+finite leaves the parameters and the whole optimizer state, Adam's step
+included, as they were; the BatchNorm state still takes its new value, as in
+the reference), the compressor's post-update hook, and data keyed by step.
+Checkpoints, the device mesh, gradient compression and prefetch are not
+ported yet.
 
 The guard runs on the device with ``torch.where``: no step waits for the
 host, at the price of holding the old and the new trees at once while it
@@ -29,6 +30,8 @@ import torch
 from repro_torch.train.optimizer import apply_updates, clip_by_global_norm
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
+CLIP_NORM = 10.0   # the reference Trainer's default clip_norm
+
 
 def _detached(tree):
     return tree_map(lambda x: x.detach() if torch.is_tensor(x) else x, tree)
@@ -36,12 +39,10 @@ def _detached(tree):
 
 class Trainer:
     def __init__(self, loss_fn: Callable, params, buffers, state, optimizer, *,
-                 clip_norm: float = 10.0,
                  post_update: Callable | None = None):
         self.loss_fn = loss_fn
         self.buffers = buffers
         self.optimizer = optimizer
-        self.clip_norm = clip_norm
         self.post_update = post_update
         self.step = 0
         self.device = leaves(params)[0].device
@@ -63,7 +64,7 @@ class Trainer:
             grads = torch.autograd.grad(loss, flat)
         loss, metric = loss.detach(), metric.detach()
         grads, gnorm = clip_by_global_norm(unflatten(params, list(grads)),
-                                           self.clip_norm)
+                                           CLIP_NORM)
         updates, new_opt = self.optimizer.update(grads, opt_state, params)
         del grads
         new_params = apply_updates(params, updates)

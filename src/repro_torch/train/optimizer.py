@@ -23,10 +23,11 @@ class GradientTransformation(NamedTuple):
     update: Callable  # (grads, state, params) -> (updates, state)
 
 
-def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          weight_decay: float = 0.0,
          moment_dtype=None) -> GradientTransformation:
-    """Adam/AdamW. ``lr`` may be a float or a schedule fn(step)->float.
+    """Adam/AdamW at a constant ``lr`` (schedules come with the reference's
+    ``warmup_cosine``).
 
     Decoupled weight decay (AdamW-style), skipped for 1-D leaves (biases,
     norm scales). ``moment_dtype`` (e.g. ``torch.bfloat16``) stores mu/nu in
@@ -34,8 +35,6 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     tensor on the parameters' device and the bias corrections ``1 − b^step``
     are computed from it in float32, as the reference computes them.
     """
-    lr_fn = lr if callable(lr) else (lambda _: lr)
-
     def _stored(x):
         return x.to(moment_dtype) if (moment_dtype is not None
                                       and x.is_floating_point()) else x
@@ -48,7 +47,6 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update(grads, state, params):
         step = state["step"] + 1
-        lr_t = lr_fn(step)
         mu = tree_map(lambda m, g: _stored(b1 * m.float() + (1 - b1) * g.float()),
                       state["mu"], grads)
         nu = tree_map(lambda v, g: _stored(b2 * v.float()
@@ -62,9 +60,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         def _upd(m, v, p):
             m32, v32 = m.float(), v.float()
-            u = -lr_t * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+            u = -lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
             if weight_decay and p.ndim > 1:
-                u = u - lr_t * weight_decay * p
+                u = u - lr * weight_decay * p
             return u
 
         updates = tree_map(_upd, mu, nu, params)

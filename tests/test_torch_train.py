@@ -9,11 +9,13 @@ by the reference and carried into the port (``jax.random`` and
   atol 1e-6 times the largest gradient of the tree: they are sums over the
   batch taken in another order, and the layer biases in front of
   BatchNorm, which BatchNorm cancels, get gradients of rounding size);
-- one ``adam`` update and ``clip_by_global_norm`` (rtol 1e-5: the jitted
-  reference may fuse its multiply-adds);
+- ``adam`` updates and ``clip_by_global_norm`` (rtol 1e-5: the jitted
+  reference may fuse its multiply-adds), also with bfloat16 moments;
 - ``auc`` with ties and ``logloss``;
 - a 5-step ``Trainer`` loss trajectory (loss rtol 1e-4) and a step with an
-  injected NaN, which both trainers skip in the same way. Adam turns the
+  injected NaN, which both trainers skip in the same way; the post-update
+  hook, a projection in the trainer and the compressors' default identity,
+  as in the reference. Adam turns the
   rounding-size gradients of the biases in front of BatchNorm into full
   steps, so those biases (and the running means they shift) are not
   compared after training; everything else is.
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import get_compressor as jget_compressor
 from repro.core.mpe import MPEConfig as JMPEConfig
 from repro.data.synthetic import CTRSpec as JCTRSpec
 from repro.data.synthetic import SyntheticCTR as JSyntheticCTR
@@ -38,6 +41,7 @@ from repro.train import metrics as jmetrics
 from repro.train.loop import Trainer as JTrainer
 from repro.train.optimizer import adam as jadam
 from repro.train.optimizer import clip_by_global_norm as jclip
+from repro_torch.core.api import get_compressor
 from repro_torch.core.mpe import MPEConfig
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.embeddings.table import FieldSpec
@@ -47,7 +51,7 @@ from repro_torch.nn.norms import BatchNorm
 from repro_torch.train import metrics
 from repro_torch.train.loop import Trainer
 from repro_torch.train.optimizer import adam, clip_by_global_norm
-from repro_torch.train.tree import leaves, unflatten
+from repro_torch.train.tree import leaves, tree_map, unflatten
 
 VOCABS = (300, 200, 150, 100)
 LAM = 3e-5
@@ -193,12 +197,13 @@ def test_loss_and_grads_match_reference(compressor):
         assert float(loss) == float(ce)
 
 
-def test_adam_update_and_clip_match_reference(rng):
+def _three_adam_steps(rng, jopt, opt):
+    """Three clipped updates of one small tree in both packages; returns the
+    port's and the reference's params and optimizer states."""
     params = {"w": rng.normal(0, 1, (20, 8)).astype(np.float32),
               "b": rng.normal(0, 1, (8,)).astype(np.float32)}
     grads = [{k: rng.normal(0, 3, v.shape).astype(np.float32)
               for k, v in params.items()} for _ in range(3)]
-    jopt, opt = jadam(1e-3, weight_decay=3e-6), adam(1e-3, weight_decay=3e-6)
     jp, js = params, jopt.init(params)
     tp, ts = to_torch(params, "cpu"), opt.init(to_torch(params, "cpu"))
 
@@ -216,9 +221,31 @@ def test_adam_update_and_clip_match_reference(rng):
         np.testing.assert_allclose(float(tnorm), float(jnorm), rtol=1e-5)
         assert float(tnorm) > 10.0            # the clip is active
     assert int(ts["step"]) == int(js["step"]) == 3
+    return tp, ts, jp, js
+
+
+def test_adam_update_and_clip_match_reference(rng):
+    tp, ts, jp, js = _three_adam_steps(rng, jadam(1e-3, weight_decay=3e-6),
+                                       adam(1e-3, weight_decay=3e-6))
     assert_tree_close(tp, jp, rtol=1e-5, atol=1e-7)
     assert_tree_close(ts["mu"], js["mu"], rtol=1e-5, atol=1e-7)
     assert_tree_close(ts["nu"], js["nu"], rtol=1e-5, atol=1e-7)
+
+
+def test_adam_bfloat16_moments_match_reference(rng):
+    """``moment_dtype``: μ and ν stored in bfloat16, the update in float32.
+    Moments to one bfloat16 step (rtol 2^-8: a last-bit difference of the
+    float32 value before the cast can round it the other way), parameters
+    to rtol 1e-5."""
+    tp, ts, jp, js = _three_adam_steps(
+        rng, jadam(1e-3, moment_dtype=jnp.bfloat16),
+        adam(1e-3, moment_dtype=torch.bfloat16))
+    for k in ("mu", "nu"):
+        assert all(x.dtype == torch.bfloat16 for x in leaves(ts[k]))
+        assert_tree_close(tree_map(lambda x: x.float(), ts[k]),
+                          jax.tree.map(lambda x: np.asarray(x, np.float32), js[k]),
+                          rtol=2 ** -8, atol=0)
+    assert_tree_close(tp, jp, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
@@ -259,7 +286,7 @@ class _BothTrainers:
     """The reference's and the port's Trainer on one carried model and one
     data stream, stepped together."""
 
-    def __init__(self, compressor, nan_step=None):
+    def __init__(self, compressor, nan_step=None, post_updates=(None, None)):
         jcfg, cfg, params, buffers, state, ds = reference_model(compressor,
                                                                 seed=2)
         jloss, tloss = _loss_fns(jcfg, cfg, nan_step)
@@ -267,9 +294,9 @@ class _BothTrainers:
         self.ref = JTrainer(jloss, jax.tree.map(jnp.asarray, params),
                             jax.tree.map(jnp.asarray, buffers),
                             jax.tree.map(jnp.asarray, state), jadam(1e-3),
-                            donate=False)
+                            donate=False, post_update=post_updates[0])
         self.port = Trainer(tloss, *carried(cfg, params, buffers, state),
-                            adam(1e-3))
+                            adam(1e-3), post_update=post_updates[1])
         self.want = []
 
     def run(self, n_steps):
@@ -277,6 +304,9 @@ class _BothTrainers:
             batch = {k: jnp.asarray(v) for k, v in self.ds.batch(s).items()}
             self.ref.carry, out = self.ref._train_step(self.ref.carry, batch,
                                                        jnp.asarray(s))
+            if self.ref.post_update is not None:    # as the reference's run
+                self.ref.carry["params"] = self.ref.post_update(
+                    self.ref.carry["params"])
             self.want.append({k: float(v) for k, v in out.items()})
         self.port.run(self.ds.batch, n_steps, log_every=0)
 
@@ -299,6 +329,44 @@ def test_trainer_loss_trajectory_matches_reference(compressor):
     assert len({round(h["loss"], 6) for h in got}) == 5   # it trains
     assert_tree_close(both.port.params["mlp"], both.ref.params["mlp"],
                       rtol=1e-3, atol=1e-4, skip=PRE_BN_BIASES)
+
+
+def test_trainer_post_update_matches_reference():
+    """The post-update hook runs after every step in both trainers. Here it
+    clamps the table to ±2e-3 (the init's std is 3e-3, so it bites); the
+    trajectory at loss rtol 1e-4, the projected table at atol 1e-6."""
+    c = 2e-3
+
+    def jpost(p):
+        return dict(p, embedding=dict(p["embedding"], emb=jnp.clip(
+            p["embedding"]["emb"], -c, c)))
+
+    def tpost(p):
+        return dict(p, embedding=dict(p["embedding"], emb=torch.clamp(
+            p["embedding"]["emb"], -c, c)))
+
+    both = _BothTrainers("mpe_search", post_updates=(jpost, tpost))
+    assert float(both.port.params["embedding"]["emb"].abs().max()) > c
+    both.run(4)
+    np.testing.assert_allclose([h["loss"] for h in both.port.history],
+                               [w["loss"] for w in both.want], rtol=1e-4)
+    table = both.port.params["embedding"]["emb"]
+    assert float(table.abs().max()) == np.float32(c)
+    np.testing.assert_allclose(table.numpy(),
+                               np.asarray(both.ref.params["embedding"]["emb"]),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("compressor", ["mpe_search", "mpe_retrain", "plain"])
+def test_compressor_post_update_hook_matches_reference(compressor):
+    """The compressors ported so far keep the reference's default hook:
+    ``post_update`` hands the parameters back untouched."""
+    params = {"emb": np.ones((4, 2), np.float32)}
+    jp, tp = jax.tree.map(jnp.asarray, params), to_torch(params, "cpu")
+    assert jget_compressor(compressor).post_update(
+        jp, {}, {}, jax.random.PRNGKey(0)) is jp
+    assert get_compressor(compressor).post_update(
+        tp, {}, {}, torch.Generator()) is tp
 
 
 def _copy(tree):
