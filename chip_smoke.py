@@ -8,16 +8,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. device: require CUDA; print the card's name and power limit. Float32
    matrix products and convolutions run in full float32 (TF32 off), as the
    reference trains and serves.
-2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``) from the
-   sources in this checkout, one nvcc each, started together; print the
-   ptxas reports.
+2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
+   ``flash_attention``) from the sources in this checkout, one nvcc each,
+   started together; print the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
    version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64} (rtol 1e-6), and
    the ``mpe_qat`` forward and backward against theirs over rows {1, 255,
    257, 4099} × d {8, 16, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
    softmax and one-hot probabilities: ``out`` and ``drows`` bit-identical,
    ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in another
-   order); the backward run twice gives the same bits.
+   order); the backward run twice gives the same bits. The three flash
+   attention kernels against theirs over BH {1, 3, 37} × S {8, 32, 50, 64,
+   128, 256} × hd {4, 16, 50, 64, 128} × causal and not: o and lse within
+   rtol = atol = 3e-5, dq, dk, dv within 2e-4 (the reference's contracts),
+   the backward run twice bit-identical.
 4. serve path: the full-width ``dlrm-criteo`` config (dnn, 39 fields,
    34,223,104 features, d=16, MLP 1024-512-256, widths {0..6}) initialised
    from a seed on the card, sampled and exported to the packed table there,
@@ -51,6 +55,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. ``mpe_qat`` times at ``train_batch`` with CUDA events, beside their plain
    versions and the byte bound; one traced search step (its batch made on
    the host included) for the device's idle share and costliest kernels.
+10. SASRec serving: the full-width ``sasrec`` config (8,388,608 items,
+   d=50, 2 causal blocks, 1 head, S=50) with a random packed table made on
+   the card (``Packed.init`` semantics over a Zipf(1.1) frequency prior);
+   with the launch counts at 0, ``score_candidates`` at ``serve_p99`` (512
+   sequences, 1,000 candidates) and ``retrieval_cand`` (1 sequence,
+   1,048,576 candidates), top 100, and an encode at ``serve_bulk`` (262,144
+   sequences, also traced). Each encode must launch the plain flash forward
+   twice and the forward with stats never; the scores must equal the same
+   model with the plain attention (rtol = atol = 1e-4), and the top-k
+   indices too wherever neighbouring scores differ by more than that.
+11. SASRec training: the same config under ``mpe_search``, 8 steps of the
+   ``Trainer`` with ``adam(1e-3)`` and λ = 1e-5 at ``train_batch`` (65,536
+   sequences), on batches made once before the steps. Each step must launch
+   the flash forward with stats and the flash backward twice each and the
+   ``mpe_qat`` forward and backward three times each; every loss finite, no
+   step skipped. Then Eq. 11 sampling, the packed export, and the trained
+   table served as in 10; one more step traced.
+12. flash attention times with CUDA events at the cells' shapes, beside the
+   least time the card needs (bytes over 3.35 TB/s, or float32 operations
+   over 67 TFLOP/s, whichever is larger), their plain versions and
+   ``F.scaled_dot_product_attention`` (causal, forward alone and forward
+   plus backward; timed only, never on the port's path).
 
 The line before the last holds the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -69,14 +95,20 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
+from repro_torch.configs.base import (N_CANDIDATES, SERVE_CANDS,  # noqa: E402
+                                      SERVE_ROWS, TRAIN_ROWS, get_arch)
 from repro_torch.core import quantizer  # noqa: E402
-from repro_torch.core.compressors import Packed  # noqa: E402
+from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
 from repro_torch.core.inference import build_packed_table  # noqa: E402
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding  # noqa: E402
 from repro_torch.core.packing import words_per_row  # noqa: E402
+from repro_torch.core.sampling import (feature_bits,  # noqa: E402
+                                       sample_group_bits)
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    bwd_ref, flash_attention_ref, fwd_stats_ref)
 from repro_torch.kernels.mpe_lookup import ops as mpe_lookup_ops  # noqa: E402
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref  # noqa: E402
 from repro_torch.kernels.mpe_qat import ops as qat_ops  # noqa: E402
@@ -86,6 +118,8 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import (build_engine,  # noqa: E402
                                       build_packed_dlrm)
 from repro_torch.models.dlrm import DLRM  # noqa: E402
+from repro_torch.models.sasrec import SASRec  # noqa: E402
+from repro_torch.nn import attention as attention_module  # noqa: E402
 from repro_torch.serve.stats import LatencyStats  # noqa: E402
 from repro_torch.train.loop import Trainer  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
@@ -99,10 +133,18 @@ RED_TOL = dict(rtol=1e-4, atol=1e-6)   # its backward contract (sums)
 REQUEST_ROWS = [1, 300, 512]
 BULK_ROWS = 300_000
 SEED = 0
-TRAIN_BATCH = 65_536            # the reference's train_batch cell
 SEARCH_STEPS = RETRAIN_STEPS = 8
 LAM = 3e-5                      # the training launcher's default λ
 QAT_SOURCE = "src/repro_torch/csrc/mpe_qat.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's forward contract
+FLASH_BWD_TOL = dict(rtol=2e-4, atol=2e-4)  # and its backward's
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SASREC_LAM = 1e-5               # the reference's SASRec train cell
+SASREC_STEPS = 8
+SASREC_BATCHES = 2              # made once, reused in turn
+ZIPF_A = 1.1
+TOP_K = 100
 
 
 def log(msg: str):
@@ -158,16 +200,22 @@ def trace(fn, reps: int) -> dict:
             "by_name": by_name}
 
 
+def within(got: torch.Tensor, want: torch.Tensor, tol: dict,
+           what: str) -> float:
+    """Raise unless |got - want| <= atol + rtol·|want| everywhere; returns
+    the largest |difference|."""
+    ok = bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
+    check(ok, f"{what}: outside rtol={tol['rtol']} atol={tol['atol']} (max "
+          f"|diff| {max_abs(got, want):.3e})")
+    return max_abs(got, want)
+
+
 def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
             what: str) -> float:
-    diff = (got - want).abs()
-    n_diff = int((got != want).sum())
-    max_abs = float(diff.max()) if diff.numel() else 0.0
-    ok = bool((diff <= atol + rtol * want.abs()).all())
-    log(f"{what}: {n_diff} of {got.numel()} elements differ, "
-        f"max |diff| {max_abs:.3e}")
-    check(ok, f"{what}: outside rtol={rtol} atol={atol}")
-    return max_abs
+    """``within``, with a line saying how many elements differ."""
+    log(f"{what}: {int((got != want).sum())} of {got.numel()} elements "
+        f"differ, max |diff| {max_abs(got, want):.3e}")
+    return within(got, want, {"rtol": rtol, "atol": atol}, what)
 
 
 def lookup_bytes(table, meta, gids: torch.Tensor) -> dict:
@@ -204,7 +252,7 @@ def phase_device() -> str:
 def phase_build():
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    names = ("mpe_lookup", "mpe_qat")
+    names = ("mpe_lookup", "mpe_qat", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -214,7 +262,7 @@ def phase_build():
         if not out:
             log(f"{name}: cached library")
         for line in out.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if "ptxas" in line or "spill" in line or "error" in line.lower():
                 log(f"{name}: {line.strip()}")
 
 
@@ -441,10 +489,25 @@ def phase_qat_grid(dev) -> tuple:
     return fwd_err, bwd_err
 
 
+COUNTERS = {"mpe_lookup": mpe_lookup_ops.packed_lookup,
+            "mixed_expectation_fwd": qat_ops.mixed_expectation_fwd,
+            "mixed_expectation_bwd": qat_ops.mixed_expectation_bwd,
+            "flash_attention_fwd": flash_ops.flash_attention_fwd,
+            "flash_attention_fwd_stats": flash_ops.flash_attention_fwd_stats,
+            "flash_attention_bwd": flash_ops.flash_attention_bwd}
+
+
 def reset_counts():
-    for counter in (qat_ops.mixed_expectation_fwd, qat_ops.mixed_expectation_bwd,
-                    mpe_lookup_ops.packed_lookup):
+    for counter in COUNTERS.values():
         counter.launches = 0
+
+
+def counts() -> dict:
+    return {name: counter.launches for name, counter in COUNTERS.items()}
+
+
+def launched_since(before: dict) -> dict:
+    return {name: n - before[name] for name, n in counts().items()}
 
 
 def phase_train_path(dev) -> dict:
@@ -452,7 +515,7 @@ def phase_train_path(dev) -> dict:
     cfg = get_arch("dlrm-criteo").make_config(backbone="dnn")
     n_steps = SEARCH_STEPS + RETRAIN_STEPS
     argv = ["--arch", "dlrm-criteo", "--backbone", "dnn",
-            "--batch", str(TRAIN_BATCH), "--steps", str(SEARCH_STEPS),
+            "--batch", str(TRAIN_ROWS), "--steps", str(SEARCH_STEPS),
             "--retrain-steps", str(RETRAIN_STEPS), "--lam", str(LAM),
             "--seed", str(SEED)]
     log(f"train path: python -m repro_torch.launch.train {' '.join(argv)}")
@@ -552,7 +615,7 @@ def phase_step_inputs(dev, train) -> dict:
     cfg, res = train["cfg"], train["res"]
     mpe = MPEConfig(lam=LAM)
     spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields),
-                   batch_size=TRAIN_BATCH, seed=SEED)
+                   batch_size=TRAIN_ROWS, seed=SEED)
     ds = SyntheticCTR(spec)
     build = dlrm_builder(cfg, ds.expected_frequencies(), lam=LAM, device=dev)
     bundle = build(SEED, "mpe_search", mpe._asdict())
@@ -671,6 +734,406 @@ def qat_records(grid_errs, train, step) -> list:
     return rec
 
 
+def phase_flash_grid(dev) -> dict:
+    """The three flash attention kernels against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {"fwd": 0.0, "fwd_stats": 0.0, "bwd": 0.0}
+    cases = 0
+    for causal in (True, False):
+        for bh in (1, 3, 37):
+            for s in (8, 32, 50, 64, 128, 256):
+                for hd in (4, 16, 50, 64, 128):
+                    q, k, v, do = (torch.randn((bh, s, hd), generator=gen,
+                                               device=dev) for _ in range(4))
+                    o = flash_ops.flash_attention_fwd(q, k, v, causal)
+                    o2, lse = flash_ops.flash_attention_fwd_stats(q, k, v,
+                                                                  causal)
+                    grads = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do,
+                                                          causal)
+                    again = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do,
+                                                          causal)
+                    torch.cuda.synchronize()
+                    what = f"flash bh={bh} s={s} hd={hd} causal={causal}"
+                    want_o, want_lse = fwd_stats_ref(q, k, v, causal)
+                    want = bwd_ref(q, k, v, o2, lse, do, causal)
+                    errs["fwd"] = max(errs["fwd"], within(o, want_o, FLASH_TOL,
+                                                          f"{what}: o"))
+                    errs["fwd_stats"] = max(
+                        errs["fwd_stats"],
+                        within(o2, want_o, FLASH_TOL, f"{what}: o (stats)"),
+                        within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
+                    for name, x, w in zip(("dq", "dk", "dv"), grads, want):
+                        errs["bwd"] = max(errs["bwd"], within(
+                            x, w, FLASH_BWD_TOL, f"{what}: {name}"))
+                    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                          f"{what}: two backward runs gave different bits")
+                    cases += 1
+    log(f"flash grid: {cases} cases within the contracts, the backward "
+        f"repeatable; max |diff| o {errs['fwd']:.3e}, o and lse "
+        f"{errs['fwd_stats']:.3e}, dq/dk/dv {errs['bwd']:.3e}")
+    return errs
+
+
+def zipf_prior(n: int) -> np.ndarray:
+    """Zipf(1.1) access probabilities of items ranked by popularity."""
+    p = np.arange(1, n + 1, dtype=np.float64) ** -ZIPF_A
+    return p / p.sum()
+
+
+def zipf_ids(rng, cdf: np.ndarray, shape) -> np.ndarray:
+    ids = np.searchsorted(cdf, rng.random(shape), side="right")
+    return np.minimum(ids, len(cdf) - 1).astype(np.int32)
+
+
+def _plain_flash(q, k, v, *, n_kv_heads=None, causal=True):
+    """``flash_attention`` through its plain version: the yardstick of the
+    served scores."""
+    b, s, h, hd = q.shape
+    flat = [x.transpose(1, 2).reshape(b * h, s, hd) for x in (q, k, v)]
+    return flash_attention_ref(*flat, causal).reshape(b, h, s, hd).transpose(1, 2)
+
+
+def with_plain_attention(fn):
+    """``fn()`` with attention through its plain version; the launches it
+    makes (of the lookup) are a comparison's and are not counted."""
+    kernel, before = attention_module.flash_attention, counts()
+    attention_module.flash_attention = _plain_flash
+    try:
+        return fn()
+    finally:
+        attention_module.flash_attention = kernel
+        for name, n in before.items():
+            COUNTERS[name].launches = n
+
+
+def serve_cfg(cfg, n: int):
+    """The serving twin of a SASRec config: the packed table's meta."""
+    mpe = as_mpe_config(cfg.comp_cfg)
+    return cfg._replace(compressor="packed",
+                        comp_cfg={"bits": mpe.bits, "d": cfg.d_embed, "n": n})
+
+
+def check_scores(params, buffers, cfg, seq, cand, what: str) -> dict:
+    """``score_candidates`` through the kernels: two plain flash forwards and
+    no forward with stats per encode, the lookup launched; then the scores
+    against the same model with the plain attention (``SCORE_TOL``), and
+    the indices wherever neighbouring scores differ by more than that."""
+    with torch.inference_mode():
+        before = counts()
+        vals, idx = SASRec.score_candidates(params, buffers, seq, cand, cfg,
+                                            top_k=TOP_K)
+        torch.cuda.synchronize()
+        launched = launched_since(before)
+        want_vals, want_idx = with_plain_attention(
+            lambda: SASRec.score_candidates(params, buffers, seq, cand, cfg,
+                                            top_k=TOP_K))
+    check(launched["flash_attention_fwd"] == cfg.n_blocks
+          and launched["flash_attention_fwd_stats"] == 0
+          and launched["mpe_lookup"] == 2,
+          f"{what}: launches {launched}; an encode must launch the flash "
+          f"forward once a block, the forward with stats never")
+    b = seq.shape[0]
+    check(vals.shape == idx.shape == (b, TOP_K)
+          and bool(torch.isfinite(vals).all()), f"{what}: bad top-k")
+    err = compare(vals, want_vals, SCORE_TOL, SCORE_TOL,
+                  f"{what}: top-{TOP_K} scores vs plain attention")
+    tol = SCORE_TOL + SCORE_TOL * want_vals.abs()
+    gap = -(want_vals[:, 1:] - want_vals[:, :-1])
+    distinct = torch.ones_like(want_vals, dtype=torch.bool)
+    distinct[:, 1:] &= gap > tol[:, 1:]
+    distinct[:, :-1] &= gap > tol[:, :-1]
+    check(torch.equal(idx[distinct], want_idx[distinct]),
+          f"{what}: top-k indices differ where the scores are distinct")
+    log(f"{what}: {int(distinct.sum())} of {distinct.numel()} top-k indices "
+        f"distinct by more than the tolerance, all equal")
+    return {"launches": launched, "max_abs_err": err,
+            "distinct_indices": int(distinct.sum())}
+
+
+def time_requests(fn, reps: int) -> list:
+    """Host-clock ms of ``fn`` up to a synchronize, ``reps`` times."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def serve_sasrec(params, buffers, cfg, rng, cdf, what: str,
+                 bulk: bool) -> dict:
+    """The p99 and retrieval cells (and, with ``bulk``, the bulk encode),
+    with the launch counts set to 0 before and read after."""
+    n = cfg.item_vocab
+    dev = params["pos"].device
+    seq = {shape: torch.from_numpy(zipf_ids(rng, cdf, (rows, cfg.seq_len))).to(dev)
+           for shape, rows in (("serve_p99", SERVE_ROWS["serve_p99"]),
+                               ("retrieval_cand", 1))}
+    cand = {"serve_p99": rng.choice(n, SERVE_CANDS, replace=False),
+            "retrieval_cand": rng.choice(n, N_CANDIDATES, replace=False)}
+    cand = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+            for k, v in cand.items()}
+    out = {}
+    reset_counts()
+    for shape in ("serve_p99", "retrieval_cand"):
+        out[shape] = check_scores(params, buffers, cfg, seq[shape],
+                                  cand[shape], f"{what}, {shape}")
+        with torch.inference_mode():
+            ms = time_requests(lambda s=shape: SASRec.score_candidates(
+                params, buffers, seq[s], cand[s], cfg, top_k=TOP_K), 10)
+        out[shape]["request_ms"] = ms
+        log(f"{what}, {shape}: request p50 {np.percentile(ms, 50):.3f} ms, "
+            f"max {max(ms):.3f} ms of 10 (host clock to a synchronize)")
+    if bulk:
+        rows = SERVE_ROWS["serve_bulk"]
+        ids = torch.from_numpy(zipf_ids(rng, cdf, (rows, cfg.seq_len))).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            before = counts()
+            h = SASRec.encode(params, buffers, ids, cfg)
+            torch.cuda.synchronize()
+            launched = launched_since(before)
+            check(launched["flash_attention_fwd"] == cfg.n_blocks
+                  and launched["flash_attention_fwd_stats"] == 0,
+                  f"{what}, serve_bulk encode: launches {launched}")
+            check(h.shape == (rows, cfg.seq_len, cfg.d_embed)
+                  and bool(torch.isfinite(h).all()),
+                  f"{what}, serve_bulk encode: bad hidden states")
+            del h
+            ms = time_requests(lambda: SASRec.encode(params, buffers, ids, cfg), 3)
+            traced = trace(lambda: SASRec.encode(params, buffers, ids, cfg), 1)
+        out["serve_bulk"] = {"encode_ms": ms, "launches": launched,
+                             "peak_bytes": torch.cuda.max_memory_allocated(),
+                             **{k: traced[k] for k in ("wall_ms", "busy_ms",
+                                                       "idle_share", "top")}}
+        log(f"{what}, serve_bulk: encode of {rows} sequences {min(ms):.3f} ms "
+            f"(best of 3), peak memory "
+            f"{out['serve_bulk']['peak_bytes'] / 1e9:.3f} GB; traced: device "
+            f"busy {traced['busy_ms']:.1f} of {traced['wall_ms']:.1f} ms, top "
+            + "; ".join(f"{n} {t:.2f} ms" for n, t in traced["top"]))
+    out["launches"] = counts()
+    log(f"{what}: launches {out['launches']}")
+    return out
+
+
+def phase_sasrec_serve(dev, prior) -> dict:
+    cfg = get_arch("sasrec").make_config()
+    n = cfg.item_vocab
+    log(f"sasrec: {n} items, d={cfg.d_embed}, {cfg.n_blocks} causal blocks, "
+        f"{cfg.n_heads} head, S={cfg.seq_len}")
+    scfg = serve_cfg(cfg, n)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, buffers, _ = SASRec.init(scfg, prior["freqs"], seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    table = params["embedding"]
+    ratio = Packed.storage_ratio(table, buffers["embedding"], scfg.comp_cfg)
+    log(f"sasrec random packed table on the card: {time.perf_counter() - t0:.1f}"
+        f" s; storage ratio {ratio:.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED)
+    out = serve_sasrec(params, buffers, scfg, rng, prior["cdf"],
+                       "sasrec random table", bulk=True)
+    return {**out, "storage_ratio": ratio}
+
+
+def sasrec_batches(rng, cdf, n_items: int, s: int, dev) -> list:
+    """Training batches made once on the host and moved to the card:
+    Zipf(1.1) sequences, positives the sequence shifted by one, uniform
+    negatives, every position valid."""
+    out = []
+    for _ in range(SASREC_BATCHES):
+        seq = zipf_ids(rng, cdf, (TRAIN_ROWS, s + 1))
+        batch = {"seq_ids": seq[:, :-1], "pos_ids": seq[:, 1:],
+                 "neg_ids": rng.integers(0, n_items, (TRAIN_ROWS, s),
+                                         dtype=np.int32),
+                 "mask": np.ones((TRAIN_ROWS, s), np.float32)}
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in batch.items()})
+    return out
+
+
+def phase_sasrec_train(dev, prior) -> dict:
+    cfg = get_arch("sasrec").make_config()
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    batches = sasrec_batches(rng, prior["cdf"], cfg.item_vocab, cfg.seq_len, dev)
+    batch_s = time.perf_counter() - t0
+    params, buffers, state = SASRec.init(cfg, prior["freqs"], seed=SEED,
+                                         device=dev)
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        return SASRec.loss_fn(p, bu, st, batch, cfg, lam=SASREC_LAM,
+                              train=True, step=step)
+
+    trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
+    del params
+    torch.cuda.synchronize()
+    live_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, step_ms = [], []
+    per_step = {"flash_attention_fwd_stats": cfg.n_blocks,
+                "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
+                "mixed_expectation_fwd": 3, "mixed_expectation_bwd": 3}
+    t_all = time.perf_counter()
+    for step in range(SASREC_STEPS):
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(trainer.train_step(batches[step % SASREC_BATCHES], step))
+        if step == 0:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        check(all(launched[k] == v for k, v in per_step.items()),
+              f"step {step} launched {launched}, not {per_step}")
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t_all) * 1e3 - step_ms[0]
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o["loss"]) for o in outs]
+    check(all(np.isfinite(x) for x in losses), f"a loss was not finite: {losses}")
+    check(not any(bool(o["skipped"]) for o in outs), "a step was skipped")
+    log(f"sasrec train: {SASREC_STEPS} steps at {TRAIN_ROWS} sequences, "
+        f"launches {launches}; first step {step_ms[0]:.1f} ms, then "
+        f"{steady_ms / (SASREC_STEPS - 1):.1f} ms a step (host clock to a "
+        f"synchronize over {SASREC_STEPS - 1} steps); peak memory "
+        f"{peak / 1e9:.3f} GB ({live_before / 1e9:.3f} GB live before); "
+        f"batches made in {batch_s:.1f} s; losses {[round(x, 5) for x in losses]}")
+
+    # Eq. 11 sampling and the packed export of the trained table, served
+    mpe = as_mpe_config(cfg.comp_cfg)
+    emb = trainer.params["embedding"]
+    fb = feature_bits(sample_group_bits(emb, mpe),
+                      buffers["embedding"]["group_of_feature"])
+    table, meta = build_packed_table(emb["emb"], fb, emb["alpha"], emb["beta"],
+                                     mpe)
+    scfg = serve_cfg(cfg, cfg.item_vocab)
+    sparams = {**trainer.params, "embedding": table}
+    ratio = Packed.storage_ratio(table, {"meta": meta}, scfg.comp_cfg)
+    log(f"sasrec trained table exported: storage ratio {ratio:.6f}")
+    served = serve_sasrec(sparams, {"embedding": {"meta": meta}}, scfg, rng,
+                          prior["cdf"], "sasrec trained table", bulk=False)
+    del sparams, table
+
+    traced = trace(lambda: trainer.train_step(batches[0], SASREC_STEPS), 1)
+    step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                        "top")}
+    step_view["flash_ms"] = {
+        kind: sum(ms for name, ms in traced["by_name"].items()
+                  if f"flash_{kind}_kernel" in name) for kind in ("fwd", "bwd")}
+    log(f"traced sasrec train step: wall {traced['wall_ms']:.1f} ms, device "
+        f"busy {traced['busy_ms']:.1f} ms (idle share "
+        f"{traced['idle_share']:.3f}); flash {step_view['flash_ms']}; top "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in traced["top"]))
+    return {"launches": launches, "first_step_ms": step_ms[0],
+            "step_ms": steady_ms / (SASREC_STEPS - 1), "peak_bytes": peak,
+            "live_bytes_before": live_before, "losses": losses,
+            "storage_ratio": ratio, "served": served, "traced_step": step_view}
+
+
+def flash_work(bh: int, s: int, hd: int, kind: str, causal: bool = True) -> dict:
+    """Bytes the function must move (each input read once, each output
+    written once) and float32 operations of its products for these shapes
+    (the causal ones skip the keys above the diagonal)."""
+    tensor, rows = 4 * bh * s * hd, 4 * bh * s
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    nbytes = {"fwd": 4 * tensor, "fwd_stats": 4 * tensor + rows,
+              "bwd": 7 * tensor + 2 * rows}[kind]
+    flops = (10 if kind == "bwd" else 4) * hd * pairs
+    byte_ms, flop_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(byte_ms, flop_ms),
+            "bound_by": "bytes" if byte_ms >= flop_ms else "operations"}
+
+
+def sdpa_ms(q, k, v, do, iters: int) -> dict:
+    """``F.scaled_dot_product_attention`` on the same (BH, S, hd) inputs as
+    (BH, 1, S, hd), causal: forward alone, and forward plus backward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (x.unsqueeze(1) for x in (q, k, v, do))
+    fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters)
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(sdpa(*leaves, is_causal=True), leaves, do4)
+    return {"fwd": fwd, "fwd_bwd": cuda_ms(fwd_bwd, iters)}
+
+
+def phase_flash_times(dev) -> dict:
+    """Each kernel at the cells' shapes (S = hd = 50, causal): CUDA-event ms
+    per call beside its bound, its plain version and SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = hd = 50
+    out = {}
+    for shape, bh in (("train_batch", TRAIN_ROWS),
+                      ("serve_bulk", SERVE_ROWS["serve_bulk"]),
+                      ("serve_p99", SERVE_ROWS["serve_p99"])):
+        q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=dev)
+                       for _ in range(4))
+        iters = 200 if bh <= 512 else (5 if bh > TRAIN_ROWS else 20)
+        row = {"fwd": {**flash_work(bh, s, hd, "fwd"),
+                       "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd(
+                           q, k, v, True), iters),
+                       "plain_ms": cuda_ms(lambda: flash_attention_ref(
+                           q, k, v, True), max(iters // 4, 2), warmup=1)}}
+        lib = sdpa_ms(q, k, v, do, iters)
+        row["fwd"]["library_ms"] = lib["fwd"]
+        if shape == "train_batch":
+            o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, True)
+            row["fwd_stats"] = {
+                **flash_work(bh, s, hd, "fwd_stats"),
+                "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd_stats(
+                    q, k, v, True), iters),
+                "plain_ms": cuda_ms(lambda: fwd_stats_ref(q, k, v, True),
+                                    max(iters // 4, 2), warmup=1),
+                "library_ms": lib["fwd"]}
+            row["bwd"] = {
+                **flash_work(bh, s, hd, "bwd"),
+                "ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(
+                    q, k, v, o, lse, do, True), iters),
+                "plain_ms": cuda_ms(lambda: bwd_ref(q, k, v, o, lse, do, True),
+                                    max(iters // 4, 2), warmup=1),
+                "library_ms": lib["fwd_bwd"]}
+            del o, lse
+        out[shape] = row
+        for kind, r in row.items():
+            log(f"flash {kind} at {shape} (BH={bh}, S={s}, hd={hd}, causal): "
+                f"{r['ms']:.4f} ms per call (plain {r['plain_ms']:.4f} ms; "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                f"{r['bytes']} bytes, {r['flops']} flops: "
+                f"{r['bound_ms'] / r['ms']:.1%} of it; SDPA "
+                f"{'forward + backward' if kind == 'bwd' else 'forward'} "
+                f"{r['library_ms']:.4f} ms)")
+        del q, k, v, do
+    return out
+
+
+def flash_records(grid_errs, serve, train, times) -> list:
+    bulk, tb = times["serve_bulk"]["fwd"], times["train_batch"]
+    rows = (("flash_attention_fwd", 214, "fwd", bulk,
+             serve["launches"]["flash_attention_fwd"],
+             "scaled_dot_product_attention(is_causal=True), forward"),
+            ("flash_attention_fwd_stats", 141, "fwd_stats", tb["fwd_stats"],
+             train["launches"]["flash_attention_fwd_stats"],
+             "scaled_dot_product_attention(is_causal=True), forward "
+             "(no logsumexp rows out)"),
+            ("flash_attention_bwd", 176, "bwd", tb["bwd"],
+             train["launches"]["flash_attention_bwd"],
+             "scaled_dot_product_attention(is_causal=True), forward + "
+             "backward (no call for the backward alone)"))
+    return [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
+             "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
+             "launches": launches, "max_abs_err": grid_errs[kind],
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "library_call": call, "bytes": r["bytes"], "flops": r["flops"],
+             "shapes": {shape: row[kind] for shape, row in times.items()
+                        if kind in row}}
+            for name, line, kind, r, launches, call in rows]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -678,6 +1141,7 @@ def main() -> int:
     phase_build()
     grid_err = phase_kernel_grid(dev)
     qat_grid_errs = phase_qat_grid(dev)
+    flash_grid_errs = phase_flash_grid(dev)
     reset_counts()
     main_path = phase_main_path(dev)
     kernel = phase_kernel_times(main_path, grid_err)
@@ -687,17 +1151,34 @@ def main() -> int:
                     "bulk_request_ms": main_path["bulk_request_ms"],
                     "serve_peak_bytes": main_path["serve_peak_bytes"],
                     "cells": main_path["cells"], "traced": traced}))
+    main_launches = main_path["launches"]
     del main_path
     train = phase_train_path(dev)
     step = phase_step_inputs(dev, train)
-    log(json.dumps({"train": {k: v for k, v in train.items()
-                              if k not in ("res", "cfg")},
+    del train["res"]
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "cfg"},
                     "traced_step": step["traced_step"],
                     "peaks": step["peaks"]}))
+    n_items = get_arch("sasrec").make_config().item_vocab
+    freqs = zipf_prior(n_items)
+    prior = {"freqs": freqs, "cdf": np.cumsum(freqs)}
+    sasrec_serve = phase_sasrec_serve(dev, prior)
+    sasrec_train = phase_sasrec_train(dev, prior)
+    flash_times = phase_flash_times(dev)
+    log(json.dumps({"sasrec_serve": sasrec_serve, "sasrec_train": sasrec_train,
+                    "flash_times": flash_times}))
+    records = [kernel, *qat_records(qat_grid_errs, train, step),
+               *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
+                              flash_times)]
+    by_path = {"dlrm serve": main_launches, "dlrm train": train["launches"],
+               "sasrec serve": sasrec_serve["launches"],
+               "sasrec train": sasrec_train["launches"]}
+    for rec in records:
+        rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
+                                   for path, launches in by_path.items()}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [kernel, *qat_records(qat_grid_errs, train,
-                                                       step)]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

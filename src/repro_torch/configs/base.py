@@ -1,6 +1,6 @@
 """ArchSpec: the contract between configs/, the launchers and the tests.
 
-  make_config(reduced, backbone) -> model config NamedTuple
+  make_config(reduced[, backbone]) -> model config NamedTuple
   shapes                         -> tuple of shape-cell names
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Callable, NamedTuple
 class ArchSpec(NamedTuple):
     arch_id: str
     family: str                    # recsys
-    make_config: Callable          # (reduced: bool, backbone: str) -> config
+    make_config: Callable          # (reduced: bool[, backbone: str]) -> config
     shapes: tuple
     citation: str = ""
     notes: str = ""
@@ -27,8 +27,15 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
 
 def get_arch(arch_id: str) -> ArchSpec:
     import repro_torch.configs.dlrm_criteo  # noqa: F401  (registers)
+    import repro_torch.configs.sasrec  # noqa: F401
     return _REGISTRY[arch_id]
 
 
-# rows of the recsys serving cells (the reference's launch/cells.py)
+# the recsys cells of the reference's launch/cells.py: rows of the serving
+# cells, rows of a training batch, and SASRec's candidate sets (online
+# scoring, and retrieval over the corpus for one sequence)
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 SERVE_ROWS = {"serve_p99": 512, "serve_bulk": 262144}
+TRAIN_ROWS = 65536
+SERVE_CANDS = 1000
+N_CANDIDATES = 1_048_576

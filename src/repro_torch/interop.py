@@ -1,12 +1,13 @@
 """The weight carrier: the reference's pytrees, as numpy, into the port.
 
-``dlrm_from_numpy`` takes the reference's (params, state, buffers) for a
-DLRM, already turned into nested dicts/lists of numpy arrays by the caller,
-and returns the port's (params, state, buffers) on ``device``. It carries
-the tables of the ``packed``, ``mpe_search``, ``mpe_retrain`` and ``plain``
-compressors with their buffers (``group_of_feature``, ``freq_sum``,
-``bits_idx``) and the BatchNorm state; ``to_torch`` carries any other tree,
-such as an Adam state ({"step", "mu", "nu"}). A packed table's uint32 words
+``model_from_numpy`` takes the reference's (params, state, buffers) for a
+model (a DLRM, SASRec), already turned into nested dicts/lists of numpy
+arrays by the caller, and returns the port's (params, state, buffers) on
+``device``. It carries the tables of the ``packed``, ``mpe_search``,
+``mpe_retrain`` and ``plain`` compressors with their buffers
+(``group_of_feature``, ``freq_sum``, ``bits_idx``) and the model's state
+(DLRM's BatchNorm statistics; SASRec has none); ``to_torch`` carries any
+other tree, such as an Adam state ({"step", "mu", "nu"}). A packed table's uint32 words
 pass through ``.view(np.int32)``, so the port holds the same bits. Both
 packages then compute the same function of the same weights: ``jax.random``
 and ``torch.Generator`` never agree, so parity tests start both from one
@@ -36,12 +37,12 @@ def to_torch(tree, device):
 CARRIED = ("packed", "mpe_search", "mpe_retrain", "plain")
 
 
-def dlrm_from_numpy(params, state, buffers, cfg, device=None):
-    """The port's (params, state, buffers) for a DLRM of config ``cfg``
+def model_from_numpy(params, state, buffers, cfg, device=None):
+    """The port's (params, state, buffers) for a model of config ``cfg``
     whose compressor is one of ``CARRIED``; a packed table's ``comp_cfg``
     carries its bits, d and n."""
     if cfg.compressor not in CARRIED:
-        raise ValueError(f"the carrier takes DLRMs with the compressors "
+        raise ValueError(f"the carrier takes models with the compressors "
                          f"{CARRIED}, not {cfg.compressor!r}")
     device = resolve_device(device)
     t_buffers = to_torch({k: v for k, v in buffers.items() if k != "embedding"},

@@ -1,1 +1,1 @@
-"""The DLRM backbones and their interaction operators."""
+"""The DLRM backbones with their interaction operators, and SASRec."""

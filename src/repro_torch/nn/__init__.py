@@ -1,1 +1,2 @@
-"""Layers: initializers, dense, BatchNorm and the MLP tower."""
+"""Layers: initializers, dense, LayerNorm, BatchNorm, the MLP tower and
+multi-head attention."""

@@ -1,6 +1,9 @@
-"""BatchNorm over the last axis, written out by hand (paper §5.1.5).
+"""LayerNorm and BatchNorm over the last axis, written out by hand.
 
-Running statistics live in a separate ``state`` dict, returned alongside the
+LayerNorm is the reference's: mean, biased variance,
+``(x − mean) / sqrt(var + 1e-5)·scale + bias`` (not ``F.layer_norm``, whose
+reciprocal square root rounds differently). BatchNorm (paper §5.1.5):
+running statistics live in a separate ``state`` dict, returned alongside the
 output. ``torch.nn.BatchNorm1d`` is not used: the reference keeps its own
 state layout and update rule — the *biased* batch variance (``correction=0``)
 and ``0.9·old + 0.1·batch`` — which this module follows op for op.
@@ -10,6 +13,20 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-5
+
+
+class LayerNorm:
+    @staticmethod
+    def init(dim: int, device=None):
+        return {"scale": torch.ones((dim,), device=device),
+                "bias": torch.zeros((dim,), device=device)}
+
+    @staticmethod
+    def apply(params, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, correction=0)
+        y = (x - mean) / torch.sqrt(var + EPS)
+        return y * params["scale"] + params["bias"]
 
 
 class BatchNorm:

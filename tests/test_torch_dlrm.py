@@ -1,5 +1,5 @@
 """Port parity for the packed-table DLRM in eval mode: a reference model,
-carried into the port by ``dlrm_from_numpy``, gives the same looked-up
+carried into the port by ``model_from_numpy``, gives the same looked-up
 embeddings bit for bit and the same logits (rtol 1e-5, atol 1e-6) for all
 four backbones."""
 import jax
@@ -14,7 +14,7 @@ from repro.models.dlrm import DLRM as JDLRM
 from repro.models.dlrm import DLRMConfig as JDLRMConfig
 from repro_torch.core.compressors import Packed
 from repro_torch.embeddings.table import FieldSpec
-from repro_torch.interop import dlrm_from_numpy
+from repro_torch.interop import model_from_numpy
 from repro_torch.models import interactions
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 
@@ -80,8 +80,8 @@ def test_eval_logits_match_reference(backbone, rng):
     jcfg, cfg, params, state, buffers = make_reference_dlrm(backbone)
     ids = _ids(rng, VOCABS, 96)
     want = reference_logits(jcfg, params, state, buffers, ids)
-    t_params, t_state, t_buffers = dlrm_from_numpy(params, state, buffers, cfg,
-                                                   "cpu")
+    t_params, t_state, t_buffers = model_from_numpy(params, state, buffers, cfg,
+                                                    "cpu")
     got = DLRM.apply(t_params, t_buffers, t_state,
                      {"ids": torch.from_numpy(ids)}, cfg)[0].numpy()
     assert got.shape == (96,) and np.isfinite(got).all()
@@ -92,7 +92,7 @@ def test_eval_logits_match_reference(backbone, rng):
 @pytest.mark.parametrize("backbone", BACKBONES)
 def test_lookup_embeddings_bit_exact(backbone, rng):
     jcfg, cfg, params, state, buffers = make_reference_dlrm(backbone, seed=1)
-    t_params, _, t_buffers = dlrm_from_numpy(params, state, buffers, cfg, "cpu")
+    t_params, _, t_buffers = model_from_numpy(params, state, buffers, cfg, "cpu")
     gids = _ids(rng, VOCABS, 64) + np.asarray(buffers["offsets"])[None, :]
     want = np.asarray(jax.jit(
         lambda t, i: JPacked.lookup(t, buffers["embedding"], i, jcfg.comp_cfg)
@@ -105,8 +105,8 @@ def test_lookup_embeddings_bit_exact(backbone, rng):
 
 def test_carrier_keeps_packed_bits(rng):
     jcfg, cfg, params, state, buffers = make_reference_dlrm("dnn")
-    t_params, t_state, t_buffers = dlrm_from_numpy(params, state, buffers, cfg,
-                                                   "cpu")
+    t_params, t_state, t_buffers = model_from_numpy(params, state, buffers, cfg,
+                                                    "cpu")
     for k, sub in params["embedding"]["subtables"].items():
         assert sub.dtype == np.uint32
         got = t_params["embedding"]["subtables"][k]
@@ -115,8 +115,8 @@ def test_carrier_keeps_packed_bits(rng):
     assert t_buffers["embedding"]["meta"] == {"bits": (0, 1, 2, 3, 4, 5, 6),
                                               "d": 16, "n": sum(VOCABS)}
     with pytest.raises(ValueError):
-        dlrm_from_numpy(params, state, buffers,
-                        cfg._replace(compressor="qr"), "cpu")
+        model_from_numpy(params, state, buffers,
+                         cfg._replace(compressor="qr"), "cpu")
 
 
 @pytest.mark.parametrize("backbone", BACKBONES)
@@ -159,4 +159,4 @@ def test_model_init_raises_without_device(monkeypatch):
         DLRM.init(cfg)
     jcfg, cfg, params, state, buffers = make_reference_dlrm("dnn")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        dlrm_from_numpy(params, state, buffers, cfg)
+        model_from_numpy(params, state, buffers, cfg)

@@ -1,0 +1,174 @@
+"""Port parity for flash attention on the CPU: the plain versions that CPU
+tensors take (and that the CUDA kernels are held against on the card)
+against the reference's oracle and its Pallas kernels in interpret mode, on
+the same numpy inputs. Tolerances are the reference's own
+(``tests/test_flash_attention.py``):
+
+- the forward and the logsumexp rows: rtol = atol = 3e-5;
+- the backward from the stored logsumexp: rtol = atol = 2e-4;
+- autograd end to end through the (B, S, H, hd) wrapper, GQA included:
+  rtol = atol = 5e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                  flash_attention_fwd_stats,
+                                                  flash_attention_pallas)
+from repro.kernels.flash_attention.ops import flash_attention_kernel
+from repro.kernels.flash_attention.ref import \
+    flash_attention_ref as jflash_attention_ref
+from repro.nn.attention import gqa_attention
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (bwd_ref,
+                                                     flash_attention_ref,
+                                                     fwd_stats_ref)
+
+FWD_TOL = dict(rtol=3e-5, atol=3e-5)
+BWD_TOL = dict(rtol=2e-4, atol=2e-4)
+VJP_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Parallel test workers share the machine's cores: one torch thread
+    each keeps the small ops from oversubscribing them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def inputs(seed, *shape, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, 1, shape).astype(np.float32) for _ in range(n)]
+
+
+def t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,bq,bk", [(32, 8, 8), (64, 16, 32), (64, 64, 64)])
+def test_forward_matches_oracle_and_pallas(s, bq, bk, causal):
+    q, k, v = inputs(s + bq, 3, s, 16)
+    got = ops.flash_attention_fwd(*t(q, k, v), causal).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jflash_attention_ref(q, k, v, causal=causal)), **FWD_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(flash_attention_pallas(q, k, v, causal=causal, bq=bq,
+                                               bk=bk)), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_and_lse_at_sasrec_width(causal):
+    """(BH, S, hd) = (2, 50, 50): SASRec's sequence and head width."""
+    q, k, v = inputs(7, 2, 50, 50)
+    want_o, want_lse = flash_attention_fwd_stats(q, k, v, causal=causal)
+    o, lse = ops.flash_attention_fwd_stats(*t(q, k, v), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FWD_TOL)
+    np.testing.assert_allclose(ops.flash_attention_fwd(*t(q, k, v), causal).numpy(),
+                               np.asarray(flash_attention_pallas(
+                                   q, k, v, causal=causal)), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_matches_pallas_over_blocks(causal):
+    q, k, v = inputs(3, 3, 64, 16)
+    _, want = flash_attention_fwd_stats(q, k, v, causal=causal, bq=16, bk=16)
+    _, lse = fwd_stats_ref(*t(q, k, v), causal)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("shape,blocks", [((3, 64, 16), 16), ((2, 50, 50), 50)],
+                         ids=["64x16", "sasrec"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_pallas(shape, blocks, causal):
+    """The same (q, k, v, o, lse, do) into both backwards."""
+    q, k, v, do = inputs(11, *shape, n=4)
+    o, lse = flash_attention_fwd_stats(q, k, v, causal=causal, bq=blocks,
+                                       bk=blocks)
+    o, lse = np.array(o), np.array(lse)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, bq=blocks,
+                               bk=blocks)
+    got = ops.flash_attention_bwd(*t(q, k, v, o, lse, do), causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_autograd_of_the_forward(causal):
+    q, k, v, do = t(*inputs(5, 3, 32, 8, n=4))
+    o, lse = fwd_stats_ref(q, k, v, causal)
+    got = bwd_ref(q, k, v, o, lse, do, causal)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    flash_attention_ref(*leaves, causal).backward(do)
+    for g, x in zip(got, leaves):
+        torch.testing.assert_close(g, x.grad, **BWD_TOL)
+
+
+def _gqa_inputs():
+    """The reference's GQA case: 8 query heads over 4 kv heads."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(0, 1, (2, 32, 8, 16)).astype(np.float32)
+    k = rng.normal(0, 1, (2, 32, 4, 16)).astype(np.float32)
+    v = rng.normal(0, 1, (2, 32, 4, 16)).astype(np.float32)
+    return q, k, v
+
+
+def test_gqa_wrapper_matches_reference_module():
+    q, k, v = _gqa_inputs()
+    want = gqa_attention(q, k, v, n_heads=8, n_kv_heads=4, causal=True)
+    got = ops.flash_attention(*t(q, k, v), n_kv_heads=4, causal=True)
+    assert got.shape == (2, 32, 8, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+def test_autograd_end_to_end_matches_reference_vjp():
+    """``jax.grad`` of the reference's ``flash_attention_kernel`` (its
+    ``custom_vjp`` over the Pallas kernels) against autograd through the
+    port's wrapper, on sum(o²)."""
+    q, k, v = _gqa_inputs()
+    want = jax.grad(lambda *a: jnp.sum(
+        flash_attention_kernel(*a, bq=8, bk=8) ** 2), argnums=(0, 1, 2))(q, k, v)
+    leaves = [x.requires_grad_(True) for x in t(q, k, v)]
+    out = ops.flash_attention(*leaves, n_kv_heads=4, causal=True)
+    assert out.grad_fn is not None
+    torch.sum(out ** 2).backward()
+    for name, x, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w),
+                                   err_msg=f"d{name}", **VJP_TOL)
+
+
+def test_no_grad_takes_the_plain_forward_and_counts_no_launch():
+    """Without a gradient the wrapper builds no autograd node; on the CPU
+    no kernel is launched, so no counter moves."""
+    q, k, v = (x.requires_grad_(True) for x in t(*inputs(1, 2, 16, 4, 8)))
+    counts = (ops.flash_attention_fwd.launches,
+              ops.flash_attention_fwd_stats.launches,
+              ops.flash_attention_bwd.launches)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, causal=True).grad_fn is None
+    ops.flash_attention(q, k, v, causal=False).sum().backward()
+    assert q.grad is not None
+    assert counts == (ops.flash_attention_fwd.launches,
+                      ops.flash_attention_fwd_stats.launches,
+                      ops.flash_attention_bwd.launches)
+
+
+def test_rejects_what_the_reference_rejects():
+    q = torch.zeros(2, 192, 8)           # 192 is not a multiple of 128
+    with pytest.raises(ValueError, match="divide"):
+        ops.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="BH, S, hd"):
+        ops.flash_attention_fwd(q[0], q[0], q[0])
+    x = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        ops.flash_attention(x, x, x, n_kv_heads=1)
+    ok = torch.zeros(1, 256, 4)          # a multiple of the block is taken
+    assert ops.flash_attention_fwd(ok, ok, ok).shape == (1, 256, 4)

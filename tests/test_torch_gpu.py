@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA ``mpe_lookup`` and ``mpe_qat`` kernels
-against their plain PyTorch versions, their wrappers' checks and launch
-counts, the backward's repeatability, the engine on the card against the
-engine on the CPU, and a training run that goes through the kernels.
+"""The port on the card: the CUDA ``mpe_lookup``, ``mpe_qat`` and flash
+attention kernels against their plain PyTorch versions, their wrappers'
+checks and launch counts, the backwards' repeatability, the engine on the
+card against the engine on the CPU, and DLRM and SASRec training that goes
+through the kernels.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -17,6 +18,9 @@ from repro_torch.configs.dlrm_criteo import make_config
 from repro_torch.core.inference import build_packed_table
 from repro_torch.core.mpe import MPEConfig
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
+from repro_torch.configs.sasrec import make_config as sasrec_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import bwd_ref, fwd_stats_ref
 from repro_torch.kernels.mpe_lookup import ops
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref
 from repro_torch.kernels.mpe_qat import ops as qat_ops
@@ -25,6 +29,10 @@ from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.dlrm import DLRM
+from repro_torch.models.sasrec import SASRec
+from repro_torch.nn.attention import MHA
+from repro_torch.train.loop import Trainer
+from repro_torch.train.optimizer import adam
 
 pytestmark = pytest.mark.gpu
 
@@ -199,3 +207,96 @@ def test_training_launches_the_qat_kernels(cuda_device):
     assert len(history) == 5 and not any(h["skipped"] for h in history)
     assert all(np.isfinite(h["loss"]) for h in history)
     assert res["packed_table"]["width_idx"].is_cuda
+
+
+def _flash_counts():
+    return (flash_ops.flash_attention_fwd.launches,
+            flash_ops.flash_attention_fwd_stats.launches,
+            flash_ops.flash_attention_bwd.launches)
+
+
+def _normal(rng, shape, device, n):
+    return [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernels_match_plain(cuda_device, rng, causal):
+    """o and lse within 3e-5, dq, dk, dv within 2e-4 of the plain versions
+    (the reference's contracts); the backward repeats bit for bit. S = 256
+    takes four key tiles, so dq sums across tiles."""
+    for bh, s, hd in [(1, 8, 4), (3, 50, 50), (2, 64, 16), (3, 128, 64),
+                      (2, 256, 128), (37, 32, 50)]:
+        q, k, v, do = _normal(rng, (bh, s, hd), cuda_device, 4)
+        o = flash_ops.flash_attention_fwd(q, k, v, causal)
+        o2, lse = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+        grads = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+        again = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = fwd_stats_ref(q, k, v, causal)
+        torch.testing.assert_close(o, want_o, rtol=3e-5, atol=3e-5)
+        assert torch.equal(o, o2)
+        torch.testing.assert_close(lse, want_lse, rtol=3e-5, atol=3e-5)
+        want = bwd_ref(q, k, v, o2, lse, do, causal)
+        for x, w, y in zip(grads, want, again):
+            torch.testing.assert_close(x, w, rtol=2e-4, atol=2e-4)
+            assert torch.equal(x, y)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device, rng):
+    q, k, v = _normal(rng, (2, 16, 8), cuda_device, 3)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention_fwd(q.double(), k, v)
+    with pytest.raises(ValueError, match="lies on"):
+        flash_ops.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention_fwd(q, k.transpose(1, 2).contiguous()
+                                      .transpose(1, 2), v)
+    wide = torch.zeros(1, 8, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="hd=129"):
+        flash_ops.flash_attention_fwd(wide, wide, wide)
+
+
+def test_mha_launches_the_plain_forward_without_grad(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = MHA.init(gen, 50, 1, head_dim=50)
+    x = torch.randn((4, 50, 50), generator=gen, device=cuda_device)
+    kw = dict(n_heads=1, n_kv_heads=1, head_dim=50, rope_theta=None)
+    before = _flash_counts()
+    with torch.no_grad():
+        out, _ = MHA.apply(params, x, **kw)
+    assert np.subtract(_flash_counts(), before).tolist() == [1, 0, 0]
+    cpu = {k: {"kernel": p["kernel"].cpu()} for k, p in params.items()}
+    want, _ = MHA.apply(cpu, x.cpu(), **kw)
+    torch.testing.assert_close(out.cpu(), want, rtol=3e-5, atol=3e-5)
+
+    leaves = [p["kernel"].requires_grad_(True) for p in params.values()]
+    before = _flash_counts()
+    out, _ = MHA.apply(params, x, **kw)
+    out.square().sum().backward()
+    assert np.subtract(_flash_counts(), before).tolist() == [0, 1, 1]
+    assert all(p.grad is not None and p.grad.is_cuda for p in leaves)
+
+
+def test_sasrec_training_launches_the_flash_and_qat_kernels(cuda_device, rng):
+    cfg = sasrec_config(reduced=True)
+    params, buffers, state = SASRec.init(cfg, seed=0, device=cuda_device)
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        return SASRec.loss_fn(p, bu, st, batch, cfg, lam=1e-5, step=step)
+
+    trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
+    seq = rng.integers(0, cfg.item_vocab, (32, cfg.seq_len + 1)).astype(np.int32)
+    batch = {"seq_ids": seq[:, :-1], "pos_ids": seq[:, 1:],
+             "neg_ids": rng.integers(0, cfg.item_vocab,
+                                     (32, cfg.seq_len)).astype(np.int32),
+             "mask": np.ones((32, cfg.seq_len), np.float32)}
+    flash0 = _flash_counts()
+    qat0 = (qat_ops.mixed_expectation_fwd.launches,
+            qat_ops.mixed_expectation_bwd.launches)
+    trainer.run(lambda step: batch, 2, log_every=0)
+    assert np.subtract(_flash_counts(), flash0).tolist() == [0, 4, 4]
+    assert [qat_ops.mixed_expectation_fwd.launches - qat0[0],
+            qat_ops.mixed_expectation_bwd.launches - qat0[1]] == [6, 6]
+    assert all(np.isfinite(h["loss"]) and not h["skipped"]
+               for h in trainer.history)

@@ -45,7 +45,7 @@ from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.core.sampling import MPERetrainEmbedding
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.embeddings.table import FieldSpec
-from repro_torch.interop import dlrm_from_numpy
+from repro_torch.interop import model_from_numpy
 from repro_torch.launch import train as launch_train
 from repro_torch.models.dlrm import DLRMConfig
 from repro_torch.train.optimizer import adam
@@ -114,11 +114,11 @@ class _CarriedPipelines:
                                   optimizer=jadam(1e-3), **self.kw)
 
     def port(self, gamma):
-        carried = dlrm_from_numpy(self.params(gamma),
-                                  np_tree(self.init["state"]),
-                                  np_tree(self.init["buffers"]),
-                                  self.cfg._replace(comp_cfg=self.jmpe._asdict()),
-                                  "cpu")
+        carried = model_from_numpy(self.params(gamma),
+                                   np_tree(self.init["state"]),
+                                   np_tree(self.init["buffers"]),
+                                   self.cfg._replace(comp_cfg=self.jmpe._asdict()),
+                                   "cpu")
 
         def build(seed, compressor, comp_cfg):
             bundle = self.port_build(seed, compressor, comp_cfg)

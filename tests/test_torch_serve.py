@@ -13,7 +13,7 @@ from repro.models.dlrm import DLRM as JDLRM
 from repro.serve.batcher import RequestBatcher as JRequestBatcher
 from repro.serve.stats import LatencyStats as JLatencyStats
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
-from repro_torch.interop import dlrm_from_numpy
+from repro_torch.interop import model_from_numpy
 from repro_torch.kernels.mpe_lookup import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.serve import build_engine
@@ -31,8 +31,8 @@ def served():
     """A reference packed DLRM behind a CPU engine with 64/256-row cells."""
     jcfg, cfg, params, state, buffers = make_reference_dlrm(
         "dnn", seed=3, vocabs=VOCABS)
-    t_params, t_state, t_buffers = dlrm_from_numpy(params, state, buffers,
-                                                   cfg, "cpu")
+    t_params, t_state, t_buffers = model_from_numpy(params, state, buffers,
+                                                    cfg, "cpu")
     engine = build_engine(cfg, t_params, t_state, t_buffers,
                           p99_rows=64, bulk_rows=256, device="cpu")
     return {"engine": engine, "jcfg": jcfg, "cfg": cfg,

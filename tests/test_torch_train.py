@@ -45,7 +45,7 @@ from repro_torch.core.api import get_compressor
 from repro_torch.core.mpe import MPEConfig
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.embeddings.table import FieldSpec
-from repro_torch.interop import dlrm_from_numpy, to_torch
+from repro_torch.interop import model_from_numpy, to_torch
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.nn.norms import BatchNorm
 from repro_torch.train import metrics
@@ -113,8 +113,8 @@ def reference_model(compressor, seed=0, vocabs=VOCABS):
 
 
 def carried(cfg, params, buffers, state):
-    t_params, t_state, t_buffers = dlrm_from_numpy(params, state, buffers,
-                                                   cfg, "cpu")
+    t_params, t_state, t_buffers = model_from_numpy(params, state, buffers,
+                                                    cfg, "cpu")
     return t_params, t_buffers, t_state
 
 
