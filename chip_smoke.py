@@ -72,11 +72,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``mpe_qat`` forward and backward three times each; every loss finite, no
    step skipped. Then Eq. 11 sampling, the packed export, and the trained
    table served as in 10; one more step traced.
-12. flash attention times with CUDA events at the cells' shapes, beside the
-   least time the card needs (bytes over 3.35 TB/s, or float32 operations
-   over 67 TFLOP/s, whichever is larger), their plain versions and
-   ``F.scaled_dot_product_attention`` (causal, forward alone and forward
-   plus backward; timed only, never on the port's path).
+12. flash attention at the cells' shapes: each kernel held against its
+   plain version on the same inputs (o and lse within 3e-5, dq, dk, dv
+   within 2e-4, the backward twice bit-identical), then timed with CUDA
+   events beside the least time the card needs (bytes over 3.35 TB/s, or
+   float32 operations over 67 TFLOP/s, whichever is larger), their plain
+   versions and ``F.scaled_dot_product_attention`` (causal, forward alone
+   and forward plus backward; timed only, never on the port's path).
 
 The line before the last holds the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -95,8 +97,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs.base import (N_CANDIDATES, SERVE_CANDS,  # noqa: E402
-                                      SERVE_ROWS, TRAIN_ROWS, get_arch)
+from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
 from repro_torch.core import quantizer  # noqa: E402
 from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
 from repro_torch.core.inference import build_packed_table  # noqa: E402
@@ -141,6 +142,9 @@ FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's forward contract
 FLASH_BWD_TOL = dict(rtol=2e-4, atol=2e-4)  # and its backward's
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SASREC_LAM = 1e-5               # the reference's SASRec train cell
+TRAIN_ROWS = 65536              # the reference's train_batch cell
+SERVE_CANDS = 1000              # its serve_p99 candidate set for SASRec
+N_CANDIDATES = 1_048_576        # its retrieval_cand corpus
 SASREC_STEPS = 8
 SASREC_BATCHES = 2              # made once, reused in turn
 ZIPF_A = 1.1
@@ -1062,7 +1066,9 @@ def sdpa_ms(q, k, v, do, iters: int) -> dict:
 
 
 def phase_flash_times(dev) -> dict:
-    """Each kernel at the cells' shapes (S = hd = 50, causal): CUDA-event ms
+    """Each kernel at the cells' shapes (S = hd = 50, causal), held against
+    its plain version on the same inputs (o and lse within 3e-5, dq, dk, dv
+    within 2e-4, the backward run twice bit-identical), then CUDA-event ms
     per call beside its bound, its plain version and SDPA."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     s = hd = 50
@@ -1072,8 +1078,12 @@ def phase_flash_times(dev) -> dict:
                       ("serve_p99", SERVE_ROWS["serve_p99"])):
         q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=dev)
                        for _ in range(4))
+        what = f"flash at {shape} (BH={bh})"
+        err = within(flash_ops.flash_attention_fwd(q, k, v, True),
+                     flash_attention_ref(q, k, v, True), FLASH_TOL,
+                     f"{what}: o")
         iters = 200 if bh <= 512 else (5 if bh > TRAIN_ROWS else 20)
-        row = {"fwd": {**flash_work(bh, s, hd, "fwd"),
+        row = {"fwd": {**flash_work(bh, s, hd, "fwd"), "max_abs_err": err,
                        "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd(
                            q, k, v, True), iters),
                        "plain_ms": cuda_ms(lambda: flash_attention_ref(
@@ -1082,15 +1092,28 @@ def phase_flash_times(dev) -> dict:
         row["fwd"]["library_ms"] = lib["fwd"]
         if shape == "train_batch":
             o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, True)
+            want_o, want_lse = fwd_stats_ref(q, k, v, True)
+            err = max(within(o, want_o, FLASH_TOL, f"{what}: o (stats)"),
+                      within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
+            del want_o, want_lse
             row["fwd_stats"] = {
-                **flash_work(bh, s, hd, "fwd_stats"),
+                **flash_work(bh, s, hd, "fwd_stats"), "max_abs_err": err,
                 "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd_stats(
                     q, k, v, True), iters),
                 "plain_ms": cuda_ms(lambda: fwd_stats_ref(q, k, v, True),
                                     max(iters // 4, 2), warmup=1),
                 "library_ms": lib["fwd"]}
+            grads = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, True)
+            want = bwd_ref(q, k, v, o, lse, do, True)
+            err = max(within(x, w, FLASH_BWD_TOL, f"{what}: {name}")
+                      for name, x, w in zip(("dq", "dk", "dv"), grads, want))
+            del want
+            again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, True)
+            check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                  f"{what}: two backward runs gave different bits")
+            del grads, again
             row["bwd"] = {
-                **flash_work(bh, s, hd, "bwd"),
+                **flash_work(bh, s, hd, "bwd"), "max_abs_err": err,
                 "ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(
                     q, k, v, o, lse, do, True), iters),
                 "plain_ms": cuda_ms(lambda: bwd_ref(q, k, v, o, lse, do, True),
@@ -1100,6 +1123,7 @@ def phase_flash_times(dev) -> dict:
         out[shape] = row
         for kind, r in row.items():
             log(f"flash {kind} at {shape} (BH={bh}, S={s}, hd={hd}, causal): "
+                f"max |diff| {r['max_abs_err']:.3e} against the plain version; "
                 f"{r['ms']:.4f} ms per call (plain {r['plain_ms']:.4f} ms; "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
                 f"{r['bytes']} bytes, {r['flops']} flops: "
@@ -1125,7 +1149,10 @@ def flash_records(grid_errs, serve, train, times) -> list:
              "backward (no call for the backward alone)"))
     return [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
              "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
-             "launches": launches, "max_abs_err": grid_errs[kind],
+             "launches": launches,
+             "max_abs_err": max(grid_errs[kind], *(
+                 row[kind]["max_abs_err"] for row in times.values()
+                 if kind in row)),
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "library_call": call, "bytes": r["bytes"], "flops": r["flops"],

@@ -31,11 +31,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     return _REGISTRY[arch_id]
 
 
-# the recsys cells of the reference's launch/cells.py: rows of the serving
-# cells, rows of a training batch, and SASRec's candidate sets (online
-# scoring, and retrieval over the corpus for one sequence)
+# the recsys cells of the reference's launch/cells.py, and the rows of its
+# serving cells
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 SERVE_ROWS = {"serve_p99": 512, "serve_bulk": 262144}
-TRAIN_ROWS = 65536
-SERVE_CANDS = 1000
-N_CANDIDATES = 1_048_576

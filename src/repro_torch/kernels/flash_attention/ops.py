@@ -96,8 +96,6 @@ def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
     _check(q, k=k, v=v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
-    if q.shape[0] == 0:
-        return torch.empty_like(q)
     o = _forward(q, k, v, causal, None)
     flash_attention_fwd.launches += 1
     return o
@@ -109,8 +107,6 @@ def flash_attention_fwd_stats(q, k, v, causal: bool = True):
     if q.device.type == "cpu":
         return fwd_stats_ref(q, k, v, causal)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    if q.shape[0] == 0:
-        return torch.empty_like(q), lse
     o = _forward(q, k, v, causal, lse)
     flash_attention_fwd_stats.launches += 1
     return o, lse
@@ -125,8 +121,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
         return bwd_ref(q, k, v, o, lse, do, causal)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     bh, s, hd = q.shape
-    if bh == 0:
-        return dq, dk, dv
     delta = torch.sum(do * o, dim=-1)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_bwd(

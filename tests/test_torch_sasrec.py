@@ -18,6 +18,9 @@ once by the reference and carried into the port (``jax.random`` and
 - the full configuration's numbers and the cells' shapes equal the
   reference's.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -304,6 +307,11 @@ def test_configuration_and_cells_match_reference():
     assert arch.citation == JARCH.citation
     assert config_base.SERVE_ROWS == {k: jcells.RECSYS_BATCH[k]
                                       for k in ("serve_p99", "serve_bulk")}
-    assert config_base.TRAIN_ROWS == jcells.RECSYS_BATCH["train_batch"]
-    assert config_base.SERVE_CANDS == jcells.SERVE_CANDS
-    assert config_base.N_CANDIDATES == jcells.N_CANDIDATES
+    # the SASRec cells that chip_smoke.py drives
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.TRAIN_ROWS == jcells.RECSYS_BATCH["train_batch"]
+    assert smoke.SERVE_CANDS == jcells.SERVE_CANDS
+    assert smoke.N_CANDIDATES == jcells.N_CANDIDATES
