@@ -9,19 +9,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    matrix products and convolutions run in full float32 (TF32 off), as the
    reference trains and serves.
 2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
-   ``flash_attention``) from the sources in this checkout, one nvcc each,
-   started together; print the ptxas reports.
+   ``flash_attention``, ``embedding_bag``) from the sources in this
+   checkout, one nvcc each, started together; print the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
    version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64} (rtol 1e-6), and
    the ``mpe_qat`` forward and backward against theirs over rows {1, 255,
-   257, 4099} × d {8, 16, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
+   257, 4099} × d {8, 16, 32, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
    softmax and one-hot probabilities: ``out`` and ``drows`` bit-identical,
-   ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in another
-   order); the backward run twice gives the same bits. The three flash
-   attention kernels against theirs over BH {1, 3, 37} × S {8, 32, 50, 64,
-   128, 256} × hd {4, 16, 50, 64, 128} × causal and not: o and lse within
+   ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in float64
+   in another order); the backward run twice gives the same bits. The three flash
+   attention kernels against theirs over BH {1, 3, 37} × S {8, 21, 32, 50,
+   64, 128, 256} × hd {4, 16, 50, 64, 128} × causal and not: o and lse within
    rtol = atol = 3e-5, dq, dk, dv within 2e-4 (the reference's contracts),
-   the backward run twice bit-identical.
+   the backward run twice bit-identical. The embedding bag's forward kernel
+   and backward against theirs over B {1, 4, 16, 1024} × L {1, 3, 7, 20,
+   50} × d {4, 8, 16, 32, 50, 64, 128} × int32 and int64 ids × bool and
+   float masks, every fourth bag all masked: rtol 1e-5 / atol 1e-6 (the
+   reference's contract), both run twice bit-identical.
 4. serve path: the full-width ``dlrm-criteo`` config (dnn, 39 fields,
    34,223,104 features, d=16, MLP 1024-512-256, widths {0..6}) initialised
    from a seed on the card, sampled and exported to the packed table there,
@@ -79,6 +83,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
    float32 operations over 67 TFLOP/s, whichever is larger), their plain
    versions and ``F.scaled_dot_product_attention`` (causal, forward alone
    and forward plus backward; timed only, never on the port's path).
+13. BST serving: the full-width ``bst`` config (16,777,216 items + 4
+   context fields × 65,536, d=32, one post-LN block of 8 non-causal heads
+   of width 4, S=20+1, MLP 1024-512-256) with a random packed table made on
+   the card (a Zipf(1.1) prior over the items, uniform context ids); with
+   the launch counts at 0, ``BST.apply`` at ``serve_p99`` (512 rows),
+   ``serve_bulk`` (262,144, also traced) and ``retrieval_cand`` (one
+   history against 1,048,576 candidate targets, then top 100). Each apply
+   must launch ``mpe_lookup`` twice and the plain flash forward once; the
+   logits must equal the same model's with the plain attention and lookup
+   (rtol = atol = 1e-4), the top-100 indices too where the scores are
+   distinct by more.
+14. BST training: the same config under ``mpe_search``, 8 ``Trainer`` steps
+   with ``adam(1e-3)`` and λ = 1e-5 at 65,536 rows on batches made once.
+   Each step must launch ``mpe_qat`` forward and backward twice each and
+   the flash forward with stats and backward once each; every loss
+   finite, no step skipped. One more step with the kernels' arguments
+   recorded: the flash forward with stats and backward (BH = 524,288,
+   S = 21, hd = 4, non-causal) and the ``mpe_qat`` forward and backward
+   (1,376,256 sequence rows and 262,144 context rows, d = 32) against their
+   plain versions on the path's own inputs, with the grids' contracts and
+   each backward twice bit-identical. Then Eq. 11 sampling, the packed
+   export, the trained table served as in 13 at ``serve_p99`` and
+   ``retrieval_cand``, one more step traced.
+15. the bag path: ``embeddings.embedding_bag`` sum and mean, forward and
+   backward, over the full-width BST search table (17,039,360 × 32) with
+   bags of 20 and ragged lengths uniform in 1..20 — the training batch's
+   histories (65,536 bags) and Zipf(1.1) ones at ``serve_bulk`` (262,144)
+   — with the launch counts at 0: each forward must launch the kernel.
+   Then the kernel and the backward against their plain versions (rtol
+   1e-5 / atol 1e-6, both twice bit-identical) and timed beside the bound
+   (each distinct row once, ids, mask, output; for the backward the dense
+   gradient), the plain versions and ``F.embedding_bag`` (timed only,
+   never on the port's path).
 
 The line before the last holds the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -98,7 +135,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
-from repro_torch.core import quantizer  # noqa: E402
+from repro_torch.core import compressors, quantizer  # noqa: E402
 from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
 from repro_torch.core.inference import build_packed_table  # noqa: E402
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding  # noqa: E402
@@ -106,7 +143,12 @@ from repro_torch.core.packing import words_per_row  # noqa: E402
 from repro_torch.core.sampling import (feature_bits,  # noqa: E402
                                        sample_group_bits)
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR  # noqa: E402
+from repro_torch.embeddings import embedding_bag  # noqa: E402
+from repro_torch.embeddings.table import total_vocab  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     bwd_ref, flash_attention_ref, fwd_stats_ref)
@@ -118,6 +160,7 @@ from repro_torch.kernels.mpe_qat.ref import (  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import (build_engine,  # noqa: E402
                                       build_packed_dlrm)
+from repro_torch.models.bst import BST, fields  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
@@ -147,6 +190,12 @@ SERVE_CANDS = 1000              # its serve_p99 candidate set for SASRec
 N_CANDIDATES = 1_048_576        # its retrieval_cand corpus
 SASREC_STEPS = 8
 SASREC_BATCHES = 2              # made once, reused in turn
+BAG_SOURCE = "src/repro_torch/csrc/embedding_bag.cu"
+BAG_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's bag kernel contract
+BST_LAM = 1e-5                  # the reference's BST train cell
+BST_STEPS = 8
+BST_BATCHES = 2                 # made once, reused in turn
+BST_PLAIN_CHUNK = 131_072       # rows a plain-kernel yardstick apply takes
 ZIPF_A = 1.1
 TOP_K = 100
 
@@ -256,7 +305,7 @@ def phase_device() -> str:
 def phase_build():
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    names = ("mpe_lookup", "mpe_qat", "flash_attention")
+    names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -450,15 +499,16 @@ def max_abs(got, want) -> float:
 def check_qat(rows, probs, alpha, beta, g, bits, what) -> tuple:
     """The ``mpe_qat`` kernels against their plain versions on the same
     inputs: ``out`` and ``drows`` bit-identical (the same IEEE division,
-    rounding and fused multiply-adds), the sums at ``RED_TOL``; the backward
-    run twice must give the same bits. Returns the largest |difference| of
-    the forward and of the backward."""
+    rounding and fused multiply-adds), the sums (float64 in both, in other
+    orders) at ``RED_TOL``; the backward run twice must give the same bits.
+    Returns the largest |difference| of the forward and of the backward."""
     out = qat_ops.mixed_expectation_fwd(rows, probs, alpha, beta, bits)
     grads = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
     again = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
     torch.cuda.synchronize()
     want_out = mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits)
-    want = mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits)
+    want = mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits,
+                                     sum_dtype=torch.float64)
     check(torch.equal(out, want_out), f"{what}: forward differs from the "
           f"plain version by {max_abs(out, want_out):.3e}")
     check(torch.equal(grads[0], want[0]), f"{what}: drows differs from the "
@@ -480,7 +530,7 @@ def phase_qat_grid(dev) -> tuple:
     cases = 0
     for onehot in (False, True):
         for bits in widths:
-            for d in (8, 16, 50, 64):
+            for d in (8, 16, 32, 50, 64):
                 for t in (1, 255, 257, 4099):
                     f, b = check_qat(*qat_inputs(gen, t, d, bits, dev, onehot),
                                      bits, f"mpe_qat grid bits={bits} d={d} "
@@ -498,7 +548,8 @@ COUNTERS = {"mpe_lookup": mpe_lookup_ops.packed_lookup,
             "mixed_expectation_bwd": qat_ops.mixed_expectation_bwd,
             "flash_attention_fwd": flash_ops.flash_attention_fwd,
             "flash_attention_fwd_stats": flash_ops.flash_attention_fwd_stats,
-            "flash_attention_bwd": flash_ops.flash_attention_bwd}
+            "flash_attention_bwd": flash_ops.flash_attention_bwd,
+            "embedding_bag_fwd": bag_ops.embedding_bag_fwd}
 
 
 def reset_counts():
@@ -672,7 +723,8 @@ def phase_step_inputs(dev, train) -> dict:
         "bwd": cuda_ms(lambda: qat_ops.mixed_expectation_bwd(
             rows, probs, alpha, beta, g, bits), 50),
         "bwd_plain": cuda_ms(lambda: mixed_expectation_bwd_ref(
-            rows, probs, alpha, beta, g, bits), 10, warmup=1),
+            rows, probs, alpha, beta, g, bits, sum_dtype=torch.float64), 10,
+            warmup=1),
     }
     bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
     for k in ("fwd", "bwd"):
@@ -723,14 +775,15 @@ def phase_step_inputs(dev, train) -> dict:
             "rows": t, "traced_step": step_view, "peaks": peaks}
 
 
-def qat_records(grid_errs, train, step) -> list:
+def qat_records(grid_errs, train, step, bst_errs) -> list:
     rec = []
     for k, line in (("fwd", 104), ("bwd", 126)):
         name = f"mixed_expectation_{k}"
         rec.append({"name": name, "route": "cuda", "source": QAT_SOURCE,
                     "replaces": f"src/repro/kernels/mpe_qat/kernel.py:{line}",
                     "launches": train["launches"][name],
-                    "max_abs_err": max(grid_errs[k == "bwd"], step["errs"][k]),
+                    "max_abs_err": max(grid_errs[k == "bwd"], step["errs"][k],
+                                       bst_errs["qat_" + k]),
                     "ms": step["times"][k], "plain_ms": step["times"][k + "_plain"],
                     "bound_ms": step["bound_ms"][k], "bound_by": "bytes",
                     "library_ms": None, "bytes": step["bytes"][k],
@@ -745,7 +798,7 @@ def phase_flash_grid(dev) -> dict:
     cases = 0
     for causal in (True, False):
         for bh in (1, 3, 37):
-            for s in (8, 32, 50, 64, 128, 256):
+            for s in (8, 21, 32, 50, 64, 128, 256):
                 for hd in (4, 16, 50, 64, 128):
                     q, k, v, do = (torch.randn((bh, s, hd), generator=gen,
                                                device=dev) for _ in range(4))
@@ -797,17 +850,52 @@ def _plain_flash(q, k, v, *, n_kv_heads=None, causal=True):
     return flash_attention_ref(*flat, causal).reshape(b, h, s, hd).transpose(1, 2)
 
 
-def with_plain_attention(fn):
-    """``fn()`` with attention through its plain version; the launches it
-    makes (of the lookup) are a comparison's and are not counted."""
-    kernel, before = attention_module.flash_attention, counts()
+def _plain_lookup(table, meta, ids):
+    """The packed lookup through its plain version."""
+    return packed_lookup_ref(table, meta, ids.reshape(-1)).reshape(
+        *ids.shape, meta["d"])
+
+
+def with_plain_kernels(fn):
+    """``fn()`` with attention and the packed lookup through their plain
+    versions; launches it makes are a comparison's and are not counted."""
+    kernels, before = (attention_module.flash_attention,
+                       compressors.packed_lookup), counts()
     attention_module.flash_attention = _plain_flash
+    compressors.packed_lookup = _plain_lookup
     try:
         return fn()
     finally:
-        attention_module.flash_attention = kernel
+        attention_module.flash_attention, compressors.packed_lookup = kernels
         for name, n in before.items():
             COUNTERS[name].launches = n
+
+
+def captured(fn, wrappers: dict) -> dict:
+    """``fn()`` with each kernel wrapper named in ``wrappers`` ({name: the
+    module the autograd Function looks it up in}) recording the arguments
+    of its calls; returns {name: [args, ...]}. The launches ``fn`` makes are
+    a comparison's and are not counted."""
+    calls, before = {name: [] for name in wrappers}, counts()
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(tuple(x.detach() if torch.is_tensor(x) else x
+                                     for x in args))
+            return COUNTERS[name](*args)
+        call.launches = 0       # the wrapper counts under its module's name
+        return call
+    for name, module in wrappers.items():
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, module in wrappers.items():
+            setattr(module, name, COUNTERS[name])
+        for name, n in before.items():
+            COUNTERS[name].launches = n
+    return calls
 
 
 def serve_cfg(cfg, n: int):
@@ -828,7 +916,7 @@ def check_scores(params, buffers, cfg, seq, cand, what: str) -> dict:
                                             top_k=TOP_K)
         torch.cuda.synchronize()
         launched = launched_since(before)
-        want_vals, want_idx = with_plain_attention(
+        want_vals, want_idx = with_plain_kernels(
             lambda: SASRec.score_candidates(params, buffers, seq, cand, cfg,
                                             top_k=TOP_K))
     check(launched["flash_attention_fwd"] == cfg.n_blocks
@@ -839,19 +927,28 @@ def check_scores(params, buffers, cfg, seq, cand, what: str) -> dict:
     b = seq.shape[0]
     check(vals.shape == idx.shape == (b, TOP_K)
           and bool(torch.isfinite(vals).all()), f"{what}: bad top-k")
+    err, distinct = check_topk(vals, idx, want_vals, want_idx, what)
+    return {"launches": launched, "max_abs_err": err,
+            "distinct_indices": distinct}
+
+
+def check_topk(vals, idx, want_vals, want_idx, what: str) -> tuple:
+    """Top-k scores (rows of falling scores) against the plain kernels'
+    (``SCORE_TOL``), and the indices wherever neighbouring scores differ by
+    more than that. Returns the largest |difference| and the number of
+    distinct indices."""
     err = compare(vals, want_vals, SCORE_TOL, SCORE_TOL,
-                  f"{what}: top-{TOP_K} scores vs plain attention")
+                  f"{what}: top-{TOP_K} scores vs plain kernels")
     tol = SCORE_TOL + SCORE_TOL * want_vals.abs()
-    gap = -(want_vals[:, 1:] - want_vals[:, :-1])
+    gap = -(want_vals[..., 1:] - want_vals[..., :-1])
     distinct = torch.ones_like(want_vals, dtype=torch.bool)
-    distinct[:, 1:] &= gap > tol[:, 1:]
-    distinct[:, :-1] &= gap > tol[:, :-1]
+    distinct[..., 1:] &= gap > tol[..., 1:]
+    distinct[..., :-1] &= gap > tol[..., :-1]
     check(torch.equal(idx[distinct], want_idx[distinct]),
           f"{what}: top-k indices differ where the scores are distinct")
     log(f"{what}: {int(distinct.sum())} of {distinct.numel()} top-k indices "
         f"distinct by more than the tolerance, all equal")
-    return {"launches": launched, "max_abs_err": err,
-            "distinct_indices": int(distinct.sum())}
+    return err, int(distinct.sum())
 
 
 def time_requests(fn, reps: int) -> list:
@@ -1134,7 +1231,7 @@ def phase_flash_times(dev) -> dict:
     return out
 
 
-def flash_records(grid_errs, serve, train, times) -> list:
+def flash_records(grid_errs, serve, train, times, bst_errs) -> list:
     bulk, tb = times["serve_bulk"]["fwd"], times["train_batch"]
     rows = (("flash_attention_fwd", 214, "fwd", bulk,
              serve["launches"]["flash_attention_fwd"],
@@ -1150,7 +1247,7 @@ def flash_records(grid_errs, serve, train, times) -> list:
     return [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
              "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
              "launches": launches,
-             "max_abs_err": max(grid_errs[kind], *(
+             "max_abs_err": max(grid_errs[kind], bst_errs.get(kind, 0.0), *(
                  row[kind]["max_abs_err"] for row in times.values()
                  if kind in row)),
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1161,6 +1258,464 @@ def flash_records(grid_errs, serve, train, times) -> list:
             for name, line, kind, r, launches, call in rows]
 
 
+def bag_case(gen, n, b, l, d, dev, id_dtype, float_mask):
+    """Seeded bag inputs: a table (n, d), ids (b, l) of ``id_dtype``, a mask
+    with random holes in which every fourth bag (1, 5, ...) is all masked,
+    as bools or as float32 weights, and a cotangent (b, d)."""
+    table = torch.randn((n, d), generator=gen, device=dev)
+    ids = torch.randint(0, n, (b, l), generator=gen, device=dev).to(id_dtype)
+    mask = torch.rand((b, l), generator=gen, device=dev) < 0.7
+    mask[1::4] = False
+    if float_mask:
+        mask = mask * (0.5 + torch.rand((b, l), generator=gen, device=dev))
+    g = torch.randn((b, d), generator=gen, device=dev)
+    return table, ids, mask, g
+
+
+def check_bag(table, ids, mask, g, what: str) -> tuple:
+    """The bag kernel against its plain version on the same inputs, forward
+    and backward within ``BAG_TOL``; both run twice give the same bits.
+    Returns the largest |difference| of the forward and of the backward."""
+    n = table.shape[0]
+    out = bag_ops.embedding_bag_fwd(table, ids, mask)
+    out2 = bag_ops.embedding_bag_fwd(table, ids, mask)
+    grad = bag_ops.embedding_bag_bwd(g, ids, mask, n)
+    grad2 = bag_ops.embedding_bag_bwd(g, ids, mask, n)
+    torch.cuda.synchronize()
+    fwd = within(out, embedding_bag_ref(table, ids, mask), BAG_TOL,
+                 f"{what}: forward")
+    bwd = within(grad, embedding_bag_bwd_ref(g, ids, mask, n), BAG_TOL,
+                 f"{what}: backward")
+    check(torch.equal(out, out2), f"{what}: two forward runs gave different bits")
+    check(torch.equal(grad, grad2),
+          f"{what}: two backward runs gave different bits")
+    return fwd, bwd
+
+
+def phase_bag_grid(dev) -> dict:
+    """The bag kernel against its plain version over B × L × d × id type ×
+    mask type."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    cases = 0
+    for id_dtype in (torch.int32, torch.int64):
+        for float_mask in (False, True):
+            for b in (1, 4, 16, 1024):
+                for l in (1, 3, 7, 20, 50):
+                    for d in (4, 8, 16, 32, 50, 64, 128):
+                        f, bw = check_bag(*bag_case(gen, 5000, b, l, d, dev,
+                                                    id_dtype, float_mask),
+                                          f"bag grid b={b} l={l} d={d} "
+                                          f"{id_dtype} float_mask={float_mask}")
+                        errs["fwd"], errs["bwd"] = (max(errs["fwd"], f),
+                                                    max(errs["bwd"], bw))
+                        cases += 1
+    log(f"bag grid: {cases} cases within rtol 1e-5 / atol 1e-6, forward and "
+        f"backward repeatable; max |diff| forward {errs['fwd']:.3e}, backward "
+        f"{errs['bwd']:.3e}")
+    return errs
+
+
+def bst_prior(cfg) -> dict:
+    """Expected lookups a row of every feature of the BST table: the
+    sequence and the target draw items from Zipf(1.1) over popularity
+    ranks, each context field one of its ids uniformly."""
+    items = zipf_prior(cfg.item_vocab)
+    ctx = [np.full(f.vocab, 1.0 / f.vocab) for f in cfg.ctx_fields]
+    return {"freqs": np.concatenate([(cfg.seq_len + 1) * items, *ctx]),
+            "cdf": np.cumsum(items)}
+
+
+def bst_batch(rng, cdf, cfg, rows: int, dev, *, one_history=False) -> dict:
+    """A BST batch on the card: Zipf(1.1) histories and targets, uniform
+    context ids, Bernoulli(0.5) labels. With ``one_history``, every row has
+    the first row's history and context and its own target: one user's
+    history against ``rows`` candidates."""
+    hist = 1 if one_history else rows
+    seq = zipf_ids(rng, cdf, (hist, cfg.seq_len))
+    ctx = np.stack([rng.integers(0, f.vocab, hist, dtype=np.int32)
+                    for f in cfg.ctx_fields], axis=1)
+    target = (rng.choice(cfg.item_vocab, rows, replace=False).astype(np.int32)
+              if one_history else zipf_ids(rng, cdf, (rows,)))
+    batch = {"seq_ids": np.repeat(seq, rows // hist, axis=0),
+             "target_id": target,
+             "ctx_ids": np.repeat(ctx, rows // hist, axis=0),
+             "label": (rng.random(rows) < 0.5).astype(np.int32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def bst_logits_plain(params, buffers, state, batch, cfg) -> torch.Tensor:
+    """The same model with attention and the lookup through their plain
+    versions, in chunks of rows (eval mode: rows are independent)."""
+    rows = batch["label"].shape[0]
+    out = []
+    for lo in range(0, rows, BST_PLAIN_CHUNK):
+        part = {k: v[lo:lo + BST_PLAIN_CHUNK] for k, v in batch.items()}
+        out.append(with_plain_kernels(lambda p=part: BST.apply(
+            params, buffers, state, p, cfg)[0]))
+    return torch.cat(out)
+
+
+def serve_bst(params, buffers, state, cfg, rng, cdf, what: str,
+              shapes: tuple) -> dict:
+    """BST served at ``shapes`` through the kernels, with the launch counts
+    set to 0 before and read after: each apply must launch ``mpe_lookup``
+    twice and the plain flash forward once a block; the logits (and at
+    ``retrieval_cand`` the top 100) must equal the same model's with the
+    plain attention and lookup (``SCORE_TOL``)."""
+    dev = params["pos"].device
+    out = {}
+    reset_counts()
+    for shape in shapes:
+        one = shape == "retrieval_cand"
+        rows = N_CANDIDATES if one else SERVE_ROWS[shape]
+        batch = bst_batch(rng, cdf, cfg, rows, dev, one_history=one)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            before = counts()
+            logits = BST.apply(params, buffers, state, batch, cfg)[0]
+            top = torch.topk(logits, TOP_K) if one else None
+            torch.cuda.synchronize()
+            launched = launched_since(before)
+            peak = torch.cuda.max_memory_allocated()
+            check(launched["mpe_lookup"] == 2
+                  and launched["flash_attention_fwd"] == cfg.n_blocks
+                  and launched["flash_attention_fwd_stats"] == 0,
+                  f"{what}, {shape}: launches {launched}; an apply must launch "
+                  f"mpe_lookup twice and the plain flash forward once a block")
+            check(logits.shape == (rows,) and bool(torch.isfinite(logits).all()),
+                  f"{what}, {shape}: bad logits")
+            want = bst_logits_plain(params, buffers, state, batch, cfg)
+            cell = {"launches": launched, "peak_bytes": peak,
+                    "max_abs_err": compare(logits, want, SCORE_TOL, SCORE_TOL,
+                                           f"{what}, {shape}: logits vs plain "
+                                           f"kernels")}
+            if one:
+                want_top = torch.topk(want, TOP_K)
+                cell["distinct_indices"] = check_topk(
+                    top.values, top.indices, want_top.values, want_top.indices,
+                    f"{what}, {shape}")[1]
+            del logits, want
+            reps = 10 if rows <= SERVE_ROWS["serve_p99"] else 3
+
+            def request(b=batch, one=one):
+                logits = BST.apply(params, buffers, state, b, cfg)[0]
+                return torch.topk(logits, TOP_K) if one else logits
+            cell["request_ms"] = time_requests(request, reps)
+            if shape == "serve_bulk":
+                traced = trace(request, 1)
+                cell.update({k: traced[k] for k in ("wall_ms", "busy_ms",
+                                                    "idle_share", "top")})
+                cell["flash_ms"] = sum(ms for name, ms in traced["by_name"].items()
+                                       if "flash_fwd_kernel" in name)
+        out[shape] = cell
+        log(f"{what}, {shape} ({rows} rows): request p50 "
+            f"{np.percentile(cell['request_ms'], 50):.3f} ms, max "
+            f"{max(cell['request_ms']):.3f} ms of {reps} (host clock to a "
+            f"synchronize); peak memory {peak / 1e9:.3f} GB"
+            + (f"; traced: device busy {cell['busy_ms']:.1f} of "
+               f"{cell['wall_ms']:.1f} ms, flash forward {cell['flash_ms']:.2f}"
+               f" ms, top " + "; ".join(f"{n} {t:.2f} ms" for n, t in cell["top"])
+               if "top" in cell else ""))
+        del batch
+    out["launches"] = counts()
+    log(f"{what}: launches {out['launches']}")
+    return out
+
+
+def phase_bst_serve(dev, prior) -> dict:
+    cfg = get_arch("bst").make_config()
+    n = total_vocab(fields(cfg))
+    log(f"bst: {cfg.item_vocab} items + {len(cfg.ctx_fields)} context fields "
+        f"= {n} features, d={cfg.d_embed}, {cfg.n_blocks} block of "
+        f"{cfg.n_heads} heads, S={cfg.seq_len}+1, MLP {cfg.mlp_hidden}")
+    scfg = serve_cfg(cfg, n)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, buffers, state = BST.init(scfg, prior["freqs"], seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    ratio = Packed.storage_ratio(params["embedding"], buffers["embedding"],
+                                 scfg.comp_cfg)
+    log(f"bst random packed table on the card: {time.perf_counter() - t0:.1f} s; "
+        f"storage ratio {ratio:.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED + 3)
+    out = serve_bst(params, buffers, state, scfg, rng, prior["cdf"],
+                    "bst random table", ("serve_p99", "serve_bulk",
+                                         "retrieval_cand"))
+    return {**out, "storage_ratio": ratio}
+
+
+def check_bst_step_inputs(trainer, batch, step: int, cfg) -> dict:
+    """One more BST training step with the flash and ``mpe_qat`` backward
+    wrappers recording their arguments (the forwards' inputs and outputs
+    saved for the backward, and the cotangents): on those, each kernel
+    against its plain version at the path's shapes — the flash forward with
+    stats (o and lse at ``FLASH_TOL``; its o and lse also equal to the
+    step's own) and backward (``FLASH_BWD_TOL``, twice bit-identical), the
+    ``mpe_qat`` forward and backward by ``check_qat``. Returns the largest
+    |difference| of each kernel and the shapes."""
+    calls = captured(lambda: trainer.train_step(batch, step),
+                     {"flash_attention_bwd": flash_ops,
+                      "mixed_expectation_bwd": qat_ops})
+    errs = {"fwd_stats": 0.0, "bwd": 0.0, "qat_fwd": 0.0, "qat_bwd": 0.0}
+    hd = max(cfg.d_embed // cfg.n_heads, 4)
+    want_shape = (TRAIN_ROWS * cfg.n_heads, cfg.seq_len + 1, hd)
+    flash = calls["flash_attention_bwd"]
+    check(len(flash) == cfg.n_blocks, f"bst step: {len(flash)} flash "
+          f"backward calls, not {cfg.n_blocks}")
+    shapes = {"flash": [], "mpe_qat": []}
+    for q, k, v, o, lse, do, causal in flash:
+        what = (f"bst step: flash at BH={q.shape[0]}, S={q.shape[1]}, "
+                f"hd={q.shape[2]}, causal={causal}")
+        check(tuple(q.shape) == want_shape and not causal,
+              f"{what}: not the path's non-causal {want_shape}")
+        shapes["flash"].append(list(q.shape))
+        o2, lse2 = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+        check(torch.equal(o2, o) and torch.equal(lse2, lse),
+              f"{what}: the forward with stats gave other bits than in the step")
+        want_o, want_lse = fwd_stats_ref(q, k, v, causal)
+        errs["fwd_stats"] = max(errs["fwd_stats"],
+                                within(o, want_o, FLASH_TOL, f"{what}: o"),
+                                within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
+        del o2, lse2, want_o, want_lse
+        grads = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = bwd_ref(q, k, v, o, lse, do, causal)
+        errs["bwd"] = max(errs["bwd"], *(
+            within(x, w, FLASH_BWD_TOL, f"{what}: {name}")
+            for name, x, w in zip(("dq", "dk", "dv"), grads, want)))
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"{what}: two backward runs gave different bits")
+        del grads, again, want
+    qat = calls["mixed_expectation_bwd"]
+    want_rows = sorted([TRAIN_ROWS * (cfg.seq_len + 1),
+                        TRAIN_ROWS * len(cfg.ctx_fields)])
+    check(sorted(args[0].shape[0] for args in qat) == want_rows
+          and all(args[0].shape[1] == cfg.d_embed for args in qat),
+          f"bst step: mpe_qat backward rows "
+          f"{[tuple(args[0].shape) for args in qat]}, not {want_rows} x "
+          f"{cfg.d_embed}")
+    for rows, probs, alpha, beta, g, bits in qat:
+        shapes["mpe_qat"].append(list(rows.shape))
+        f, b = check_qat(rows, probs, alpha, beta, g, bits,
+                         f"bst step: mpe_qat at {rows.shape[0]} x "
+                         f"{rows.shape[1]}")
+        errs["qat_fwd"], errs["qat_bwd"] = (max(errs["qat_fwd"], f),
+                                            max(errs["qat_bwd"], b))
+    del calls, flash, qat
+    log(f"bst step inputs: flash {shapes['flash']} non-causal, o and lse "
+        f"within 3e-5 (max |diff| {errs['fwd_stats']:.3e}), dq/dk/dv within "
+        f"2e-4 ({errs['bwd']:.3e}), backward repeatable; mpe_qat "
+        f"{shapes['mpe_qat']}: out and drows bit-identical to the plain "
+        f"version, sums max |diff| {errs['qat_bwd']:.3e}, backward repeatable")
+    return {"errs": errs, "shapes": shapes}
+
+
+def phase_bst_train(dev, prior) -> dict:
+    """8 ``Trainer`` steps of full-width BST under ``mpe_search``, the
+    trained table exported and served, one step traced. Returns the
+    trained search table and the steps' batches for the bag's full-width
+    phase."""
+    cfg = get_arch("bst").make_config()
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    batches = [bst_batch(rng, prior["cdf"], cfg, TRAIN_ROWS, dev)
+               for _ in range(BST_BATCHES)]
+    batch_s = time.perf_counter() - t0
+    params, buffers, state = BST.init(cfg, prior["freqs"], seed=SEED, device=dev)
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        return BST.loss_fn(p, bu, st, batch, cfg, lam=BST_LAM, train=True,
+                           step=step)
+
+    trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
+    del params
+    torch.cuda.synchronize()
+    live_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    per_step = {"flash_attention_fwd_stats": cfg.n_blocks,
+                "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
+                "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
+                "mpe_lookup": 0, "embedding_bag_fwd": 0}
+    outs, step_ms = [], []
+    t_all = time.perf_counter()
+    for step in range(BST_STEPS):
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(trainer.train_step(batches[step % BST_BATCHES], step))
+        if step == 0:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        check(launched == per_step, f"bst step {step} launched {launched}, "
+              f"not {per_step}")
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t_all) * 1e3 - step_ms[0]
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o["loss"]) for o in outs]
+    check(all(np.isfinite(x) for x in losses), f"a loss was not finite: {losses}")
+    check(not any(bool(o["skipped"]) for o in outs), "a step was skipped")
+    log(f"bst train: {BST_STEPS} steps at {TRAIN_ROWS} rows, launches "
+        f"{launches}; first step {step_ms[0]:.1f} ms, then "
+        f"{steady_ms / (BST_STEPS - 1):.1f} ms a step (host clock to a "
+        f"synchronize over {BST_STEPS - 1} steps); peak memory "
+        f"{peak / 1e9:.3f} GB ({live_before / 1e9:.3f} GB live before); "
+        f"batches made in {batch_s:.1f} s; losses {[round(x, 5) for x in losses]}")
+    step_inputs = check_bst_step_inputs(trainer, batches[0], BST_STEPS, cfg)
+
+    # Eq. 11 sampling and the packed export of the trained table, served
+    mpe = as_mpe_config(cfg.comp_cfg)
+    emb = trainer.params["embedding"]
+    fb = feature_bits(sample_group_bits(emb, mpe),
+                      buffers["embedding"]["group_of_feature"])
+    table, meta = build_packed_table(emb["emb"], fb, emb["alpha"], emb["beta"],
+                                     mpe)
+    scfg = serve_cfg(cfg, total_vocab(fields(cfg)))
+    sparams = {**trainer.params, "embedding": table}
+    sbuffers = {**buffers, "embedding": {"meta": meta}}
+    ratio = Packed.storage_ratio(table, {"meta": meta}, scfg.comp_cfg)
+    log(f"bst trained table exported: storage ratio {ratio:.6f}")
+    served = serve_bst(sparams, sbuffers, trainer.state, scfg, rng,
+                       prior["cdf"], "bst trained table",
+                       ("serve_p99", "retrieval_cand"))
+    del sparams, table
+
+    traced = trace(lambda: trainer.train_step(batches[0], BST_STEPS + 1), 1)
+    step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                        "top")}
+    step_view["kernel_ms"] = {
+        kind: sum(ms for name, ms in traced["by_name"].items() if kind in name)
+        for kind in ("flash_fwd_kernel", "flash_bwd_kernel",
+                     "mpe_qat_fwd_kernel", "mpe_qat_bwd_kernel")}
+    log(f"traced bst train step: wall {traced['wall_ms']:.1f} ms, device busy "
+        f"{traced['busy_ms']:.1f} ms (idle share {traced['idle_share']:.3f}); "
+        f"kernels {step_view['kernel_ms']}; top "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in traced["top"]))
+    return {"launches": launches, "first_step_ms": step_ms[0],
+            "step_ms": steady_ms / (BST_STEPS - 1), "peak_bytes": peak,
+            "live_bytes_before": live_before, "losses": losses,
+            "storage_ratio": ratio, "served": served, "traced_step": step_view,
+            "step_inputs": step_inputs,
+            "table": trainer.params["embedding"]["emb"].detach(),
+            "seq_ids": batches[0]["seq_ids"]}
+
+
+def bag_work(table, ids, mask) -> dict:
+    """Bytes the bag's forward and backward must move: the forward reads
+    each distinct row once, each id and mask entry once and writes (B, d);
+    the backward reads the cotangent (B, d), the ids and the mask once and
+    writes the dense (N, d) gradient."""
+    (n, d), (b, _) = table.shape, ids.shape
+    rows = int(torch.unique(ids).numel())
+    idx = ids.numel() * ids.element_size() + mask.numel() * mask.element_size()
+    fwd = rows * 4 * d + idx + b * d * 4
+    bwd = b * d * 4 + idx + n * d * 4
+    return {"distinct_rows": rows, "fwd_bytes": fwd, "bwd_bytes": bwd,
+            "fwd_bound_ms": fwd / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": bwd / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_bag_path(dev, table, train_seqs) -> dict:
+    """The bag over the full-width BST search table, its bags the BST
+    training batch's histories (``train_batch``) and Zipf(1.1) histories at
+    ``serve_bulk``, with ragged lengths uniform in 1..20. With the counts at
+    0, ``embeddings.embedding_bag`` sum and mean, forward and backward,
+    must launch the kernel once each; then the kernel against its plain
+    version, and the times."""
+    cfg = get_arch("bst").make_config()
+    rng = np.random.default_rng(SEED + 4)
+    cdf = np.cumsum(zipf_prior(cfg.item_vocab))
+    l = cfg.seq_len
+    cells = {"train_batch": train_seqs.to(torch.int32),
+             "serve_bulk": torch.from_numpy(zipf_ids(
+                 rng, cdf, (SERVE_ROWS["serve_bulk"], l))).to(dev)}
+    masks = {shape: torch.from_numpy(np.arange(l)[None, :] < rng.integers(
+        1, l + 1, (ids.shape[0], 1))).to(dev) for shape, ids in cells.items()}
+    leaf = table.detach().requires_grad_(True)
+    reset_counts()
+    for shape, ids in cells.items():
+        for combine in ("sum", "mean"):
+            out = embedding_bag(leaf, ids, masks[shape], combine=combine)
+            (grad,) = torch.autograd.grad(out.square().sum(), leaf)
+            check(out.shape == (ids.shape[0], cfg.d_embed)
+                  and bool(torch.isfinite(out).all())
+                  and bool(torch.isfinite(grad).all()),
+                  f"bag {combine} at {shape}: bad output or gradient")
+            del out, grad
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches["embedding_bag_fwd"] == 2 * len(cells),
+          f"the bag path launched {launches}, not the bag kernel "
+          f"{2 * len(cells)} times")
+    log(f"bag path: launches {launches}")
+    del leaf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    library_bag = torch.nn.functional.embedding_bag
+    out = {}
+    for shape, ids in cells.items():
+        mask = masks[shape]
+        b = ids.shape[0]
+        g = torch.randn((b, cfg.d_embed), generator=gen, device=dev)
+        fwd_err, bwd_err = check_bag(table, ids, mask, g,
+                                     f"bag at {shape} ({b} x {l})")
+        work = bag_work(table, ids, mask)
+        weights = mask.to(torch.float32)
+        lib_leaf = table.detach().requires_grad_(True)
+
+        def library_fwd_bwd():
+            torch.autograd.grad(library_bag(ids, lib_leaf, mode="sum",
+                                          per_sample_weights=weights),
+                                lib_leaf, g)
+        row = {**work, "bags": b, "slots": l, "max_abs_err_fwd": fwd_err,
+               "max_abs_err_bwd": bwd_err,
+               "fwd_ms": cuda_ms(lambda: bag_ops.embedding_bag_fwd(
+                   table, ids, mask), 50),
+               "fwd_plain_ms": cuda_ms(lambda: embedding_bag_ref(
+                   table, ids, mask), 10, warmup=1),
+               "fwd_library_ms": cuda_ms(lambda: library_bag(
+                   ids, table, mode="sum", per_sample_weights=weights), 50),
+               "bwd_ms": cuda_ms(lambda: bag_ops.embedding_bag_bwd(
+                   g, ids, mask, table.shape[0]), 10),
+               "bwd_plain_ms": cuda_ms(lambda: embedding_bag_bwd_ref(
+                   g, ids, mask, table.shape[0]), 5, warmup=1),
+               "bwd_library_ms": cuda_ms(library_fwd_bwd, 10)}
+        del lib_leaf
+        out[shape] = row
+        for kind, call in (("fwd", "F.embedding_bag forward"),
+                           ("bwd", "F.embedding_bag forward + backward")):
+            log(f"bag {kind} at {shape} ({b} bags x {l}, d={cfg.d_embed}, "
+                f"{work['distinct_rows']} distinct rows of {table.shape[0]}): "
+                f"{row[kind + '_ms']:.4f} ms per call (plain "
+                f"{row[kind + '_plain_ms']:.4f} ms; {call} "
+                f"{row[kind + '_library_ms']:.4f} ms; bound "
+                f"{row[kind + '_bound_ms']:.4f} ms for {work[kind + '_bytes']} "
+                f"bytes, {row[kind + '_bound_ms'] / row[kind + '_ms']:.1%} of "
+                f"it)")
+    return {"launches": launches, "shapes": out}
+
+
+def bag_record(grid_errs, bag) -> dict:
+    tb = bag["shapes"]["train_batch"]
+    return {"name": "embedding_bag_fwd", "route": "cuda", "source": BAG_SOURCE,
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:33",
+            "launches": bag["launches"]["embedding_bag_fwd"],
+            "max_abs_err": max(grid_errs["fwd"], *(
+                row["max_abs_err_fwd"] for row in bag["shapes"].values())),
+            "ms": tb["fwd_ms"], "plain_ms": tb["fwd_plain_ms"],
+            "bound_ms": tb["fwd_bound_ms"], "bound_by": "bytes",
+            "library_ms": tb["fwd_library_ms"],
+            "library_call": "F.embedding_bag(ids, table, mode='sum', "
+                            "per_sample_weights=mask.float())",
+            "bytes": tb["fwd_bytes"], "shapes": bag["shapes"],
+            "backward_max_abs_err": max(grid_errs["bwd"], *(
+                row["max_abs_err_bwd"] for row in bag["shapes"].values()))}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1169,6 +1724,7 @@ def main() -> int:
     grid_err = phase_kernel_grid(dev)
     qat_grid_errs = phase_qat_grid(dev)
     flash_grid_errs = phase_flash_grid(dev)
+    bag_grid_errs = phase_bag_grid(dev)
     reset_counts()
     main_path = phase_main_path(dev)
     kernel = phase_kernel_times(main_path, grid_err)
@@ -1194,12 +1750,22 @@ def main() -> int:
     flash_times = phase_flash_times(dev)
     log(json.dumps({"sasrec_serve": sasrec_serve, "sasrec_train": sasrec_train,
                     "flash_times": flash_times}))
-    records = [kernel, *qat_records(qat_grid_errs, train, step),
+    prior = bst_prior(get_arch("bst").make_config())
+    bst_serve = phase_bst_serve(dev, prior)
+    bst_train = phase_bst_train(dev, prior)
+    bag = phase_bag_path(dev, bst_train.pop("table"), bst_train.pop("seq_ids"))
+    log(json.dumps({"bst_serve": bst_serve, "bst_train": bst_train,
+                    "bag": bag}))
+    bst_errs = bst_train["step_inputs"]["errs"]
+    records = [kernel, *qat_records(qat_grid_errs, train, step, bst_errs),
+               bag_record(bag_grid_errs, bag),
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
-                              flash_times)]
+                              flash_times, bst_errs)]
     by_path = {"dlrm serve": main_launches, "dlrm train": train["launches"],
                "sasrec serve": sasrec_serve["launches"],
-               "sasrec train": sasrec_train["launches"]}
+               "sasrec train": sasrec_train["launches"],
+               "bst serve": bst_serve["launches"],
+               "bst train": bst_train["launches"], "bag": bag["launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

@@ -38,7 +38,13 @@
 // row per block; a second small kernel sums the partials of each column in
 // a fixed order (a strided sum per thread, then a tree). dprobs is summed
 // per row through shared memory in dimension order. No float atomics
-// anywhere: two runs on the same inputs give the same bits.
+// anywhere: two runs on the same inputs give the same bits. The products
+// are float32, formed as the plain version forms them; the three sums run
+// in float64 and are rounded once. Float32 sums of a dalpha over thousands
+// of rows, taken in two orders, part by more than the contract (rtol 1e-4,
+// atol 1e-6) when the total cancels to near 0; in float64 the kernel and
+// the plain version summing in float64 (sum_dtype) agree to the last bit
+// or nearly in any order.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, bound with ctypes.
@@ -106,7 +112,7 @@ mpe_qat_fwd_kernel(const float* __restrict__ rows,
 // One block walks kTilesPerBlock tiles of rows_per_tile = kThreads / d rows;
 // thread tid owns element tid of each tile (tid < rows_per_tile * d), so its
 // dimension j is the same in every tile. Shared memory: gq, m floats per
-// thread (g * Q_i of its element), then kThreads floats of scratch.
+// thread (g * Q_i of its element), and kThreads doubles of scratch.
 __global__ void __launch_bounds__(kThreads)
 mpe_qat_bwd_kernel(const float* __restrict__ rows,
                    const float* __restrict__ probs,
@@ -115,11 +121,10 @@ mpe_qat_bwd_kernel(const float* __restrict__ rows,
                    const float* __restrict__ g,
                    const __grid_constant__ Widths w, long long n_rows, int d,
                    float* __restrict__ drows, float* __restrict__ dprobs,
-                   float* __restrict__ partials) {
-  extern __shared__ float smem[];
+                   double* __restrict__ partials) {
+  extern __shared__ float gq[];        // [kThreads][m]
+  __shared__ double scratch[kThreads];
   const int m = w.m;
-  float* gq = smem;                    // [kThreads][m]
-  float* scratch = smem + kThreads * m;  // [kThreads]
   const int tid = threadIdx.x;
   const int rows_per_tile = kThreads / d;
   const bool active = tid < rows_per_tile * d;
@@ -128,10 +133,10 @@ mpe_qat_bwd_kernel(const float* __restrict__ rows,
   const float bj = active ? __ldg(beta + j) : 0.0f;
   const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
 
-  float acc_alpha[kMaxWidths];
+  double acc_alpha[kMaxWidths];
 #pragma unroll
-  for (int i = 0; i < kMaxWidths; ++i) acc_alpha[i] = 0.0f;
-  float acc_beta = 0.0f;
+  for (int i = 0; i < kMaxWidths; ++i) acc_alpha[i] = 0.0;
+  double acc_beta = 0.0;
 
   for (int k = 0; k < kTilesPerBlock; ++k) {
     const long long tile = static_cast<long long>(blockIdx.x) * kTilesPerBlock + k;
@@ -169,16 +174,16 @@ mpe_qat_bwd_kernel(const float* __restrict__ rows,
       const int i = x - row * m;
       const long long rg = tile * rows_per_tile + row;
       if (rg < n_rows) {
-        float s = 0.0f;
+        double s = 0.0;
         for (int jj = 0; jj < d; ++jj) s += gq[(row * d + jj) * m + i];
-        dprobs[rg * m + i] = s;  // 0 for a width of 0 bits
+        dprobs[rg * m + i] = static_cast<float>(s);  // 0 for 0 bits
       }
     }
     __syncthreads();
   }
 
   // this block's dalpha partials: a tree over its threads, width by width
-  float* part = partials + static_cast<long long>(blockIdx.x) * (m + d);
+  double* part = partials + static_cast<long long>(blockIdx.x) * (m + d);
 #pragma unroll
   for (int i = 0; i < kMaxWidths; ++i) {
     if (i >= m) break;
@@ -195,7 +200,7 @@ mpe_qat_bwd_kernel(const float* __restrict__ rows,
   scratch[tid] = acc_beta;
   __syncthreads();
   if (tid < d) {
-    float s = 0.0f;
+    double s = 0.0;
     for (int row = 0; row < rows_per_tile; ++row) s += scratch[row * d + tid];
     part[m + tid] = s;
   }
@@ -203,14 +208,14 @@ mpe_qat_bwd_kernel(const float* __restrict__ rows,
 
 // out[c] = sum over the n_parts rows of partials[:, c], one block per
 // column, in a fixed order: thread t sums rows t, t + kThreads, ..., then a
-// tree over the threads.
+// tree over the threads; in float64, rounded to float32 once.
 __global__ void __launch_bounds__(kThreads)
-mpe_qat_reduce_kernel(const float* __restrict__ partials, long long n_parts,
+mpe_qat_reduce_kernel(const double* __restrict__ partials, long long n_parts,
                       int width, float* __restrict__ out) {
-  __shared__ float scratch[kThreads];
+  __shared__ double scratch[kThreads];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
-  float s = 0.0f;
+  double s = 0.0;
   for (long long x = tid; x < n_parts; x += kThreads) {
     s += partials[x * width + c];
   }
@@ -220,7 +225,7 @@ mpe_qat_reduce_kernel(const float* __restrict__ partials, long long n_parts,
     if (tid < step) scratch[tid] += scratch[tid + step];
     __syncthreads();
   }
-  if (tid == 0) out[c] = scratch[0];
+  if (tid == 0) out[c] = static_cast<float>(scratch[0]);
 }
 
 // Host-side checks shared by both entry points; fills `w`.
@@ -275,8 +280,8 @@ extern "C" int mpe_qat_fwd(const void* rows, const void* probs,
 
 // Backward on `stream`; returns cudaGetLastError() (0 = ok). Device pointers
 // as for the forward, plus g (n_rows, d); outputs drows (n_rows, d), dprobs
-// (n_rows, m), scratch `partials` (mpe_qat_bwd_partial_rows(n_rows, d),
-// m + d) and `sums` (m + d): dalpha = sums[:m], dbeta = sums[m:].
+// (n_rows, m), float64 scratch `partials` (mpe_qat_bwd_partial_rows(n_rows,
+// d), m + d) and `sums` (m + d): dalpha = sums[:m], dbeta = sums[m:].
 extern "C" int mpe_qat_bwd(const void* rows, const void* probs,
                            const void* alpha, const void* beta, const void* g,
                            const void* bits, int m, long long n_rows, int d,
@@ -289,16 +294,16 @@ extern "C" int mpe_qat_bwd(const void* rows, const void* probs,
   const long long blocks = bwd_blocks(n_rows, d);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(kThreads) * (m + 1) * sizeof(float);
+  const size_t smem = static_cast<size_t>(kThreads) * m * sizeof(float);
   mpe_qat_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
       static_cast<const float*>(rows), static_cast<const float*>(probs),
       static_cast<const float*>(alpha), static_cast<const float*>(beta),
       static_cast<const float*>(g), w, n_rows, d, static_cast<float*>(drows),
-      static_cast<float*>(dprobs), static_cast<float*>(partials));
+      static_cast<float*>(dprobs), static_cast<double*>(partials));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mpe_qat_reduce_kernel<<<m + d, kThreads, 0, st>>>(
-      static_cast<const float*>(partials), blocks, m + d,
+      static_cast<const double*>(partials), blocks, m + d,
       static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
 }

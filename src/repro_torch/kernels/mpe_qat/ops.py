@@ -113,7 +113,7 @@ def mixed_expectation_bwd(rows, probs, alpha, beta, g, bits):
         return drows, dprobs, torch.zeros_like(alpha), torch.zeros_like(beta)
     lib = _library()
     partials = torch.empty((lib.mpe_qat_bwd_partial_rows(t, d), m + d),
-                           dtype=torch.float32, device=rows.device)
+                           dtype=torch.float64, device=rows.device)
     sums = torch.empty((m + d,), dtype=torch.float32, device=rows.device)
     c_bits = _bits_array(bits)
     dev = rows.device

@@ -1,8 +1,8 @@
-"""The port on the card: the CUDA ``mpe_lookup``, ``mpe_qat`` and flash
-attention kernels against their plain PyTorch versions, their wrappers'
-checks and launch counts, the backwards' repeatability, the engine on the
-card against the engine on the CPU, and DLRM and SASRec training that goes
-through the kernels.
+"""The port on the card: the CUDA ``mpe_lookup``, ``mpe_qat``, flash
+attention and embedding-bag kernels against their plain PyTorch versions,
+their wrappers' checks and launch counts, the backwards' repeatability, the
+engine on the card against the engine on the CPU, DLRM and SASRec training
+and BST serving and training that go through the kernels.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -18,7 +18,13 @@ from repro_torch.configs.dlrm_criteo import make_config
 from repro_torch.core.inference import build_packed_table
 from repro_torch.core.mpe import MPEConfig
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
+from repro_torch.configs.bst import make_config as bst_config
 from repro_torch.configs.sasrec import make_config as sasrec_config
+from repro_torch.embeddings import embedding_bag
+from repro_torch.kernels import embedding_bag_kernel
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
+                                                   embedding_bag_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import bwd_ref, fwd_stats_ref
 from repro_torch.kernels.mpe_lookup import ops
@@ -28,11 +34,13 @@ from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
                                              mixed_expectation_fwd_ref)
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.serve import build_engine
+from repro_torch.models.bst import BST
 from repro_torch.models.dlrm import DLRM
 from repro_torch.models.sasrec import SASRec
 from repro_torch.nn.attention import MHA
 from repro_torch.train.loop import Trainer
 from repro_torch.train.optimizer import adam
+from repro_torch.train.tree import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -152,7 +160,8 @@ def _qat_inputs(rng, t, d, bits, device, onehot=False):
 @pytest.mark.parametrize("onehot", [False, True], ids=["softmax", "onehot"])
 def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
     """out and drows bit-identical to the plain version (the same FMAs);
-    dprobs, dalpha, dbeta, summed in another order, at rtol 1e-4 / atol 1e-6."""
+    dprobs, dalpha, dbeta, summed in float64 in another order, at rtol 1e-4 /
+    atol 1e-6."""
     grid = [(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
     for bits in grid:
         for d in (8, 16, 50, 64):
@@ -164,7 +173,8 @@ def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
                                                     bits)
                 torch.cuda.synchronize()
                 want_out = mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits)
-                want = mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits)
+                want = mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits,
+                                                 sum_dtype=torch.float64)
                 torch.testing.assert_close(out, want_out, rtol=0, atol=0)
                 torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
                 for x, w in zip(got[1:], want[1:]):
@@ -298,5 +308,133 @@ def test_sasrec_training_launches_the_flash_and_qat_kernels(cuda_device, rng):
     assert np.subtract(_flash_counts(), flash0).tolist() == [0, 4, 4]
     assert [qat_ops.mixed_expectation_fwd.launches - qat0[0],
             qat_ops.mixed_expectation_bwd.launches - qat0[1]] == [6, 6]
+    assert all(np.isfinite(h["loss"]) and not h["skipped"]
+               for h in trainer.history)
+
+
+BAG_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's bag kernel contract
+
+
+def _bag_inputs(rng, b, l, d, device, *, n=300, id_dtype=torch.int32,
+                float_mask=False):
+    table = torch.from_numpy(rng.normal(0, 1, (n, d)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, n, (b, l))).to(id_dtype)
+    mask = torch.from_numpy(rng.random((b, l)) < 0.7)
+    mask[: max(b // 4, 1)] = False                  # all-masked bags
+    if float_mask:
+        mask = mask * torch.from_numpy(rng.uniform(0.5, 1.5, (b, l))).float()
+    return table.to(device), ids.to(device), mask.to(device)
+
+
+BAG_SHAPES = [(1, 1, 4), (4, 3, 16), (16, 7, 32), (33, 20, 50), (8, 50, 64),
+              (1024, 20, 32), (5, 40, 128)]
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("float_mask", [False, True], ids=["bool", "weights"])
+def test_bag_kernel_matches_plain(cuda_device, rng, id_dtype, float_mask):
+    """Forward and backward within rtol 1e-5 / atol 1e-6 of the plain
+    versions; both repeat bit for bit; an all-masked bag is 0."""
+    for b, l, d in BAG_SHAPES:
+        table, ids, mask = _bag_inputs(rng, b, l, d, cuda_device,
+                                       id_dtype=id_dtype,
+                                       float_mask=float_mask)
+        g = torch.randn((b, d), device=cuda_device)
+        out = bag_ops.embedding_bag_fwd(table, ids, mask)
+        again = bag_ops.embedding_bag_fwd(table, ids, mask)
+        grad = bag_ops.embedding_bag_bwd(g, ids, mask, table.shape[0])
+        grad2 = bag_ops.embedding_bag_bwd(g, ids, mask, table.shape[0])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, embedding_bag_ref(table, ids, mask),
+                                   **BAG_TOL)
+        torch.testing.assert_close(
+            grad, embedding_bag_bwd_ref(g, ids, mask, table.shape[0]),
+            **BAG_TOL)
+        assert torch.equal(out, again) and torch.equal(grad, grad2)
+        assert not out[: max(b // 4, 1)].any()
+
+
+def test_bag_kernel_counts_each_launch_and_never_takes_plain(cuda_device, rng,
+                                                             monkeypatch):
+    """A CUDA tensor launches the kernel (one count per forward, none for
+    the backward, which is no TPU kernel); the plain version is never
+    called, through the kernel API or ``embeddings.embedding_bag``."""
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(bag_ops, "embedding_bag_ref", refuse)
+    monkeypatch.setattr(bag_ops, "embedding_bag_bwd_ref", refuse)
+    table, ids, mask = _bag_inputs(rng, 64, 20, 32, cuda_device)
+    leaf = table.clone().requires_grad_(True)
+    before = bag_ops.embedding_bag_fwd.launches
+    out = embedding_bag_kernel(leaf, ids, mask)
+    out.square().sum().backward()
+    assert bag_ops.embedding_bag_fwd.launches == before + 1
+    assert leaf.grad is not None and leaf.grad.is_cuda
+    for combine in ("sum", "mean"):
+        embedding_bag(table, ids, mask, combine=combine)
+    embedding_bag(table, ids, None, combine="sum")
+    assert bag_ops.embedding_bag_fwd.launches == before + 4
+    embedding_bag(table, ids, mask, combine="max")       # plain torch
+    assert bag_ops.embedding_bag_fwd.launches == before + 4
+
+
+def test_bag_kernel_rejects_what_it_does_not_take(cuda_device, rng):
+    table, ids, mask = _bag_inputs(rng, 8, 5, 16, cuda_device)
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag_fwd(table.double(), ids, mask)
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag_fwd(table, ids.to(torch.int16), mask)
+    with pytest.raises(ValueError, match="lies on"):
+        bag_ops.embedding_bag_fwd(table, ids.cpu(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_ops.embedding_bag_fwd(table, ids.t().contiguous().t(), mask)
+    with pytest.raises(ValueError, match="one \\(B, L\\) shape"):
+        bag_ops.embedding_bag_fwd(table, ids, mask[:, :3])
+
+
+def _bst_batch(rng, cfg, n):
+    ctx = [f.vocab for f in cfg.ctx_fields]
+    return {"seq_ids": rng.integers(0, cfg.item_vocab,
+                                    (n, cfg.seq_len)).astype(np.int32),
+            "target_id": rng.integers(0, cfg.item_vocab, n).astype(np.int32),
+            "ctx_ids": np.stack([rng.integers(0, v, n) for v in ctx],
+                                axis=1).astype(np.int32),
+            "label": rng.integers(0, 2, n).astype(np.int32)}
+
+
+def test_bst_apply_and_training_launch_the_counted_kernels(cuda_device, rng):
+    """Reduced BST on the card: an eval apply launches the plain flash
+    forward once and the search lookup's ``mpe_qat`` forward twice (the
+    sequence and the context fields), and matches the same model on the
+    CPU; a training step launches the flash forward with stats and backward
+    once each and ``mpe_qat`` forward and backward twice each."""
+    cfg = bst_config(reduced=True)
+    params, buffers, state = BST.init(cfg, seed=0, device=cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in _bst_batch(rng, cfg, 32).items()}
+    flash0 = _flash_counts()
+    qat0 = qat_ops.mixed_expectation_fwd.launches
+    with torch.no_grad():
+        logits, _, _ = BST.apply(params, buffers, state, batch, cfg)
+    assert np.subtract(_flash_counts(), flash0).tolist() == [1, 0, 0]
+    assert qat_ops.mixed_expectation_fwd.launches - qat0 == 2
+    want, _, _ = BST.apply(*(tree_map(lambda x: x.cpu(), tree) for tree in
+                             (params, buffers, state, batch)), cfg)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    def loss_fn(p, bu, st, b, *, step=None):
+        return BST.loss_fn(p, bu, st, b, cfg, lam=1e-5, step=step)
+
+    trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
+    host = _bst_batch(rng, cfg, 32)
+    flash0 = _flash_counts()
+    qat0 = (qat_ops.mixed_expectation_fwd.launches,
+            qat_ops.mixed_expectation_bwd.launches)
+    trainer.run(lambda step: host, 2, log_every=0)
+    assert np.subtract(_flash_counts(), flash0).tolist() == [0, 2, 2]
+    assert [qat_ops.mixed_expectation_fwd.launches - qat0[0],
+            qat_ops.mixed_expectation_bwd.launches - qat0[1]] == [4, 4]
     assert all(np.isfinite(h["loss"]) and not h["skipped"]
                for h in trainer.history)

@@ -107,6 +107,26 @@ def test_plain_version_matches_reference_pallas_interpret(bits, onehot, rng):
     assert (got[1].numpy()[:, 0] == 0).all()      # the b = 0 column
 
 
+@pytest.mark.parametrize("bits", BITS_GRID, ids=str)
+def test_plain_version_summing_in_float64_matches_reference(bits, rng):
+    """The sums as the CUDA kernel takes them, in float64 and rounded once:
+    within the contract of the reference's Pallas kernel, ``drows`` as
+    before (no sum), the sums within a few float32 steps of the float32
+    ones."""
+    rows, probs, alpha, beta, g = _inputs(rng, 300, 16, bits)
+    want = [np.asarray(x) for x in j_bwd(rows, probs, alpha, beta, g,
+                                         bits=bits)]
+    got = mixed_expectation_bwd_ref(*_t(rows, probs, alpha, beta, g), bits,
+                                    sum_dtype=torch.float64)
+    f32 = mixed_expectation_bwd_ref(*_t(rows, probs, alpha, beta, g), bits)
+    assert all(x.dtype == torch.float32 for x in got)
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), w, **RED)
+    assert torch.equal(got[0], f32[0])
+    for x, y in zip(got[1:], f32[1:]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("d", [8, 16, 50, 64])
 def test_plain_version_matches_jitted_composition_grads(d, rng):
     bits = (0, 1, 2, 3, 4, 5, 6)
