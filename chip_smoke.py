@@ -19,9 +19,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in float64
    in another order); the backward run twice gives the same bits. The three flash
    attention kernels against theirs over BH {1, 3, 37} × S {8, 21, 32, 50,
-   64, 128, 256} × hd {4, 16, 50, 64, 128} × causal and not: o and lse within
-   rtol = atol = 3e-5, dq, dk, dv within 2e-4 (the reference's contracts),
-   the backward run twice bit-identical. The embedding bag's forward kernel
+   64, 65, 128, 256} × hd {4, 16, 50, 64, 128} × causal and not, and on the
+   models' (B, S, H, hd) layout at H = 8 over B {1, 3} × S {8, 21, 50, 64,
+   65, 128} × hd {4, 16, 50}: both routes (S <= 64 staged, S > 64 tiled),
+   o and lse within rtol = atol = 3e-5, dq, dk, dv within 2e-4 (the
+   reference's contracts), the backward run twice bit-identical. The embedding bag's forward kernel
    and backward against theirs over B {1, 4, 16, 1024} × L {1, 3, 7, 20,
    50} × d {4, 8, 16, 32, 50, 64, 128} × int32 and int64 ids × bool and
    float masks, every fourth bag all masked: rtol 1e-5 / atol 1e-6 (the
@@ -65,7 +67,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    with the launch counts at 0, ``score_candidates`` at ``serve_p99`` (512
    sequences, 1,000 candidates) and ``retrieval_cand`` (1 sequence,
    1,048,576 candidates), top 100, and an encode at ``serve_bulk`` (262,144
-   sequences, also traced). Each encode must launch the plain flash forward
+   sequences, also traced, its flash time above 0). Each encode must launch
+   the plain flash forward
    twice and the forward with stats never; the scores must equal the same
    model with the plain attention (rtol = atol = 1e-4), and the top-k
    indices too wherever neighbouring scores differ by more than that.
@@ -75,14 +78,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the flash forward with stats and the flash backward twice each and the
    ``mpe_qat`` forward and backward three times each; every loss finite, no
    step skipped. Then Eq. 11 sampling, the packed export, and the trained
-   table served as in 10; one more step traced.
-12. flash attention at the cells' shapes: each kernel held against its
-   plain version on the same inputs (o and lse within 3e-5, dq, dk, dv
-   within 2e-4, the backward twice bit-identical), then timed with CUDA
-   events beside the least time the card needs (bytes over 3.35 TB/s, or
-   float32 operations over 67 TFLOP/s, whichever is larger), their plain
-   versions and ``F.scaled_dot_product_attention`` (causal, forward alone
-   and forward plus backward; timed only, never on the port's path).
+   table served as in 10; one more step traced (its flash forward and
+   backward times above 0).
+12. flash attention at the paths' shapes: SASRec's (S = hd = 50, causal;
+   BH 65,536, 262,144 and 512) and BST's (S = 21, 8 heads of width 4, not
+   causal, on (B, S, H, hd): the forward at the bulk apply's 262,144 rows,
+   the forward with stats and the backward at a step's 65,536). Each kernel
+   held against its plain version on the same inputs (o and lse within
+   3e-5, dq, dk, dv within 2e-4, the backward twice bit-identical), then
+   timed with CUDA events beside the least time the card needs (bytes over
+   3.35 TB/s, or float32 operations over 67 TFLOP/s, whichever is larger),
+   their plain versions and ``F.scaled_dot_product_attention`` on
+   (B, H, S, hd) views (forward alone and forward plus backward; timed
+   only, never on the port's path).
 13. BST serving: the full-width ``bst`` config (16,777,216 items + 4
    context fields × 65,536, d=32, one post-LN block of 8 non-causal heads
    of width 4, S=20+1, MLP 1024-512-256) with a random packed table made on
@@ -93,19 +101,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    must launch ``mpe_lookup`` twice and the plain flash forward once; the
    logits must equal the same model's with the plain attention and lookup
    (rtol = atol = 1e-4), the top-100 indices too where the scores are
-   distinct by more.
+   distinct by more. ``serve_bulk`` and ``retrieval_cand`` are traced, their
+   flash time above 0.
 14. BST training: the same config under ``mpe_search``, 8 ``Trainer`` steps
    with ``adam(1e-3)`` and λ = 1e-5 at 65,536 rows on batches made once.
    Each step must launch ``mpe_qat`` forward and backward twice each and
    the flash forward with stats and backward once each; every loss
    finite, no step skipped. One more step with the kernels' arguments
-   recorded: the flash forward with stats and backward (BH = 524,288,
-   S = 21, hd = 4, non-causal) and the ``mpe_qat`` forward and backward
+   recorded: the flash forward with stats and backward ((65,536, 21, 8, 4),
+   non-causal) and the ``mpe_qat`` forward and backward
    (1,376,256 sequence rows and 262,144 context rows, d = 32) against their
    plain versions on the path's own inputs, with the grids' contracts and
    each backward twice bit-identical. Then Eq. 11 sampling, the packed
    export, the trained table served as in 13 at ``serve_p99`` and
-   ``retrieval_cand``, one more step traced.
+   ``retrieval_cand``, one more step traced (its flash times above 0).
 15. the bag path: ``embeddings.embedding_bag`` sum and mean, forward and
    backward, over the full-width BST search table (17,039,360 × 32) with
    bags of 20 and ragged lengths uniform in 1..20 — the training batch's
@@ -183,6 +192,7 @@ QAT_SOURCE = "src/repro_torch/csrc/mpe_qat.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's forward contract
 FLASH_BWD_TOL = dict(rtol=2e-4, atol=2e-4)  # and its backward's
+FLASH_STAGED_MAX_S = 64         # kMaxStaged: the longest S of the staged route
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SASREC_LAM = 1e-5               # the reference's SASRec train cell
 TRAIN_ROWS = 65536              # the reference's train_batch cell
@@ -791,41 +801,79 @@ def qat_records(grid_errs, train, step, bst_errs) -> list:
     return rec
 
 
+def heads_flat(x: torch.Tensor) -> torch.Tensor:
+    """The plain versions' layout: (B, S, H, hd) -> (B·H, S, hd); a
+    (B·H, S, hd) tensor as it is."""
+    if x.ndim == 4:
+        b, s, h, hd = x.shape
+        return x.transpose(1, 2).reshape(b * h, s, hd)
+    return x
+
+
+def flash_route(s: int) -> str:
+    """The kernels' route for a sequence length (csrc/flash_attention.cu)."""
+    return "staged" if s <= FLASH_STAGED_MAX_S else "tiled"
+
+
+def check_flash(q, k, v, do, causal: bool, what: str, errs: dict) -> None:
+    """The three flash kernels on q, k, v, do ((BH, S, hd), or (B, S, H, hd)
+    with lse (B, H, S)) against their plain versions on the same inputs: o
+    and lse within ``FLASH_TOL``, dq, dk, dv within ``FLASH_BWD_TOL``, the
+    backward twice bit-identical. Raises on a miss; records the largest
+    |differences| in ``errs`` ({kind: float})."""
+    o = flash_ops.flash_attention_fwd(q, k, v, causal)
+    o2, lse = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+    grads = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+    again = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+    torch.cuda.synchronize()
+    if q.ndim == 4:
+        lse = lse.reshape(-1, lse.shape[-1])
+    flat = [heads_flat(x) for x in (q, k, v, do, o, o2)]
+    want_o, want_lse = fwd_stats_ref(*flat[:3], causal)
+    want = bwd_ref(*flat[:3], flat[5], lse, flat[3], causal)
+    errs["fwd"] = max(errs["fwd"], within(flat[4], want_o, FLASH_TOL,
+                                          f"{what}: o"))
+    errs["fwd_stats"] = max(errs["fwd_stats"],
+                            within(flat[5], want_o, FLASH_TOL, f"{what}: o (stats)"),
+                            within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
+    for name, x, w in zip(("dq", "dk", "dv"), grads, want):
+        errs["bwd"] = max(errs["bwd"], within(heads_flat(x), w, FLASH_BWD_TOL,
+                                              f"{what}: {name}"))
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{what}: two backward runs gave different bits")
+
+
 def phase_flash_grid(dev) -> dict:
-    """The three flash attention kernels against their plain versions."""
+    """The three flash attention kernels against their plain versions, on
+    (BH, S, hd) and, at H = 8, on the models' (B, S, H, hd); both routes
+    (S <= 64 staged, S > 64 tiled). Returns the largest |differences| by
+    kernel, and by route."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"fwd": 0.0, "fwd_stats": 0.0, "bwd": 0.0}
-    cases = 0
-    for causal in (True, False):
-        for bh in (1, 3, 37):
-            for s in (8, 21, 32, 50, 64, 128, 256):
-                for hd in (4, 16, 50, 64, 128):
-                    q, k, v, do = (torch.randn((bh, s, hd), generator=gen,
-                                               device=dev) for _ in range(4))
-                    o = flash_ops.flash_attention_fwd(q, k, v, causal)
-                    o2, lse = flash_ops.flash_attention_fwd_stats(q, k, v,
-                                                                  causal)
-                    grads = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do,
-                                                          causal)
-                    again = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do,
-                                                          causal)
-                    torch.cuda.synchronize()
-                    what = f"flash bh={bh} s={s} hd={hd} causal={causal}"
-                    want_o, want_lse = fwd_stats_ref(q, k, v, causal)
-                    want = bwd_ref(q, k, v, o2, lse, do, causal)
-                    errs["fwd"] = max(errs["fwd"], within(o, want_o, FLASH_TOL,
-                                                          f"{what}: o"))
-                    errs["fwd_stats"] = max(
-                        errs["fwd_stats"],
-                        within(o2, want_o, FLASH_TOL, f"{what}: o (stats)"),
-                        within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
-                    for name, x, w in zip(("dq", "dk", "dv"), grads, want):
-                        errs["bwd"] = max(errs["bwd"], within(
-                            x, w, FLASH_BWD_TOL, f"{what}: {name}"))
-                    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
-                          f"{what}: two backward runs gave different bits")
-                    cases += 1
-    log(f"flash grid: {cases} cases within the contracts, the backward "
+    routes = {r: {"S": set(), "cases": 0,
+                  "errs": {"fwd": 0.0, "fwd_stats": 0.0, "bwd": 0.0}}
+              for r in ("staged", "tiled")}
+    cases = [((bh, s, hd), causal) for causal in (True, False)
+             for bh in (1, 3, 37) for s in (8, 21, 32, 50, 64, 65, 128, 256)
+             for hd in (4, 16, 50, 64, 128)]
+    heads = [((b, s, 8, hd), causal) for causal in (True, False)
+             for b in (1, 3) for s in (8, 21, 50, 64, 65, 128)
+             for hd in (4, 16, 50)]
+    cases += heads
+    for shape, causal in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        route = routes[flash_route(shape[1])]
+        check_flash(q, k, v, do, causal, f"flash {shape} causal={causal}",
+                    route["errs"])
+        route["S"].add(shape[1])
+        route["cases"] += 1
+    errs = {kind: max(r["errs"][kind] for r in routes.values())
+            for kind in ("fwd", "fwd_stats", "bwd")}
+    errs["routes"] = {name: {**r, "S": sorted(r["S"])}
+                      for name, r in routes.items()}
+    log(f"flash grid: {len(cases)} cases ({routes['staged']['cases']} staged, "
+        f"{routes['tiled']['cases']} tiled; H = 8 through the (B, S, H, hd) "
+        f"wrappers in {len(heads)}) within the contracts, the backward "
         f"repeatable; max |diff| o {errs['fwd']:.3e}, o and lse "
         f"{errs['fwd_stats']:.3e}, dq/dk/dv {errs['bwd']:.3e}")
     return errs
@@ -1004,14 +1052,19 @@ def serve_sasrec(params, buffers, cfg, rng, cdf, what: str,
             del h
             ms = time_requests(lambda: SASRec.encode(params, buffers, ids, cfg), 3)
             traced = trace(lambda: SASRec.encode(params, buffers, ids, cfg), 1)
+        flash_ms = flash_kernel_ms(traced["by_name"], "fwd")
+        check(flash_ms > 0, f"{what}, serve_bulk encode: no flash forward in "
+              f"the trace")
         out["serve_bulk"] = {"encode_ms": ms, "launches": launched,
                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                             "flash_ms": flash_ms,
                              **{k: traced[k] for k in ("wall_ms", "busy_ms",
                                                        "idle_share", "top")}}
         log(f"{what}, serve_bulk: encode of {rows} sequences {min(ms):.3f} ms "
             f"(best of 3), peak memory "
             f"{out['serve_bulk']['peak_bytes'] / 1e9:.3f} GB; traced: device "
-            f"busy {traced['busy_ms']:.1f} of {traced['wall_ms']:.1f} ms, top "
+            f"busy {traced['busy_ms']:.1f} of {traced['wall_ms']:.1f} ms, "
+            f"flash forward {flash_ms:.2f} ms, top "
             + "; ".join(f"{n} {t:.2f} ms" for n, t in traced["top"]))
     out["launches"] = counts()
     log(f"{what}: launches {out['launches']}")
@@ -1121,9 +1174,11 @@ def phase_sasrec_train(dev, prior) -> dict:
     traced = trace(lambda: trainer.train_step(batches[0], SASREC_STEPS), 1)
     step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
                                         "top")}
-    step_view["flash_ms"] = {
-        kind: sum(ms for name, ms in traced["by_name"].items()
-                  if f"flash_{kind}_kernel" in name) for kind in ("fwd", "bwd")}
+    step_view["flash_ms"] = {kind: flash_kernel_ms(traced["by_name"], kind)
+                             for kind in ("fwd", "bwd")}
+    check(all(ms > 0 for ms in step_view["flash_ms"].values()),
+          f"traced sasrec train step: flash kernels missing from the trace "
+          f"({step_view['flash_ms']})")
     log(f"traced sasrec train step: wall {traced['wall_ms']:.1f} ms, device "
         f"busy {traced['busy_ms']:.1f} ms (idle share "
         f"{traced['idle_share']:.3f}); flash {step_view['flash_ms']}; top "
@@ -1136,114 +1191,155 @@ def phase_sasrec_train(dev, prior) -> dict:
 
 def flash_work(bh: int, s: int, hd: int, kind: str, causal: bool = True) -> dict:
     """Bytes the function must move (each input read once, each output
-    written once) and float32 operations of its products for these shapes
-    (the causal ones skip the keys above the diagonal)."""
+    written once; the backward reads q, k, v, o, do and lse and writes dq,
+    dk, dv, forming delta inside) and float32 operations of its products for
+    these shapes (the causal ones skip the keys above the diagonal)."""
     tensor, rows = 4 * bh * s * hd, 4 * bh * s
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     nbytes = {"fwd": 4 * tensor, "fwd_stats": 4 * tensor + rows,
-              "bwd": 7 * tensor + 2 * rows}[kind]
+              "bwd": 8 * tensor + rows}[kind]
     flops = (10 if kind == "bwd" else 4) * hd * pairs
     byte_ms, flop_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(byte_ms, flop_ms),
             "bound_by": "bytes" if byte_ms >= flop_ms else "operations"}
 
 
-def sdpa_ms(q, k, v, do, iters: int) -> dict:
-    """``F.scaled_dot_product_attention`` on the same (BH, S, hd) inputs as
-    (BH, 1, S, hd), causal: forward alone, and forward plus backward."""
+def sdpa_ms(q, k, v, do, iters: int, causal: bool) -> dict:
+    """``F.scaled_dot_product_attention`` on the same inputs, as (B, H, S, hd)
+    views ((BH, S, hd) as (BH, 1, S, hd)): forward alone, and forward plus
+    backward. Timed only; the port never calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4, k4, v4, do4 = (x.unsqueeze(1) for x in (q, k, v, do))
-    fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters)
+    q4, k4, v4, do4 = (x.transpose(1, 2) if x.ndim == 4 else x.unsqueeze(1)
+                       for x in (q, k, v, do))
+    fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=causal), iters)
     leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
 
     def fwd_bwd():
         with torch.enable_grad():
-            torch.autograd.grad(sdpa(*leaves, is_causal=True), leaves, do4)
+            torch.autograd.grad(sdpa(*leaves, is_causal=causal), leaves, do4)
     return {"fwd": fwd, "fwd_bwd": cuda_ms(fwd_bwd, iters)}
 
 
+def time_flash(q, k, v, do, causal: bool, kinds: tuple, iters: int,
+               what: str) -> dict:
+    """The flash kernels of ``kinds`` on these inputs ((BH, S, hd), or
+    (B, S, H, hd) as the models call them), each held against its plain
+    version on the same inputs (``FLASH_TOL``, ``FLASH_BWD_TOL``, the
+    backward twice bit-identical), then CUDA-event ms per call beside its
+    bound, its plain version (on (B·H, S, hd)) and SDPA."""
+    flat = [heads_flat(x) for x in (q, k, v, do)]
+    bh, s, hd = flat[0].shape
+    plain_iters = max(iters // 4, 2)
+    lib = sdpa_ms(q, k, v, do, iters, causal)
+    row = {}
+    if "fwd" in kinds:
+        err = within(heads_flat(flash_ops.flash_attention_fwd(q, k, v, causal)),
+                     flash_attention_ref(*flat[:3], causal), FLASH_TOL,
+                     f"{what}: o")
+        row["fwd"] = {
+            **flash_work(bh, s, hd, "fwd", causal), "max_abs_err": err,
+            "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, causal),
+                          iters),
+            "plain_ms": cuda_ms(lambda: flash_attention_ref(*flat[:3], causal),
+                                plain_iters, warmup=1),
+            "library_ms": lib["fwd"]}
+    if "fwd_stats" in kinds:
+        o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+        flat_lse = lse.reshape(-1, s)
+        want_o, want_lse = fwd_stats_ref(*flat[:3], causal)
+        err = max(within(heads_flat(o), want_o, FLASH_TOL, f"{what}: o (stats)"),
+                  within(flat_lse, want_lse, FLASH_TOL, f"{what}: lse"))
+        del want_o, want_lse
+        row["fwd_stats"] = {
+            **flash_work(bh, s, hd, "fwd_stats", causal), "max_abs_err": err,
+            "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd_stats(
+                q, k, v, causal), iters),
+            "plain_ms": cuda_ms(lambda: fwd_stats_ref(*flat[:3], causal),
+                                plain_iters, warmup=1),
+            "library_ms": lib["fwd"]}
+    if "bwd" in kinds:
+        flat_o = heads_flat(o)
+        grads = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = bwd_ref(*flat[:3], flat_o, flat_lse, flat[3], causal)
+        err = max(within(heads_flat(x), w, FLASH_BWD_TOL, f"{what}: {name}")
+                  for name, x, w in zip(("dq", "dk", "dv"), grads, want))
+        del want
+        again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"{what}: two backward runs gave different bits")
+        del grads, again
+        row["bwd"] = {
+            **flash_work(bh, s, hd, "bwd", causal), "max_abs_err": err,
+            "ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(
+                q, k, v, o, lse, do, causal), iters),
+            "plain_ms": cuda_ms(lambda: bwd_ref(*flat[:3], flat_o, flat_lse,
+                                                flat[3], causal),
+                                plain_iters, warmup=1),
+            "library_ms": lib["fwd_bwd"]}
+    for kind, r in row.items():
+        r.update({"S": s, "input_shape": list(q.shape), "causal": causal})
+        log(f"flash {kind} at {what} (BH={bh}, S={s}, hd={hd}, "
+            f"{'causal' if causal else 'not causal'}, {tuple(q.shape)}): "
+            f"max |diff| {r['max_abs_err']:.3e} against the plain version; "
+            f"{r['ms']:.4f} ms per call (plain {r['plain_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bytes']} bytes, {r['flops']} flops: "
+            f"{r['bound_ms'] / r['ms']:.1%} of it; SDPA "
+            f"{'forward + backward' if kind == 'bwd' else 'forward'} "
+            f"{r['library_ms']:.4f} ms)")
+    return row
+
+
 def phase_flash_times(dev) -> dict:
-    """Each kernel at the cells' shapes (S = hd = 50, causal), held against
-    its plain version on the same inputs (o and lse within 3e-5, dq, dk, dv
-    within 2e-4, the backward run twice bit-identical), then CUDA-event ms
-    per call beside its bound, its plain version and SDPA."""
+    """Each kernel at the paths' shapes: SASRec's (S = hd = 50, causal, one
+    head) at ``train_batch``, ``serve_bulk`` and ``serve_p99``; BST's
+    (S = 21, 8 heads of width 4, not causal, on (B, S, H, hd)) at its bulk
+    apply and its training step. Held against the plain versions, then
+    timed (``time_flash``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    s = hd = 50
     out = {}
+    s = hd = 50
     for shape, bh in (("train_batch", TRAIN_ROWS),
                       ("serve_bulk", SERVE_ROWS["serve_bulk"]),
                       ("serve_p99", SERVE_ROWS["serve_p99"])):
         q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=dev)
                        for _ in range(4))
-        what = f"flash at {shape} (BH={bh})"
-        err = within(flash_ops.flash_attention_fwd(q, k, v, True),
-                     flash_attention_ref(q, k, v, True), FLASH_TOL,
-                     f"{what}: o")
         iters = 200 if bh <= 512 else (5 if bh > TRAIN_ROWS else 20)
-        row = {"fwd": {**flash_work(bh, s, hd, "fwd"), "max_abs_err": err,
-                       "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd(
-                           q, k, v, True), iters),
-                       "plain_ms": cuda_ms(lambda: flash_attention_ref(
-                           q, k, v, True), max(iters // 4, 2), warmup=1)}}
-        lib = sdpa_ms(q, k, v, do, iters)
-        row["fwd"]["library_ms"] = lib["fwd"]
-        if shape == "train_batch":
-            o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, True)
-            want_o, want_lse = fwd_stats_ref(q, k, v, True)
-            err = max(within(o, want_o, FLASH_TOL, f"{what}: o (stats)"),
-                      within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
-            del want_o, want_lse
-            row["fwd_stats"] = {
-                **flash_work(bh, s, hd, "fwd_stats"), "max_abs_err": err,
-                "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd_stats(
-                    q, k, v, True), iters),
-                "plain_ms": cuda_ms(lambda: fwd_stats_ref(q, k, v, True),
-                                    max(iters // 4, 2), warmup=1),
-                "library_ms": lib["fwd"]}
-            grads = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, True)
-            want = bwd_ref(q, k, v, o, lse, do, True)
-            err = max(within(x, w, FLASH_BWD_TOL, f"{what}: {name}")
-                      for name, x, w in zip(("dq", "dk", "dv"), grads, want))
-            del want
-            again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, True)
-            check(all(torch.equal(x, y) for x, y in zip(grads, again)),
-                  f"{what}: two backward runs gave different bits")
-            del grads, again
-            row["bwd"] = {
-                **flash_work(bh, s, hd, "bwd"), "max_abs_err": err,
-                "ms": cuda_ms(lambda: flash_ops.flash_attention_bwd(
-                    q, k, v, o, lse, do, True), iters),
-                "plain_ms": cuda_ms(lambda: bwd_ref(q, k, v, o, lse, do, True),
-                                    max(iters // 4, 2), warmup=1),
-                "library_ms": lib["fwd_bwd"]}
-            del o, lse
-        out[shape] = row
-        for kind, r in row.items():
-            log(f"flash {kind} at {shape} (BH={bh}, S={s}, hd={hd}, causal): "
-                f"max |diff| {r['max_abs_err']:.3e} against the plain version; "
-                f"{r['ms']:.4f} ms per call (plain {r['plain_ms']:.4f} ms; "
-                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-                f"{r['bytes']} bytes, {r['flops']} flops: "
-                f"{r['bound_ms'] / r['ms']:.1%} of it; SDPA "
-                f"{'forward + backward' if kind == 'bwd' else 'forward'} "
-                f"{r['library_ms']:.4f} ms)")
+        kinds = ("fwd", "fwd_stats", "bwd") if shape == "train_batch" else ("fwd",)
+        out[shape] = time_flash(q, k, v, do, True, kinds, iters, shape)
+        del q, k, v, do
+    cfg = get_arch("bst").make_config()
+    s, h = cfg.seq_len + 1, cfg.n_heads
+    hd = max(cfg.d_embed // h, 4)
+    for shape, b, kinds in (("bst_bulk_apply", SERVE_ROWS["serve_bulk"], ("fwd",)),
+                            ("bst_train_step", TRAIN_ROWS, ("fwd_stats", "bwd"))):
+        q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                       for _ in range(4))
+        out[shape] = time_flash(q, k, v, do, False, kinds, 20, shape)
         del q, k, v, do
     return out
+
+
+def flash_kernel_ms(by_name: dict, kind: str) -> float:
+    """Traced device ms of the port's flash kernels of ``kind`` ("fwd" or
+    "bwd"), both routes: ``flash_fwd_kernel``, ``flash_fwd_tiled_kernel``
+    and their backward twins (not PyTorch's own ``pytorch_flash::``)."""
+    return sum(ms for name, ms in by_name.items()
+               if f"(anonymous namespace)::flash_{kind}_" in name)
 
 
 def flash_records(grid_errs, serve, train, times, bst_errs) -> list:
     bulk, tb = times["serve_bulk"]["fwd"], times["train_batch"]
     rows = (("flash_attention_fwd", 214, "fwd", bulk,
              serve["launches"]["flash_attention_fwd"],
-             "scaled_dot_product_attention(is_causal=True), forward"),
+             "scaled_dot_product_attention, forward"),
             ("flash_attention_fwd_stats", 141, "fwd_stats", tb["fwd_stats"],
              train["launches"]["flash_attention_fwd_stats"],
-             "scaled_dot_product_attention(is_causal=True), forward "
-             "(no logsumexp rows out)"),
+             "scaled_dot_product_attention, forward (no logsumexp rows out)"),
             ("flash_attention_bwd", 176, "bwd", tb["bwd"],
              train["launches"]["flash_attention_bwd"],
-             "scaled_dot_product_attention(is_causal=True), forward + "
-             "backward (no call for the backward alone)"))
+             "scaled_dot_product_attention, forward + backward (no call for "
+             "the backward alone)"))
     return [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
              "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
              "launches": launches,
@@ -1254,7 +1350,13 @@ def flash_records(grid_errs, serve, train, times, bst_errs) -> list:
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "library_call": call, "bytes": r["bytes"], "flops": r["flops"],
              "shapes": {shape: row[kind] for shape, row in times.items()
-                        if kind in row}}
+                        if kind in row},
+             "routes": {route: {"S": g["S"], "grid_cases": g["cases"],
+                                "max_abs_err": g["errs"][kind],
+                                "timed": [shape for shape, row in times.items()
+                                          if kind in row and flash_route(
+                                              row[kind]["S"]) == route]}
+                        for route, g in grid_errs["routes"].items()}}
             for name, line, kind, r, launches, call in rows]
 
 
@@ -1403,12 +1505,13 @@ def serve_bst(params, buffers, state, cfg, rng, cdf, what: str,
                 logits = BST.apply(params, buffers, state, b, cfg)[0]
                 return torch.topk(logits, TOP_K) if one else logits
             cell["request_ms"] = time_requests(request, reps)
-            if shape == "serve_bulk":
+            if shape in ("serve_bulk", "retrieval_cand"):
                 traced = trace(request, 1)
                 cell.update({k: traced[k] for k in ("wall_ms", "busy_ms",
                                                     "idle_share", "top")})
-                cell["flash_ms"] = sum(ms for name, ms in traced["by_name"].items()
-                                       if "flash_fwd_kernel" in name)
+                cell["flash_ms"] = flash_kernel_ms(traced["by_name"], "fwd")
+                check(cell["flash_ms"] > 0, f"{what}, {shape}: no flash "
+                      f"forward in the trace")
         out[shape] = cell
         log(f"{what}, {shape} ({rows} rows): request p50 "
             f"{np.percentile(cell['request_ms'], 50):.3f} ms, max "
@@ -1461,34 +1564,36 @@ def check_bst_step_inputs(trainer, batch, step: int, cfg) -> dict:
                       "mixed_expectation_bwd": qat_ops})
     errs = {"fwd_stats": 0.0, "bwd": 0.0, "qat_fwd": 0.0, "qat_bwd": 0.0}
     hd = max(cfg.d_embed // cfg.n_heads, 4)
-    want_shape = (TRAIN_ROWS * cfg.n_heads, cfg.seq_len + 1, hd)
+    want_shape = (TRAIN_ROWS, cfg.seq_len + 1, cfg.n_heads, hd)
     flash = calls["flash_attention_bwd"]
     check(len(flash) == cfg.n_blocks, f"bst step: {len(flash)} flash "
           f"backward calls, not {cfg.n_blocks}")
     shapes = {"flash": [], "mpe_qat": []}
     for q, k, v, o, lse, do, causal in flash:
-        what = (f"bst step: flash at BH={q.shape[0]}, S={q.shape[1]}, "
-                f"hd={q.shape[2]}, causal={causal}")
+        what = f"bst step: flash at {tuple(q.shape)}, causal={causal}"
         check(tuple(q.shape) == want_shape and not causal,
-              f"{what}: not the path's non-causal {want_shape}")
+              f"{what}: not the path's non-causal (B, S, H, hd) {want_shape}")
         shapes["flash"].append(list(q.shape))
         o2, lse2 = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
         check(torch.equal(o2, o) and torch.equal(lse2, lse),
               f"{what}: the forward with stats gave other bits than in the step")
-        want_o, want_lse = fwd_stats_ref(q, k, v, causal)
+        flat = [heads_flat(x) for x in (q, k, v, o, do)]
+        flat_lse = lse.reshape(-1, lse.shape[-1])
+        want_o, want_lse = fwd_stats_ref(*flat[:3], causal)
         errs["fwd_stats"] = max(errs["fwd_stats"],
-                                within(o, want_o, FLASH_TOL, f"{what}: o"),
-                                within(lse, want_lse, FLASH_TOL, f"{what}: lse"))
+                                within(flat[3], want_o, FLASH_TOL, f"{what}: o"),
+                                within(flat_lse, want_lse, FLASH_TOL,
+                                       f"{what}: lse"))
         del o2, lse2, want_o, want_lse
         grads = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
         again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
-        want = bwd_ref(q, k, v, o, lse, do, causal)
+        want = bwd_ref(*flat[:4], flat_lse, flat[4], causal)
         errs["bwd"] = max(errs["bwd"], *(
-            within(x, w, FLASH_BWD_TOL, f"{what}: {name}")
+            within(heads_flat(x), w, FLASH_BWD_TOL, f"{what}: {name}")
             for name, x, w in zip(("dq", "dk", "dv"), grads, want)))
         check(all(torch.equal(x, y) for x, y in zip(grads, again)),
               f"{what}: two backward runs gave different bits")
-        del grads, again, want
+        del grads, again, want, flat
     qat = calls["mixed_expectation_bwd"]
     want_rows = sorted([TRAIN_ROWS * (cfg.seq_len + 1),
                         TRAIN_ROWS * len(cfg.ctx_fields)])
@@ -1588,9 +1693,15 @@ def phase_bst_train(dev, prior) -> dict:
     step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
                                         "top")}
     step_view["kernel_ms"] = {
+        f"flash_{kind}": flash_kernel_ms(traced["by_name"], kind)
+        for kind in ("fwd", "bwd")}
+    step_view["kernel_ms"].update({
         kind: sum(ms for name, ms in traced["by_name"].items() if kind in name)
-        for kind in ("flash_fwd_kernel", "flash_bwd_kernel",
-                     "mpe_qat_fwd_kernel", "mpe_qat_bwd_kernel")}
+        for kind in ("mpe_qat_fwd_kernel", "mpe_qat_bwd_kernel")})
+    check(step_view["kernel_ms"]["flash_fwd"] > 0
+          and step_view["kernel_ms"]["flash_bwd"] > 0,
+          f"traced bst train step: flash kernels missing from the trace "
+          f"({step_view['kernel_ms']})")
     log(f"traced bst train step: wall {traced['wall_ms']:.1f} ms, device busy "
         f"{traced['busy_ms']:.1f} ms (idle share {traced['idle_share']:.3f}); "
         f"kernels {step_view['kernel_ms']}; top "

@@ -1,18 +1,24 @@
 """Public wrappers of the flash-attention kernels of
-``csrc/flash_attention.cu``, on the kernels' (B·H, S, hd) layout, and
-``flash_attention`` on (B, S, H, hd).
+``csrc/flash_attention.cu``, and ``flash_attention`` on (B, S, H, hd).
+
+The kernels take the models' own layout, (B, S, H, hd) with lse (B, H, S),
+so ``flash_attention`` hands q, k and v over as they come and gets o back in
+that layout: no transposed copy on the CUDA path. The wrappers also take the
+reference kernels' (B·H, S, hd) layout with lse (B·H, S), the H = 1 case of
+the same call.
 
 ``flash_attention`` is differentiable: where a gradient is wanted, one
 ``torch.autograd.Function`` runs the forward with its logsumexp rows and
-saves q, k, v, o and lse, and its backward forms ``delta = rowsum(do·o)``
-and runs the backward kernel; under ``torch.no_grad()`` (serving) the plain
-forward runs and writes no logsumexp rows. This is the reference's
-``custom_vjp`` in ``kernels/flash_attention/ops.py``.
+saves q, k, v, o and lse, and its backward runs the backward kernel, which
+forms ``delta = rowsum(do·o)`` itself; under ``torch.no_grad()`` (serving)
+the plain forward runs and writes no logsumexp rows. This is the
+reference's ``custom_vjp`` in ``kernels/flash_attention/ops.py``.
 
 On CUDA tensors each wrapper launches its kernel or raises; there is no
-fallback. CPU tensors take the plain versions of ``ref.py``.
-``flash_attention_fwd.launches``, ``flash_attention_fwd_stats.launches`` and
-``flash_attention_bwd.launches`` count kernel launches, and only those.
+fallback. CPU tensors take the plain versions of ``ref.py``, on
+(B·H, S, hd). ``flash_attention_fwd.launches``,
+``flash_attention_fwd_stats.launches`` and ``flash_attention_bwd.launches``
+count kernel launches, and only those.
 """
 from __future__ import annotations
 
@@ -34,57 +40,96 @@ BLOCK = 128          # the reference's bq = bk, capped at S
 def _library():
     lib = load_library("flash_attention")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [p, p, p, ll, i, i, f, i, p, p, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, ll, i, i, i, f, i, p, p, p]
     lib.flash_attention_fwd.restype = i
-    lib.flash_attention_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, f, i,
+    lib.flash_attention_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, f, i,
                                         p, p, p, p]
     lib.flash_attention_bwd.restype = i
     return lib
 
 
+def _rows_shape(q) -> tuple:
+    """The shape of lse for q: (BH, S) for (BH, S, hd), (B, H, S) for
+    (B, S, H, hd)."""
+    return tuple(q.shape[:2]) if q.ndim == 3 else (q.shape[0], q.shape[2],
+                                                   q.shape[1])
+
+
 def _check(q, **others):
-    """Raise on what the wrappers do not take: (BH, S, hd) with S that the
-    reference's blocks divide (S <= 128 or a multiple of 128); on CUDA also
-    float32, contiguous, hd <= 128, every tensor on q's device with the
-    shape it must have."""
-    if q.ndim != 3:
-        raise ValueError(f"q must be (BH, S, hd), got {tuple(q.shape)}")
-    bh, s, hd = q.shape
+    """Raise on what the wrappers do not take: (BH, S, hd) or (B, S, H, hd)
+    with S that the reference's blocks divide (S <= 128 or a multiple of
+    128); on CUDA also float32, contiguous, hd <= 128, every tensor on q's
+    device with the shape it must have."""
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be (BH, S, hd) or (B, S, H, hd), got "
+                         f"{tuple(q.shape)}")
+    s, hd = q.shape[1], q.shape[-1]
     if s % min(BLOCK, s) != 0:
         raise ValueError(f"S={s}: the reference's blocks of {BLOCK} must "
                          f"divide it")
-    if q.device.type == "cpu":
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash attention runs on CUDA or the CPU, not "
+                             f"on {q.device}")
         return
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on CUDA or the CPU, not on "
-                         f"{q.device}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"hd={hd} outside the kernels' 1..{MAX_HEAD_DIM}")
-    for what, x in {"q": q, **others}.items():
-        want = (bh, s) if what in ("lse", "delta") else (bh, s, hd)
-        if x.device != q.device:
+    card = q.get_device()
+    for what, x in (("q", q), *others.items()):
+        want = _rows_shape(q) if what == "lse" else q.shape
+        if x.get_device() != card:
             raise ValueError(f"{what} lies on {x.device}, q on {q.device}")
         if x.dtype != torch.float32:
             raise TypeError(f"{what}: expected torch.float32, got {x.dtype}")
-        if tuple(x.shape) != want:
-            raise ValueError(f"{what}: expected shape {want}, got "
+        if x.shape != want:
+            raise ValueError(f"{what}: expected shape {tuple(want)}, got "
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _bshd(q) -> tuple:
+    """(B, S, H, hd) of q; (BH, S, hd) is the H = 1 case."""
+    return (q.shape[0], q.shape[1], 1, q.shape[2]) if q.ndim == 3 else tuple(q.shape)
+
+
+def _heads_first(x):
+    """CPU path: (B, S, H, hd) -> (B·H, S, hd); lse (B, H, S) -> (B·H, S)."""
+    if x.ndim == 4:
+        b, s, h, hd = x.shape
+        return x.transpose(1, 2).reshape(b * h, s, hd)
+    return x.reshape(-1, x.shape[-1])
+
+
+def _plain(fn, q, *tensors, causal):
+    """``fn`` of ``ref.py`` on (B·H, S, hd), its outputs in q's layout."""
+    if q.ndim == 3:
+        return fn(q, *tensors, causal)
+    b, s, h, hd = q.shape
+    out = fn(*(_heads_first(x) for x in (q, *tensors)), causal)
+    back = [x.reshape(b, h, s, hd).transpose(1, 2) if x.ndim == 3
+            else x.reshape(b, h, s) for x in (out if isinstance(out, tuple)
+                                              else (out,))]
+    return tuple(back) if isinstance(out, tuple) else back[0]
+
+
+def _on_device(x, fn, *args):
+    """``fn(*args, stream)`` with x's card current and its current stream
+    (the device guard only where another card is current)."""
+    card = x.get_device()
+    if card == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(card):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _forward(q, k, v, causal: bool, lse) -> torch.Tensor:
-    bh, s, hd = q.shape
+    b, s, h, hd = _bshd(q)
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bh, s, hd, hd ** -0.5,
-            int(causal), o.data_ptr(), None if lse is None else lse.data_ptr(),
-            _stream(q))
+    err = _on_device(q, _library().flash_attention_fwd, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), b, s, h, hd, hd ** -0.5,
+                     int(causal), o.data_ptr(),
+                     None if lse is None else lse.data_ptr())
     if err != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {err}")
@@ -92,42 +137,40 @@ def _forward(q, k, v, causal: bool, lse) -> torch.Tensor:
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Forward, no logsumexp rows: o (BH, S, hd)."""
+    """Forward, no logsumexp rows: o in q's layout."""
     _check(q, k=k, v=v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
+    if not q.is_cuda:
+        return _plain(flash_attention_ref, q, k, v, causal=causal)
     o = _forward(q, k, v, causal, None)
     flash_attention_fwd.launches += 1
     return o
 
 
 def flash_attention_fwd_stats(q, k, v, causal: bool = True):
-    """Forward with the logsumexp rows: (o (BH, S, hd), lse (BH, S))."""
+    """Forward with the logsumexp rows: (o in q's layout, lse (BH, S) or
+    (B, H, S))."""
     _check(q, k=k, v=v)
-    if q.device.type == "cpu":
-        return fwd_stats_ref(q, k, v, causal)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if not q.is_cuda:
+        return _plain(fwd_stats_ref, q, k, v, causal=causal)
+    lse = torch.empty(_rows_shape(q), dtype=torch.float32, device=q.device)
     o = _forward(q, k, v, causal, lse)
     flash_attention_fwd_stats.launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
-    """Backward from the stored ``lse``: (dq, dk, dv), each (BH, S, hd).
-    ``delta = rowsum(do·o)`` is formed here, outside the kernel, as the
-    reference forms it."""
+    """Backward from the stored ``lse``: (dq, dk, dv) in q's layout. The
+    kernel forms ``delta = rowsum(do·o)`` from its staged rows; the
+    reference forms the same sum outside its kernel."""
     _check(q, k=k, v=v, o=o, lse=lse, do=do)
-    if q.device.type == "cpu":
-        return bwd_ref(q, k, v, o, lse, do, causal)
+    if not q.is_cuda:
+        return _plain(bwd_ref, q, k, v, o, lse, do, causal=causal)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    bh, s, hd = q.shape
-    delta = torch.sum(do * o, dim=-1)
-    with torch.cuda.device(q.device):
-        err = _library().flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), bh, s, hd, hd ** -0.5,
-            int(causal), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _stream(q))
+    b, s, h, hd = _bshd(q)
+    err = _on_device(q, _library().flash_attention_bwd, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), b, s, h, hd, hd ** -0.5, int(causal),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")
@@ -156,24 +199,17 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def _flat(x, b, s, h, hd):
-    return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-
-
 def flash_attention(q, k, v, *, n_kv_heads: int | None = None,
                     causal: bool = True) -> torch.Tensor:
     """q (B, S, Hq, hd); k, v (B, S, Hkv, hd) -> (B, S, Hq, hd). Grouped
     queries repeat each kv head Hq/Hkv times, as the reference does."""
-    b, s, hq, hd = q.shape
-    hkv = k.shape[2]
+    hq, hkv = q.shape[2], k.shape[2]
     if n_kv_heads is not None and n_kv_heads != hkv:
         raise ValueError(f"n_kv_heads={n_kv_heads}, but k has {hkv} heads")
     if hkv != hq:
         k = k.repeat_interleave(hq // hkv, dim=2)
         v = v.repeat_interleave(hq // hkv, dim=2)
-    qf, kf, vf = (_flat(x, b, s, hq, hd) for x in (q, k, v))
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (qf, kf, vf)):
-        of = _FlashAttention.apply(qf, kf, vf, causal)
-    else:
-        of = flash_attention_fwd(qf, kf, vf, causal)
-    return of.reshape(b, hq, s, hd).transpose(1, 2)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return flash_attention_fwd(q, k, v, causal)

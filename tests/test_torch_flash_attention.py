@@ -6,9 +6,15 @@ the same numpy inputs. Tolerances are the reference's own
 
 - the forward and the logsumexp rows: rtol = atol = 3e-5;
 - the backward from the stored logsumexp: rtol = atol = 2e-4;
-- autograd end to end through the (B, S, H, hd) wrapper, GQA included:
-  rtol = atol = 5e-4.
+- autograd end to end through the (B, S, H, hd) wrapper, GQA, BST's and
+  SASRec's heads: rtol = atol = 5e-4.
+
+The CUDA forward divides by a correctly rounded reciprocal and a fused
+correction step (``divide()`` in ``csrc/flash_attention.cu``); a test here
+holds that step to the IEEE division with exact arithmetic.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,20 +135,70 @@ def test_gqa_wrapper_matches_reference_module():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
-def test_autograd_end_to_end_matches_reference_vjp():
+def _head_inputs(b, s, h, hd, n=3):
+    rng = np.random.default_rng(s + h)
+    return [rng.normal(0, 1, (b, s, h, hd)).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("case", ["gqa", "bst", "sasrec"])
+def test_autograd_end_to_end_matches_reference_vjp(case):
     """``jax.grad`` of the reference's ``flash_attention_kernel`` (its
-    ``custom_vjp`` over the Pallas kernels) against autograd through the
-    port's wrapper, on sum(o²)."""
-    q, k, v = _gqa_inputs()
+    ``custom_vjp`` over the Pallas kernels in interpret mode) against
+    autograd through the port's wrapper on (B, S, H, hd), on sum(o²): the
+    reference's GQA case (8 query heads over 4 kv heads), BST's heads
+    (S 21, 8 heads of width 4, not causal) and SASRec's (S 50, one head of
+    width 50, causal)."""
+    q, k, v, kv_heads, causal = {
+        "gqa": (*_gqa_inputs(), 4, True),
+        "bst": (*_head_inputs(3, 21, 8, 4), 8, False),
+        "sasrec": (*_head_inputs(2, 50, 1, 50), 1, True),
+    }[case]
+    s = q.shape[1]
+    blocks = 8 if case == "gqa" else s
     want = jax.grad(lambda *a: jnp.sum(
-        flash_attention_kernel(*a, bq=8, bk=8) ** 2), argnums=(0, 1, 2))(q, k, v)
+        flash_attention_kernel(*a, causal=causal, bq=blocks, bk=blocks) ** 2),
+        argnums=(0, 1, 2))(q, k, v)
     leaves = [x.requires_grad_(True) for x in t(q, k, v)]
-    out = ops.flash_attention(*leaves, n_kv_heads=4, causal=True)
+    out = ops.flash_attention(*leaves, n_kv_heads=kv_heads, causal=causal)
     assert out.grad_fn is not None
+    assert out.shape == q.shape
     torch.sum(out ** 2).backward()
     for name, x, w in zip("qkv", leaves, want):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(w),
                                    err_msg=f"d{name}", **VJP_TOL)
+
+
+@pytest.mark.parametrize("case", ["bst", "sasrec"])
+def test_wrappers_take_the_models_layout(case):
+    """The three wrappers on (B, S, H, hd), lse (B, H, S), against the Pallas
+    kernels on the reference's (B·H, S, hd) flattening of the same arrays."""
+    b, s, h, hd, causal = {"bst": (3, 21, 8, 4, False),
+                           "sasrec": (2, 50, 1, 50, True)}[case]
+    q, k, v, do = _head_inputs(b, s, h, hd, n=4)
+
+    def flat(x):
+        return np.moveaxis(x, 2, 1).reshape(b * h, s, hd)
+
+    def heads(x):
+        return np.moveaxis(np.asarray(x).reshape(b, h, s, hd), 1, 2)
+
+    want_o, want_lse = flash_attention_fwd_stats(flat(q), flat(k), flat(v),
+                                                 causal=causal, bq=s, bk=s)
+    o, lse = ops.flash_attention_fwd_stats(*t(q, k, v), causal)
+    assert o.shape == (b, s, h, hd) and lse.shape == (b, h, s)
+    np.testing.assert_allclose(o.numpy(), heads(want_o), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse).reshape(b, h, s),
+                               **FWD_TOL)
+    np.testing.assert_allclose(ops.flash_attention_fwd(*t(q, k, v), causal).numpy(),
+                               heads(want_o), **FWD_TOL)
+    o, lse = np.ascontiguousarray(o.numpy()), lse.numpy()
+    want = flash_attention_bwd(flat(q), flat(k), flat(v), flat(o),
+                               lse.reshape(b * h, s), flat(do), causal=causal,
+                               bq=s, bk=s)
+    got = ops.flash_attention_bwd(*t(q, k, v, o, lse, do), causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == (b, s, h, hd)
+        np.testing.assert_allclose(g.numpy(), heads(w), err_msg=name, **BWD_TOL)
 
 
 def test_no_grad_takes_the_plain_forward_and_counts_no_launch():
@@ -172,3 +228,35 @@ def test_rejects_what_the_reference_rejects():
         ops.flash_attention(x, x, x, n_kv_heads=1)
     ok = torch.zeros(1, 256, 4)          # a multiple of the block is taken
     assert ops.flash_attention_fwd(ok, ok, ok).shape == (1, 256, 4)
+
+
+def _round_f32(x: Fraction) -> Fraction:
+    """x rounded to the nearest float32 (ties to even; normal range)."""
+    if x == 0:
+        return Fraction(0)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1
+    scale = Fraction(2) ** (23 - e)
+    m = x * scale
+    f, rest = divmod(m.numerator, m.denominator)
+    rest = Fraction(rest, m.denominator)
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and f % 2):
+        f += 1
+    return sign * Fraction(f) / scale
+
+
+def test_division_step_rounds_as_the_division():
+    """The kernels' o = acc / d as q = acc·r, r = RN(1/d), then
+    fma(fma(−q, d, acc), r, q): equal to the rounded quotient for every
+    divisor d >= 1 the kernels see (a softmax denominator is at least 1)
+    and numerators over twelve decades."""
+    rng = np.random.default_rng(0)
+    for _ in range(4000):
+        d = Fraction(float(np.float32(rng.uniform(1.0, 64.0))))
+        a = Fraction(float(np.float32(rng.normal() * 10.0 ** rng.integers(-8, 4))))
+        r = _round_f32(1 / d)
+        q = _round_f32(a * r)
+        step = _round_f32(_round_f32(a - q * d) * r + q)
+        assert step == _round_f32(a / d), (a, d)

@@ -230,11 +230,24 @@ def _normal(rng, shape, device, n):
             for _ in range(n)]
 
 
+def _heads_first(x):
+    """(B, S, H, hd) -> (B·H, S, hd); lse (B, H, S) -> (B·H, S)."""
+    if x.ndim == 4:
+        b, s, h, hd = x.shape
+        return x.transpose(1, 2).reshape(b * h, s, hd)
+    return x.reshape(-1, x.shape[-1])
+
+
+@pytest.mark.parametrize("heads", [1, 8])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_flash_kernels_match_plain(cuda_device, rng, causal):
+def test_flash_kernels_match_plain(cuda_device, rng, causal, heads):
     """o and lse within 3e-5, dq, dk, dv within 2e-4 of the plain versions
-    (the reference's contracts); the backward repeats bit for bit. S = 256
-    takes four key tiles, so dq sums across tiles."""
+    (the reference's contracts); the backward repeats bit for bit. Through
+    the (BH, S, hd) wrappers, then through ``flash_attention`` and the
+    wrappers on (B, S, H, hd) with H = ``heads``: BST's (S 21, hd 4) and
+    SASRec's (S 50, hd 50) shapes, and S 64, 65 and 128 on both sides of the
+    staged route's end (S <= 64). S = 256 takes four key tiles, so dq sums
+    across tiles."""
     for bh, s, hd in [(1, 8, 4), (3, 50, 50), (2, 64, 16), (3, 128, 64),
                       (2, 256, 128), (37, 32, 50)]:
         q, k, v, do = _normal(rng, (bh, s, hd), cuda_device, 4)
@@ -251,6 +264,47 @@ def test_flash_kernels_match_plain(cuda_device, rng, causal):
         for x, w, y in zip(grads, want, again):
             torch.testing.assert_close(x, w, rtol=2e-4, atol=2e-4)
             assert torch.equal(x, y)
+    for b, s, hd in [(3, 21, 4), (2, 50, 50), (2, 64, 16), (2, 65, 50),
+                     (1, 128, 4)]:
+        q, k, v, do = _normal(rng, (b, s, heads, hd), cuda_device, 4)
+        flat = [_heads_first(x) for x in (q, k, v, do)]
+        o = flash_ops.flash_attention_fwd(q, k, v, causal)
+        o2, lse = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+        assert o.shape == q.shape and lse.shape == (b, heads, s)
+        grads = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+        again = flash_ops.flash_attention_bwd(q, k, v, o2, lse, do, causal)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = flash_ops.flash_attention(*leaves, causal=causal)
+        out.backward(do)
+        torch.cuda.synchronize()
+        want_o, want_lse = fwd_stats_ref(*flat[:3], causal)
+        torch.testing.assert_close(_heads_first(o), want_o, rtol=3e-5, atol=3e-5)
+        assert torch.equal(o, o2) and torch.equal(out, o)
+        torch.testing.assert_close(_heads_first(lse), want_lse, rtol=3e-5,
+                                   atol=3e-5)
+        want = bwd_ref(*flat[:3], _heads_first(o2), _heads_first(lse),
+                       flat[3], causal)
+        for x, w, y, leaf in zip(grads, want, again, leaves):
+            torch.testing.assert_close(_heads_first(x), w, rtol=2e-4, atol=2e-4)
+            assert torch.equal(x, y) and torch.equal(leaf.grad, x)
+
+
+def test_flash_attention_makes_no_copies(cuda_device, rng):
+    """Under ``torch.no_grad()`` ``flash_attention`` on (B, S, 8, hd) raises
+    the peak of device memory by o's bytes and nothing more (the caching
+    allocator rounds to 512 bytes): no transposed copy of q, k, v or o."""
+    for b, s, hd in [(64, 21, 4), (16, 50, 50)]:
+        q, k, v = _normal(rng, (b, s, 8, hd), cuda_device, 3)
+        flash_ops.flash_attention_fwd(q, k, v, False)   # builds and loads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            o = flash_ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - before
+        assert o.shape == q.shape and o.is_contiguous()
+        assert grown <= -(-o.numel() * 4 // 512) * 512, (grown, o.numel() * 4)
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device, rng):
@@ -286,6 +340,33 @@ def test_mha_launches_the_plain_forward_without_grad(cuda_device):
     out.square().sum().backward()
     assert np.subtract(_flash_counts(), before).tolist() == [0, 1, 1]
     assert all(p.grad is not None and p.grad.is_cuda for p in leaves)
+
+
+def test_mha_training_step_at_eight_heads_launches_stats_and_backward(
+        cuda_device):
+    """One ``MHA`` training step at BST's head shape (8 heads of width 4,
+    not causal) launches the forward with stats and the backward once each
+    and the plain forward never; the gradients match the same step on the
+    CPU."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = MHA.init(gen, 32, 8, head_dim=4)
+    x = torch.randn((16, 21, 32), generator=gen, device=cuda_device)
+    kw = dict(n_heads=8, n_kv_heads=8, head_dim=4, causal=False, rope_theta=None)
+    leaves = [p["kernel"].requires_grad_(True) for p in params.values()]
+    before = _flash_counts()
+    out, _ = MHA.apply(params, x, **kw)
+    out.square().sum().backward()
+    assert np.subtract(_flash_counts(), before).tolist() == [0, 1, 1]
+    cpu = {k: {"kernel": p["kernel"].detach().cpu().requires_grad_(True)}
+           for k, p in params.items()}
+    want, _ = MHA.apply(cpu, x.cpu(), **kw)
+    want.square().sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), rtol=3e-5,
+                               atol=3e-5)
+    for name, p in params.items():
+        torch.testing.assert_close(p["kernel"].grad.cpu(),
+                                   cpu[name]["kernel"].grad, rtol=2e-4,
+                                   atol=2e-4)
 
 
 def test_sasrec_training_launches_the_flash_and_qat_kernels(cuda_device, rng):
