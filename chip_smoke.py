@@ -9,12 +9,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    matrix products and convolutions run in full float32 (TF32 off), as the
    reference trains and serves.
 2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
-   ``flash_attention``, ``embedding_bag``) from the sources in this
-   checkout, one nvcc each, started together; print the ptxas reports.
+   ``flash_attention``, ``embedding_bag``, ``segment_sum``, ``adam``) from
+   the sources in this checkout, one nvcc each, started together; print
+   the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
    version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64} (rtol 1e-6), and
    the ``mpe_qat`` forward and backward against theirs over rows {1, 255,
-   257, 4099} × d {8, 16, 32, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
+   257, 4099} × d {8, 16, 32, 33, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
    softmax and one-hot probabilities: ``out`` and ``drows`` bit-identical,
    ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in float64
    in another order); the backward run twice gives the same bits. The three flash
@@ -49,9 +50,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    8 retrain steps, the packed export, eval on ``eval_set(4)`` — with the
    launch counts set to 0; then the exported table is served by
    ``build_engine`` for a few requests. Every step must launch the
-   ``mpe_qat`` forward and backward, every loss be finite and no step be
-   skipped, every request launch ``mpe_lookup``, and the served scores equal
-   the plain lookup's (rtol 1e-4, atol 1e-4).
+   ``mpe_qat`` forward and backward, the segment sum once a gather (two a
+   search step, one a retrain step) and the Adam pass once a parameter
+   leaf, every loss be finite and no step be skipped, every request launch
+   ``mpe_lookup``, and the served scores equal the plain lookup's (rtol
+   1e-4, atol 1e-4). Peak memory as a multiple of the table, beside PR
+   15's.
 8. one step's own inputs: a search step's gathered rows and probabilities
    (and a retrain step's one-hot ones) at the full shape, the kernels
    against the plain version and against autograd through the
@@ -60,7 +64,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    atol 1e-6), and the backward twice.
 9. ``mpe_qat`` times at ``train_batch`` with CUDA events, beside their plain
    versions and the byte bound; one traced search step (its batch made on
-   the host included) for the device's idle share and costliest kernels.
+   the host included) for the device's idle share and costliest kernels,
+   and its ``mpe_qat``, segment-sum, sort, Adam and library
+   dense-embedding-backward ms. Then one more search step and one retrain
+   step, each with its kernels' arguments recorded and checked as in 11
+   (``mpe_qat``, the segment sum of the rows over the whole table and of
+   the group probabilities, the Adam pass), and the in-place and NaN-step
+   checks on each trainer.
 10. SASRec serving: the full-width ``sasrec`` config (8,388,608 items,
    d=50, 2 causal blocks, 1 head, S=50) with a random packed table made on
    the card (``Packed.init`` semantics over a Zipf(1.1) frequency prior);
@@ -76,10 +86,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``Trainer`` with ``adam(1e-3)`` and λ = 1e-5 at ``train_batch`` (65,536
    sequences), on batches made once before the steps. Each step must launch
    the flash forward with stats and the flash backward twice each and the
-   ``mpe_qat`` forward and backward three times each; every loss finite, no
-   step skipped. Then Eq. 11 sampling, the packed export, and the trained
-   table served as in 10; one more step traced (its flash forward and
-   backward times above 0).
+   ``mpe_qat`` forward and backward three times each, the segment sum six
+   times and the Adam pass once a leaf; every loss finite, no step
+   skipped; peak memory as a multiple of the table beside the two-tree
+   trainer's. One
+   more step with the ``mpe_qat`` backward, segment-sum and Adam wrappers
+   recording their arguments: on those, the ``mpe_qat`` kernels against
+   their plain versions (as in 8) and timed beside them and the bound; the
+   segment sum against its plain version (``F.embedding``'s dense backward
+   in float64; elementwise within 2^-22·|want| + c·2^-52·Σ|rows| for a
+   segment of c rows: two float64 sums in any order, each rounded once),
+   twice bit-identical, timed beside it,
+   the library's float32 dense backward it replaces and the bound; the Adam
+   pass against the plain chain bit for bit, a skipped one bit-unchanged,
+   timed on the table beside it and ``torch._fused_adamw_``. Every leaf is
+   still where it was (updated in place), and a step with a NaN loss leaves
+   every bit of the parameters and Adam's state. Then Eq. 11 sampling, the
+   packed export, and the trained table served as in 10; one more step
+   traced (its flash forward and backward times above 0; the ms of the
+   kernels above).
 12. flash attention at the paths' shapes: SASRec's (S = hd = 50, causal;
    BH 65,536, 262,144 and 512) and BST's (S = 21, 8 heads of width 4, not
    causal, on (B, S, H, hd): the forward at the bulk apply's 262,144 rows,
@@ -112,9 +137,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    non-causal) and the ``mpe_qat`` forward and backward
    (1,376,256 sequence rows and 262,144 context rows, d = 32) against their
    plain versions on the path's own inputs, with the grids' contracts and
-   each backward twice bit-identical. Then Eq. 11 sampling, the packed
-   export, the trained table served as in 13 at ``serve_p99`` and
-   ``retrieval_cand``, one more step traced (its flash times above 0).
+   each backward twice bit-identical; one more step recorded and checked
+   as in 11 (``mpe_qat``, segment sum, Adam), the in-place and NaN-step
+   checks. Then Eq. 11 sampling, the packed export, the trained table
+   served as in 13 at ``serve_p99`` and ``retrieval_cand``, one more step
+   traced (its flash times above 0).
 15. the bag path: ``embeddings.embedding_bag`` sum and mean, forward and
    backward, over the full-width BST search table (17,039,360 × 32) with
    bags of 20 and ragged lengths uniform in 1..20 — the training batch's
@@ -126,8 +153,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gradient), the plain versions and ``F.embedding_bag`` (timed only,
    never on the port's path).
 
-The line before the last holds the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last holds the ``{"kernels": [...]}`` record (the
+seven ported TPU kernels, and the segment sum and the Adam pass, which
+replace library calls and no TPU kernel); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -154,6 +183,8 @@ from repro_torch.core.sampling import (feature_bits,  # noqa: E402
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR  # noqa: E402
 from repro_torch.embeddings import embedding_bag  # noqa: E402
 from repro_torch.embeddings.table import total_vocab  # noqa: E402
+from repro_torch.kernels.adam import ops as adam_ops  # noqa: E402
+from repro_torch.kernels.adam.ref import adam_step_ref_  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
@@ -166,6 +197,8 @@ from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref  # noqa: E402
 from repro_torch.kernels.mpe_qat import ops as qat_ops  # noqa: E402
 from repro_torch.kernels.mpe_qat.ref import (  # noqa: E402
     mixed_expectation_bwd_ref, mixed_expectation_fwd_ref)
+from repro_torch.kernels.segment_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.segment_sum.ref import segment_sum_ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import (build_engine,  # noqa: E402
                                       build_packed_dlrm)
@@ -174,8 +207,10 @@ from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
 from repro_torch.serve.stats import LatencyStats  # noqa: E402
+from repro_torch.train import optimizer as optimizer_module  # noqa: E402
 from repro_torch.train.loop import Trainer  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
+from repro_torch.train.tree import leaves, tree_map  # noqa: E402
 from repro_torch.zoo import dlrm_builder  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
@@ -208,6 +243,20 @@ BST_BATCHES = 2                 # made once, reused in turn
 BST_PLAIN_CHUNK = 131_072       # rows a plain-kernel yardstick apply takes
 ZIPF_A = 1.1
 TOP_K = 100
+SEG_SOURCE = "src/repro_torch/csrc/segment_sum.cu"
+# the segment sum against its plain version: both sum a segment's c rows in
+# float64 (each within (c - 1)·2^-53·Σ|rows| of the exact sum, in any order)
+# and round once to float32 (half a float32 step each); so elementwise
+# |got - want| <= SEG_RTOL·|want| + c·2^-52·Σ|rows| (``segment_sum_bound``)
+SEG_RTOL = 2.0 ** -22
+ADAM_SOURCE = "src/repro_torch/csrc/adam.cu"
+# peak device memory at train_batch while the trainer held the old and the
+# new trees at once in each step (chip_smoke.py on an H100 80GB HBM3, 700 W)
+TWO_TREE_PEAK_GB = {"dlrm": 31.405, "sasrec": 30.720, "bst": 19.840}
+# the library's dense embedding backward (aten::embedding_dense_backward)
+LIBRARY_SEGMENT_KERNELS = ("sum_and_scatter", "compute_grad_weight",
+                           "krn_partial", "compute_num_of_partial_segments",
+                           "segment_offsets_kernel")
 
 
 def log(msg: str):
@@ -315,7 +364,8 @@ def phase_device() -> str:
 def phase_build():
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag")
+    names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag",
+             "segment_sum", "adam")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -540,7 +590,7 @@ def phase_qat_grid(dev) -> tuple:
     cases = 0
     for onehot in (False, True):
         for bits in widths:
-            for d in (8, 16, 32, 50, 64):
+            for d in (8, 16, 32, 33, 50, 64):
                 for t in (1, 255, 257, 4099):
                     f, b = check_qat(*qat_inputs(gen, t, d, bits, dev, onehot),
                                      bits, f"mpe_qat grid bits={bits} d={d} "
@@ -559,7 +609,9 @@ COUNTERS = {"mpe_lookup": mpe_lookup_ops.packed_lookup,
             "flash_attention_fwd": flash_ops.flash_attention_fwd,
             "flash_attention_fwd_stats": flash_ops.flash_attention_fwd_stats,
             "flash_attention_bwd": flash_ops.flash_attention_bwd,
-            "embedding_bag_fwd": bag_ops.embedding_bag_fwd}
+            "embedding_bag_fwd": bag_ops.embedding_bag_fwd,
+            "segment_sum": seg_ops.segment_sum,
+            "adam_step_": adam_ops.adam_step_}
 
 
 def reset_counts():
@@ -573,6 +625,16 @@ def counts() -> dict:
 
 def launched_since(before: dict) -> dict:
     return {name: n - before[name] for name, n in counts().items()}
+
+
+def uncounted(fn):
+    """``fn()``; the launches it makes are a comparison's and not counted."""
+    before = counts()
+    try:
+        return fn()
+    finally:
+        for name, n in before.items():
+            COUNTERS[name].launches = n
 
 
 def phase_train_path(dev) -> dict:
@@ -601,6 +663,14 @@ def phase_train_path(dev) -> dict:
     check(fwd == n_steps and bwd == n_steps,
           f"{n_steps} steps launched the mpe_qat forward {fwd} and the "
           f"backward {bwd} times: each step must launch each once")
+    # a search step sums two gathers' gradients (rows and probabilities), a
+    # retrain step one; every step runs the Adam pass once a leaf
+    seg, passes = counts()["segment_sum"], counts()["adam_step_"]
+    want_passes = (len(leaves(res["search_params"])) * SEARCH_STEPS
+                   + len(leaves(res["final_params"])) * RETRAIN_STEPS)
+    check(seg == 2 * SEARCH_STEPS + RETRAIN_STEPS and passes == want_passes,
+          f"the steps launched segment_sum {seg} and the Adam pass {passes} "
+          f"times, not {2 * SEARCH_STEPS + RETRAIN_STEPS} and {want_passes}")
     check(all(np.isfinite(h["loss"]) for h in steps), "a loss was not finite")
     check(not any(h["skipped"] for h in steps), "a step was skipped")
 
@@ -629,10 +699,13 @@ def phase_train_path(dev) -> dict:
                     f"trained table, {rows}-row request vs plain lookup")
             served += 1
     launches = {"mixed_expectation_fwd": fwd, "mixed_expectation_bwd": bwd,
-                "mpe_lookup": mpe_lookup_ops.packed_lookup.launches}
+                "mpe_lookup": mpe_lookup_ops.packed_lookup.launches,
+                "segment_sum": seg, "adam_step_": passes}
+    table_bytes = cfg_table_bytes(res["final_params"]["embedding"]["emb"])
     sec = res["seconds"]
     out = {"launches": launches, "steps": n_steps, "requests_served": served,
            "train_s": train_s, "phase_s": sec, "peak_bytes": train_peak,
+           "table_bytes": table_bytes, "peak_tables": train_peak / table_bytes,
            "live_bytes_before": live_before, "live_bytes_after": live_after,
            "search_step_ms": sec["search"] / SEARCH_STEPS * 1e3,
            "retrain_step_ms": sec["retrain"] / RETRAIN_STEPS * 1e3,
@@ -648,12 +721,18 @@ def phase_train_path(dev) -> dict:
         f"{out['retrain_step_ms']:.1f} ms/step (host clock to a synchronize; "
         f"making a batch on the host {out['search_batch_ms']:.1f} and "
         f"{out['retrain_batch_ms']:.1f} ms of them); "
-        f"peak memory {train_peak / 1e9:.3f} GB ({live_before / 1e9:.3f} GB "
-        f"live before, {live_after / 1e9:.3f} GB after); ratio "
+        f"peak memory {train_peak / 1e9:.3f} GB, {train_peak / table_bytes:.2f}"
+        f" tables (two trees: {TWO_TREE_PEAK_GB['dlrm']} GB; {live_before / 1e9:.3f} "
+        f"GB live before, {live_after / 1e9:.3f} GB after); ratio "
         f"{res['storage_ratio']:.6f}, avg bits {res['avg_bits']:.3f}, eval "
         f"{res['eval']}; losses {[round(x, 5) for x in out['losses']]}")
     del engine, params
     return {**out, "res": res, "cfg": cfg}
+
+
+def cfg_table_bytes(table: torch.Tensor) -> int:
+    """Bytes of a float32 training table."""
+    return table.numel() * table.element_size()
 
 
 def composition(rows, probs, alpha, beta, g, bits):
@@ -690,7 +769,9 @@ def phase_step_inputs(dev, train) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gids = (torch.from_numpy(ds.batch(0)["ids"]).to(dev)
             + offsets[None, :]).reshape(-1).long()
-    sp, fp = res["search_params"]["embedding"], res["final_params"]["embedding"]
+    # the pipeline's search results are host snapshots
+    sp = {k: v.to(dev) for k, v in res["search_params"]["embedding"].items()}
+    fp = res["final_params"]["embedding"]
     bits = tuple(mpe.bits)
     widx = res["buffers"]["embedding"]["bits_idx"][gids].long()
     cases = {
@@ -756,8 +837,10 @@ def phase_step_inputs(dev, train) -> dict:
     peaks["export"] = torch.cuda.max_memory_allocated() - live
     # one traced search step from the searched parameters, its batch made
     # on the host included, as the training loop runs it
-    trainer = Trainer(bundle["loss_fn"], res["search_params"], bundle["buffers"],
-                      bundle["state"], adam(1e-3))
+    trainer = Trainer(bundle["loss_fn"],
+                      tree_map(lambda x: x.to(dev), res["search_params"]),
+                      bundle["buffers"], bundle["state"], adam(1e-3))
+    ptrs = [x.data_ptr() for x in leaves([trainer.params, trainer.carry["opt"]])]
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -781,24 +864,134 @@ def phase_step_inputs(dev, train) -> dict:
         "fwd": sum(ms for n, ms in by_name if "mpe_qat_fwd_kernel" in n),
         "bwd": sum(ms for n, ms in by_name if "mpe_qat_bwd_kernel" in n
                    or "mpe_qat_reduce_kernel" in n)}
+    step_view["kernel_ms"] = step_kernel_ms(traced["by_name"])
+    log(f"traced search step kernels (ms): {step_view['kernel_ms']}")
+
+    # a search step's and a retrain step's own kernel inputs, recorded: the
+    # mpe_qat backward, the gathers' segment sums (rows over the whole
+    # table, group probabilities; the retrain step's rows) and the Adam
+    # pass against their plain versions; in place, and a NaN step skipped
+    def device_batch(k):
+        return {key: torch.from_numpy(np.asarray(v)).to(dev)
+                for key, v in ds.batch(k).items()}
+    recorded = {}
+    n_steps = SEARCH_STEPS + RETRAIN_STEPS
+    recorded["dlrm search"] = check_step_inputs(
+        trainer, device_batch(n_steps), trainer.step, "dlrm search")
+    check_in_place_and_skip(trainer, device_batch(n_steps + 1),
+                            trainer.step + 1, ptrs, "dlrm search")
+    del trainer, bundle
+    rb = build(SEED, "mpe_retrain", {**mpe._asdict(), "init_emb": fp["emb"],
+                                     "alpha": fp["alpha"], "beta": fp["beta"],
+                                     "bits_idx": res["buffers"]["embedding"][
+                                         "bits_idx"]})
+    del rb["params"]                          # the retrained ones are used
+    trainer = Trainer(rb["loss_fn"],
+                      tree_map(lambda x: x.to(dev, copy=True),
+                               res["final_params"]),
+                      res["buffers"],
+                      tree_map(lambda x: x.to(dev, copy=True), res["state"]),
+                      adam(1e-3))
+    ptrs = [x.data_ptr() for x in leaves([trainer.params, trainer.carry["opt"]])]
+    recorded["dlrm retrain"] = check_step_inputs(
+        trainer, device_batch(n_steps + 2), RETRAIN_STEPS, "dlrm retrain")
+    check_in_place_and_skip(trainer, device_batch(n_steps + 3),
+                            RETRAIN_STEPS + 1, ptrs, "dlrm retrain")
+    del trainer, rb
+    for what, gathers in (("dlrm search", 2), ("dlrm retrain", 1)):
+        r = recorded[what]
+        check(len(r["mpe_qat"]) == 1 and len(r["segment_sum"]) == gathers,
+              f"{what} step: {len(r['mpe_qat'])} mpe_qat backward and "
+              f"{len(r['segment_sum'])} segment-sum calls recorded, not 1 "
+              f"and {gathers}")
     return {"errs": errs, "times": times, "bytes": moved, "bound_ms": bound,
-            "rows": t, "traced_step": step_view, "peaks": peaks}
+            "rows": t, "traced_step": step_view, "peaks": peaks,
+            "step_inputs": recorded}
 
 
-def qat_records(grid_errs, train, step, bst_errs) -> list:
+def step_inputs_by_model(step, sasrec_inputs, bst_inputs) -> tuple:
+    """(name, ``check_step_inputs`` result) of every recorded step: DLRM's
+    search and retrain steps, a SASRec and a BST step."""
+    return (*step["step_inputs"].items(), ("sasrec", sasrec_inputs),
+            ("bst", bst_inputs))
+
+
+def qat_records(grid_errs, train, step, sasrec_inputs, bst_inputs) -> list:
+    """The ``mpe_qat`` records: ms at DLRM's ``train_batch`` (as before),
+    and under ``shapes`` at each lookup of a recorded DLRM search and
+    retrain step, a SASRec step and a BST step."""
+    recorded = step_inputs_by_model(step, sasrec_inputs, bst_inputs)
     rec = []
     for k, line in (("fwd", 104), ("bwd", 126)):
         name = f"mixed_expectation_{k}"
+        shapes = {"dlrm train_batch": {
+            "rows": step["rows"], "ms": step["times"][k],
+            "plain_ms": step["times"][k + "_plain"],
+            "bound_ms": step["bound_ms"][k]}}
+        for model, inputs in recorded:
+            for i, r in enumerate(inputs["mpe_qat"]):
+                shapes[f"{model} lookup {i}"] = {
+                    "rows": r["rows"], "d": r["d"], "ms": r[k + "_ms"],
+                    "plain_ms": r[k + "_plain_ms"],
+                    "bound_ms": r[k + "_bound_ms"],
+                    "max_abs_err": r["max_abs_err_" + k]}
         rec.append({"name": name, "route": "cuda", "source": QAT_SOURCE,
                     "replaces": f"src/repro/kernels/mpe_qat/kernel.py:{line}",
                     "launches": train["launches"][name],
                     "max_abs_err": max(grid_errs[k == "bwd"], step["errs"][k],
-                                       bst_errs["qat_" + k]),
+                                       *(inputs["errs"]["qat_" + k]
+                                         for _, inputs in recorded)),
                     "ms": step["times"][k], "plain_ms": step["times"][k + "_plain"],
                     "bound_ms": step["bound_ms"][k], "bound_by": "bytes",
                     "library_ms": None, "bytes": step["bytes"][k],
-                    "rows": step["rows"]})
+                    "rows": step["rows"], "shapes": shapes})
     return rec
+
+
+def segment_sum_record(train, step, sasrec_inputs, bst_inputs) -> dict:
+    """The gathers' backward: ms at the SASRec step's gather with the
+    hottest segment, every gather of the recorded DLRM, SASRec and BST
+    steps under ``shapes``; the largest |difference| also as a share of
+    its gather's largest |gradient|."""
+    shapes = {f"{model} gather {i} ({r['rows']} x {r['w']} -> {r['n']})": r
+              for model, inputs in step_inputs_by_model(step, sasrec_inputs,
+                                                        bst_inputs)
+              for i, r in enumerate(inputs["segment_sum"])}
+    head = max(sasrec_inputs["segment_sum"], key=lambda r: r["hot_segment"])
+    return {"name": "segment_sum", "route": "cuda", "source": SEG_SOURCE,
+            "replaces": "aten::embedding_dense_backward, the backward of the "
+                        "lookups' two F.embedding gathers (no TPU kernel)",
+            "launches": train["launches"]["segment_sum"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "max_err_over_max_want": max(r["max_err_over_max_want"]
+                                         for r in shapes.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": head["library_ms"],
+            "library_call": "torch.ops.aten.embedding_dense_backward(grad, ids, "
+                            "n, -1, False)",
+            "bytes": head["bytes"], "shapes": shapes}
+
+
+def adam_record(train, step, sasrec_inputs, bst_inputs) -> dict:
+    """The in-place Adam pass: ms on the BST table, each recorded step's
+    largest leaf under ``shapes``; bit-identical to the plain chain
+    (max_abs_err 0)."""
+    bst = bst_inputs["adam"]
+    return {"name": "adam_step_", "route": "cuda", "source": ADAM_SOURCE,
+            "replaces": "the Trainer's elementwise passes over whole trees "
+                        "(clip scaling, Adam moments, update, apply, the "
+                        "guard's selects) in src/repro_torch/train/"
+                        "optimizer.py and loop.py; no TPU kernel",
+            "launches": train["launches"]["adam_step_"], "max_abs_err": 0.0,
+            "ms": bst["ms"], "plain_ms": bst["plain_ms"],
+            "bound_ms": bst["bound_ms"], "bound_by": "bytes",
+            "library_ms": bst["library_ms"],
+            "library_call": "torch._fused_adamw_ on the same leaf",
+            "bytes": bst["bytes"],
+            "shapes": {f"{model} largest leaf": inputs["adam"]
+                       for model, inputs in step_inputs_by_model(
+                           step, sasrec_inputs, bst_inputs)}}
 
 
 def heads_flat(x: torch.Tensor) -> torch.Tensor:
@@ -919,18 +1112,25 @@ def with_plain_kernels(fn):
             COUNTERS[name].launches = n
 
 
-def captured(fn, wrappers: dict) -> dict:
+def captured(fn, wrappers: dict, clone=()) -> dict:
     """``fn()`` with each kernel wrapper named in ``wrappers`` ({name: the
-    module the autograd Function looks it up in}) recording the arguments
-    of its calls; returns {name: [args, ...]}. The launches ``fn`` makes are
-    a comparison's and are not counted."""
+    module its caller looks it up in}) recording the arguments of its calls;
+    returns {name: [args, ...]}, keyword arguments as a dict after the
+    positional ones. The tensors of the wrappers named in ``clone`` (which
+    update them in place) are recorded as copies taken before the call. The
+    launches ``fn`` makes are a comparison's and are not counted."""
     calls, before = {name: [] for name in wrappers}, counts()
 
     def recorder(name):
-        def call(*args):
-            calls[name].append(tuple(x.detach() if torch.is_tensor(x) else x
-                                     for x in args))
-            return COUNTERS[name](*args)
+        def keep(x):
+            if not torch.is_tensor(x):
+                return x
+            return x.detach().clone() if name in clone else x.detach()
+
+        def call(*args, **kw):
+            calls[name].append(tuple(keep(x) for x in args)
+                               + ((kw,) if kw else ()))
+            return COUNTERS[name](*args, **kw)
         call.launches = 0       # the wrapper counts under its module's name
         return call
     for name, module in wrappers.items():
@@ -944,6 +1144,219 @@ def captured(fn, wrappers: dict) -> dict:
         for name, n in before.items():
             COUNTERS[name].launches = n
     return calls
+
+
+def time_qat(rows, probs, alpha, beta, g, bits, what: str) -> dict:
+    """The ``mpe_qat`` kernels timed on a path's own inputs beside their
+    plain versions and the byte bound (``qat_bytes``)."""
+    t, d = rows.shape
+    moved = qat_bytes(t, d, len(bits))
+    iters = 50 if t * d < 50_000_000 else 20
+    out = {"rows": t, "d": d, "bytes": moved}
+    out.update(uncounted(lambda: {
+        "fwd_ms": cuda_ms(lambda: qat_ops.mixed_expectation_fwd(
+            rows, probs, alpha, beta, bits), iters),
+        "fwd_plain_ms": cuda_ms(lambda: mixed_expectation_fwd_ref(
+            rows, probs, alpha, beta, bits), 3, warmup=1),
+        "bwd_ms": cuda_ms(lambda: qat_ops.mixed_expectation_bwd(
+            rows, probs, alpha, beta, g, bits), iters),
+        "bwd_plain_ms": cuda_ms(lambda: mixed_expectation_bwd_ref(
+            rows, probs, alpha, beta, g, bits, sum_dtype=torch.float64), 3,
+            warmup=1)}))
+    for k in ("fwd", "bwd"):
+        out[f"{k}_bound_ms"] = moved[k] / HBM_BYTES_PER_S * 1e3
+        log(f"mpe_qat {k} at {what} ({t} x {d}): {out[k + '_ms']:.4f} ms a "
+            f"call (plain {out[k + '_plain_ms']:.4f} ms; bound "
+            f"{out[k + '_bound_ms']:.4f} ms for {moved[k]} bytes, "
+            f"{out[k + '_bound_ms'] / out[k + '_ms']:.1%} of it)")
+    return out
+
+
+def segment_sum_bound(grad, ids, n, want) -> torch.Tensor:
+    """The elementwise bound on |kernel - plain version| of ``SEG_RTOL``:
+    2^-22·|want| + c·2^-52·Σ|rows| for a segment of c rows, 0 where a row
+    has no id."""
+    count = torch.bincount(ids, minlength=n).double()[:, None]
+    bound = segment_sum_ref(grad.abs(), ids, n).double().mul_(count)
+    del count
+    return bound.mul_(2.0 ** -52).add_(want.abs().double(), alpha=SEG_RTOL)
+
+
+def check_segment_sums(calls, what: str) -> list:
+    """Each recorded gather backward (grad, ids, n): the kernel against its
+    plain version (float64 in both, other orders: ``segment_sum_bound``, so
+    a row of a rounding-size gradient is held to its own size), twice
+    bit-identical; then timed (its wrapper: the sort, the zeroed gradient
+    and the kernels) beside the plain version, the library's dense
+    backward in float32 (the call it replaces on the path) and the byte
+    bound (the gradient rows, the ids, the dense output)."""
+    out = []
+    for grad, ids, n in calls:
+        t, w = grad.shape
+        label = f"{what}: segment_sum ({t} x {w} -> {n})"
+        got, again = uncounted(lambda: (seg_ops.segment_sum(grad, ids, n),
+                                        seg_ops.segment_sum(grad, ids, n)))
+        torch.cuda.synchronize()
+        want = segment_sum_ref(grad, ids, n)
+        diff = (got.double() - want.double()).abs()
+        inside = bool((diff <= segment_sum_bound(grad, ids, n, want)).all())
+        err, top = float(diff.max()), float(want.abs().max())
+        differ, nonzero = int((diff > 0).sum()), int((want != 0).sum())
+        del diff
+        log(f"{label}: {differ} of {got.numel()} elements differ ({nonzero} "
+            f"nonzero), max |diff| {err:.3e}, {err / max(top, 1e-30):.3e} of "
+            f"max |want| {top:.3e}")
+        check(inside, f"{label}: outside 2^-22·|want| + c·2^-52·Σ|rows| of "
+              f"the plain version (max |diff| {err:.3e})")
+        check(torch.equal(got, again), f"{label}: two runs gave other bits")
+        hot = int(torch.bincount(ids, minlength=n).max())
+        del got, again, want
+        nbytes = grad.numel() * 4 + ids.numel() * ids.element_size() + n * w * 4
+        row = {"rows": t, "w": w, "n": n, "hot_segment": hot,
+               "max_abs_err": err, "max_abs_want": top,
+               "max_err_over_max_want": err / max(top, 1e-30),
+               "elements_differ": differ, "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        row.update(uncounted(lambda: {
+            "ms": cuda_ms(lambda: seg_ops.segment_sum(grad, ids, n), 10),
+            "plain_ms": cuda_ms(lambda: segment_sum_ref(grad, ids, n), 3,
+                                warmup=1),
+            "library_ms": cuda_ms(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    grad, ids, n, -1, False), 3, warmup=1)}))
+        log(f"{label}, hot segment {hot} rows: {row['ms']:.4f} ms a call "
+            f"(plain {row['plain_ms']:.4f} ms; library dense backward "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
+            f"{row['bound_ms'] / row['ms']:.1%} of it)")
+        out.append(row)
+    return out
+
+
+def fused_adamw_ms(p, g, m, v, hyper) -> float | None:
+    """``torch._fused_adamw_`` on copies of one leaf's tensors (timed only:
+    the library's one call for an AdamW step; its decay and clip differ)."""
+    ps, ms_, vs = p.clone(), m.clone(), v.clone()
+    steps = [torch.ones((), device=p.device)]
+
+    def call():
+        torch._fused_adamw_([ps], [g], [ms_], [vs], [], steps, lr=hyper["lr"],
+                            beta1=hyper["b1"], beta2=hyper["b2"],
+                            weight_decay=hyper["weight_decay"],
+                            eps=hyper["eps"], amsgrad=False, maximize=False)
+    try:
+        return cuda_ms(call, 10)
+    except (AttributeError, RuntimeError, TypeError) as err:
+        log(f"torch._fused_adamw_ not timed: {err}")
+        return None
+
+
+def check_adam(calls, what: str) -> dict:
+    """Each recorded Adam pass (its leaf, gradient and moments as they were
+    before the step): the pass on copies against the plain chain on copies,
+    bit for bit, with the step's flag and with the flag false (then every
+    bit unchanged); the largest leaf timed beside the plain chain,
+    ``torch._fused_adamw_`` and the byte bound (p, m, v read and written,
+    g read once)."""
+    for p, g, m, v, scale, ok, bc1, bc2, hyper in calls:
+        for flag in (ok, ~ok):
+            got = [x.clone() for x in (p, m, v)]
+            want = [x.clone() for x in (p, m, v)]
+            uncounted(lambda: adam_ops.adam_step_(got[0], g, got[1], got[2],
+                                                  scale, flag, bc1, bc2,
+                                                  **hyper))
+            adam_step_ref_(want[0], g, want[1], want[2], scale, flag, bc1, bc2,
+                           **hyper)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{what}: the Adam pass on a {tuple(p.shape)} leaf differs "
+                  f"from the plain chain (flag {bool(flag)})")
+            if not bool(flag):
+                check(all(torch.equal(x, y) for x, y in zip(got, (p, m, v))),
+                      f"{what}: a skipped Adam pass changed bits")
+            del got, want
+    p, g, m, v, scale, ok, bc1, bc2, hyper = max(calls,
+                                                 key=lambda c: c[0].numel())
+    nbytes = p.numel() * (2 * 4 + 4 + 2 * 2 * m.element_size())
+    row = {"leaves": len(calls), "elements": p.numel(), "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    row.update(uncounted(lambda: {
+        "ms": cuda_ms(lambda: adam_ops.adam_step_(p, g, m, v, scale, ok, bc1,
+                                                  bc2, **hyper), 10),
+        "plain_ms": cuda_ms(lambda: adam_step_ref_(p, g, m, v, scale, ok, bc1,
+                                                   bc2, **hyper), 3, warmup=1),
+        "library_ms": fused_adamw_ms(p, g, m, v, hyper)}))
+    log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the plain "
+        f"chain, a skipped one bit-unchanged; the {tuple(p.shape)} leaf "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
+        f"torch._fused_adamw_ {row['library_ms']} ms; bound "
+        f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / row['ms']:.1%} of it)")
+    return row
+
+
+def check_step_inputs(trainer, batch, step: int, what: str) -> dict:
+    """One more training step with the ``mpe_qat`` backward, segment-sum and
+    Adam wrappers recording their arguments; on those, each kernel against
+    its plain version at the path's shapes, and timed. Returns the largest
+    |difference| of each kernel and the times."""
+    calls = captured(lambda: trainer.train_step(batch, step),
+                     {"mixed_expectation_bwd": qat_ops, "segment_sum": seg_ops,
+                      "adam_step_": optimizer_module}, clone=("adam_step_",))
+    errs = {"qat_fwd": 0.0, "qat_bwd": 0.0}
+    qat = []
+    for i, (rows, probs, alpha, beta, g, bits) in enumerate(
+            calls.pop("mixed_expectation_bwd")):
+        label = f"{what} step: mpe_qat lookup {i} at {rows.shape[0]} x {rows.shape[1]}"
+        f, b = uncounted(lambda: check_qat(rows, probs, alpha, beta, g, bits,
+                                           label))
+        errs["qat_fwd"], errs["qat_bwd"] = (max(errs["qat_fwd"], f),
+                                            max(errs["qat_bwd"], b))
+        qat.append({**time_qat(rows, probs, alpha, beta, g, bits, label),
+                    "max_abs_err_fwd": f, "max_abs_err_bwd": b})
+    seg = check_segment_sums(calls.pop("segment_sum"), f"{what} step")
+    adam_row = check_adam(calls.pop("adam_step_"), f"{what} step")
+    return {"errs": errs, "mpe_qat": qat, "segment_sum": seg, "adam": adam_row}
+
+
+def step_kernel_ms(by_name: dict) -> dict:
+    """Traced device ms of a step's ``mpe_qat``, segment-sum, sort, Adam
+    and library dense-embedding-backward kernels."""
+    def total(*keys):
+        return sum(ms for name, ms in by_name.items()
+                   if any(k in name for k in keys))
+    return {"mpe_qat_fwd": total("mpe_qat_fwd_kernel"),
+            "mpe_qat_bwd": total("mpe_qat_bwd_kernel", "mpe_qat_reduce_kernel"),
+            "segment_sum": total("segment_chunk_kernel",
+                                 "segment_combine_kernel"),
+            "sort": total("RadixSort", "radix_sort"),
+            "adam": total("adam_kernel"),
+            "library_segment_sums": total(*LIBRARY_SEGMENT_KERNELS)}
+
+
+def check_in_place_and_skip(trainer, batch, step: int, ptrs: list,
+                            what: str) -> None:
+    """Every parameter and moment leaf is still at the ``data_ptr`` it had
+    when the trainer was made; a step whose loss is made NaN is skipped and
+    leaves every leaf and Adam's step bit-unchanged."""
+    carry = leaves([trainer.params, trainer.carry["opt"]])
+    check([x.data_ptr() for x in carry] == ptrs,
+          f"{what}: a parameter or moment leaf moved: not updated in place")
+    before = [x.clone() for x in carry]
+    loss_fn = trainer.loss_fn
+
+    def nan_loss(*args, **kw):
+        loss, aux = loss_fn(*args, **kw)
+        return loss * torch.nan, aux
+    trainer.loss_fn = nan_loss
+    try:
+        out = uncounted(lambda: trainer.train_step(batch, step))
+    finally:
+        trainer.loss_fn = loss_fn
+    check(bool(out["skipped"]), f"{what}: a NaN step was not skipped")
+    check(all(torch.equal(x, y) for x, y in zip(
+        leaves([trainer.params, trainer.carry["opt"]]), before)),
+          f"{what}: a skipped step changed a parameter or moment bit")
+    log(f"{what}: {len(ptrs)} parameter and moment leaves updated in place; "
+        f"a NaN step skipped, every bit kept (Adam's step "
+        f"{int(trainer.carry['opt']['step'])})")
 
 
 def serve_cfg(cfg, n: int):
@@ -1123,6 +1536,8 @@ def phase_sasrec_train(dev, prior) -> dict:
 
     trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
     del params
+    ptrs = [x.data_ptr() for x in leaves([trainer.params, trainer.carry["opt"]])]
+    table_bytes = cfg_table_bytes(trainer.params["embedding"]["emb"])
     torch.cuda.synchronize()
     live_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1130,7 +1545,8 @@ def phase_sasrec_train(dev, prior) -> dict:
     outs, step_ms = [], []
     per_step = {"flash_attention_fwd_stats": cfg.n_blocks,
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
-                "mixed_expectation_fwd": 3, "mixed_expectation_bwd": 3}
+                "mixed_expectation_fwd": 3, "mixed_expectation_bwd": 3,
+                "segment_sum": 6, "adam_step_": len(leaves(trainer.params))}
     t_all = time.perf_counter()
     for step in range(SASREC_STEPS):
         before = counts()
@@ -1153,8 +1569,13 @@ def phase_sasrec_train(dev, prior) -> dict:
         f"launches {launches}; first step {step_ms[0]:.1f} ms, then "
         f"{steady_ms / (SASREC_STEPS - 1):.1f} ms a step (host clock to a "
         f"synchronize over {SASREC_STEPS - 1} steps); peak memory "
-        f"{peak / 1e9:.3f} GB ({live_before / 1e9:.3f} GB live before); "
-        f"batches made in {batch_s:.1f} s; losses {[round(x, 5) for x in losses]}")
+        f"{peak / 1e9:.3f} GB, {peak / table_bytes:.2f} tables (two trees: "
+        f"{TWO_TREE_PEAK_GB['sasrec']} GB; {live_before / 1e9:.3f} GB live "
+        f"before); batches made in {batch_s:.1f} s; losses "
+        f"{[round(x, 5) for x in losses]}")
+    step_inputs = check_step_inputs(trainer, batches[0], SASREC_STEPS, "sasrec")
+    check_in_place_and_skip(trainer, batches[1], SASREC_STEPS + 1, ptrs,
+                            "sasrec train")
 
     # Eq. 11 sampling and the packed export of the trained table, served
     mpe = as_mpe_config(cfg.comp_cfg)
@@ -1176,17 +1597,21 @@ def phase_sasrec_train(dev, prior) -> dict:
                                         "top")}
     step_view["flash_ms"] = {kind: flash_kernel_ms(traced["by_name"], kind)
                              for kind in ("fwd", "bwd")}
+    step_view["kernel_ms"] = step_kernel_ms(traced["by_name"])
     check(all(ms > 0 for ms in step_view["flash_ms"].values()),
           f"traced sasrec train step: flash kernels missing from the trace "
           f"({step_view['flash_ms']})")
     log(f"traced sasrec train step: wall {traced['wall_ms']:.1f} ms, device "
         f"busy {traced['busy_ms']:.1f} ms (idle share "
-        f"{traced['idle_share']:.3f}); flash {step_view['flash_ms']}; top "
+        f"{traced['idle_share']:.3f}); flash {step_view['flash_ms']}; "
+        f"{step_view['kernel_ms']}; top "
         + "; ".join(f"{n} {ms:.2f} ms" for n, ms in traced["top"]))
     return {"launches": launches, "first_step_ms": step_ms[0],
             "step_ms": steady_ms / (SASREC_STEPS - 1), "peak_bytes": peak,
+            "table_bytes": table_bytes, "peak_tables": peak / table_bytes,
             "live_bytes_before": live_before, "losses": losses,
-            "storage_ratio": ratio, "served": served, "traced_step": step_view}
+            "storage_ratio": ratio, "served": served, "traced_step": step_view,
+            "step_inputs": step_inputs}
 
 
 def flash_work(bh: int, s: int, hd: int, kind: str, causal: bool = True) -> dict:
@@ -1637,6 +2062,8 @@ def phase_bst_train(dev, prior) -> dict:
 
     trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
     del params
+    ptrs = [x.data_ptr() for x in leaves([trainer.params, trainer.carry["opt"]])]
+    table_bytes = cfg_table_bytes(trainer.params["embedding"]["emb"])
     torch.cuda.synchronize()
     live_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1644,7 +2071,8 @@ def phase_bst_train(dev, prior) -> dict:
     per_step = {"flash_attention_fwd_stats": cfg.n_blocks,
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
                 "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
-                "mpe_lookup": 0, "embedding_bag_fwd": 0}
+                "mpe_lookup": 0, "embedding_bag_fwd": 0, "segment_sum": 4,
+                "adam_step_": len(leaves(trainer.params))}
     outs, step_ms = [], []
     t_all = time.perf_counter()
     for step in range(BST_STEPS):
@@ -1668,9 +2096,16 @@ def phase_bst_train(dev, prior) -> dict:
         f"{launches}; first step {step_ms[0]:.1f} ms, then "
         f"{steady_ms / (BST_STEPS - 1):.1f} ms a step (host clock to a "
         f"synchronize over {BST_STEPS - 1} steps); peak memory "
-        f"{peak / 1e9:.3f} GB ({live_before / 1e9:.3f} GB live before); "
+        f"{peak / 1e9:.3f} GB, {peak / table_bytes:.2f} tables (two trees: "
+        f"{TWO_TREE_PEAK_GB['bst']} GB; {live_before / 1e9:.3f} GB live before); "
         f"batches made in {batch_s:.1f} s; losses {[round(x, 5) for x in losses]}")
     step_inputs = check_bst_step_inputs(trainer, batches[0], BST_STEPS, cfg)
+    more = check_step_inputs(trainer, batches[1], BST_STEPS + 1, "bst")
+    errs = step_inputs["errs"]
+    errs.update({k: max(v, errs[k]) for k, v in more.pop("errs").items()})
+    step_inputs.update(more)
+    check_in_place_and_skip(trainer, batches[0], BST_STEPS + 2, ptrs,
+                            "bst train")
 
     # Eq. 11 sampling and the packed export of the trained table, served
     mpe = as_mpe_config(cfg.comp_cfg)
@@ -1689,7 +2124,7 @@ def phase_bst_train(dev, prior) -> dict:
                        ("serve_p99", "retrieval_cand"))
     del sparams, table
 
-    traced = trace(lambda: trainer.train_step(batches[0], BST_STEPS + 1), 1)
+    traced = trace(lambda: trainer.train_step(batches[0], BST_STEPS + 3), 1)
     step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
                                         "top")}
     step_view["kernel_ms"] = {
@@ -1698,6 +2133,7 @@ def phase_bst_train(dev, prior) -> dict:
     step_view["kernel_ms"].update({
         kind: sum(ms for name, ms in traced["by_name"].items() if kind in name)
         for kind in ("mpe_qat_fwd_kernel", "mpe_qat_bwd_kernel")})
+    step_view["kernel_ms"].update(step_kernel_ms(traced["by_name"]))
     check(step_view["kernel_ms"]["flash_fwd"] > 0
           and step_view["kernel_ms"]["flash_bwd"] > 0,
           f"traced bst train step: flash kernels missing from the trace "
@@ -1708,6 +2144,7 @@ def phase_bst_train(dev, prior) -> dict:
         + "; ".join(f"{n} {ms:.2f} ms" for n, ms in traced["top"]))
     return {"launches": launches, "first_step_ms": step_ms[0],
             "step_ms": steady_ms / (BST_STEPS - 1), "peak_bytes": peak,
+            "table_bytes": table_bytes, "peak_tables": peak / table_bytes,
             "live_bytes_before": live_before, "losses": losses,
             "storage_ratio": ratio, "served": served, "traced_step": step_view,
             "step_inputs": step_inputs,
@@ -1868,7 +2305,13 @@ def main() -> int:
     log(json.dumps({"bst_serve": bst_serve, "bst_train": bst_train,
                     "bag": bag}))
     bst_errs = bst_train["step_inputs"]["errs"]
-    records = [kernel, *qat_records(qat_grid_errs, train, step, bst_errs),
+    records = [kernel, *qat_records(qat_grid_errs, train, step,
+                                    sasrec_train["step_inputs"],
+                                    bst_train["step_inputs"]),
+               segment_sum_record(train, step, sasrec_train["step_inputs"],
+                                  bst_train["step_inputs"]),
+               adam_record(train, step, sasrec_train["step_inputs"],
+                           bst_train["step_inputs"]),
                bag_record(bag_grid_errs, bag),
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs)]

@@ -13,10 +13,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import quantizer
 from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
+from repro_torch.kernels.segment_sum.ops import gather
 from repro_torch.nn import init as initializers
 
 
@@ -87,14 +87,14 @@ class MPESearchEmbedding:
     def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
         """ids: int of any shape -> (*ids.shape, d) mixed-precision embeddings."""
         flat = ids.reshape(-1).long()
-        # both gathers through F.embedding, not x[idx]: its backward sums
-        # each row's gradient over a sorted segment of indices, where
-        # index_put_'s walks the duplicates one by one, and a Zipf batch
-        # sends a large share of its lookups to the few groups of its most
-        # frequent features; both give the dense gradient
-        rows = F.embedding(flat, params["emb"])                  # (T, d)
+        # both gathers through ``gather``: its backward sums each row's
+        # gradient over its sorted segment of indices in float64, a long
+        # segment cut over many workers. A Zipf batch sends half of its
+        # lookups to the group of its most frequent features; the
+        # library's backward sums each segment's partials in one thread
+        rows = gather(params["emb"], flat)                       # (T, d)
         p = MPESearchEmbedding.probabilities(params, cfg)        # (g, m)
-        probs = F.embedding(buffers["group_of_feature"][flat].long(), p)
+        probs = gather(p, buffers["group_of_feature"][flat].long())
         out = mixed_expectation_kernel(rows, probs, params["alpha"],
                                        params["beta"], cfg.bits)
         return out.reshape(*ids.shape, out.shape[-1])

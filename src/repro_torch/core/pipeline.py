@@ -15,10 +15,12 @@ The model is supplied as a builder: build(seed, compressor, comp_cfg) ->
 {"params", "buffers", "state", "loss_fn", "eval_fn"} where loss_fn follows
 the Trainer signature.
 
-Every phase runs where ``build`` puts the model. The trainer never updates a
-tensor in place, so the search phase's initial parameters stay intact and
-serve as the snapshot that "mpe" and "lth" reset to; the search trainer and
-its optimizer state are freed before the retrain phase starts.
+Every phase runs where ``build`` puts the model. The trainer updates the
+tree it is handed in place, so the pipeline takes host snapshots, as the
+reference does: of the initial parameters, which "mpe" and "lth" reset to,
+and of the search phase's results. The retrain phase starts from device
+copies of them; the search trainer and its optimizer state are freed before
+it starts.
 """
 from __future__ import annotations
 
@@ -33,6 +35,17 @@ from repro_torch.core.sampling import (MPERetrainEmbedding, average_bits,
                                        feature_bits, sample_group_bits,
                                        storage_ratio)
 from repro_torch.train.loop import Trainer
+from repro_torch.train.tree import tree_map
+
+
+def _snapshot(tree):
+    """A copy of ``tree`` in host memory that no trainer updates."""
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _on(tree, device):
+    """A copy of ``tree`` on ``device`` (a host snapshot stays untouched)."""
+    return tree_map(lambda x: x.to(device, copy=True), tree)
 
 
 def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
@@ -46,20 +59,24 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
 
     # ---------------- phase 1: precision search ----------------
     bundle = build(seed, "mpe_search", comp_cfg)
-    init_params = bundle["params"]
-    device = init_params["embedding"]["emb"].device
-    trainer = Trainer(bundle["loss_fn"], init_params, bundle["buffers"],
-                      bundle["state"], optimizer)
+    device = bundle["params"]["embedding"]["emb"].device
+    init_snapshot = _snapshot(bundle["params"])
+    trainer = Trainer(bundle["loss_fn"], bundle.pop("params"),
+                      bundle["buffers"], bundle["state"], optimizer)
     log_fn(f"[mpe] search phase: {search_steps} steps")
     t0 = time.perf_counter()
     trainer.run(data_fn, search_steps, log_fn=log_fn)
     seconds["search"] = time.perf_counter() - t0
-    search_params, search_state = trainer.params, trainer.state
+    # host snapshots: the trainers update their trees in place, so later
+    # phases must not alias this one's device tensors
+    search_params = _snapshot(trainer.params)
+    search_state = _snapshot(trainer.state)
     search_history = trainer.history
-    del trainer  # its optimizer state: two more tables' worth
+    del trainer  # the searched tree and its optimizer state: three tables
 
     # ---------------- phase 2: precision sampling (Eq. 11) ----------------
-    group_bits = sample_group_bits(search_params["embedding"], mpe_cfg)
+    group_bits = sample_group_bits(
+        {"gamma": search_params["embedding"]["gamma"].to(device)}, mpe_cfg)
     gof = bundle["buffers"]["embedding"]["group_of_feature"]
     fbits = feature_bits(group_bits, gof)
     avg_b = average_bits(fbits, mpe_cfg)
@@ -67,22 +84,18 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
     log_fn(f"[mpe] sampled avg bits={avg_b:.3f} ratio={ratio:.4f}")
 
     # ---------------- phase 3: retraining ----------------
-    searched_alpha = search_params["embedding"]["alpha"]
-    searched_beta = search_params["embedding"]["beta"]
     if retrain_mode == "none":
-        emb_src = search_params["embedding"]["emb"]
-        base = search_params
-        steps = 0
+        base, emb_host, steps = search_params, search_params, 0
     elif retrain_mode == "lth":
-        base = init_params
-        emb_src = base["embedding"]["emb"]
-        searched_alpha = base["embedding"]["alpha"]
-        searched_beta = base["embedding"]["beta"]
-        steps = retrain_steps
-    else:  # "mpe"
-        base = search_params                         # warm-start W (paper §3.4)
-        emb_src = init_params["embedding"]["emb"]
-        steps = retrain_steps
+        base, emb_host, steps = init_snapshot, init_snapshot, retrain_steps
+    else:  # "mpe": warm-start α, β and W (paper §3.4), the table from init
+        base, emb_host, steps = search_params, init_snapshot, retrain_steps
+    base = _on({k: v for k, v in base.items() if k != "embedding"}
+               | {"embedding": {k: v for k, v in base["embedding"].items()
+                                if k in ("alpha", "beta")}}, device)
+    emb_src = emb_host["embedding"]["emb"].to(device, copy=True)
+    searched_alpha = base["embedding"]["alpha"]
+    searched_beta = base["embedding"]["beta"]
 
     emb_params, emb_buffers = MPERetrainEmbedding.init(
         emb_src, searched_alpha, searched_beta, fbits)
@@ -97,7 +110,7 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
                                      "beta": searched_beta, "bits_idx": fbits})
     # rebuilt only for the loss_fn closure; our params/state are swapped in
     trainer2 = Trainer(rb["loss_fn"], retrain_params, retrain_buffers,
-                       search_state, optimizer)
+                       _on(search_state, device), optimizer)
     del rb
     t0 = time.perf_counter()
     if steps:

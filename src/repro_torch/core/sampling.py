@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding
 from repro_torch.kernels.mpe_qat.ops import mixed_expectation_kernel
+from repro_torch.kernels.segment_sum.ops import gather
 
 
 def sample_group_bits(params, cfg: MPEConfig) -> torch.Tensor:
@@ -62,7 +63,7 @@ class MPERetrainEmbedding:
     @staticmethod
     def lookup(params, buffers, ids: torch.Tensor, cfg: MPEConfig) -> torch.Tensor:
         flat = ids.reshape(-1).long()
-        rows = F.embedding(flat, params["emb"])   # (T, d), as in the search
+        rows = gather(params["emb"], flat)        # (T, d), as in the search
         widx = buffers["bits_idx"][flat].long()                   # (T,)
         onehot = F.one_hot(widx, len(cfg.bits)).to(rows.dtype)
         out = mixed_expectation_kernel(rows, onehot, params["alpha"],

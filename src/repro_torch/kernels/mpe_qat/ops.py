@@ -6,7 +6,8 @@ CPU.
 On CUDA tensors it launches the kernels or raises; there is no fallback.
 ``mixed_expectation_fwd.launches`` and ``mixed_expectation_bwd.launches``
 count kernel launches, and only those (one backward launch is the main
-kernel and its small reduction of the per-block partials).
+kernel and its small reduction of the per-block partials). The kernels
+pick their vector width from d and the tensors' alignment themselves.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
 
 MAX_WIDTHS = 16   # kMaxWidths in csrc/mpe_qat.cu
 MAX_BITS = 24     # kMaxBits
-MAX_D = 256       # kThreads: a tile row of d elements fits one block
+MAX_D = 256       # kMaxD: a row's lanes fit one warp
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,12 +113,13 @@ def mixed_expectation_bwd(rows, probs, alpha, beta, g, bits):
     if t == 0:
         return drows, dprobs, torch.zeros_like(alpha), torch.zeros_like(beta)
     lib = _library()
-    partials = torch.empty((lib.mpe_qat_bwd_partial_rows(t, d), m + d),
-                           dtype=torch.float64, device=rows.device)
     sums = torch.empty((m + d,), dtype=torch.float32, device=rows.device)
     c_bits = _bits_array(bits)
     dev = rows.device
     with torch.cuda.device(dev):
+        # float64 scratch for the per-block partials of dα and dβ
+        partials = torch.empty((lib.mpe_qat_bwd_partial_rows(t, d), m + d),
+                               dtype=torch.float64, device=dev)
         err = lib.mpe_qat_bwd(
             rows.data_ptr(), probs.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), g.data_ptr(), ctypes.addressof(c_bits), m, t, d,

@@ -1,0 +1,115 @@
+"""Public wrapper of the gather's backward: the CUDA kernels of
+``csrc/segment_sum.cu`` for tensors on the card, the plain version
+(``ref.py``) for tensors on the CPU; and ``gather``, a row gather whose
+backward it is.
+
+``gather(table, ids)`` is ``F.embedding(ids, table)`` in its forward. Its
+backward sums the (T, w) cotangent into the dense (N, w) table gradient:
+on the card it sorts the ids stably (``torch.sort``; the kernel is the
+sum), zeroes the gradient and launches the kernel, which sums every
+segment in float64 in a fixed order, a long one cut over many workers,
+with no float atomics; on the CPU it takes the plain version.
+
+On CUDA tensors it launches the kernel or raises; there is no fallback.
+``segment_sum.launches`` counts launches (one is the chunk kernel and its
+combine), and only those.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+
+MAX_W = 256          # kMaxW in csrc/segment_sum.cu
+MAX_N = 2 ** 31 - 1  # the kernel's ids are int32
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("segment_sum")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.segment_sum.argtypes = [p, p, p, ll, i, p, p, p, p]
+    lib.segment_sum.restype = i
+    lib.segment_sum_chunks.argtypes = [ll]
+    lib.segment_sum_chunks.restype = ll
+    return lib
+
+
+def _check(grad, ids, n):
+    """Raise on what the kernel does not take: a float32 contiguous (T, w)
+    gradient with 1 <= w <= 256, int32 or int64 ids (T,) on its device,
+    and n < 2^31."""
+    if grad.ndim != 2 or not 1 <= grad.shape[1] <= MAX_W:
+        raise ValueError(f"grad must be (T, w) with 1 <= w <= {MAX_W}, got "
+                         f"{tuple(grad.shape)}")
+    if grad.dtype != torch.float32:
+        raise TypeError(f"grad: expected torch.float32, got {grad.dtype}")
+    if not grad.is_contiguous():
+        raise ValueError("grad must be contiguous")
+    if ids.device != grad.device:
+        raise ValueError(f"ids lie on {ids.device}, grad on {grad.device}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids: expected int32 or int64, got {ids.dtype}")
+    if tuple(ids.shape) != (grad.shape[0],):
+        raise ValueError(f"ids: expected shape ({grad.shape[0]},), got "
+                         f"{tuple(ids.shape)}")
+    if not 0 <= n <= MAX_N:
+        raise ValueError(f"n={n} outside the kernel's 0..{MAX_N}")
+
+
+def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, w) float32: row i is the sum of the rows of ``grad`` (T, w) whose
+    id is i, 0 where there is none; summed in float64, rounded once."""
+    if grad.device.type == "cpu":
+        return segment_sum_ref(grad, ids, n)
+    if grad.device.type != "cuda":
+        raise ValueError(f"segment_sum runs on CUDA or the CPU, not on "
+                         f"{grad.device}")
+    _check(grad, ids, n)
+    t, w = grad.shape
+    out = torch.zeros((n, w), dtype=torch.float32, device=grad.device)
+    if t == 0:
+        return out
+    sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+    lib = _library()
+    chunks = lib.segment_sum_chunks(t)
+    scratch = torch.empty((2 * w * chunks,), dtype=torch.float64,
+                          device=grad.device)
+    flags = torch.empty((chunks,), dtype=torch.uint8, device=grad.device)
+    dev = grad.device
+    with torch.cuda.device(dev):
+        err = lib.segment_sum(
+            grad.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(), t, w,
+            out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return segment_sum(g.contiguous(), ids, ctx.n), None
+
+
+def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for 1-D ids (T,) -> (T, w), differentiable in the
+    table: its gradient is ``segment_sum`` of the cotangent."""
+    return _Gather.apply(table, ids)

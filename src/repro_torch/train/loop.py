@@ -12,12 +12,16 @@ the reference), the compressor's post-update hook, and data keyed by step.
 Checkpoints, the device mesh, gradient compression and prefetch are not
 ported yet.
 
-The guard runs on the device with ``torch.where``: no step waits for the
-host, at the price of holding the old and the new trees at once while it
-selects. Nothing in a step copies from the host but its batch, so the host
-makes the next batch while the device runs this step. Tensors are never
-updated in place, so a tree handed to the trainer (the pipeline's initial
-parameters) keeps its values.
+The parameters, both Adam moments and Adam's step are updated in place, as
+the reference's jitted step updates its donated carry: after the backward
+pass, one pass per leaf applies the clip's scale, Adam and the weight decay
+(``optimizer.update_``), so no second tree is alive at any time. The
+guard stays on the device and exact: the pass reads the step's ``ok`` flag
+from device memory and writes nothing where it is false, so no step waits
+for the host. Nothing in a step copies from the host but its batch, so the
+host makes the next batch while the device runs this step. A tree handed to
+the trainer is the tree it trains: whoever needs its starting values keeps
+a copy (the pipeline takes host snapshots, as the reference does).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.train.optimizer import apply_updates, clip_by_global_norm
+from repro_torch.train.optimizer import clip_scale
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
 CLIP_NORM = 10.0   # the reference Trainer's default clip_norm
@@ -63,20 +67,14 @@ class Trainer:
                                                      batch, step=step_t)
             grads = torch.autograd.grad(loss, flat)
         loss, metric = loss.detach(), metric.detach()
-        grads, gnorm = clip_by_global_norm(unflatten(params, list(grads)),
-                                           CLIP_NORM)
-        updates, new_opt = self.optimizer.update(grads, opt_state, params)
-        del grads
-        new_params = apply_updates(params, updates)
-        del updates
+        del flat, live
+        scale, gnorm = clip_scale(grads, CLIP_NORM)
         # NaN guard: skip the whole update on a non-finite norm or loss
         ok = torch.isfinite(gnorm) & torch.isfinite(loss)
-        new_params = tree_map(lambda n, o: torch.where(ok, n, o),
-                              new_params, params)
-        new_opt = tree_map(lambda n, o: torch.where(ok, n, o),
-                           new_opt, opt_state)
-        self.carry = {"params": new_params, "state": _detached(new_state),
-                      "opt": new_opt}
+        self.optimizer.update_(params, unflatten(params, list(grads)),
+                               opt_state, scale, ok)
+        del grads
+        self.carry["state"] = _detached(new_state)
         return {"loss": loss, "metric": metric, "grad_norm": gnorm,
                 "skipped": ~ok}
 

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA ``mpe_lookup``, ``mpe_qat``, flash
-attention and embedding-bag kernels against their plain PyTorch versions,
-their wrappers' checks and launch counts, the backwards' repeatability, the
-engine on the card against the engine on the CPU, DLRM and SASRec training
-and BST serving and training that go through the kernels.
+attention, embedding-bag, segment-sum and Adam kernels against their plain
+PyTorch versions, their wrappers' checks and launch counts, the backwards'
+repeatability, the engine on the card against the engine on the CPU, DLRM
+and SASRec training and BST serving and training that go through the
+kernels, the trainer's in-place step and its peak memory.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -32,15 +33,21 @@ from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref
 from repro_torch.kernels.mpe_qat import ops as qat_ops
 from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
                                              mixed_expectation_fwd_ref)
+from repro_torch.kernels.adam import ops as adam_ops
+from repro_torch.kernels.adam.ref import adam_step_ref_
+from repro_torch.kernels.segment_sum import ops as seg_ops
+from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.bst import BST
 from repro_torch.models.dlrm import DLRM
+from repro_torch.models.dlrm import DLRMConfig
+from repro_torch.embeddings.table import FieldSpec
 from repro_torch.models.sasrec import SASRec
 from repro_torch.nn.attention import MHA
 from repro_torch.train.loop import Trainer
 from repro_torch.train.optimizer import adam
-from repro_torch.train.tree import tree_map
+from repro_torch.train.tree import leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -162,9 +169,10 @@ def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
     """out and drows bit-identical to the plain version (the same FMAs);
     dprobs, dalpha, dbeta, summed in float64 in another order, at rtol 1e-4 /
     atol 1e-6."""
-    grid = [(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
+    grid = ([(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
+            + [tuple(range(10)), (0, 23, 24)])
     for bits in grid:
-        for d in (8, 16, 50, 64):
+        for d in (8, 16, 32, 33, 50, 64):
             for t in (1, 255, 257, 4099):
                 rows, probs, alpha, beta, g = _qat_inputs(
                     rng, t, d, bits, cuda_device, onehot)
@@ -181,9 +189,10 @@ def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
                     torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-6)
 
 
-def test_qat_backward_is_repeatable(cuda_device, rng):
+@pytest.mark.parametrize("d", [16, 32, 50])
+def test_qat_backward_is_repeatable(cuda_device, rng, d):
     bits = (0, 1, 2, 3, 4, 5, 6)
-    rows, probs, alpha, beta, g = _qat_inputs(rng, 100_003, 16, bits, cuda_device)
+    rows, probs, alpha, beta, g = _qat_inputs(rng, 100_003, d, bits, cuda_device)
     first = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
     again = qat_ops.mixed_expectation_bwd(rows, probs, alpha, beta, g, bits)
     for x, y in zip(first, again):
@@ -519,3 +528,144 @@ def test_bst_apply_and_training_launch_the_counted_kernels(cuda_device, rng):
             qat_ops.mixed_expectation_bwd.launches - qat0[1]] == [4, 4]
     assert all(np.isfinite(h["loss"]) and not h["skipped"]
                for h in trainer.history)
+
+
+@pytest.mark.parametrize("w", [7, 32, 50])
+def test_segment_sum_kernel_matches_plain_on_a_hot_segment(cuda_device, rng,
+                                                            w):
+    """The gather's backward on 1.5 M ids, 1.1 M of them in one segment
+    (a Zipf-hot group or item) and the rest Zipf-spread over 200,000 rows:
+    within rtol 1e-6 / atol 1e-6 of the plain version (both sum in float64
+    and round once, in other orders), twice bit-identical, one launch."""
+    t, n = 1_500_000, 200_000
+    ids = (rng.zipf(1.2, t) % n).astype(np.int64)
+    ids[rng.random(t) < 0.75] = 4321
+    ids = torch.from_numpy(ids).to(cuda_device)
+    grad = torch.randn((t, w), device=cuda_device)
+    before = seg_ops.segment_sum.launches
+    got = seg_ops.segment_sum(grad, ids, n)
+    again = seg_ops.segment_sum(grad, ids, n)
+    torch.cuda.synchronize()
+    assert seg_ops.segment_sum.launches == before + 2
+    assert int((ids == 4321).sum()) > 1_000_000
+    want = segment_sum_ref(grad, ids, n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, again)
+
+
+def test_gather_launches_the_segment_sum_backward(cuda_device, rng):
+    table = torch.randn((1000, 7), device=cuda_device, requires_grad=True)
+    ids = torch.from_numpy(rng.integers(0, 1000, 5000)).to(cuda_device)
+    before = seg_ops.segment_sum.launches
+    out = seg_ops.gather(table, ids)
+    assert torch.equal(out, table.detach()[ids])
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert seg_ops.segment_sum.launches == before + 1
+    torch.testing.assert_close(table.grad, segment_sum_ref(g, ids, 1000),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(TypeError):
+        seg_ops.segment_sum(g.double(), ids, 1000)
+    with pytest.raises(ValueError, match="lie on"):
+        seg_ops.segment_sum(g, ids.cpu(), 1000)
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_adam_pass_matches_the_plain_chain_bit_for_bit(cuda_device, rng,
+                                                       moments):
+    """The fused pass against ``optimizer.py``'s chain of torch calls on the
+    card, bit for bit, on a table and a bias (no weight decay); a step
+    whose flag is false leaves all three tensors bit-unchanged."""
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=3e-6)
+    step = torch.full((), 7.0, device=cuda_device)
+    bc1 = 1 - torch.pow(torch.full((), 0.9, device=cuda_device), step)
+    bc2 = 1 - torch.pow(torch.full((), 0.999, device=cuda_device), step)
+    scale = torch.full((), 0.37, device=cuda_device)
+    for shape in [(100_003, 16), (513,)]:
+        p, g = (torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+                .to(cuda_device) for s in (1.0, 3.0))
+        m = torch.from_numpy(rng.normal(0, 0.1, shape).astype(np.float32)
+                             ).to(cuda_device, moments)
+        v = torch.from_numpy(rng.uniform(0, 0.1, shape).astype(np.float32)
+                             ).to(cuda_device, moments)
+        for ok in (True, False):
+            ok_t = torch.full((), ok, device=cuda_device)
+            got = [x.clone() for x in (p, m, v)]
+            want = [x.clone() for x in (p, m, v)]
+            before = adam_ops.adam_step_.launches
+            adam_ops.adam_step_(*got[:1], g, *got[1:], scale, ok_t, bc1, bc2,
+                                **hyper)
+            assert adam_ops.adam_step_.launches == before + 1
+            adam_step_ref_(*want[:1], g, *want[1:], scale, ok_t, bc1, bc2,
+                           **hyper)
+            for x, y, x0 in zip(got, want, (p, m, v)):
+                assert torch.equal(x, y)
+                assert torch.equal(x, x0) != ok
+
+
+def _dlrm_with_a_large_table(device):
+    """A DLRM whose table (4 x 1,000,000 x 16 = 256 MB) dwarfs the rest."""
+    fields = tuple(FieldSpec(f"f{i}", 1_000_000) for i in range(4))
+    cfg = DLRMConfig(fields=fields, d_embed=16, mlp_hidden=(64, 32),
+                     backbone="dnn", compressor="mpe_search",
+                     comp_cfg=MPEConfig(lam=3e-5)._asdict())
+    spec = CTRSpec(field_vocabs=tuple(f.vocab for f in fields),
+                   batch_size=4096, seed=0)
+    ds = SyntheticCTR(spec)
+    params, buffers, state = DLRM.init(cfg, ds.expected_frequencies(), seed=0,
+                                       device=device)
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        return DLRM.loss_fn(p, bu, st, batch, cfg, lam=3e-5, step=step)
+    return Trainer(loss_fn, params, buffers, state, adam(1e-3)), ds
+
+
+def test_trainer_step_updates_in_place_and_skips_exactly(cuda_device):
+    """On the card, a step leaves every parameter and moment leaf at its
+    ``data_ptr`` with new values and launches the Adam pass once a leaf; a
+    step whose loss is not finite leaves every leaf and Adam's step
+    bit-unchanged."""
+    trainer, ds = _dlrm_with_a_large_table(cuda_device)
+    trainer.run(ds.batch, 1, log_every=0)
+    carry = leaves([trainer.params, trainer.carry["opt"]])
+    ptrs = [x.data_ptr() for x in carry]
+    before = [x.clone() for x in carry]
+    launches = adam_ops.adam_step_.launches
+    trainer.run(ds.batch, 2, log_every=0)
+    assert adam_ops.adam_step_.launches - launches == len(leaves(trainer.params))
+    after = leaves([trainer.params, trainer.carry["opt"]])
+    assert [x.data_ptr() for x in after] == ptrs
+    assert not torch.equal(after[0], before[0])
+    assert int(trainer.carry["opt"]["step"]) == 2
+    loss_fn = trainer.loss_fn
+
+    def nan_loss(*args, **kw):
+        loss, aux = loss_fn(*args, **kw)
+        return loss * torch.nan, aux
+    trainer.loss_fn = nan_loss
+    before = [x.clone() for x in after]
+    out = trainer.train_step({k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+                              for k, v in ds.batch(2).items()}, 2)
+    assert bool(out["skipped"])
+    for x, y in zip(leaves([trainer.params, trainer.carry["opt"]]), before):
+        assert torch.equal(x, y)
+    assert int(trainer.carry["opt"]["step"]) == 2
+
+
+def test_trainer_step_peak_memory_is_under_five_and_a_half_tables(
+        cuda_device):
+    """One step of a DLRM whose table dwarfs the rest peaks at five tables'
+    bytes and the small rest: the table, its two Adam moments, its gradient
+    and the clip's square of the gradient (one leaf at a time); nothing of
+    a second tree (the tree route held nine and more)."""
+    trainer, ds = _dlrm_with_a_large_table(cuda_device)
+    trainer.run(ds.batch, 1, log_every=0)
+    table = trainer.params["embedding"]["emb"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(ds.batch, 2, log_every=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ratio = peak / (table.numel() * table.element_size())
+    assert ratio < 5.5, ratio

@@ -12,10 +12,15 @@
   (``tests/test_kernels.py``), the reductions being summed in another order.
 - The CPU path of ``mixed_expectation_kernel`` (the ``autograd.Function``)
   against autograd through the ``lsq_quantize`` composition.
+- The CUDA kernels' division ``(e − β) / α`` as a multiply by the correctly
+  rounded reciprocal and one Markstein correction step, against the
+  rounded quotient in exact arithmetic, over the range of α in use.
 
 The CUDA kernels are held against ``ref.py`` on the card in
 ``test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +34,7 @@ from repro_torch.core import quantizer
 from repro_torch.kernels.mpe_qat import ops
 from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
                                              mixed_expectation_fwd_ref)
+from test_torch_flash_attention import _round_f32
 
 FWD = dict(rtol=1e-5, atol=1e-7)
 RED = dict(rtol=1e-4, atol=1e-6)
@@ -191,3 +197,23 @@ def test_wrapper_checks_what_the_kernels_take(rng):
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.mixed_expectation_fwd(rows.to("meta"), probs.to("meta"),
                                   alpha.to("meta"), beta.to("meta"), bits)
+
+
+def test_division_step_gives_the_division_over_the_alpha_range_in_use():
+    """The kernels form v = t / α as q = t·r, r = RN(1/α), then
+    fma(fma(−q, α, t), r, q): equal to the rounded quotient for step sizes
+    α over six decades below 1 (the init gives 4.2e-4 .. 4.8e-3 at 8 .. 1
+    bits, and training moves them by lr a step), α whose significand is all
+    ones, and t = e − β over twelve decades of either sign."""
+    rng = np.random.default_rng(0)
+    alphas = [np.float32(10.0 ** rng.uniform(-6, 0)) for _ in range(4000)]
+    alphas += [np.nextafter(np.float32(2.0 ** -k), np.float32(0))
+               for k in range(1, 20)]
+    alphas += [np.float32(jquantizer.init_alpha(3e-3, b)) for b in range(1, 9)]
+    for alpha in alphas:
+        t = np.float32(rng.choice([-1, 1]) * 10.0 ** rng.uniform(-12, 1))
+        a, d = Fraction(float(t)), Fraction(float(alpha))
+        r = _round_f32(1 / d)
+        q = _round_f32(a * r)
+        step = _round_f32(_round_f32(a - q * d) * r + q)
+        assert step == _round_f32(a / d), (t, alpha)

@@ -282,6 +282,38 @@ def test_retraining_mode_lth_resets_every_param(pipeline_result):
     assert not torch.equal(kernel(res["search_params"]), kernel(init))
 
 
+@pytest.mark.parametrize("retrain_steps", [0, 2])
+def test_pipeline_snapshots_are_unchanged_by_the_trainers(pipeline_result,
+                                                          retrain_steps):
+    """The search trainer updates the tree ``build`` hands it in place. The
+    pipeline's host snapshot of the initial parameters is what "mpe" resets
+    the table to (with no retrain step the exported table is the init's),
+    and its snapshot of the search results is what the search left, which
+    the retrain phase does not touch."""
+    ds, build = pipeline_result["_ds"], pipeline_result["_build"]
+    cfg = MPEConfig(lam=LAM)
+    handed = {}
+
+    def spy(seed, compressor, comp_cfg):
+        bundle = build(seed, compressor, comp_cfg)
+        if compressor == "mpe_search":
+            handed.update(bundle["params"]["embedding"])
+        return bundle
+    res = run_mpe_pipeline(
+        spy, ds.batch, seed=1, mpe_cfg=cfg, optimizer=adam(1e-3),
+        search_steps=3, retrain_steps=retrain_steps, retrain_mode="mpe",
+        log_fn=lambda *a: None)
+    init = build(1, "mpe_search", cfg._asdict())["params"]["embedding"]
+    searched, final = (res["search_params"]["embedding"],
+                       res["final_params"]["embedding"])
+    assert not torch.equal(handed["emb"], init["emb"])   # trained in place
+    for k in ("emb", "gamma", "alpha", "beta"):
+        assert torch.equal(searched[k], handed[k])
+    assert torch.equal(final["emb"], init["emb"]) == (retrain_steps == 0)
+    assert torch.equal(final["alpha"], searched["alpha"]) == (
+        retrain_steps == 0)
+
+
 def test_training_launcher_on_the_cpu(capsys):
     res = launch_train.main(["--reduced", "--device", "cpu", "--steps", "3",
                              "--retrain-steps", "2", "--batch", "128"])

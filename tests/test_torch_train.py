@@ -9,8 +9,9 @@ by the reference and carried into the port (``jax.random`` and
   atol 1e-6 times the largest gradient of the tree: they are sums over the
   batch taken in another order, and the layer biases in front of
   BatchNorm, which BatchNorm cancels, get gradients of rounding size);
-- ``adam`` updates and ``clip_by_global_norm`` (rtol 1e-5: the jitted
-  reference may fuse its multiply-adds), also with bfloat16 moments;
+- ``adam``'s in-place ``update_`` after ``clip_scale`` against the
+  reference's ``update`` after ``clip_by_global_norm`` (rtol 1e-5: the
+  jitted reference may fuse its multiply-adds), also with bfloat16 moments;
 - ``auc`` with ties and ``logloss``;
 - a 5-step ``Trainer`` loss trajectory (loss rtol 1e-4) and a step with an
   injected NaN, which both trainers skip in the same way; the post-update
@@ -50,7 +51,7 @@ from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.nn.norms import BatchNorm
 from repro_torch.train import metrics
 from repro_torch.train.loop import Trainer
-from repro_torch.train.optimizer import adam, clip_by_global_norm
+from repro_torch.train.optimizer import adam, clip_scale
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
 VOCABS = (300, 200, 150, 100)
@@ -213,11 +214,12 @@ def _three_adam_steps(rng, jopt, opt):
         u, s = jopt.update(g, s, p)
         return jax.tree.map(lambda a, b: a + b, p, u), s, norm
 
+    ok = torch.ones((), dtype=torch.bool)
     for g in grads:
         jp, js, jnorm = jstep(jp, js, g)
-        tg, tnorm = clip_by_global_norm(to_torch(g, "cpu"), 10.0)
-        u, ts = opt.update(tg, ts, tp)
-        tp = {k: tp[k] + u[k] for k in tp}
+        tg = to_torch(g, "cpu")
+        scale, tnorm = clip_scale(tg, 10.0)
+        opt.update_(tp, tg, ts, scale, ok)           # in place
         np.testing.assert_allclose(float(tnorm), float(jnorm), rtol=1e-5)
         assert float(tnorm) > 10.0            # the clip is active
     assert int(ts["step"]) == int(js["step"]) == 3
@@ -376,6 +378,8 @@ def _copy(tree):
 def test_injected_nan_step_is_skipped_as_in_reference():
     both = _BothTrainers("mpe_search", nan_step=2)
     both.run(2)
+    port_ptrs = [x.data_ptr() for x in leaves([both.port.params,
+                                               both.port.carry["opt"]])]
     port_before = _copy({k: both.port.carry[k] for k in ("params", "opt",
                                                          "state")})
     ref_before = _copy({k: both.ref.carry[k] for k in ("params", "opt",
@@ -393,6 +397,9 @@ def test_injected_nan_step_is_skipped_as_in_reference():
                         jax.tree.leaves(before["opt"])):
             np.testing.assert_array_equal(x, y)
         assert int(after["opt"]["step"]) == 2
+        if trainer is both.port:   # each leaf kept in place, bit-unchanged
+            assert [x.data_ptr() for x in leaves(
+                [trainer.params, trainer.carry["opt"]])] == port_ptrs
         # the BatchNorm state still takes its new value
         assert not np.array_equal(after["state"]["mlp"]["bn"][0]["var"],
                                   before["state"]["mlp"]["bn"][0]["var"])
@@ -406,19 +413,77 @@ def test_injected_nan_step_is_skipped_as_in_reference():
 def test_trainer_frees_each_steps_trees_without_the_collector():
     """A step's trees are freed as soon as nothing refers to them: a
     reference cycle would keep whole tables alive until the cyclic garbage
-    collector ran (at full width that held 73 GB of device memory)."""
+    collector ran (at full width that held 73 GB of device memory). The
+    trainer updates its trees in place, so with the collector off, after
+    each step exactly three tensors of the table's shape are alive: the
+    table and its two Adam moments, the same objects step after step."""
     jcfg, cfg, params, buffers, state, ds = reference_model("mpe_search")
     _, tloss = _loss_fns(jcfg, cfg)
     trainer = Trainer(tloss, *carried(cfg, params, buffers, state), adam(1e-3))
+    shape = trainer.params["embedding"]["emb"].shape
+
+    def tables():
+        return sorted(id(x) for x in gc.get_objects()
+                      if torch.is_tensor(x) and x.shape == shape)
+
+    del params, buffers, state
+    gc.collect()
     gc.disable()
     try:
         trainer.run(ds.batch, 1, log_every=0)
+        held = [trainer.params["embedding"]["emb"],
+                trainer.carry["opt"]["mu"]["embedding"]["emb"],
+                trainer.carry["opt"]["nu"]["embedding"]["emb"]]
+        assert tables() == sorted(id(x) for x in held)
         refs = [weakref.ref(x) for x in leaves(trainer.carry["opt"]["mu"])
                 + leaves(trainer.params)]
         trainer.run(ds.batch, 2, log_every=0)
-        assert all(r() is None for r in refs)
+        assert tables() == sorted(id(x) for x in held)
+        assert all(r() is not None for r in refs)       # updated in place
     finally:
         gc.enable()
+
+
+def _step_by_hand(trainer, batch, step):
+    """The step the trainer takes, by hand on copies of its trees: autograd
+    on the copied parameters, ``clip_scale``, ``update_``. Returns the new
+    params and optimizer state."""
+    copy = tree_map(lambda x: x.detach().clone(), trainer.params)
+    opt = tree_map(lambda x: x.clone(), trainer.carry["opt"])
+    flat = [p.requires_grad_(True) for p in leaves(copy)]
+    loss, _ = trainer.loss_fn(copy, trainer.buffers, trainer.state,
+                              torch_batch(batch),
+                              step=torch.full((), step, dtype=torch.int32))
+    grads = unflatten(copy, list(torch.autograd.grad(loss, flat)))
+    copy = tree_map(lambda x: x.detach(), copy)
+    scale, gnorm = clip_scale(grads, 10.0)
+    ok = torch.isfinite(gnorm) & torch.isfinite(loss.detach())
+    trainer.optimizer.update_(copy, grads, opt, scale, ok)
+    return copy, opt
+
+
+def test_trainer_updates_every_leaf_in_place():
+    """A step leaves every parameter leaf, both Adam moments and Adam's step
+    at their tensors and ``data_ptr``s, holding the new values: bit for bit
+    those of the same step taken by hand on copies of the trees (autograd,
+    ``clip_scale``, ``update_``) from the same start."""
+    jcfg, cfg, params, buffers, state, ds = reference_model("mpe_search")
+    _, tloss = _loss_fns(jcfg, cfg)
+    trainer = Trainer(tloss, *carried(cfg, params, buffers, state),
+                      adam(1e-3, weight_decay=3e-6))
+    trainer.run(ds.batch, 1, log_every=0)
+    want_params, want_opt = _step_by_hand(trainer, ds.batch(1), 1)
+    carry = [trainer.params, trainer.carry["opt"]]
+    ptrs = [x.data_ptr() for x in leaves(carry)]
+    before = [x.clone() for x in leaves(carry)]
+    trainer.run(ds.batch, 2, log_every=0)
+    after = leaves([trainer.params, trainer.carry["opt"]])
+    assert [x.data_ptr() for x in after] == ptrs
+    for x, y in zip(after, leaves([want_params, want_opt])):
+        assert torch.equal(x, y)
+    assert int(trainer.carry["opt"]["step"]) == 2
+    moved = [not torch.equal(x, y) for x, y in zip(after, before)]
+    assert sum(moved) >= len(moved) - 2      # γ and β may take no gradient
 
 
 def test_port_stream_is_the_reference_stream():
