@@ -41,10 +41,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (rtol 1e-4, atol 1e-4).
 5. kernels: time the lookup and its plain version at both cell shapes with
    CUDA events, beside the least time the card needs to move the bytes that
-   this run's ids need.
+   this run's ids need: warm (back-to-back calls on the same ids) and cold
+   (each launch timed alone after a write of 256 MB, more than the L2).
 6. trace: a separate run under ``torch.profiler`` gives the kernel's device
    time per launch, and for a 300-row and the bulk request the device's
-   busy time against the wall time, with the costliest device kernels.
+   busy time against the wall time, with the costliest device kernels and
+   the bulk request's ``mpe_lookup_kernel`` ms beside the first lookup
+   kernel's.
 7. train path: ``repro_torch.launch.train`` at full width and the
    ``train_batch`` cell's 65,536 rows — 8 search steps, Eq. 11 sampling,
    8 retrain steps, the packed export, eval on ``eval_set(4)`` — with the
@@ -81,7 +84,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the plain flash forward
    twice and the forward with stats never; the scores must equal the same
    model with the plain attention (rtol = atol = 1e-4), and the top-k
-   indices too wherever neighbouring scores differ by more than that.
+   indices too wherever neighbouring scores differ by more than that. The
+   lookup alone at the bulk encode's ids (262,144 x 50) and at the
+   retrieval candidates (1,048,576), warm and cold, beside its bound. At
+   every cell of both tables the path's own lookups (recorded) equal the
+   plain version bit for bit.
 11. SASRec training: the same config under ``mpe_search``, 8 steps of the
    ``Trainer`` with ``adam(1e-3)`` and λ = 1e-5 at ``train_batch`` (65,536
    sequences), on batches made once before the steps. Each step must launch
@@ -127,7 +134,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    logits must equal the same model's with the plain attention and lookup
    (rtol = atol = 1e-4), the top-100 indices too where the scores are
    distinct by more. ``serve_bulk`` and ``retrieval_cand`` are traced, their
-   flash time above 0.
+   flash time above 0. The bulk apply's two lookups alone (262,144 x 21
+   item ids, 262,144 x 4 context ids), warm and cold, beside their bounds.
+   At every cell of both tables the apply's lookups (recorded) equal the
+   plain version bit for bit.
 14. BST training: the same config under ``mpe_search``, 8 ``Trainer`` steps
    with ``adam(1e-3)`` and λ = 1e-5 at 65,536 rows on batches made once.
    Each step must launch ``mpe_qat`` forward and backward twice each and
@@ -146,12 +156,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    backward, over the full-width BST search table (17,039,360 × 32) with
    bags of 20 and ragged lengths uniform in 1..20 — the training batch's
    histories (65,536 bags) and Zipf(1.1) ones at ``serve_bulk`` (262,144)
-   — with the launch counts at 0: each forward must launch the kernel.
+   — with the launch counts at 0: each forward must launch the kernel and
+   each backward the segment sum's bag form once; one backward traced must
+   run the segment-sum kernels and no library dense embedding backward.
    Then the kernel and the backward against their plain versions (rtol
    1e-5 / atol 1e-6, both twice bit-identical) and timed beside the bound
    (each distinct row once, ids, mask, output; for the backward the dense
    gradient), the plain versions and ``F.embedding_bag`` (timed only,
-   never on the port's path).
+   never on the port's path): the forward, the backward (also with the
+   products written out first, the route the bag form replaces) and the
+   forward plus backward through autograd.
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, and the segment sum and the Adam pass, which
@@ -253,6 +267,11 @@ ADAM_SOURCE = "src/repro_torch/csrc/adam.cu"
 # peak device memory at train_batch while the trainer held the old and the
 # new trees at once in each step (chip_smoke.py on an H100 80GB HBM3, 700 W)
 TWO_TREE_PEAK_GB = {"dlrm": 31.405, "sasrec": 30.720, "bst": 19.840}
+# the traced mpe_lookup_kernel ms of the 300,000-row DLRM bulk request with
+# the first lookup kernel (one thread an output element; chip_smoke.py on an
+# H100 80GB HBM3, 700 W)
+PARENT_BULK_LOOKUP_TRACED_MS = 3.831
+FLUSH_BYTES = 256 << 20         # written before each cold launch: 5x the L2
 # the library's dense embedding backward (aten::embedding_dense_backward)
 LIBRARY_SEGMENT_KERNELS = ("sum_and_scatter", "compute_grad_weight",
                            "krn_partial", "compute_num_of_partial_segments",
@@ -283,22 +302,48 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trace(fn, reps: int) -> dict:
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` launched alone after a write of
+    ``FLUSH_BYTES`` (more than the 50 MB L2), so that it finds the cache
+    holding none of its inputs."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def trace(fn, reps: int, attempts: int = 3) -> dict:
     """``fn`` run ``reps`` times under the profiler: per-run wall time, the
     device's busy time (the union of kernel and copy intervals) and device
-    time by kernel name, all in ms per run."""
+    time by kernel name, all in ms per run. A profile that recorded no
+    device activity at all (the profiler now and then returns none for a
+    short window) is taken again, ``attempts`` times in all."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+        log(f"the profiler recorded no device activity (attempt {attempt} "
+            f"of {attempts})")
     check(len(spans) > 0, "the profiler recorded no device activity")
     busy_us, by_name, reach = 0.0, {}, float("-inf")
     for start, end, name in spans:
@@ -345,6 +390,73 @@ def lookup_bytes(table, meta, gids: torch.Tensor) -> dict:
               + 4 * int(row_words.sum()) + 4 * (m + d))
     return {"ids": gids.numel(), "rows": rows.numel(), "kept_rows": kept,
             "bytes": nbytes}
+
+
+def time_lookup(table, meta, ids: torch.Tensor, what: str,
+                plain: bool = False) -> dict:
+    """The lookup kernel on ``ids`` warm (back-to-back calls, the same ids,
+    so the L2 holds the hot rows) and cold (``cold_ms``), beside the bound
+    of ``lookup_bytes`` and, with ``plain``, the plain version."""
+    flat = ids.reshape(-1).contiguous()
+    iters = 200 if flat.numel() < 100_000 else 20
+
+    def call():
+        return mpe_lookup_ops.packed_lookup(table, meta, flat)
+    moved = lookup_bytes(table, meta, flat)
+    bound = moved["bytes"] / HBM_BYTES_PER_S * 1e3
+    row = {**moved, "d": meta["d"], "bound_ms": bound,
+           "ms": uncounted(lambda: cuda_ms(call, iters)),
+           "cold_ms": uncounted(lambda: cold_ms(call, iters))}
+    row["share"], row["cold_share"] = bound / row["ms"], bound / row["cold_ms"]
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: packed_lookup_ref(table, meta, flat),
+                                  max(iters // 4, 3), warmup=1)
+    log(f"mpe_lookup at {what}: {row['ms']:.4f} ms warm ({row['share']:.1%} "
+        f"of the bound), {row['cold_ms']:.4f} ms cold ({row['cold_share']:.1%})"
+        + (f", plain {row['plain_ms']:.4f} ms" if plain else "")
+        + f"; bound {bound:.4f} ms for {moved['bytes']} bytes: {moved['ids']} "
+        f"ids, d={meta['d']}, {moved['rows']} distinct rows, "
+        f"{moved['kept_rows']} of them not width 0")
+    return row
+
+
+def recorded_lookups(fn) -> list:
+    """``fn()`` with the packed lookups of ``core.compressors`` recording
+    their (table, meta, ids); its launches are not counted."""
+    calls = []
+
+    def record(table, meta, ids):
+        calls.append((table, meta, ids))
+        return mpe_lookup_ops.packed_lookup(table, meta, ids)
+    compressors.packed_lookup = record
+    try:
+        uncounted(fn)
+        torch.cuda.synchronize()
+    finally:
+        compressors.packed_lookup = mpe_lookup_ops.packed_lookup
+    return calls
+
+
+LOOKUP_CHUNK = 1 << 21           # ids a plain-lookup comparison takes at once
+
+
+def check_lookup_bits(calls: list, what: str) -> int:
+    """Each recorded (table, meta, ids) lookup through the kernel equals its
+    plain version bit for bit (in chunks of ids); the launches are a
+    comparison's and not counted. Returns the number of ids compared."""
+    n = 0
+    for table, meta, ids in calls:
+        flat = ids.reshape(-1).contiguous()
+        for lo in range(0, flat.numel(), LOOKUP_CHUNK):
+            part = flat[lo:lo + LOOKUP_CHUNK]
+            got = uncounted(lambda p=part: mpe_lookup_ops.packed_lookup(
+                table, meta, p))
+            check(torch.equal(got, packed_lookup_ref(table, meta, part)),
+                  f"{what}: the lookup kernel differs from its plain version")
+        n += flat.numel()
+    log(f"{what}: the lookup kernel equals its plain version bit for bit on "
+        f"{len(calls)} lookups of the path ({n} ids)")
+    return n
 
 
 def phase_device() -> str:
@@ -492,25 +604,15 @@ def phase_kernel_times(main, grid_err: float) -> dict:
     shapes = {}
     for shape, gids in main["cell_gids"].items():
         flat = gids.reshape(-1).contiguous()
-        iters = 200 if flat.numel() < 100_000 else 20
-        ms = cuda_ms(lambda ids=flat: mpe_lookup_ops.packed_lookup(
-            table, meta, ids), iters)
-        plain_ms = cuda_ms(lambda ids=flat: packed_lookup_ref(table, meta, ids),
-                           max(iters // 4, 3), warmup=1)
+        row = time_lookup(table, meta, flat, f"dlrm {shape}", plain=True)
         traced = trace(lambda ids=flat: mpe_lookup_ops.packed_lookup(
             table, meta, ids), 10)
-        device_ms = sum(v for k, v in traced["by_name"].items()
-                        if "mpe_lookup_kernel" in k)
-        moved = lookup_bytes(table, meta, flat)
-        shapes[shape] = {**moved, "ms": ms, "device_ms": device_ms,
-                         "plain_ms": plain_ms,
-                         "bound_ms": moved["bytes"] / HBM_BYTES_PER_S * 1e3}
-        log(f"mpe_lookup at {shape}: {ms:.4f} ms per call, {device_ms:.4f} ms "
-            f"on the device (plain {plain_ms:.4f} ms, bound "
-            f"{shapes[shape]['bound_ms']:.4f} ms for {moved['bytes']} bytes: "
-            f"{moved['ids']} ids, {moved['rows']} distinct rows, "
-            f"{moved['kept_rows']} of them not width 0)")
-    bulk = shapes["serve_bulk"]
+        row["device_ms"] = sum(v for k, v in traced["by_name"].items()
+                               if "mpe_lookup_kernel" in k)
+        shapes[f"dlrm {shape}"] = row
+        log(f"mpe_lookup at dlrm {shape}: {row['device_ms']:.4f} ms on the "
+            f"device a call (traced)")
+    bulk = shapes["dlrm serve_bulk"]
     return {"name": "mpe_lookup", "route": "cuda",
             "source": "src/repro_torch/csrc/mpe_lookup.cu",
             "replaces": "src/repro/kernels/mpe_lookup/kernel.py:63",
@@ -528,8 +630,13 @@ def phase_trace(main) -> dict:
         reps = 20 if len(ids) <= 512 else 1
         t = trace(lambda x=ids: main["engine"].score(x), reps)
         out[what] = {k: t[k] for k in ("wall_ms", "busy_ms", "idle_share", "top")}
+        out[what]["lookup_ms"] = sum(ms for name, ms in t["by_name"].items()
+                                     if "mpe_lookup_kernel" in name)
         log(f"traced {what} request: wall {t['wall_ms']:.3f} ms, device busy "
-            f"{t['busy_ms']:.3f} ms (idle share {t['idle_share']:.3f}); top "
+            f"{t['busy_ms']:.3f} ms (idle share {t['idle_share']:.3f}); "
+            f"mpe_lookup_kernel {out[what]['lookup_ms']:.3f} ms"
+            + (f" (the first lookup kernel: {PARENT_BULK_LOOKUP_TRACED_MS} ms)"
+               if reps == 1 else "") + "; top "
             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in t["top"]))
     return out
 
@@ -1442,6 +1549,11 @@ def serve_sasrec(params, buffers, cfg, rng, cdf, what: str,
         out[shape] = check_scores(params, buffers, cfg, seq[shape],
                                   cand[shape], f"{what}, {shape}")
         with torch.inference_mode():
+            check_lookup_bits(recorded_lookups(
+                lambda s=shape: SASRec.score_candidates(
+                    params, buffers, seq[s], cand[s], cfg, top_k=TOP_K)),
+                f"{what}, {shape}")
+        with torch.inference_mode():
             ms = time_requests(lambda s=shape: SASRec.score_candidates(
                 params, buffers, seq[s], cand[s], cfg, top_k=TOP_K), 10)
         out[shape]["request_ms"] = ms
@@ -1473,6 +1585,20 @@ def serve_sasrec(params, buffers, cfg, rng, cdf, what: str,
                              "flash_ms": flash_ms,
                              **{k: traced[k] for k in ("wall_ms", "busy_ms",
                                                        "idle_share", "top")}}
+        # the lookup alone at the bulk encode's and the retrieval
+        # candidates' ids, as the path calls it
+        with torch.inference_mode():
+            encode_calls = recorded_lookups(lambda: SASRec.encode(
+                params, buffers, ids, cfg))
+            check_lookup_bits(encode_calls, f"{what}, serve_bulk encode")
+            cand_calls = recorded_lookups(lambda: SASRec.score_candidates(
+                params, buffers, seq["retrieval_cand"],
+                cand["retrieval_cand"], cfg, top_k=TOP_K))
+            out["lookup"] = {
+                "sasrec serve_bulk encode": time_lookup(
+                    *encode_calls[0], f"{what}, serve_bulk encode"),
+                "sasrec retrieval_cand candidates": time_lookup(
+                    *cand_calls[-1], f"{what}, retrieval_cand candidates")}
         log(f"{what}, serve_bulk: encode of {rows} sequences {min(ms):.3f} ms "
             f"(best of 3), peak memory "
             f"{out['serve_bulk']['peak_bytes'] / 1e9:.3f} GB; traced: device "
@@ -1930,6 +2056,15 @@ def serve_bst(params, buffers, state, cfg, rng, cdf, what: str,
                 logits = BST.apply(params, buffers, state, b, cfg)[0]
                 return torch.topk(logits, TOP_K) if one else logits
             cell["request_ms"] = time_requests(request, reps)
+            calls = recorded_lookups(request)
+            check_lookup_bits(calls, f"{what}, {shape}")
+            if shape == "serve_bulk":  # the apply's two lookups alone
+                items, ctx = calls
+                out["lookup"] = {
+                    "bst serve_bulk items": time_lookup(
+                        *items, f"{what}, serve_bulk items"),
+                    "bst serve_bulk context": time_lookup(
+                        *ctx, f"{what}, serve_bulk context")}
             if shape in ("serve_bulk", "retrieval_cand"):
                 traced = trace(request, 1)
                 cell.update({k: traced[k] for k in ("wall_ms", "busy_ms",
@@ -2196,10 +2331,23 @@ def phase_bag_path(dev, table, train_seqs) -> dict:
             del out, grad
     torch.cuda.synchronize()
     launches = counts()
-    check(launches["embedding_bag_fwd"] == 2 * len(cells),
-          f"the bag path launched {launches}, not the bag kernel "
-          f"{2 * len(cells)} times")
+    check(launches["embedding_bag_fwd"] == 2 * len(cells)
+          and launches["segment_sum"] == 2 * len(cells),
+          f"the bag path launched {launches}, not the bag kernel and the "
+          f"segment sum {2 * len(cells)} times each")
     log(f"bag path: launches {launches}")
+    # the backward under the profiler: the segment sum, no library sum
+    ids, mask = cells["train_batch"], masks["train_batch"]
+    traced = uncounted(lambda: trace(lambda: torch.autograd.grad(
+        embedding_bag(leaf, ids, mask).square().sum(), leaf), 1))
+    library = {name: ms for name, ms in traced["by_name"].items()
+               if any(k in name for k in LIBRARY_SEGMENT_KERNELS)
+               or "embedding_dense" in name or "embedding_backward" in name}
+    check(not library and any("segment_chunk_kernel" in name
+                              for name in traced["by_name"]),
+          f"the bag's backward ran {library or 'no segment-sum kernel'}")
+    log("bag backward traced: the segment-sum kernels, no library dense "
+        "embedding backward")
     del leaf
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2215,12 +2363,26 @@ def phase_bag_path(dev, table, train_seqs) -> dict:
         weights = mask.to(torch.float32)
         lib_leaf = table.detach().requires_grad_(True)
 
+        port_leaf = table.detach().requires_grad_(True)
+        flat_ids = ids.reshape(-1)
+
         def library_fwd_bwd():
             torch.autograd.grad(library_bag(ids, lib_leaf, mode="sum",
                                           per_sample_weights=weights),
                                 lib_leaf, g)
+
+        def port_fwd_bwd():
+            torch.autograd.grad(bag_ops.embedding_bag_kernel(
+                port_leaf, ids, mask), port_leaf, g)
+
+        def materialized_bwd():  # the products written out, then summed
+            seg_ops.segment_sum((g[:, None, :] * weights[..., None]).reshape(
+                -1, cfg.d_embed), flat_ids, table.shape[0])
+        traced = trace(lambda: bag_ops.embedding_bag_fwd(table, ids, mask), 50)
         row = {**work, "bags": b, "slots": l, "max_abs_err_fwd": fwd_err,
                "max_abs_err_bwd": bwd_err,
+               "fwd_device_ms": sum(ms for name, ms in traced["by_name"].items()
+                                    if "embedding_bag_kernel" in name),
                "fwd_ms": cuda_ms(lambda: bag_ops.embedding_bag_fwd(
                    table, ids, mask), 50),
                "fwd_plain_ms": cuda_ms(lambda: embedding_bag_ref(
@@ -2229,21 +2391,30 @@ def phase_bag_path(dev, table, train_seqs) -> dict:
                    ids, table, mode="sum", per_sample_weights=weights), 50),
                "bwd_ms": cuda_ms(lambda: bag_ops.embedding_bag_bwd(
                    g, ids, mask, table.shape[0]), 10),
+               "bwd_materialized_ms": cuda_ms(materialized_bwd, 10),
                "bwd_plain_ms": cuda_ms(lambda: embedding_bag_bwd_ref(
                    g, ids, mask, table.shape[0]), 5, warmup=1),
-               "bwd_library_ms": cuda_ms(library_fwd_bwd, 10)}
-        del lib_leaf
+               "fwd_bwd_ms": cuda_ms(port_fwd_bwd, 10),
+               "fwd_bwd_library_ms": cuda_ms(library_fwd_bwd, 10)}
+        row["bwd_library_ms"] = row["fwd_bwd_library_ms"]  # no call for it alone
+        row["fwd_bwd_bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+        del lib_leaf, port_leaf
         out[shape] = row
         for kind, call in (("fwd", "F.embedding_bag forward"),
-                           ("bwd", "F.embedding_bag forward + backward")):
+                           ("bwd", "F.embedding_bag forward + backward"),
+                           ("fwd_bwd", "F.embedding_bag forward + backward")):
             log(f"bag {kind} at {shape} ({b} bags x {l}, d={cfg.d_embed}, "
                 f"{work['distinct_rows']} distinct rows of {table.shape[0]}): "
-                f"{row[kind + '_ms']:.4f} ms per call (plain "
-                f"{row[kind + '_plain_ms']:.4f} ms; {call} "
-                f"{row[kind + '_library_ms']:.4f} ms; bound "
-                f"{row[kind + '_bound_ms']:.4f} ms for {work[kind + '_bytes']} "
-                f"bytes, {row[kind + '_bound_ms'] / row[kind + '_ms']:.1%} of "
-                f"it)")
+                f"{row[kind + '_ms']:.4f} ms per call ("
+                + (f"plain {row[kind + '_plain_ms']:.4f} ms; "
+                   if kind + "_plain_ms" in row else "")
+                + f"{call} {row[kind + '_library_ms']:.4f} ms; bound "
+                f"{row[kind + '_bound_ms']:.4f} ms, "
+                f"{row[kind + '_bound_ms'] / row[kind + '_ms']:.1%} of it)")
+        log(f"bag fwd at {shape}: {row['fwd_device_ms']:.4f} ms a call on "
+            f"the device (traced); bag bwd: the products written out and "
+            f"then summed {row['bwd_materialized_ms']:.4f} ms, formed in the "
+            f"kernel {row['bwd_ms']:.4f} ms")
     return {"launches": launches, "shapes": out}
 
 
@@ -2305,6 +2476,8 @@ def main() -> int:
     log(json.dumps({"bst_serve": bst_serve, "bst_train": bst_train,
                     "bag": bag}))
     bst_errs = bst_train["step_inputs"]["errs"]
+    kernel["shapes"].update({**sasrec_serve.pop("lookup"),
+                             **bst_serve.pop("lookup")})
     records = [kernel, *qat_records(qat_grid_errs, train, step,
                                     sasrec_train["step_inputs"],
                                     bst_train["step_inputs"]),

@@ -8,32 +8,50 @@
 // (embedding_bag_pallas / _bag_kernel). That kernel walks a (B, L) grid in
 // order and keeps the bag's output block resident while it revisits it for
 // the L slots. Blocks on Hopper run in no order, so nothing is carried
-// between them: here one warp owns one bag and loops over its slots itself.
+// between them: here a group of lanes owns one bag and loops over its slots
+// itself.
 //
-// Layout: one warp per bag, the lanes over the d columns (strided by 32 for
-// d > 32), so each row read is a contiguous, coalesced 4 * d bytes (128 B at
-// d = 32). Lane t reads slot j0 + t's id and weight once, coalesced, and the
-// warp passes them round with shuffles. Every lane walks the slots in order
-// 0..L-1, so the sum has one fixed order and repeat runs are bit-identical.
-// Each product row * weight is rounded to float32, as the reference
-// multiplies in the table's type (__fmul_rn, never contracted into an FMA),
-// and the products are summed in float64 and rounded once: two float32
-// orders of 50 N(0, 1) terms already differ by more than the reference's
-// atol of 1e-6 where the sum cancels, and the float64 sum agrees with the
-// plain version (ref.py, which sums the same products in float64) to the
-// last bit nearly always, whatever order either takes. The weight is
-// multiplied, never branched on, so an inf or NaN in a masked-out row
-// propagates as it does in the reference (inf * 0 = NaN). Row offsets are
-// 64-bit (row * d passes 2^31 on the largest tables). Ids must lie in
-// [0, N), as for the reference's kernel; the clamp only keeps a bad id
-// inside the table.
+// What bounds it on an H100 (3.35 TB/s). The bytes it must move: each
+// distinct row it gathers once (4 * d bytes), each id and weight once, and
+// B * d floats written (chip_smoke.py computes the bound from the run's
+// ids). Rows repeated across bags are read again, from the L1 or the 50 MB
+// L2: at BST's serve_bulk shape (262,144 bags of 20, d = 32) the gather
+// reads 671 MB for 96 MB of distinct rows. Each row read is a random
+// 4 * d bytes whose address waits on the id's load, so the kernel needs many
+// rows in flight. The first design gave a bag a whole warp, lanes over the
+// columns: at d <= 16 half or more of the lanes sat idle, and with one float
+// a lane and the slots walked four at a time, a warp had four 128-byte rows
+// in flight at d = 32 (a third of the bound).
 //
-// What bounds it on an H100 (3.35 TB/s): bytes. It must read each distinct
-// row it gathers once (4 * d bytes), each id and weight once, and write
-// B * d floats. Rows repeated across bags are read again, mostly from the
-// 50 MB L2; chip_smoke.py computes the bound from the run's ids. Making it
-// fast (several bags per warp at small d, vector loads, more loads in
-// flight) is later work; this kernel is the simple one that is right.
+// Design. A bag belongs to LW lanes of a warp, each lane owning V
+// consecutive columns (V = 4, float4 loads, where d % 4 == 0 and the table
+// is 16-byte aligned; else 2 or 1), LW = d / V rounded up to a power of two
+// (8 at d = 32, so a warp serves 4 bags; 32 at most, columns beyond 32 * V
+// taken in further passes). The slots go in windows of kWindow = 8: the
+// group's lanes load the window's ids and weights (coalesced, in their own
+// types, templated), pass them round by shuffles, then every lane issues
+// its 8 row loads before it adds any, so a warp keeps 8 rows of each of its
+// bags in flight. The launch bound holds a thread to 64 registers, 4 blocks
+// (32 warps) an SM.
+//
+// What holds it now (scripts/bag_variants.py takes it apart): the float64
+// sums and the latency of the gather at the occupancy 64 registers allow.
+// Without the row loads it takes 41% of its time; with every row from one
+// address, 68%; summing in float32 saves 5-7%; 79 registers (3 blocks an SM)
+// or 48 with spills are slower; loading the next window's ids ahead of the
+// adds gained nothing.
+//
+// The contract of the first design is kept: each product row * weight is
+// rounded to float32, as the reference multiplies in the table's type
+// (__fmul_rn, never contracted into an FMA), and the products are summed in
+// float64 in slot order 0..L-1 and rounded once, so repeat runs give the
+// same bits (two float32 orders of 50 N(0, 1) terms already differ by more
+// than the reference's atol of 1e-6 where the sum cancels; the float64 sum
+// agrees with the plain version, ref.py, to the last bit nearly always). The
+// weight is multiplied, never branched on, so an inf or NaN in a masked-out
+// row propagates as it does in the reference (inf * 0 = NaN). Row offsets
+// are 64-bit. Ids must lie in [0, N), as for the reference's kernel; the
+// clamp only keeps a bad id inside the table.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, bound with ctypes.
@@ -45,9 +63,54 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // bags per block
-constexpr int kThreads = 32 * kWarps;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;  // blocks an SM: at most 64 registers a thread
+constexpr int kWindow = 8;  // slots whose rows a lane loads before adding
 constexpr unsigned kFull = 0xffffffffu;
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+};
+
+template <int V>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         float* dst) {
+  const typename Vec<V>::T x =
+      __ldg(reinterpret_cast<const typename Vec<V>::T*>(src));
+  if constexpr (V == 4) {
+    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+  } else if constexpr (V == 2) {
+    dst[0] = x.x; dst[1] = x.y;
+  } else {
+    dst[0] = x;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_row(float* dst, const double* acc) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(
+        __double2float_rn(acc[0]), __double2float_rn(acc[1]),
+        __double2float_rn(acc[2]), __double2float_rn(acc[3]));
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(
+        __double2float_rn(acc[0]), __double2float_rn(acc[1]));
+  } else {
+    *dst = __double2float_rn(acc[0]);
+  }
+}
 
 __device__ __forceinline__ float weight(unsigned char m) {
   return m ? 1.0f : 0.0f;
@@ -55,60 +118,142 @@ __device__ __forceinline__ float weight(unsigned char m) {
 
 __device__ __forceinline__ float weight(float m) { return m; }
 
-template <typename IdT, typename MaskT>
-__global__ void __launch_bounds__(kThreads)
+// LW lanes a bag, V columns a lane a pass; ids of IdT (int or long long),
+// the mask of MaskT (one byte a slot, or float32 weights).
+template <int LW, int V, typename IdT, typename MaskT>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 embedding_bag_kernel(const float* __restrict__ table, long long n_rows, int d,
                      const IdT* __restrict__ ids,
-                     const MaskT* __restrict__ mask, long long n_bags, int l,
-                     float* __restrict__ out) {
+                     const MaskT* __restrict__ mask,
+                     long long n_bags, int l, float* __restrict__ out) {
+  constexpr int kBags = 32 / LW;                 // bags a warp
+  constexpr int kPer = (kWindow + LW - 1) / LW;  // window slots a lane loads
   const int lane = threadIdx.x & 31;
-  const long long bag =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (bag >= n_bags) return;  // the whole warp leaves together
-  const IdT* bag_ids = ids + bag * l;
-  const MaskT* bag_mask = mask + bag * l;
-  float* bag_out = out + bag * d;
+  const int k = lane % LW;                       // the lane within its group
+  const long long warp0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+      kBags;
+  if (warp0 >= n_bags) return;  // the whole warp leaves together
+  const long long bag = warp0 + lane / LW;
+  const bool live_bag = bag < n_bags;  // lanes past the last bag shuffle only
+  const long long slot0 = (live_bag ? bag : 0) * l;
+  const IdT* bag_ids = ids + slot0;
+  const MaskT* bag_mask = mask + slot0;
 
-  for (int c0 = 0; c0 < d; c0 += 32) {
-    const int col = c0 + lane;
-    const bool live = col < d;
-    double acc = 0.0;
-    for (int j0 = 0; j0 < l; j0 += 32) {
-      long long my_id = 0;
-      float my_w = 0.0f;
-      if (j0 + lane < l) {
-        my_id = static_cast<long long>(__ldg(bag_ids + j0 + lane));
-        my_id = my_id < 0 ? 0 : (my_id >= n_rows ? n_rows - 1 : my_id);
-        my_w = weight(__ldg(bag_mask + j0 + lane));
+  for (int c0 = k * V; c0 < LW * V * ((d + LW * V - 1) / (LW * V));
+       c0 += LW * V) {
+    const bool live_col = live_bag && c0 < d;
+    double acc[V];
+#pragma unroll
+    for (int x = 0; x < V; ++x) acc[x] = 0.0;
+    for (int s0 = 0; s0 < l; s0 += kWindow) {
+      // the window's ids and weights: lane k of the group loads slots
+      // s0 + k + LW * u
+      IdT my_id[kPer];
+      float my_w[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int s = s0 + k + LW * u;
+        my_id[u] = 0;
+        my_w[u] = 0.0f;
+        if (live_bag && s < l && s < s0 + kWindow) {
+          const IdT id = __ldg(bag_ids + s);
+          my_id[u] = id < 0 ? 0 : (id >= n_rows ? static_cast<IdT>(n_rows - 1) : id);
+          my_w[u] = weight(__ldg(bag_mask + s));
+        }
       }
-      const int n = min(32, l - j0);
-#pragma unroll 4
-      for (int t = 0; t < n; ++t) {
-        const long long id = __shfl_sync(kFull, my_id, t);
-        const float w = __shfl_sync(kFull, my_w, t);
-        if (live) {
-          const float v = __ldg(table + id * d + col);
-          acc += static_cast<double>(__fmul_rn(v, w));
+      // every lane's row loads first, then the adds in slot order
+      float row[kWindow][V];
+      float w[kWindow];
+#pragma unroll
+      for (int t = 0; t < kWindow; ++t) {
+        const long long id = __shfl_sync(kFull, my_id[t / LW], t % LW, LW);
+        w[t] = __shfl_sync(kFull, my_w[t / LW], t % LW, LW);
+        if (live_col && s0 + t < l) {
+          load_row<V>(table + id * d + c0, row[t]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < V; ++x) row[t][x] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kWindow; ++t) {
+        if (s0 + t < l) {
+#pragma unroll
+          for (int x = 0; x < V; ++x) {
+            acc[x] += static_cast<double>(__fmul_rn(row[t][x], w[t]));
+          }
         }
       }
     }
-    if (live) bag_out[col] = __double2float_rn(acc);
+    if (live_col) store_row<V>(out + bag * d + c0, acc);
   }
 }
 
-template <typename IdT>
-void launch(unsigned blocks, cudaStream_t stream, const float* table,
-            long long n_rows, int d, const void* ids, const void* mask,
-            int mask_float, long long n_bags, int l, float* out) {
-  if (mask_float) {
-    embedding_bag_kernel<IdT, float><<<blocks, kThreads, 0, stream>>>(
-        table, n_rows, d, static_cast<const IdT*>(ids),
-        static_cast<const float*>(mask), n_bags, l, out);
-  } else {
-    embedding_bag_kernel<IdT, unsigned char><<<blocks, kThreads, 0, stream>>>(
-        table, n_rows, d, static_cast<const IdT*>(ids),
-        static_cast<const unsigned char*>(mask), n_bags, l, out);
+template <int LW, int V, typename IdT, typename MaskT>
+cudaError_t launch_typed(cudaStream_t stream, const float* table,
+                         long long n_rows, int d, const void* ids,
+                         const void* mask, long long n_bags, int l,
+                         float* out) {
+  constexpr long long per_block = static_cast<long long>(kWarps) * (32 / LW);
+  const long long blocks = (n_bags + per_block - 1) / per_block;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  embedding_bag_kernel<LW, V, IdT, MaskT><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(table, n_rows, d, static_cast<const IdT*>(ids), static_cast<const MaskT*>(mask), n_bags, l, out);
+  return cudaGetLastError();
+}
+
+template <int LW, int V>
+cudaError_t launch(cudaStream_t stream, const float* table, long long n_rows,
+                   int d, const void* ids, int ids_64, const void* mask,
+                   int mask_float, long long n_bags, int l, float* out) {
+  if (ids_64 && mask_float) {
+    return launch_typed<LW, V, long long, float>(stream, table, n_rows, d, ids,
+                                                 mask, n_bags, l, out);
   }
+  if (ids_64) {
+    return launch_typed<LW, V, long long, unsigned char>(
+        stream, table, n_rows, d, ids, mask, n_bags, l, out);
+  }
+  if (mask_float) {
+    return launch_typed<LW, V, int, float>(stream, table, n_rows, d, ids, mask,
+                                           n_bags, l, out);
+  }
+  return launch_typed<LW, V, int, unsigned char>(stream, table, n_rows, d, ids,
+                                                 mask, n_bags, l, out);
+}
+
+template <int V>
+cudaError_t launch_lanes(cudaStream_t stream, const float* table,
+                         long long n_rows, int d, const void* ids, int ids_64,
+                         const void* mask, int mask_float, long long n_bags,
+                         int l, float* out) {
+  const int lanes = (d + V - 1) / V;  // lanes a pass would fill
+  if (lanes <= 1) {
+    return launch<1, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                        mask_float, n_bags, l, out);
+  }
+  if (lanes <= 2) {
+    return launch<2, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                        mask_float, n_bags, l, out);
+  }
+  if (lanes <= 4) {
+    return launch<4, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                        mask_float, n_bags, l, out);
+  }
+  if (lanes <= 8) {
+    return launch<8, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                        mask_float, n_bags, l, out);
+  }
+  if (lanes <= 16) {
+    return launch<16, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                         mask_float, n_bags, l, out);
+  }
+  return launch<32, V>(stream, table, n_rows, d, ids, ids_64, mask,
+                       mask_float, n_bags, l, out);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
@@ -125,16 +270,19 @@ extern "C" int embedding_bag_fwd(const void* table, long long n_rows, int d,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_bags == 0) return 0;
-  const long long blocks = (n_bags + kWarps - 1) / kWarps;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const float*>(table);
   auto* o = static_cast<float*>(out);
-  const auto b = static_cast<unsigned>(blocks);
-  if (ids_64) {
-    launch<long long>(b, s, t, n_rows, d, ids, mask, mask_float, n_bags, l, o);
+  cudaError_t err;
+  if (d % 4 == 0 && aligned(table, 16) && aligned(out, 16)) {
+    err = launch_lanes<4>(s, t, n_rows, d, ids, ids_64, mask, mask_float,
+                          n_bags, l, o);
+  } else if (d % 2 == 0 && aligned(table, 8) && aligned(out, 8)) {
+    err = launch_lanes<2>(s, t, n_rows, d, ids, ids_64, mask, mask_float,
+                          n_bags, l, o);
   } else {
-    launch<int>(b, s, t, n_rows, d, ids, mask, mask_float, n_bags, l, o);
+    err = launch_lanes<1>(s, t, n_rows, d, ids, ids_64, mask, mask_float,
+                          n_bags, l, o);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -9,6 +9,12 @@
 // a fixed order and is rounded to float32 once; no float atomics: two runs
 // give the same bits.
 //
+// The bag form (segment_sum_bag) is the embedding bag's backward: grad is
+// the bag cotangent g (B, w), and the row summed for position t of the
+// (B, L) ids is g[t / L] * weights[t], formed in float32 (__fmul_rn) as the
+// plain version forms it, so the (B * L, w) products are never written to
+// device memory. The gather's form is the same code with that step left out.
+//
 // No TPU kernel has this function: the reference differentiates its
 // gathers with XLA's scatter-add. It replaces, on the port's path, the
 // library's dense embedding backward (aten::embedding_dense_backward), whose
@@ -77,15 +83,21 @@ struct Partials {
   unsigned char* has_start;
 };
 
+// The bag form's rows: grad row t / l, scaled by weights[t].
+struct BagRows {
+  const float* weights;  // (n_pos,) float32; null in the gather's form
+  unsigned l;            // slots a bag
+};
+
 // V floats a load, CPL columns a lane (a multiple of V), kAhead positions
-// loaded ahead.
-template <int V, int CPL, int kAhead>
+// loaded ahead; kBag: the bag form.
+template <int V, int CPL, int kAhead, bool kBag>
 __global__ void __launch_bounds__(kThreads)
 segment_chunk_kernel(const float* __restrict__ grad,
                      const int* __restrict__ ids,
                      const long long* __restrict__ order, long long n_pos,
                      int w, long long n_chunks, float* __restrict__ out,
-                     Partials part) {
+                     Partials part, BagRows bag) {
   const int lw = (w + CPL - 1) / CPL;
   const int per_warp = 32 / lw;
   const int lane = threadIdx.x & 31;
@@ -129,11 +141,16 @@ segment_chunk_kernel(const float* __restrict__ grad,
   for (long long t = t0; t < t1; t += kAhead) {
     int sid[kAhead];
     float row[kAhead][CPL];
+    float scale[kAhead];
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
       const bool in = t + u < t1;
       sid[u] = in ? ids[t + u] : 0;
-      const long long src = in ? order[t + u] : 0;
+      long long src = in ? order[t + u] : 0;
+      if constexpr (kBag) {
+        scale[u] = in ? bag.weights[src] : 0.0f;
+        src = static_cast<unsigned>(src) / bag.l;  // the position's bag
+      }
 #pragma unroll
       for (int x = 0; x < CPL; x += V) {
         if (in && c0 + x < w) {
@@ -142,6 +159,13 @@ segment_chunk_kernel(const float* __restrict__ grad,
 #pragma unroll
           for (int y = 0; y < V; ++y) row[u][x + y] = 0.0f;
         }
+      }
+    }
+    if constexpr (kBag) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+#pragma unroll
+        for (int x = 0; x < CPL; ++x) row[u][x] = __fmul_rn(row[u][x], scale[u]);
       }
     }
 #pragma unroll
@@ -228,19 +252,19 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <int V, int CPL, int kAhead>
+template <int V, int CPL, int kAhead, bool kBag>
 cudaError_t launch(const float* grad, const int* ids, const long long* order,
                    long long n_pos, int w, long long n_chunks, float* out,
-                   Partials part, cudaStream_t st) {
+                   Partials part, BagRows bag, cudaStream_t st) {
   const int per_warp = 32 / ((w + CPL - 1) / CPL);
   const long long per_block = static_cast<long long>(per_warp) * kWarps;
   const long long blocks = (n_chunks + per_block - 1) / per_block;
   if (blocks > INT_MAX || n_chunks > INT_MAX) {
     return cudaErrorInvalidConfiguration;
   }
-  auto chunks = segment_chunk_kernel<V, CPL, kAhead>;
+  auto chunks = segment_chunk_kernel<V, CPL, kAhead, kBag>;
   chunks<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      grad, ids, order, n_pos, w, n_chunks, out, part);
+      grad, ids, order, n_pos, w, n_chunks, out, part, bag);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned owners = static_cast<unsigned>(n_chunks);  // one per chunk
@@ -249,27 +273,19 @@ cudaError_t launch(const float* grad, const int* ids, const long long* order,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Chunks of n_pos sorted positions: the scratch needs 2 * w * chunks
-// doubles and chunks flag bytes.
-extern "C" long long segment_sum_chunks(long long n_pos) {
+long long chunks_of(long long n_pos) {
   return n_pos < 1 ? 0 : (n_pos + kChunk - 1) / kChunk;
 }
 
-// On `stream`; returns cudaGetLastError() (0 = ok). Device pointers: grad
-// (n_pos, w) float32; ids (n_pos,) int32, sorted, each in [0, n_out);
-// order (n_pos,) int64, the gradient row of each sorted position; out
-// (n_out, w) float32, zeroed by the caller; scratch 2 * w * chunks doubles
-// and flags `chunks` bytes (segment_sum_chunks). All contiguous.
-extern "C" int segment_sum(const void* grad, const void* ids, const void* order,
-                           long long n_pos, int w, void* out, void* scratch,
-                           void* flags, void* stream) {
+template <bool kBag>
+int run(const void* grad, const void* ids, const void* order, long long n_pos,
+        int w, void* out, void* scratch, void* flags, BagRows bag,
+        void* stream) {
   if (n_pos < 0 || w < 1 || w > kMaxW) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_pos == 0) return 0;
-  const long long n_chunks = segment_sum_chunks(n_pos);
+  const long long n_chunks = chunks_of(n_pos);
   double* s = static_cast<double*>(scratch);
   const Partials part{s, s + static_cast<long long>(w) * n_chunks,
                       static_cast<unsigned char*>(flags)};
@@ -282,11 +298,48 @@ extern "C" int segment_sum(const void* grad, const void* ids, const void* order,
   // rows of up to 8 columns (the group probabilities) take the scalar one
   const bool vec = w > 8 && w <= 128;
   if (vec && w % 4 == 0 && aligned(grad, 16)) {
-    err = launch<4, 4, 8>(g, i, o, n_pos, w, n_chunks, y, part, st);
+    err = launch<4, 4, 8, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
   } else if (vec && w % 2 == 0 && aligned(grad, 8)) {
-    err = launch<2, 4, 8>(g, i, o, n_pos, w, n_chunks, y, part, st);
+    err = launch<2, 4, 8, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
   } else {
-    err = launch<1, 8, 4>(g, i, o, n_pos, w, n_chunks, y, part, st);
+    err = launch<1, 8, 4, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Chunks of n_pos sorted positions: the scratch needs 2 * w * chunks
+// doubles and chunks flag bytes.
+extern "C" long long segment_sum_chunks(long long n_pos) {
+  return chunks_of(n_pos);
+}
+
+// On `stream`; returns cudaGetLastError() (0 = ok). Device pointers: grad
+// (n_pos, w) float32; ids (n_pos,) int32, sorted, each in [0, n_out);
+// order (n_pos,) int64, the gradient row of each sorted position; out
+// (n_out, w) float32, zeroed by the caller; scratch 2 * w * chunks doubles
+// and flags `chunks` bytes (segment_sum_chunks). All contiguous.
+extern "C" int segment_sum(const void* grad, const void* ids, const void* order,
+                           long long n_pos, int w, void* out, void* scratch,
+                           void* flags, void* stream) {
+  return run<false>(grad, ids, order, n_pos, w, out, scratch, flags,
+                    BagRows{nullptr, 1}, stream);
+}
+
+// The bag form: grad (n_pos / l, w) float32, the bag cotangent; weights
+// (n_pos,) float32, the (B, L) mask as weights; l >= 1 slots a bag and
+// n_pos < 2^32; ids, order, out, scratch and flags as for segment_sum, over
+// the B * L positions.
+extern "C" int segment_sum_bag(const void* grad, const void* weights, int l,
+                               const void* ids, const void* order,
+                               long long n_pos, int w, void* out,
+                               void* scratch, void* flags, void* stream) {
+  if (l < 1 || n_pos > static_cast<long long>(UINT_MAX) || n_pos % l != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run<true>(grad, ids, order, n_pos, w, out, scratch, flags,
+                   BagRows{static_cast<const float*>(weights),
+                           static_cast<unsigned>(l)},
+                   stream);
 }

@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -23,3 +25,18 @@ def full_float32(device: torch.device):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+def on_card(device: torch.device):
+    """A context in which ``device`` is the current card: a no-op where it
+    already is, which is the cheap case a kernel wrapper on a request's path
+    takes (entering ``torch.cuda.device`` costs microseconds)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the address a kernel's C
+    interface takes, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -5,19 +5,22 @@
 ``embedding_bag_kernel`` is differentiable in the table through one
 ``torch.autograd.Function``, as the reference's ``custom_vjp``: its backward
 scales the bag cotangent by the mask and sums the (B·L, d) contributions
-into a dense (N, d) gradient. On the card that sum is
-``aten.embedding_dense_backward``, ``F.embedding``'s backward: it sorts the
-ids and sums each row's contributions over its sorted segment, so repeat
-runs give the same bits (``index_add_``'s float atomics would not). It sums
-in float64 and rounds once, as the forward kernel and the plain versions do
-(``ref.py`` says why), over the distinct rows only: the float64 sums go to
-a (U, d) buffer, whose rows are copied once each into the float32 (N, d)
-gradient. The reference forms it with ``segment_sum``, outside any Pallas
-kernel.
+into a dense (N, d) gradient at the slots' rows. On the card that sum is
+the segment-sum kernel's bag form (``csrc/segment_sum.cu``,
+``kernels.segment_sum.segment_sum(..., bag_weights=mask)``): the slots are
+sorted by row, each contribution ``g[b] * mask[b, j]`` is formed in
+float32 inside the kernel as ``ref.py::contributions`` forms it, and each
+row's contributions are summed in float64 in a fixed order and rounded
+once, with no float atomics, so repeat runs give the same bits and the
+result is the function of ``embedding_bag_bwd_ref`` (``ref.py`` says why
+float64). The reference forms the gradient with ``segment_sum``, outside
+any Pallas kernel. The CPU route is ``embedding_bag_bwd_ref``;
+``embedding_bag_bwd_segments`` is the card's route on any device (on the
+CPU through ``segment_sum_ref``).
 
 On CUDA tensors the forward launches the kernel or raises; there is no
-fallback. ``embedding_bag_fwd.launches`` counts kernel launches, and only
-those.
+fallback. ``embedding_bag_fwd.launches`` counts forward kernel launches and
+``segment_sum.launches`` the backward's, and only those.
 """
 from __future__ import annotations
 
@@ -26,10 +29,11 @@ import functools
 
 import torch
 
+from repro_torch.device import on_card, raw_stream
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.embedding_bag.ref import (contributions,
-                                                   embedding_bag_bwd_ref,
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
                                                    embedding_bag_ref)
+from repro_torch.kernels.segment_sum.ops import segment_sum
 
 IDS_64 = {torch.int32: 0, torch.int64: 1}        # the kernel's id types
 MASK_FLOAT = {torch.bool: 0, torch.float32: 1}   # and mask types
@@ -51,19 +55,22 @@ def _check(table, ids, mask):
     if table.ndim != 2 or table.shape[0] < 1 or table.shape[1] < 1:
         raise ValueError(f"table must be a non-empty (N, d), got "
                          f"{tuple(table.shape)}")
-    if ids.ndim != 2 or tuple(mask.shape) != tuple(ids.shape):
+    if ids.ndim != 2 or mask.shape != ids.shape:
         raise ValueError(f"ids and mask must be one (B, L) shape, got "
                          f"{tuple(ids.shape)} and {tuple(mask.shape)}")
-    for what, x, types in (("table", table, (torch.float32,)),
-                           ("ids", ids, tuple(IDS_64)),
-                           ("mask", mask, tuple(MASK_FLOAT))):
-        if x.device != table.device:
-            raise ValueError(f"{what} lies on {x.device}, the table on "
-                             f"{table.device}")
-        if x.dtype not in types:
-            raise TypeError(f"{what}: expected one of {types}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    if table.dtype != torch.float32:
+        raise TypeError(f"table: expected torch.float32, got {table.dtype}")
+    if ids.dtype not in IDS_64:
+        raise TypeError(f"ids: expected int32 or int64, got {ids.dtype}")
+    if mask.dtype not in MASK_FLOAT:
+        raise TypeError(f"mask: expected bool or float32, got {mask.dtype}")
+    dev = table.device
+    for what, x in (("ids", ids), ("mask", mask)):
+        if x.device != dev:
+            raise ValueError(f"{what} lies on {x.device}, the table on {dev}")
+    if not (table.is_contiguous() and ids.is_contiguous()
+            and mask.is_contiguous()):
+        raise ValueError("table, ids and mask must be contiguous")
 
 
 def embedding_bag_fwd(table, ids, mask) -> torch.Tensor:
@@ -77,14 +84,15 @@ def embedding_bag_fwd(table, ids, mask) -> torch.Tensor:
                          f"{table.device}")
     _check(table, ids, mask)
     (n, d), (b, l) = table.shape, ids.shape
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    dev = table.device
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    with torch.cuda.device(table.device):
+    with on_card(dev):
         err = _kernel()(table.data_ptr(), n, d, ids.data_ptr(),
                         IDS_64[ids.dtype], mask.data_ptr(),
                         MASK_FLOAT[mask.dtype], b, l, out.data_ptr(),
-                        torch.cuda.current_stream(table.device).cuda_stream)
+                        raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error "
                            f"{err}")
@@ -92,21 +100,23 @@ def embedding_bag_fwd(table, ids, mask) -> torch.Tensor:
     return out
 
 
+def embedding_bag_bwd_segments(g, ids, mask, n_rows: int) -> torch.Tensor:
+    """The dense (n_rows, d) table gradient for the bag cotangent g (B, d)
+    by ``segment_sum``'s bag form: the kernel on the card, on the CPU the
+    same products summed by its plain version."""
+    return segment_sum(g, ids, n_rows, bag_weights=mask.to(g.dtype))
+
+
 def embedding_bag_bwd(g, ids, mask, n_rows: int) -> torch.Tensor:
     """The dense (n_rows, d) table gradient for the bag cotangent g (B, d):
-    on the card the sorted segment sum of ``aten.embedding_dense_backward``
-    in float64 over the distinct rows (deterministic), on the CPU the plain
-    version."""
+    on the card ``embedding_bag_bwd_segments`` (one segment-sum launch,
+    deterministic), on the CPU the plain version."""
     if g.device.type == "cpu":
         return embedding_bag_bwd_ref(g, ids, mask, n_rows)
     if g.device.type != "cuda":
         raise ValueError(f"embedding_bag runs on CUDA or the CPU, not on "
                          f"{g.device}")
-    out = torch.zeros((n_rows, g.shape[-1]), dtype=g.dtype, device=g.device)
-    rows, slot_row = torch.unique(ids.reshape(-1), return_inverse=True)
-    sums = torch.ops.aten.embedding_dense_backward(
-        contributions(g, mask), slot_row, rows.numel(), -1, False)
-    return out.index_copy_(0, rows.long(), sums.to(g.dtype))  # rows distinct
+    return embedding_bag_bwd_segments(g, ids, mask, n_rows)
 
 
 embedding_bag_fwd.launches = 0

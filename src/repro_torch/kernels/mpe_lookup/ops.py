@@ -4,27 +4,80 @@ card, the plain version (``ref.py``) for tensors on the CPU.
 On a CUDA tensor the wrapper launches ``csrc/mpe_lookup.cu`` or raises; there
 is no fallback. ``packed_lookup.launches`` counts kernel launches, and only
 those.
+
+The kernel's launch descriptor (``Plan``: each width bucket's subtable,
+rows, bits and words per row, and the table's index, α and β tensors) is
+built and checked once per table by ``lookup_plan`` and cached. The cache
+key holds the ``data_ptr`` and ``_version`` of ``width_idx``, ``local_idx``,
+every subtable, α and β, so a table whose tensors are replaced or written
+in place gets a new descriptor. A descriptor holds weak references to its
+tensors and leaves the cache when any of them is freed: it keeps no table
+alive, and a new tensor at a freed one's address finds no descriptor. A
+call then checks the ids and makes one ctypes call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.core.packing import words_per_row
+from repro_torch.device import on_card, raw_stream
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref
 
 MAX_BUCKETS = 16  # kMaxBuckets in csrc/mpe_lookup.cu
+MAX_BITS = 31
+MAX_PLANS = 64    # descriptors cached at once; the oldest goes first
+
+
+class _Plan(ctypes.Structure):
+    """Mirror of ``struct Plan`` in ``csrc/mpe_lookup.cu``."""
+    _fields_ = [("words", ctypes.c_void_p * MAX_BUCKETS),
+                ("width_idx", ctypes.c_void_p),
+                ("local_idx", ctypes.c_void_p),
+                ("alpha", ctypes.c_void_p),
+                ("beta", ctypes.c_void_p),
+                ("rows", ctypes.c_int * MAX_BUCKETS),
+                ("bits", ctypes.c_int * MAX_BUCKETS),
+                ("wpr", ctypes.c_int * MAX_BUCKETS),
+                ("n_buckets", ctypes.c_int),
+                ("n_table", ctypes.c_int),
+                ("d", ctypes.c_int),
+                ("max_words", ctypes.c_int),
+                ("max_bits", ctypes.c_int)]
+
+
+@dataclass
+class LookupPlan:
+    """A checked launch descriptor of one packed table: per width bucket
+    its code width, padded rows and words per row (0, 0, 0 for a dropped
+    width), and the C struct the kernel takes."""
+    d: int
+    n_table: int
+    bits: tuple
+    rows: tuple
+    words_per_row: tuple
+    c_plan: _Plan
+    tensors: tuple = ()  # weak references to the tensors it was built from
+
+    @property
+    def c_address(self) -> int:
+        return ctypes.addressof(self.c_plan)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = load_library("mpe_lookup").mpe_lookup
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p, p, i, p, p, i, p, p]
-    fn.restype = i
+    lib = load_library("mpe_lookup")
+    if lib.mpe_lookup_plan_bytes() != ctypes.sizeof(_Plan):
+        raise RuntimeError("csrc/mpe_lookup.cu's Plan and _Plan differ in size")
+    fn = lib.mpe_lookup
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -42,51 +95,100 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device):
         raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(table, meta, ids: torch.Tensor) -> torch.Tensor:
-    bits, d = tuple(meta["bits"]), int(meta["d"])
-    dev = ids.device
+def _table_tensors(table) -> tuple:
+    """The tensors a plan reads, in a fixed order."""
+    return (table["width_idx"], table["local_idx"], table["alpha"],
+            table["beta"], *table["subtables"].values())
+
+
+def lookup_plan(table, meta, device) -> LookupPlan:
+    """Check ``table`` for the kernel on ``device`` and build its launch
+    descriptor. Raises on what the kernel does not take."""
+    bits, d = tuple(int(b) for b in meta["bits"]), int(meta["d"])
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     n = int(table["width_idx"].shape[0])
     if not 1 <= len(bits) <= MAX_BUCKETS:
         raise ValueError(f"{len(bits)} width buckets; the kernel takes 1.."
                          f"{MAX_BUCKETS}")
-    _check(ids, "ids", torch.int32, (ids.numel(),), dev)
-    _check(table["width_idx"], "width_idx", torch.int32, (n,), dev)
-    _check(table["local_idx"], "local_idx", torch.int32, (n,), dev)
-    _check(table["alpha"], "alpha", torch.float32, (len(bits),), dev)
-    _check(table["beta"], "beta", torch.float32, (d,), dev)
-    ptrs, rows, widths = [], [], []
-    for b in bits:
+    if not 1 <= n <= 2 ** 31 - 1:
+        raise ValueError(f"{n} features; the kernel takes 1..2^31 - 1")
+    _check(table["width_idx"], "width_idx", torch.int32, (n,), device)
+    _check(table["local_idx"], "local_idx", torch.int32, (n,), device)
+    _check(table["alpha"], "alpha", torch.float32, (len(bits),), device)
+    _check(table["beta"], "beta", torch.float32, (d,), device)
+    c = _Plan()
+    rows, wprs = [], []
+    for i, b in enumerate(bits):
         if b == 0:
-            ptrs.append(0)
             rows.append(0)
-            widths.append(0)
+            wprs.append(0)
             continue
-        if not 1 <= b <= 31:
-            raise ValueError(f"code width {b} outside the kernel's 1..31")
+        if not 1 <= b <= MAX_BITS:
+            raise ValueError(f"code width {b} outside the kernel's 1.."
+                             f"{MAX_BITS}")
         sub = table["subtables"][f"b{b}"]
         if sub.ndim != 2 or sub.shape[0] < 1:
             raise ValueError(f"subtable b{b} must be a non-empty 2-D tensor")
-        _check(sub, f"subtable b{b}", torch.int32,
-               (sub.shape[0], words_per_row(d, b)), dev)
-        ptrs.append(sub.data_ptr())
+        wpr = words_per_row(d, b)
+        _check(sub, f"subtable b{b}", torch.int32, (sub.shape[0], wpr), device)
+        if sub.shape[0] > 2 ** 31 - 1:
+            raise ValueError(f"subtable b{b}: {sub.shape[0]} rows; the kernel "
+                             f"takes at most 2^31 - 1")
+        c.words[i] = sub.data_ptr()
         rows.append(int(sub.shape[0]))
-        widths.append(int(b))
-    out = torch.empty((ids.numel(), d), dtype=torch.float32, device=dev)
-    if ids.numel() == 0:
+        wprs.append(wpr)
+    for i, (b, r, w) in enumerate(zip(bits, rows, wprs)):
+        c.bits[i], c.rows[i], c.wpr[i] = b, r, w
+    c.width_idx = table["width_idx"].data_ptr()
+    c.local_idx = table["local_idx"].data_ptr()
+    c.alpha = table["alpha"].data_ptr()
+    c.beta = table["beta"].data_ptr()
+    c.n_buckets, c.n_table, c.d = len(bits), n, d
+    c.max_words, c.max_bits = max(wprs), max(bits)
+    return LookupPlan(d=d, n_table=n, bits=bits,
+                      rows=tuple(rows), words_per_row=tuple(wprs), c_plan=c)
+
+
+_PLANS: dict = {}
+
+
+def cached_plan(table, meta, device) -> LookupPlan:
+    """``lookup_plan``, built once per table and state: served from the
+    cache while the table holds tensors at the same ``data_ptr`` and
+    ``_version``; dropped from it when one of them is freed."""
+    tensors = _table_tensors(table)
+    key = (meta["d"], tuple(meta["bits"]), device,
+           *[t.data_ptr() for t in tensors], *[t._version for t in tensors])
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    plan = lookup_plan(table, meta, device)
+
+    def drop(_, key=key):
+        _PLANS.pop(key, None)
+    plan.tensors = tuple(weakref.ref(t, drop) for t in tensors)
+    if len(_PLANS) >= MAX_PLANS:
+        del _PLANS[next(iter(_PLANS))]
+    _PLANS[key] = plan
+    return plan
+
+
+def _launch(table, meta, ids: torch.Tensor) -> torch.Tensor:
+    dev = ids.device
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids: expected torch.int32, got {ids.dtype}")
+    if not ids.is_contiguous():
+        raise ValueError("ids must be contiguous")
+    plan = cached_plan(table, meta, dev)
+    n = ids.numel()
+    out = torch.empty((n, plan.d), dtype=torch.float32, device=dev)
+    if n == 0:
         return out
-    m = len(bits)
-    c_ptrs = (ctypes.c_longlong * m)(*ptrs)
-    c_rows = (ctypes.c_int * m)(*rows)
-    c_bits = (ctypes.c_int * m)(*widths)
-    kernel = _kernel()
-    with torch.cuda.device(dev):
-        err = kernel(ids.data_ptr(), ids.numel(), n,
-                     table["width_idx"].data_ptr(),
-                     table["local_idx"].data_ptr(),
-                     ctypes.addressof(c_ptrs), ctypes.addressof(c_rows),
-                     ctypes.addressof(c_bits), m,
-                     table["alpha"].data_ptr(), table["beta"].data_ptr(), d,
-                     out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):  # a small request's time is this call's host time
+        err = _kernel()(plan.c_address, ids.data_ptr(), n, out.data_ptr(),
+                        raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"mpe_lookup kernel launch failed: CUDA error {err}")
     packed_lookup.launches += 1
@@ -95,15 +197,15 @@ def _launch(table, meta, ids: torch.Tensor) -> torch.Tensor:
 
 def packed_lookup(table, meta, ids: torch.Tensor) -> torch.Tensor:
     """ids: global feature ids of any shape -> (*ids.shape, d) float32."""
-    flat = ids.reshape(-1)
-    if flat.device.type == "cuda":
+    flat = ids if ids.ndim == 1 else ids.reshape(-1)  # a reshape costs ~2 us
+    if flat.is_cuda:
         out = _launch(table, meta, flat)
     elif flat.device.type == "cpu":
         out = packed_lookup_ref(table, meta, flat)
     else:
         raise ValueError(f"packed_lookup runs on CUDA or the CPU, not on "
                          f"{flat.device}")
-    return out.reshape(*ids.shape, meta["d"])
+    return out if ids.ndim == 1 else out.reshape(*ids.shape, meta["d"])
 
 
 packed_lookup.launches = 0

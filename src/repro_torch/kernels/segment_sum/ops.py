@@ -10,6 +10,13 @@ sum), zeroes the gradient and launches the kernel, which sums every
 segment in float64 in a fixed order, a long one cut over many workers,
 with no float atomics; on the CPU it takes the plain version.
 
+``segment_sum(g, ids, n, bag_weights=w)`` is the bag form, the embedding
+bag's backward: g is the bag cotangent (B, w), ids and the weights
+(B, L), and the row summed for slot (b, j) is ``g[b] * w[b, j]``, formed
+in float32 inside the kernel (``segment_sum_bag``), so the (B·L, w)
+products are never written to device memory; on the CPU the plain
+version sums the same products.
+
 On CUDA tensors it launches the kernel or raises; there is no fallback.
 ``segment_sum.launches`` counts launches (one is the chunk kernel and its
 combine), and only those.
@@ -35,15 +42,18 @@ def _library():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.segment_sum.argtypes = [p, p, p, ll, i, p, p, p, p]
     lib.segment_sum.restype = i
+    lib.segment_sum_bag.argtypes = [p, p, i, p, p, ll, i, p, p, p, p]
+    lib.segment_sum_bag.restype = i
     lib.segment_sum_chunks.argtypes = [ll]
     lib.segment_sum_chunks.restype = ll
     return lib
 
 
-def _check(grad, ids, n):
-    """Raise on what the kernel does not take: a float32 contiguous (T, w)
-    gradient with 1 <= w <= 256, int32 or int64 ids (T,) on its device,
-    and n < 2^31."""
+def _check(grad, ids, n, t=None):
+    """Raise on what the kernel does not take: a float32 contiguous
+    (rows, w) gradient with 1 <= w <= 256, int32 or int64 ids (t,) on its
+    device (t = rows unless given), and n < 2^31."""
+    t = grad.shape[0] if t is None else t
     if grad.ndim != 2 or not 1 <= grad.shape[1] <= MAX_W:
         raise ValueError(f"grad must be (T, w) with 1 <= w <= {MAX_W}, got "
                          f"{tuple(grad.shape)}")
@@ -55,23 +65,53 @@ def _check(grad, ids, n):
         raise ValueError(f"ids lie on {ids.device}, grad on {grad.device}")
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"ids: expected int32 or int64, got {ids.dtype}")
-    if tuple(ids.shape) != (grad.shape[0],):
-        raise ValueError(f"ids: expected shape ({grad.shape[0]},), got "
+    if tuple(ids.shape) != (t,):
+        raise ValueError(f"ids: expected shape ({t},), got "
                          f"{tuple(ids.shape)}")
     if not 0 <= n <= MAX_N:
         raise ValueError(f"n={n} outside the kernel's 0..{MAX_N}")
 
 
-def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+def _check_bag(g, ids, weights):
+    """Raise on what the bag form does not take: weights (B, L) float32 on
+    g's device, g (B, w), ids of B·L entries, B·L < 2^32."""
+    if weights.ndim != 2 or weights.shape[0] != g.shape[0]:
+        raise ValueError(f"bag_weights must be (B, L) with B = {g.shape[0]}, "
+                         f"got {tuple(weights.shape)}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"bag_weights: expected torch.float32, got "
+                        f"{weights.dtype}")
+    if weights.device != g.device:
+        raise ValueError(f"bag_weights lie on {weights.device}, grad on "
+                         f"{g.device}")
+    if weights.numel() >= 2 ** 32:
+        raise ValueError(f"{weights.numel()} slots; the bag form takes "
+                         f"fewer than 2^32")
+    if ids.numel() != weights.numel():
+        raise ValueError(f"ids: expected {weights.numel()} entries, got "
+                         f"{ids.numel()}")
+
+
+def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
+                bag_weights: torch.Tensor | None = None) -> torch.Tensor:
     """(n, w) float32: row i is the sum of the rows of ``grad`` (T, w) whose
-    id is i, 0 where there is none; summed in float64, rounded once."""
+    id is i, 0 where there is none; summed in float64, rounded once. With
+    ``bag_weights`` (B, L), ``grad`` is (B, w), ``ids`` holds B·L entries
+    and the rows summed are ``grad[b] * bag_weights[b, j]``."""
+    if bag_weights is not None:
+        ids = ids.reshape(-1)
+        _check_bag(grad, ids, bag_weights)
     if grad.device.type == "cpu":
+        if bag_weights is not None:
+            grad = (grad[:, None, :] * bag_weights[..., None]).reshape(
+                -1, grad.shape[-1])
         return segment_sum_ref(grad, ids, n)
     if grad.device.type != "cuda":
         raise ValueError(f"segment_sum runs on CUDA or the CPU, not on "
                          f"{grad.device}")
-    _check(grad, ids, n)
-    t, w = grad.shape
+    t = grad.shape[0] if bag_weights is None else bag_weights.numel()
+    _check(grad, ids, n, t)
+    w = grad.shape[1]
     out = torch.zeros((n, w), dtype=torch.float32, device=grad.device)
     if t == 0:
         return out
@@ -83,10 +123,18 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     flags = torch.empty((chunks,), dtype=torch.uint8, device=grad.device)
     dev = grad.device
     with torch.cuda.device(dev):
-        err = lib.segment_sum(
-            grad.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(), t, w,
-            out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bag_weights is None:
+            err = lib.segment_sum(
+                grad.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(), t,
+                w, out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+                stream)
+        else:
+            weights = bag_weights.contiguous()
+            err = lib.segment_sum_bag(
+                grad.data_ptr(), weights.data_ptr(), weights.shape[1],
+                sorted_ids.data_ptr(), order.data_ptr(), t, w, out.data_ptr(),
+                scratch.data_ptr(), flags.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     segment_sum.launches += 1

@@ -8,7 +8,11 @@ inputs:
   1e-5, atol 1e-6: the reference's kernel contract; the L slots are summed
   in another order);
 - the table gradient against ``jax.grad`` through the reference's
-  ``custom_vjp`` (the same contract);
+  ``custom_vjp`` (the same contract), and the card's backward route
+  (``embedding_bag_bwd_segments``: the segment sum's bag form, here through
+  its plain version) against the ``custom_vjp``'s gradient and against
+  ``embedding_bag_bwd_ref`` (float64 sums of the same float32 products,
+  each rounded once: equal);
 - ``embeddings.embedding_bag`` with ``combine`` sum, mean and max, with and
   without a mask, and ``reduce_bag``;
 - ``ragged_embedding_bag`` (sum, mean, max, with empty segments) and
@@ -31,6 +35,7 @@ from repro_torch.embeddings import bag
 from repro_torch.kernels.embedding_bag import ops
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
                                                    embedding_bag_ref)
+from repro_torch.kernels.segment_sum import ops as seg_ops
 
 TOL = dict(rtol=1e-5, atol=1e-6)     # tests/test_kernels.py's bag contract
 N_ROWS = 200
@@ -112,6 +117,36 @@ def test_plain_backward_is_the_reference_segment_sum(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert torch.equal(ops.embedding_bag_bwd(t(g), t(ids), t(mask), N_ROWS),
                        got)
+
+
+SEGMENT_CASES = [((8, 5, 16), {}), ((16, 7, 32), {"float_mask": True}),
+                 ((12, 20, 32), {"id_dtype": np.int64, "all_masked": (0,)}),
+                 ((6, 50, 50), {"float_mask": True})]
+
+
+@pytest.mark.parametrize("shape,kw", SEGMENT_CASES,
+                         ids=[f"{s}-{'-'.join(k) or 'bool'}"
+                              for s, k in SEGMENT_CASES])
+def test_segment_route_matches_custom_vjp_and_plain_backward(shape, kw, rng):
+    """The card's backward route, taken on the CPU: the bag cotangent times
+    the mask summed by ``segment_sum``'s plain version. Within the contract
+    of the reference's ``custom_vjp`` gradient, and equal to
+    ``embedding_bag_bwd_ref``; no kernel launches."""
+    table, ids, mask = bag_inputs(rng, *shape, **kw)
+    ids[1] = ids[1, 0]                       # a bag that repeats one row
+    b, _, d = shape
+    g = rng.normal(0, 1, (b, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jembedding_bag_kernel(
+        x, jnp.asarray(ids), jnp.asarray(mask)), jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(g))
+    seg0 = seg_ops.segment_sum.launches
+    got = ops.embedding_bag_bwd_segments(t(g), t(ids), t(mask), N_ROWS)
+    assert got.shape == table.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(
+        got.numpy(), embedding_bag_bwd_ref(t(g), t(ids), t(mask),
+                                           N_ROWS).numpy())
+    assert seg_ops.segment_sum.launches == seg0
 
 
 def test_masked_inf_row_gives_nan_as_in_reference(rng):

@@ -125,6 +125,103 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device, rng):
         ops.packed_lookup(dict(table, beta=table["beta"][:8]), meta, ids)
 
 
+def _kernel_names(fn, attempts: int = 3) -> list:
+    """The names of the device kernels ``fn()`` runs, under the profiler.
+    A profile that recorded no device activity at all (the profiler now and
+    then returns none for a short window) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    return [name for name in events if not name.startswith(("Memcpy",
+                                                            "Memset"))]
+
+
+LOOKUP_EDGE_BITS = [(0, 1, 2, 3, 4, 5, 6, 7, 8), (0, 9, 16, 17, 31), (0, 6)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 50])
+def test_lookup_kernel_bit_identical_at_every_bucket_and_edge(cuda_device,
+                                                              rng, d):
+    """Every width bucket including 0 and widths up to 31, rows whose word
+    count is odd (16-byte unaligned: d = 16 at b = 6 or 5 words, d = 50 at
+    b = 3), and id counts that do not fill the last warp or block: the
+    kernel equals the plain version bit for bit."""
+    odd = []
+    for bits in LOOKUP_EDGE_BITS:
+        table, meta = _table(rng, bits, 3000, d, cuda_device)
+        odd += [w for w in ops.cached_plan(table, meta, cuda_device)
+                .words_per_row if w % 2]
+        for n_ids in (1, 31, 33, 255, 257, 4099):
+            ids = _ids(rng, 3000, n_ids, cuda_device)
+            got = ops.packed_lookup(table, meta, ids)
+            torch.cuda.synchronize()
+            assert torch.equal(got, packed_lookup_ref(table, meta, ids)), \
+                (bits, n_ids)
+        dropped = table["width_idx"][ids.long()] == 0
+        assert bool(dropped.any()) and not got[dropped].any()
+    assert odd, "no row width with an odd word count"
+
+
+def test_lookup_kernel_offsets_past_two_to_the_31(cuda_device, rng):
+    """More than 2^31 output elements (134,217,857 ids at d = 16, an 8.6 GB
+    output): the rows at both ends equal the plain version's."""
+    d = 16
+    table, meta = _table(rng, (0, 3, 6), 5000, d, cuda_device)
+    n_ids = 2 ** 31 // d + 129
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(0, 5000, (n_ids,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    got = ops.packed_lookup(table, meta, ids)
+    torch.cuda.synchronize()
+    assert got.numel() > 2 ** 31
+    for part in (slice(0, 4096), slice(n_ids - 4096, n_ids)):
+        assert torch.equal(got[part], packed_lookup_ref(table, meta, ids[part]))
+    del got
+
+
+def test_lookup_serves_rows_written_in_place(cuda_device, rng):
+    """After a subtable, ``width_idx``, α or β is written in place, the next
+    call serves the new rows (a new launch descriptor), and a table whose
+    tensors are replaced likewise."""
+    table, meta = _table(rng, (0, 2, 4), 500, 16, cuda_device)
+    ids = _ids(rng, 500, 777, cuda_device)
+    first = ops.packed_lookup(table, meta, ids)
+    plan = ops.cached_plan(table, meta, cuda_device)
+    writes = [lambda: table["subtables"]["b4"].bitwise_xor_(0x5A5A5A5A),
+              lambda: table["width_idx"].copy_((table["width_idx"] + 1) % 3),
+              lambda: table["alpha"].mul_(2.0),
+              lambda: table["beta"].add_(1e-3)]
+    for write in writes:
+        write()
+        got = ops.packed_lookup(table, meta, ids)
+        assert torch.equal(got, packed_lookup_ref(table, meta, ids))
+        assert ops.cached_plan(table, meta, cuda_device) is not plan
+        plan = ops.cached_plan(table, meta, cuda_device)
+    assert not torch.equal(got, first)
+    swapped = dict(table, subtables=dict(
+        table["subtables"], b2=table["subtables"]["b2"].flip(0).contiguous()))
+    torch.testing.assert_close(ops.packed_lookup(swapped, meta, ids),
+                               packed_lookup_ref(swapped, meta, ids),
+                               rtol=0, atol=0)
+
+
+def test_one_lookup_call_launches_one_kernel(cuda_device, rng):
+    table, meta = _table(rng, (0, 1, 2, 3, 4, 5, 6), 20_000, 16, cuda_device)
+    ids = _ids(rng, 20_000, (512, 39), cuda_device)
+    ops.packed_lookup(table, meta, ids)                  # builds, plans
+    before = ops.packed_lookup.launches
+    names = _kernel_names(lambda: ops.packed_lookup(table, meta, ids))
+    assert ops.packed_lookup.launches == before + 1
+    assert len(names) == 1 and "mpe_lookup_kernel" in names[0], names
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda_device, rng):
     cfg = make_config(reduced=True)
     spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields), seed=1)
@@ -447,8 +544,8 @@ def test_bag_kernel_matches_plain(cuda_device, rng, id_dtype, float_mask):
 
 def test_bag_kernel_counts_each_launch_and_never_takes_plain(cuda_device, rng,
                                                              monkeypatch):
-    """A CUDA tensor launches the kernel (one count per forward, none for
-    the backward, which is no TPU kernel); the plain version is never
+    """A CUDA tensor launches the kernel (one count per forward; the
+    backward counts one segment-sum launch); the plain version is never
     called, through the kernel API or ``embeddings.embedding_bag``."""
     def refuse(*args):
         raise AssertionError("a CUDA tensor took the plain version")
@@ -458,9 +555,11 @@ def test_bag_kernel_counts_each_launch_and_never_takes_plain(cuda_device, rng,
     table, ids, mask = _bag_inputs(rng, 64, 20, 32, cuda_device)
     leaf = table.clone().requires_grad_(True)
     before = bag_ops.embedding_bag_fwd.launches
+    seg_before = seg_ops.segment_sum.launches
     out = embedding_bag_kernel(leaf, ids, mask)
     out.square().sum().backward()
     assert bag_ops.embedding_bag_fwd.launches == before + 1
+    assert seg_ops.segment_sum.launches == seg_before + 1
     assert leaf.grad is not None and leaf.grad.is_cuda
     for combine in ("sum", "mean"):
         embedding_bag(table, ids, mask, combine=combine)
@@ -482,6 +581,44 @@ def test_bag_kernel_rejects_what_it_does_not_take(cuda_device, rng):
         bag_ops.embedding_bag_fwd(table, ids.t().contiguous().t(), mask)
     with pytest.raises(ValueError, match="one \\(B, L\\) shape"):
         bag_ops.embedding_bag_fwd(table, ids, mask[:, :3])
+
+
+def test_bag_backward_is_one_segment_sum_and_no_library_sum(cuda_device,
+                                                             rng):
+    """The bag's backward on the card launches the segment sum's bag form
+    once and runs no kernel of the library's dense embedding backward; it
+    equals the segment sum of the products written out (the same sums in
+    the same order) bit for bit."""
+    table, ids, mask = _bag_inputs(rng, 4096, 20, 32, cuda_device, n=20_000,
+                                   float_mask=True)
+    leaf = table.clone().requires_grad_(True)
+    g = torch.randn((4096, 32), device=cuda_device)
+    embedding_bag_kernel(leaf, ids, mask)                # builds
+    before = seg_ops.segment_sum.launches
+    names = _kernel_names(lambda: torch.autograd.grad(
+        embedding_bag_kernel(leaf, ids, mask), leaf, g))
+    assert seg_ops.segment_sum.launches == before + 1
+    assert any("segment_chunk_kernel" in n for n in names), names
+    library = [n for n in names if any(k in n for k in (
+        "embedding_backward", "embedding_dense", "compute_grad_weight",
+        "sum_and_scatter", "krn_partial", "segment_offsets_kernel",
+        "compute_num_of_partial_segments"))]
+    assert not library, library
+    (got,) = torch.autograd.grad(embedding_bag_kernel(leaf, ids, mask), leaf, g)
+    prods = (g[:, None, :] * mask[..., None]).reshape(-1, 32)
+    assert torch.equal(got, seg_ops.segment_sum(prods, ids.reshape(-1),
+                                                table.shape[0]))
+
+
+def test_bag_forward_is_bit_repeatable(cuda_device, rng):
+    """At the BST training batch's shape (65,536 bags of 20, d = 32) the
+    forward gives the same bits three times."""
+    table, ids, mask = _bag_inputs(rng, 65_536, 20, 32, cuda_device,
+                                   n=1_000_000)
+    outs = [bag_ops.embedding_bag_fwd(table, ids, mask) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    torch.testing.assert_close(outs[0], embedding_bag_ref(table, ids, mask),
+                               **BAG_TOL)
 
 
 def _bst_batch(rng, cfg, n):

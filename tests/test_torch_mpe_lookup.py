@@ -1,7 +1,11 @@
 """Port parity for the packed lookup: the plain PyTorch version is bit-exact
 against the reference's jitted ``packed_lookup`` and matches its Pallas
-kernel (interpret mode) at rtol 1e-6. The CUDA kernel is held against the
-plain version on the card in ``test_torch_gpu.py``."""
+kernel (interpret mode) at rtol 1e-6. The kernel's launch descriptor
+(``ops.lookup_plan``) gives each width bucket the rows, bits and words per
+row of the reference's packing, and the cache (``ops.cached_plan``) builds
+a new one when the table is written in place or its tensors replaced. The
+CUDA kernel is held against the plain version on the card in
+``test_torch_gpu.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +15,7 @@ import torch
 from repro.core.inference import build_packed_table as j_build
 from repro.core.inference import packed_lookup as j_lookup
 from repro.core.mpe import MPEConfig as JMPEConfig
+from repro.core.packing import words_per_row as j_words_per_row
 from repro.kernels.mpe_lookup.ops import packed_lookup_kernel
 from repro_torch.core import quantizer
 from repro_torch.interop import to_torch
@@ -82,3 +87,94 @@ def test_lookup_rejects_other_devices(rng):
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.packed_lookup(t_table, meta,
                           torch.zeros(4, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("b", range(9))
+@pytest.mark.parametrize("d", [8, 16, 32, 50, 64])
+def test_plan_gives_the_reference_packing(b, d, rng):
+    """Each bucket's rows, bits and words per row, as the reference packs
+    them; a width of 0 has no subtable (0, 0, 0)."""
+    bits = (0, b) if b else (0,)
+    table, meta, t_table = _table(rng, bits, 70, d)
+    plan = ops.lookup_plan(t_table, meta, "cpu")
+    want_rows = [0 if w == 0 else table["subtables"][f"b{w}"].shape[0]
+                 for w in bits]
+    want_wpr = [0 if w == 0 else j_words_per_row(d, w) for w in bits]
+    assert plan.bits == bits and plan.d == d and plan.n_table == 70
+    assert list(plan.rows) == want_rows
+    assert list(plan.words_per_row) == want_wpr
+    c = plan.c_plan
+    assert (c.n_buckets, c.n_table, c.d) == (len(bits), 70, d)
+    assert (c.max_words, c.max_bits) == (max(want_wpr), max(bits))
+    assert list(c.bits[:len(bits)]) == list(bits)
+    assert list(c.rows[:len(bits)]) == want_rows
+    assert list(c.wpr[:len(bits)]) == want_wpr
+    assert c.width_idx == t_table["width_idx"].data_ptr()
+    assert c.beta == t_table["beta"].data_ptr()
+    for i, w in enumerate(bits):
+        assert (c.words[i] or 0) == (0 if w == 0 else
+                                     t_table["subtables"][f"b{w}"].data_ptr())
+
+
+WRITES = {
+    "width_idx": lambda t: t["width_idx"].copy_((t["width_idx"] + 1) % 3),
+    "local_idx": lambda t: t["local_idx"].zero_(),
+    "subtable": lambda t: t["subtables"]["b4"].bitwise_xor_(0x0F0F0F0F),
+    "alpha": lambda t: t["alpha"].mul_(2.0),
+    "beta": lambda t: t["beta"].add_(1.0),
+}
+
+
+@pytest.mark.parametrize("what", list(WRITES))
+def test_plan_is_rebuilt_after_an_in_place_write(what, rng):
+    _, meta, t_table = _table(rng, (0, 2, 4), 90, 16)
+    plan = ops.cached_plan(t_table, meta, "cpu")
+    assert ops.cached_plan(t_table, meta, "cpu") is plan      # a hit
+    WRITES[what](t_table)
+    again = ops.cached_plan(t_table, meta, "cpu")
+    assert again is not plan
+    assert ops.cached_plan(t_table, meta, "cpu") is again
+
+
+def test_plan_is_rebuilt_for_replaced_tensors_and_holds_no_table(rng):
+    import gc
+    import weakref
+    _, meta, t_table = _table(rng, (0, 2, 4), 90, 16)
+    plan = ops.cached_plan(t_table, meta, "cpu")
+    swapped = dict(t_table, subtables=dict(
+        t_table["subtables"], b2=t_table["subtables"]["b2"].clone()))
+    other = ops.cached_plan(swapped, meta, "cpu")
+    assert other is not plan
+    assert other.c_plan.words[1] == swapped["subtables"]["b2"].data_ptr()
+    gone = weakref.ref(t_table["width_idx"])
+    assert plan in ops._PLANS.values() and other in ops._PLANS.values()
+    del t_table, swapped
+    gc.collect()
+    assert gone() is None        # the cache keeps no table alive
+    # and drops the descriptors of freed tensors
+    assert plan not in ops._PLANS.values()
+    assert other not in ops._PLANS.values()
+
+
+@pytest.mark.parametrize("case", ["dtype", "contiguous", "shape", "buckets",
+                                  "bits", "device"])
+def test_plan_rejects_what_the_kernel_does_not_take(case, rng):
+    _, meta, t = _table(rng, (0, 4), 64, 16)
+    if case == "dtype":
+        t, err = dict(t, local_idx=t["local_idx"].long()), TypeError
+    elif case == "contiguous":
+        sub = t["subtables"]["b4"]
+        t = dict(t, subtables={"b4": sub.repeat(1, 2)[:, ::2]})
+        err = ValueError
+    elif case == "shape":
+        t, err = dict(t, alpha=t["alpha"][:1]), ValueError
+    elif case == "buckets":
+        meta, err = dict(meta, bits=tuple(range(17))), ValueError
+    elif case == "bits":
+        meta, err = dict(meta, bits=(0, 32)), ValueError
+        t = dict(t, subtables={"b32": t["subtables"]["b4"]},
+                 alpha=t["alpha"])
+    else:
+        t, err = dict(t, beta=t["beta"].to("meta")), ValueError
+    with pytest.raises(err):
+        ops.lookup_plan(t, meta, "cpu")

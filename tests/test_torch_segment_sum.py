@@ -9,6 +9,8 @@
   rounds once), atol 1e-6 times the largest entry;
 - ``segment_sum`` on the CPU is ``F.embedding``'s dense backward in float64,
   rounded once, and launches nothing; a row with no id gets 0;
+- the bag form (``bag_weights``, the embedding bag's backward) on the CPU
+  sums the float32 products ``g[b] * w[b, j]`` in float64, rounded once;
 - the wrapper's checks.
 
 The CUDA kernel is held against the plain version on the card in
@@ -112,3 +114,30 @@ def test_wrapper_checks_what_the_kernel_takes(rng):
         ops._check(torch.zeros(10, 300), ids, 5)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.segment_sum(grad.to("meta"), ids.to("meta"), 5)
+
+
+@pytest.mark.parametrize("w", [7, 32])
+def test_bag_form_sums_the_weighted_cotangent_rows(w, rng):
+    b, l, n = 300, 20, 500
+    ids = torch.from_numpy(zipf_ids(rng, b * l, n, 0.3).reshape(b, l))
+    g = torch.from_numpy(rng.normal(0, 1, (b, w)).astype(np.float32))
+    weights = torch.from_numpy((rng.random((b, l)) < 0.7)
+                               * rng.uniform(0.5, 1.5, (b, l))).float()
+    before = ops.segment_sum.launches
+    got = ops.segment_sum(g, ids, n, bag_weights=weights)
+    assert ops.segment_sum.launches == before            # the CPU: no kernel
+    prods = (g.numpy()[:, None, :] * weights.numpy()[..., None]).reshape(-1, w)
+    want = np.zeros((n, w), np.float64)
+    np.add.at(want, ids.numpy().reshape(-1), prods.astype(np.float64))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def test_bag_form_checks_its_weights(rng):
+    g = torch.zeros(4, 8)
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bag_weights must be"):
+        ops.segment_sum(g, ids, 5, bag_weights=torch.zeros(3, 3))
+    with pytest.raises(TypeError, match="bag_weights"):
+        ops.segment_sum(g, ids, 5, bag_weights=torch.zeros(4, 3).double())
+    with pytest.raises(ValueError, match="entries"):
+        ops.segment_sum(g, ids[:, :2], 5, bag_weights=torch.zeros(4, 3))
