@@ -16,7 +16,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64} (rtol 1e-6), and
    the ``mpe_qat`` forward and backward against theirs over rows {1, 255,
    257, 4099} × d {8, 16, 32, 33, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
-   softmax and one-hot probabilities: ``out`` and ``drows`` bit-identical,
+   softmax and one-hot probabilities, and one width alone (b), b ∈ 1..8,
+   at probability 1 (LSQ's and ALPT's lookups): ``out`` and ``drows`` bit-identical,
    ``dprobs``, ``dα``, ``dβ`` at rtol 1e-4 / atol 1e-6 (summed in float64
    in another order); the backward run twice gives the same bits. The three flash
    attention kernels against theirs over BH {1, 3, 37} × S {8, 21, 32, 50,
@@ -48,7 +49,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    busy time against the wall time, with the costliest device kernels and
    the bulk request's ``mpe_lookup_kernel`` ms beside the first lookup
    kernel's.
-7. train path: ``repro_torch.launch.train`` at full width and the
+7. train path: ``repro_torch.launch.train --prefetch`` at full width and the
    ``train_batch`` cell's 65,536 rows — 8 search steps, Eq. 11 sampling,
    8 retrain steps, the packed export, eval on ``eval_set(4)`` — with the
    launch counts set to 0; then the exported table is served by
@@ -69,7 +70,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    versions and the byte bound; one traced search step (its batch made on
    the host included) for the device's idle share and costliest kernels,
    and its ``mpe_qat``, segment-sum, sort, Adam and library
-   dense-embedding-backward ms. Then one more search step and one retrain
+   dense-embedding-backward ms; then search steps through a pre-built
+   ``PrefetchPipeline(ds.batch, depth=k)`` (k: the host's cores less one,
+   ``os.cpu_count()`` printed), timed by one measure with synchronous and
+   depth-1 steps (8 steps each after the read-ahead fills, in the order
+   sync, 1, k, 1, sync): their wall ms, the ms each waited for its batch,
+   the ms making a batch took and, traced at depth k, the device's busy
+   ms, beside the synchronous step.
+   Then one more search step and one retrain
    step, each with its kernels' arguments recorded and checked as in 11
    (``mpe_qat``, the segment sum of the rows over the whole table and of
    the group probabilities, the Adam pass), and the in-place and NaN-step
@@ -167,6 +175,38 @@ Phases, each of which raises (and so exits non-zero) on failure:
    products written out first, the route the bag form replaces) and the
    forward plus backward through autograd.
 
+16. checks at the reduced DLRM config (8 fields of 1,000 ids, 4,096
+   rows): runs prefetched at depth 1 and k give the synchronous run's
+   losses bit for bit; ``adam(warmup_cosine(...))``'s pass, which reads
+   the schedule's ``lr_t`` on the card, held against its plain version bit
+   for bit, a skipped one bit-unchanged; ``Trainer(grad_compression=True)``
+   4 finite steps; 6 steps against 3, ``save``, a fresh ``Trainer``,
+   ``restore()`` and 3 more: the same losses and parameters.
+17. the segment sum's grid at the new shapes: width 1 with a hot segment,
+   QR's two-row remainder table at width 16 and 1 (2.5 M ids into two
+   segments), against the plain version, twice bit-identical, timed.
+18. Table 3 at full DLRM width: the backbone (``plain``) and the five
+   baselines (``lsq`` b=6, ``alpt`` b=8, ``qr`` k=2, ``pep``, ``optfs``)
+   each through ``launch.train.main --prefetch`` for 4 steps at 65,536
+   rows, the counts at 0. Each step must launch ``mpe_qat`` forward and
+   backward once (LSQ, ALPT: one width) or never, the segment sum once a
+   gather and the Adam pass once a leaf; every loss finite, no step
+   skipped, every leaf at its ``data_ptr``, ALPT's table on its grid after
+   every step (flags kept on the card, read after the run). One traced
+   step each runs the segment sum and no library dense embedding
+   backward; LSQ's, ALPT's, QR's and OptFS's next step is recorded and its
+   kernels held against their plain versions as in 11. A table of each
+   run's storage ratio, step ms and peak memory.
+19. Wide & Deep at full width (40 fields × 1,048,576 = 41,943,040 rows,
+   d = 32, MLP 1024-512-256): the MPE pipeline through ``launch.train
+   --arch wide-deep --prefetch`` (4 search and 4 retrain steps at 65,536
+   rows, Eq. 11 sampling, the packed export, eval), each step's kernels
+   counted, peak memory as tables; then ``WideDeep.apply`` under the
+   ``packed`` compressor at ``serve_p99`` (512) and ``serve_bulk``
+   (262,144): one ``mpe_lookup`` an apply, the logits equal to the plain
+   lookup's (rtol = atol = 1e-4), the lookups equal to the plain version
+   bit for bit, the lookup timed at both cells beside its bound.
+
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, and the segment sum and the Adam pass, which
 replace library calls and no TPU kernel); the last line is
@@ -176,16 +216,19 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.cache.prefetch import PrefetchPipeline  # noqa: E402
 from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
 from repro_torch.core import compressors, quantizer  # noqa: E402
 from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
@@ -219,11 +262,12 @@ from repro_torch.launch.serve import (build_engine,  # noqa: E402
 from repro_torch.models.bst import BST, fields  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
+from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
 from repro_torch.serve.stats import LatencyStats  # noqa: E402
 from repro_torch.train import optimizer as optimizer_module  # noqa: E402
 from repro_torch.train.loop import Trainer  # noqa: E402
-from repro_torch.train.optimizer import adam  # noqa: E402
+from repro_torch.train.optimizer import adam, warmup_cosine  # noqa: E402
 from repro_torch.train.tree import leaves, tree_map  # noqa: E402
 from repro_torch.zoo import dlrm_builder  # noqa: E402
 
@@ -276,6 +320,20 @@ FLUSH_BYTES = 256 << 20         # written before each cold launch: 5x the L2
 LIBRARY_SEGMENT_KERNELS = ("sum_and_scatter", "compute_grad_weight",
                            "krn_partial", "compute_num_of_partial_segments",
                            "segment_offsets_kernel")
+# paper Table 3's rows other than MPE, at full DLRM width: the gathers a
+# step's backward sums (QR: quotient and remainder; OptFS: rows and gates)
+BASELINES = ("plain", "lsq", "alpt", "qr", "pep", "optfs")
+BASELINE_GATHERS = {"plain": 1, "lsq": 1, "alpt": 1, "qr": 2, "pep": 1,
+                    "optfs": 2}
+ONE_WIDTH = ("lsq", "alpt")      # through mpe_qat at one width
+RECORDED_BASELINES = ("lsq", "alpt", "qr", "optfs")   # kernels at new shapes
+BASELINE_STEPS = 4
+WD_STEPS = 4
+WD_PLAIN_CHUNK = 65_536          # rows a plain-lookup yardstick apply takes
+PREFETCH_MAX_DEPTH = 16
+PREFETCH_STEPS = 8
+REDUCED_ROWS = 4096
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 
 def log(msg: str):
@@ -693,10 +751,11 @@ def check_qat(rows, probs, alpha, beta, g, bits, what) -> tuple:
 def phase_qat_grid(dev) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     widths = [(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
+    one_width = [(b,) for b in range(1, 9)]   # probability 1: LSQ, ALPT
     fwd_err = bwd_err = 0.0
     cases = 0
     for onehot in (False, True):
-        for bits in widths:
+        for bits in widths + ([] if onehot else one_width):
             for d in (8, 16, 32, 33, 50, 64):
                 for t in (1, 255, 257, 4099):
                     f, b = check_qat(*qat_inputs(gen, t, d, bits, dev, onehot),
@@ -751,7 +810,7 @@ def phase_train_path(dev) -> dict:
     argv = ["--arch", "dlrm-criteo", "--backbone", "dnn",
             "--batch", str(TRAIN_ROWS), "--steps", str(SEARCH_STEPS),
             "--retrain-steps", str(RETRAIN_STEPS), "--lam", str(LAM),
-            "--seed", str(SEED)]
+            "--seed", str(SEED), "--prefetch"]
     log(f"train path: python -m repro_torch.launch.train {' '.join(argv)}")
     torch.cuda.synchronize()
     live_before = torch.cuda.memory_allocated()
@@ -973,6 +1032,7 @@ def phase_step_inputs(dev, train) -> dict:
                    or "mpe_qat_reduce_kernel" in n)}
     step_view["kernel_ms"] = step_kernel_ms(traced["by_name"])
     log(f"traced search step kernels (ms): {step_view['kernel_ms']}")
+    prefetched = time_prefetched_steps(trainer, ds, step_view)
 
     # a search step's and a retrain step's own kernel inputs, recorded: the
     # mpe_qat backward, the gathers' segment sums (rows over the whole
@@ -1013,21 +1073,119 @@ def phase_step_inputs(dev, train) -> dict:
               f"and {gathers}")
     return {"errs": errs, "times": times, "bytes": moved, "bound_ms": bound,
             "rows": t, "traced_step": step_view, "peaks": peaks,
-            "step_inputs": recorded}
+            "step_inputs": recorded, "prefetched": prefetched}
 
 
-def step_inputs_by_model(step, sasrec_inputs, bst_inputs) -> tuple:
+def prefetch_depth() -> int:
+    """Read-ahead workers the host's cores can feed: one core is the
+    training loop's."""
+    return max(2, min(PREFETCH_MAX_DEPTH, (os.cpu_count() or 2) - 1))
+
+
+class TimedBatches:
+    """``ds.batch`` with the host ms of each call kept, on whichever thread
+    makes it: a batch made on a worker beside the step's thread shows here
+    whether the two contend."""
+
+    def __init__(self, batch_fn):
+        self.batch_fn, self.ms, self._lock = batch_fn, [], threading.Lock()
+
+    def __call__(self, step: int) -> dict:
+        t0 = time.perf_counter()
+        batch = self.batch_fn(step)
+        with self._lock:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+
+def timed_search_steps(trainer, ds, depth: int) -> dict:
+    """``depth`` search steps untimed (a pipeline's read-ahead fills), then
+    ``PREFETCH_STEPS`` timed, synchronous (``depth`` 0) or through a
+    pre-built ``PrefetchPipeline(depth=depth)``: the wall ms a step (host
+    clock to a synchronize), the ms each step waited for its batch
+    (``Trainer.history``'s ``data_ms``) and the ms making a batch took."""
+    make = TimedBatches(ds.batch)
+    pipe = (PrefetchPipeline(make, depth=depth, device=trainer.device)
+            if depth else False)
+    try:
+        trainer.run(make, trainer.step + max(depth, 1), log_every=0,
+                    prefetch=pipe)
+        torch.cuda.synchronize()
+        first, made = len(trainer.history), len(make.ms)
+        t0 = time.perf_counter()
+        trainer.run(make, trainer.step + PREFETCH_STEPS, log_every=0,
+                    prefetch=pipe)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PREFETCH_STEPS
+        traced = (trace(lambda: trainer.run(make, trainer.step + 1,
+                                            log_every=0, prefetch=pipe), 3)
+                  if depth > 1 else None)
+    finally:
+        if pipe:
+            pipe.close()
+    data_ms = [h["data_ms"] for h in trainer.history[first:first + PREFETCH_STEPS]]
+    make_ms = make.ms[made:made + PREFETCH_STEPS]
+    out = {"depth": depth, "steps": PREFETCH_STEPS, "wall_ms": wall_ms,
+           "data_ms": float(np.mean(data_ms)),
+           "data_ms_max": float(np.max(data_ms)),
+           "make_ms": float(np.mean(make_ms))}
+    if traced is not None:
+        out.update({"traced_wall_ms": traced["wall_ms"],
+                    "busy_ms": traced["busy_ms"],
+                    "idle_share": traced["idle_share"]})
+    return out
+
+
+def time_prefetched_steps(trainer, ds, sync_view: dict) -> dict:
+    """Search steps at ``train_batch`` by one measure (``timed_search_steps``)
+    synchronous, through a depth-1 pipeline (``prefetch=True``'s depth) and
+    through a pre-built ``PrefetchPipeline(ds.batch, depth=k)`` passed as
+    ``run(prefetch=...)``, in the order sync, 1, k, 1, sync so that a drift
+    of the host shows; the depth-k steps also traced for the device's busy
+    ms, beside the synchronous step traced above (``sync_view``)."""
+    k = prefetch_depth()
+    runs = [timed_search_steps(trainer, ds, depth) for depth in (0, 1, k, 1, 0)]
+    for r in runs:
+        log(f"search steps at depth {r['depth']}: {r['wall_ms']:.1f} ms a step "
+            f"over {r['steps']} (waiting for the batch {r['data_ms']:.1f} ms, "
+            f"at most {r['data_ms_max']:.1f}; making one {r['make_ms']:.1f} ms)")
+    deep = runs[2]
+    out = {"depth": k, "cpu_count": os.cpu_count(), "steps": PREFETCH_STEPS,
+           "runs": runs, "wall_ms": deep["wall_ms"], "data_ms": deep["data_ms"],
+           "data_ms_max": deep["data_ms_max"],
+           "traced_wall_ms": deep["traced_wall_ms"], "busy_ms": deep["busy_ms"],
+           "idle_share": deep["idle_share"],
+           "sync_wall_ms": sync_view["wall_ms"],
+           "sync_batch_make_ms": sync_view["batch_make_ms"],
+           "sync_busy_ms": sync_view["busy_ms"]}
+    for name, depth in (("sync", 0), ("depth1", 1)):
+        out[f"{name}_steady_wall_ms"] = [r["wall_ms"] for r in runs
+                                         if r["depth"] == depth]
+    log(f"prefetched search steps (depth {k} on {os.cpu_count()} cores): "
+        f"{deep['wall_ms']:.1f} ms a step; traced {deep['traced_wall_ms']:.1f} "
+        f"ms, device busy {deep['busy_ms']:.1f} ms (idle share "
+        f"{deep['idle_share']:.3f}); synchronous "
+        f"{out['sync_steady_wall_ms']} ms, depth 1 "
+        f"{out['depth1_steady_wall_ms']} ms a step; the synchronous step "
+        f"traced above: {sync_view['wall_ms']:.1f} ms, its batch "
+        f"{sync_view['batch_make_ms']:.1f} ms, busy {sync_view['busy_ms']:.1f} ms")
+    return out
+
+
+def step_inputs_by_model(step, sasrec_inputs, bst_inputs, extra=()) -> tuple:
     """(name, ``check_step_inputs`` result) of every recorded step: DLRM's
-    search and retrain steps, a SASRec and a BST step."""
+    search and retrain steps, a SASRec and a BST step, and the ``extra``
+    (name, result) pairs (the Table-3 baselines' steps)."""
     return (*step["step_inputs"].items(), ("sasrec", sasrec_inputs),
-            ("bst", bst_inputs))
+            ("bst", bst_inputs), *extra)
 
 
-def qat_records(grid_errs, train, step, sasrec_inputs, bst_inputs) -> list:
+def qat_records(grid_errs, train, step, sasrec_inputs, bst_inputs,
+                extra=()) -> list:
     """The ``mpe_qat`` records: ms at DLRM's ``train_batch`` (as before),
     and under ``shapes`` at each lookup of a recorded DLRM search and
-    retrain step, a SASRec step and a BST step."""
-    recorded = step_inputs_by_model(step, sasrec_inputs, bst_inputs)
+    retrain step, a SASRec step, a BST step and the baselines' steps."""
+    recorded = step_inputs_by_model(step, sasrec_inputs, bst_inputs, extra)
     rec = []
     for k, line in (("fwd", 104), ("bwd", 126)):
         name = f"mixed_expectation_{k}"
@@ -1055,15 +1213,18 @@ def qat_records(grid_errs, train, step, sasrec_inputs, bst_inputs) -> list:
     return rec
 
 
-def segment_sum_record(train, step, sasrec_inputs, bst_inputs) -> dict:
+def segment_sum_record(train, step, sasrec_inputs, bst_inputs, extra=(),
+                       grid=()) -> dict:
     """The gathers' backward: ms at the SASRec step's gather with the
-    hottest segment, every gather of the recorded DLRM, SASRec and BST
-    steps under ``shapes``; the largest |difference| also as a share of
-    its gather's largest |gradient|."""
+    hottest segment, every gather of the recorded DLRM, SASRec, BST and
+    baseline steps and the grid's cases under ``shapes``; the largest
+    |difference| also as a share of its gather's largest |gradient|."""
     shapes = {f"{model} gather {i} ({r['rows']} x {r['w']} -> {r['n']})": r
               for model, inputs in step_inputs_by_model(step, sasrec_inputs,
-                                                        bst_inputs)
+                                                        bst_inputs, extra)
               for i, r in enumerate(inputs["segment_sum"])}
+    shapes.update({f"grid ({r['rows']} x {r['w']} -> {r['n']})": r
+                   for r in grid})
     head = max(sasrec_inputs["segment_sum"], key=lambda r: r["hot_segment"])
     return {"name": "segment_sum", "route": "cuda", "source": SEG_SOURCE,
             "replaces": "aten::embedding_dense_backward, the backward of the "
@@ -1080,10 +1241,11 @@ def segment_sum_record(train, step, sasrec_inputs, bst_inputs) -> dict:
             "bytes": head["bytes"], "shapes": shapes}
 
 
-def adam_record(train, step, sasrec_inputs, bst_inputs) -> dict:
+def adam_record(train, step, sasrec_inputs, bst_inputs, extra=(),
+                schedule=None) -> dict:
     """The in-place Adam pass: ms on the BST table, each recorded step's
-    largest leaf under ``shapes``; bit-identical to the plain chain
-    (max_abs_err 0)."""
+    largest leaf under ``shapes`` (and a scheduled step's, ``schedule``);
+    bit-identical to the plain chain (max_abs_err 0)."""
     bst = bst_inputs["adam"]
     return {"name": "adam_step_", "route": "cuda", "source": ADAM_SOURCE,
             "replaces": "the Trainer's elementwise passes over whole trees "
@@ -1096,9 +1258,11 @@ def adam_record(train, step, sasrec_inputs, bst_inputs) -> dict:
             "library_ms": bst["library_ms"],
             "library_call": "torch._fused_adamw_ on the same leaf",
             "bytes": bst["bytes"],
-            "shapes": {f"{model} largest leaf": inputs["adam"]
-                       for model, inputs in step_inputs_by_model(
-                           step, sasrec_inputs, bst_inputs)}}
+            "shapes": {**{f"{model} largest leaf": inputs["adam"]
+                          for model, inputs in step_inputs_by_model(
+                              step, sasrec_inputs, bst_inputs, extra)},
+                       **({"dlrm reduced, adam(warmup_cosine)": schedule}
+                          if schedule else {})}}
 
 
 def heads_flat(x: torch.Tensor) -> torch.Tensor:
@@ -1357,7 +1521,7 @@ def fused_adamw_ms(p, g, m, v, hyper) -> float | None:
         return None
 
 
-def check_adam(calls, what: str) -> dict:
+def check_adam(calls, what: str, timed: bool = True) -> dict:
     """Each recorded Adam pass (its leaf, gradient and moments as they were
     before the step): the pass on copies against the plain chain on copies,
     bit for bit, with the step's flag and with the flag false (then every
@@ -1385,6 +1549,10 @@ def check_adam(calls, what: str) -> dict:
     nbytes = p.numel() * (2 * 4 + 4 + 2 * 2 * m.element_size())
     row = {"leaves": len(calls), "elements": p.numel(), "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    if not timed:
+        log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the "
+            f"plain chain, a skipped one bit-unchanged")
+        return row
     row.update(uncounted(lambda: {
         "ms": cuda_ms(lambda: adam_ops.adam_step_(p, g, m, v, scale, ok, bc1,
                                                   bc2, **hyper), 10),
@@ -2435,6 +2603,372 @@ def bag_record(grid_errs, bag) -> dict:
                 row["max_abs_err_bwd"] for row in bag["shapes"].values()))}
 
 
+def phase_segment_grid(dev) -> list:
+    """The segment sum at the shapes the baselines and Wide & Deep add: width
+    1 (OptFS's gates, the wide vector) with a hot segment, and QR's k = 2
+    remainder table, where every id falls into one of two segments; against
+    the plain version (``segment_sum_bound``), twice bit-identical, timed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 5)
+    calls = []
+    for t, n, w, hot in ((1_500_000, 200_000, 1, True), (2_500_000, 2, 16, False),
+                         (2_500_000, 2, 1, False), (300_000, 1000, 16, True)):
+        ids = (rng.zipf(1.2, t) % n).astype(np.int64)
+        if hot:
+            ids[rng.random(t) < 0.75] = n // 3
+        calls.append((torch.randn((t, w), generator=gen, device=dev),
+                      torch.from_numpy(ids).to(dev), n))
+    return uncounted(lambda: check_segment_sums(calls, "segment-sum grid"))
+
+
+class CheckedTrainer(Trainer):
+    """The launcher's ``Trainer``, watched after every step through its
+    post-update hook (wrapped, the launcher's own hook, ``hook``, run
+    first): each step's launch counts, whether every parameter and moment
+    leaf is still at its ``data_ptr``, and, for ALPT, whether the table is
+    on its grid — kept as device flags and read after the run, so no step
+    waits for the host. The wrapper holds the carry, not the trainer: a
+    reference cycle would keep every run's tables alive until the cyclic
+    garbage collector ran."""
+
+    def __init__(self, *args, post_update=None, **kw):
+        super().__init__(*args, post_update=post_update, **kw)
+        self.hook = post_update
+        carry = self.carry
+        ptrs = [x.data_ptr() for x in leaves([carry["params"], carry["opt"]])]
+        step_launches, moved, off_grid = [], [], []
+        self.step_launches, self.moved, self.off_grid = step_launches, moved, off_grid
+        before = [counts()]
+
+        def watched(params):
+            if post_update is not None:
+                params = post_update(params)
+                emb, alpha = params["embedding"]["emb"], params["embedding"]["alpha"]
+                codes = torch.round(emb / alpha)
+                off_grid.append((alpha * codes != emb).any()
+                                | (codes.amin() < -128) | (codes.amax() > 127))
+                del codes
+            step_launches.append(launched_since(before[0]))
+            before[0] = counts()
+            moved.append([x.data_ptr() for x in leaves(
+                [params, carry["opt"]])] != ptrs)
+            return params
+        self.post_update = watched
+
+    def step_and_hook(self, batch):
+        """One step as ``run`` takes it: ``train_step`` and the launcher's
+        own post-update hook (ALPT's projection)."""
+        self.train_step(batch, self.step)
+        if self.hook is not None:
+            self.carry["params"] = self.hook(self.carry["params"])
+
+
+def baseline_batches(cfg, dev) -> tuple:
+    """The stream the launcher trains on, and two of its ``train_batch``
+    batches on the card (steps past the runs'), made once for every
+    baseline's recorded and traced step."""
+    ds = SyntheticCTR(CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields),
+                              batch_size=TRAIN_ROWS, seed=SEED))
+    return [{k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in ds.batch(1_000 + i).items()} for i in range(2)]
+
+
+def phase_table3(dev) -> dict:
+    """Paper Table 3's rows other than MPE at full DLRM width: the backbone
+    and the five baselines, each through ``launch.train.main`` with
+    ``--prefetch`` for ``BASELINE_STEPS`` steps at ``train_batch``, the
+    counts at 0. Each step must launch ``mpe_qat`` forward and backward once
+    (LSQ, ALPT) or never, the segment sum once a gather and the Adam pass
+    once a leaf; every loss finite, no step skipped, every leaf in place,
+    ALPT's table on its grid after every step. Then one traced step (no
+    library dense embedding backward: the segment sum) and, for the
+    baselines whose kernels see new shapes, one more step with its kernels'
+    arguments recorded and held against their plain versions."""
+    cfg = get_arch("dlrm-criteo").make_config(backbone="dnn")
+    batches = baseline_batches(cfg, dev)
+    table_bytes = total_vocab(cfg.fields) * cfg.d_embed * 4
+    runs, recorded = {}, []
+    launch_train.Trainer = CheckedTrainer
+    try:
+        for name in BASELINES:
+            argv = ["--arch", "dlrm-criteo", "--backbone", "dnn",
+                    "--compressor", name, "--batch", str(TRAIN_ROWS),
+                    "--steps", str(BASELINE_STEPS), "--lam", str(LAM),
+                    "--seed", str(SEED), "--prefetch"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = launch_train.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            trainer = res["trainer"]
+            hist = res["history"]
+            n_leaves = len(leaves(trainer.params))
+            want = {"mixed_expectation_fwd": int(name in ONE_WIDTH),
+                    "mixed_expectation_bwd": int(name in ONE_WIDTH),
+                    "segment_sum": BASELINE_GATHERS[name],
+                    "adam_step_": n_leaves, "mpe_lookup": 0}
+            check(len(hist) == BASELINE_STEPS
+                  and len(trainer.step_launches) == BASELINE_STEPS,
+                  f"{name}: {len(hist)} steps ran, not {BASELINE_STEPS}")
+            for i, launched in enumerate(trainer.step_launches):
+                got = {k: launched[k] for k in want}
+                check(got == want, f"{name} step {i}: launches {got}, not {want}")
+            check(all(np.isfinite(h["loss"]) for h in hist),
+                  f"{name}: a loss was not finite")
+            check(not any(h["skipped"] for h in hist), f"{name}: a step was skipped")
+            check(not any(trainer.moved), f"{name}: a leaf moved: not in place")
+            check(not any(bool(x) for x in trainer.off_grid),
+                  f"{name}: the table left ALPT's grid after a step")
+            check(len(trainer.off_grid) == (BASELINE_STEPS if name == "alpt" else 0),
+                  f"{name}: the grid was checked {len(trainer.off_grid)} times")
+            traced = uncounted(lambda: trace(
+                lambda: trainer.step_and_hook(batches[0]), 1))
+            library = {k: ms for k, ms in traced["by_name"].items()
+                       if any(x in k for x in LIBRARY_SEGMENT_KERNELS)
+                       or "embedding_dense" in k or "embedding_backward" in k}
+            check(not library and any("segment_chunk_kernel" in k
+                                      for k in traced["by_name"]),
+                  f"{name}: a traced step ran {library or 'no segment sum'}")
+            row = {"losses": [h["loss"] for h in hist],
+                   "storage_ratio": res["storage_ratio"], "eval": res["eval"],
+                   "step_ms": res["train_s"] / BASELINE_STEPS * 1e3,
+                   "data_ms": float(np.mean([h["data_ms"] for h in hist])),
+                   "run_s": run_s, "peak_bytes": peak,
+                   "peak_tables": peak / table_bytes,
+                   "launches_per_step": want,
+                   "launches": {k: sum(s[k] for s in trainer.step_launches)
+                                for k in want},
+                   "traced_step": {k: traced[k] for k in
+                                   ("wall_ms", "busy_ms", "idle_share", "top")},
+                   "traced_kernel_ms": step_kernel_ms(traced["by_name"])}
+            log(f"table 3 {name}: {BASELINE_STEPS} steps at {TRAIN_ROWS} rows, "
+                f"launches a step {want}; ratio {row['storage_ratio']:.6f}; "
+                f"{row['step_ms']:.1f} ms a step (host clock, the first step "
+                f"and the read-ahead's start included; waiting for the batch "
+                f"{row['data_ms']:.1f} ms); traced step wall "
+                f"{traced['wall_ms']:.1f} ms, busy {traced['busy_ms']:.1f} ms; "
+                f"peak {peak / 1e9:.3f} GB, {row['peak_tables']:.2f} tables; "
+                f"no library dense embedding backward; losses "
+                f"{[round(x, 5) for x in row['losses']]}; eval {res['eval']}")
+            if name in RECORDED_BASELINES:
+                inputs = check_step_inputs(trainer, batches[1], trainer.step,
+                                           f"table 3 {name}")
+                recorded.append((f"table3 {name}", inputs))
+                row["step_inputs"] = {k: inputs[k] for k in ("errs", "adam")}
+            runs[name] = row
+            del res, trainer, hist
+    finally:
+        launch_train.Trainer = Trainer
+    log("table 3 at full DLRM width (H100, chip_smoke.py):\n"
+        + "\n".join(f"  {n:6s} ratio {r['storage_ratio']:.6f}  step "
+                    f"{r['step_ms']:8.1f} ms  busy "
+                    f"{r['traced_step']['busy_ms']:6.1f} ms  peak "
+                    f"{r['peak_bytes'] / 1e9:7.3f} GB ({r['peak_tables']:.2f} "
+                    f"tables)" for n, r in runs.items()))
+    return {"runs": runs, "recorded": recorded}
+
+
+def wide_deep_batch(spec, rows: int, step: int, dev) -> dict:
+    batch = SyntheticCTR(spec._replace(batch_size=rows)).batch(step)
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+
+def phase_wide_deep(dev) -> dict:
+    """Wide & Deep at full width: the MPE pipeline through
+    ``launch.train --arch wide-deep`` (``WD_STEPS`` search and retrain steps
+    at ``train_batch``, Eq. 11 sampling, the packed export, eval), the
+    counts at 0; then ``WideDeep.apply`` under the ``packed`` compressor at
+    ``serve_p99`` and ``serve_bulk``: each apply launches ``mpe_lookup``
+    once, its logits equal the same model's with the plain lookup
+    (``SCORE_TOL``) and its lookups the plain version bit for bit; the
+    lookup timed at both cells."""
+    cfg = get_arch("wide-deep").make_config()
+    n = total_vocab(cfg.fields)
+    table_bytes = n * cfg.d_embed * 4
+    log(f"wide-deep: {len(cfg.fields)} fields, {n} features, d={cfg.d_embed}, "
+        f"MLP {cfg.mlp_hidden}; the table {table_bytes / 1e9:.2f} GB: a step "
+        f"holds about 5-6 tables ({5 * table_bytes / 1e9:.1f}-"
+        f"{6 * table_bytes / 1e9:.1f} GB), DLRM's export peaked at 12.3 "
+        f"({12.3 * table_bytes / 1e9:.1f} GB)")
+    argv = ["--arch", "wide-deep", "--batch", str(TRAIN_ROWS), "--steps",
+            str(WD_STEPS), "--retrain-steps", str(WD_STEPS), "--lam", str(LAM),
+            "--seed", str(SEED), "--prefetch"]
+    log(f"wide-deep train: python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = launch_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = res["search_history"] + res["retrain_history"]
+    launched = counts()
+    # a search step sums three gathers' gradients (rows, probabilities, the
+    # wide vector), a retrain step two
+    want = {"mixed_expectation_fwd": 2 * WD_STEPS,
+            "mixed_expectation_bwd": 2 * WD_STEPS,
+            "segment_sum": 3 * WD_STEPS + 2 * WD_STEPS,
+            "adam_step_": (len(leaves(res["search_params"]))
+                           + len(leaves(res["final_params"]))) * WD_STEPS}
+    check(len(steps) == 2 * WD_STEPS, f"wide-deep: {len(steps)} steps ran")
+    check({k: launched[k] for k in want} == want,
+          f"wide-deep: launches {launched}, not {want}")
+    check(all(np.isfinite(h["loss"]) for h in steps), "wide-deep: a loss was "
+          "not finite")
+    check(not any(h["skipped"] for h in steps), "wide-deep: a step was skipped")
+    train = {"launches": {k: launched[k] for k in want}, "train_s": train_s,
+             "phase_s": res["seconds"], "peak_bytes": peak,
+             "table_bytes": table_bytes, "peak_tables": peak / table_bytes,
+             "search_step_ms": res["seconds"]["search"] / WD_STEPS * 1e3,
+             "retrain_step_ms": res["seconds"]["retrain"] / WD_STEPS * 1e3,
+             "losses": [h["loss"] for h in steps],
+             "storage_ratio": res["storage_ratio"], "avg_bits": res["avg_bits"],
+             "eval": res["eval"]}
+    log(f"wide-deep train: {2 * WD_STEPS} steps, launches {train['launches']}; "
+        f"search {train['search_step_ms']:.1f} ms/step, retrain "
+        f"{train['retrain_step_ms']:.1f} ms/step, export "
+        f"{res['seconds']['export']:.1f} s; peak {peak / 1e9:.3f} GB, "
+        f"{train['peak_tables']:.2f} tables; ratio {res['storage_ratio']:.6f}, "
+        f"avg bits {res['avg_bits']:.3f}, eval {res['eval']}; losses "
+        f"{[round(x, 5) for x in train['losses']]}")
+
+    # the exported table served: packed lookups through the kernel
+    table, meta, state = res["packed_table"], res["packed_meta"], res["state"]
+    params = {k: v for k, v in res["final_params"].items() if k != "embedding"}
+    params["embedding"] = table
+    buffers = {"offsets": res["buffers"]["offsets"], "embedding": {"meta": meta}}
+    del res                              # the retrained full-precision table
+    scfg = cfg._replace(compressor="packed", comp_cfg={
+        "bits": meta["bits"], "d": meta["d"], "n": meta["n"]})
+    spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields), seed=SEED)
+    serve, lookup = {}, {}
+    for shape, rows in SERVE_ROWS.items():
+        batch = wide_deep_batch(spec, rows, 30_000 + rows, dev)
+        with torch.inference_mode():
+            before = counts()
+            logits = WideDeep.apply(params, buffers, state, batch, scfg)[0]
+            torch.cuda.synchronize()
+            got_launches = launched_since(before)
+            check(got_launches["mpe_lookup"] == 1,
+                  f"wide-deep {shape}: launches {got_launches}; an apply must "
+                  f"launch mpe_lookup once")
+            check(logits.shape == (rows,) and bool(torch.isfinite(logits).all()),
+                  f"wide-deep {shape}: bad logits")
+            want_logits = with_plain_kernels(lambda: torch.cat([
+                WideDeep.apply(params, buffers, state,
+                               {k: v[lo:lo + WD_PLAIN_CHUNK]
+                                for k, v in batch.items()}, scfg)[0]
+                for lo in range(0, rows, WD_PLAIN_CHUNK)]))
+            err = compare(logits, want_logits, SCORE_TOL, SCORE_TOL,
+                          f"wide-deep {shape}: logits vs plain lookup")
+            calls = recorded_lookups(lambda: WideDeep.apply(params, buffers,
+                                                            state, batch, scfg))
+            n_ids = check_lookup_bits(calls, f"wide-deep {shape}")
+        gids = batch["ids"] + buffers["offsets"][None, :]
+        lookup[f"wide-deep {shape}"] = time_lookup(table, meta, gids,
+                                                   f"wide-deep {shape}",
+                                                   plain=True)
+        serve[shape] = {"rows": rows, "launches": got_launches,
+                        "max_abs_err": err, "ids_bit_equal": n_ids}
+        del batch, logits, want_logits, calls
+    log(f"wide-deep serve: {serve}")
+    serve_launches = {name: sum(r["launches"][name] for r in serve.values())
+                      for name in COUNTERS}
+    return {"train": train, "serve": serve, "lookup": lookup,
+            "serve_launches": serve_launches}
+
+
+def reduced_trainer(build, opt=None, **kw) -> Trainer:
+    b = build(SEED, "mpe_search", MPEConfig(lam=LAM)._asdict())
+    return Trainer(b["loss_fn"], b["params"], b["buffers"], b["state"],
+                   opt or adam(1e-3), **kw)
+
+
+def phase_reduced_checks(dev) -> dict:
+    """On the card at the reduced DLRM config (8 fields of 1,000 ids, MLP
+    (32, 16), 4,096 rows): the losses of prefetched runs (depth 1 and the
+    pre-built depth ``prefetch_depth()``) bit-identical to the synchronous
+    run's; ``adam(warmup_cosine(...))``'s pass held against its plain
+    version bit for bit, a skipped one bit-unchanged; ``Trainer(
+    grad_compression=True)`` 4 finite steps; 6 steps against 3, ``save``, a
+    fresh ``Trainer``, ``restore()`` and 3 more: the same losses."""
+    cfg = get_arch("dlrm-criteo").make_config(reduced=True)
+    ds = SyntheticCTR(CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields),
+                              batch_size=REDUCED_ROWS, seed=SEED))
+    build = dlrm_builder(cfg, ds.expected_frequencies(), lam=LAM, device=dev)
+    out = {}
+    reset_counts()
+    k = prefetch_depth()
+    losses = {}
+    for name in ("sync", "depth 1", f"depth {k}"):
+        tr = reduced_trainer(build)
+        pipe = (PrefetchPipeline(ds.batch, depth=k, device=dev)
+                if name == f"depth {k}" else name == "depth 1")
+        try:
+            tr.run(ds.batch, 6, log_every=0, prefetch=pipe)
+        finally:
+            if not isinstance(pipe, bool):
+                pipe.close()
+        losses[name] = [h["loss"] for h in tr.history]
+    check(all(v == losses["sync"] for v in losses.values()),
+          f"prefetched losses differ from the synchronous run's: {losses}")
+    log(f"reduced dlrm: prefetched runs (depth 1, depth {k}) give the "
+        f"synchronous run's losses bit for bit: {losses['sync']}")
+    out["prefetch_losses"] = losses
+
+    sched = warmup_cosine(1e-3, 2, 8, 1e-5)
+    tr = reduced_trainer(build, adam(sched, weight_decay=3e-6))
+    tr.run(ds.batch, 3, log_every=0)
+    batch = {key: torch.from_numpy(np.asarray(v)).to(dev)
+             for key, v in ds.batch(3).items()}
+    calls = captured(lambda: tr.train_step(batch, 3),
+                     {"adam_step_": optimizer_module}, clone=("adam_step_",))
+    rates = [c[-1]["lr"] for c in calls["adam_step_"]]
+    check(all(torch.is_tensor(r) and r.device == batch["ids"].device
+              for r in rates),
+          "the scheduled Adam pass was not handed its rate on the card")
+    out["schedule"] = check_adam(calls["adam_step_"], "reduced dlrm "
+                                 "adam(warmup_cosine)", timed=False)
+    out["schedule"]["lr_t"] = float(rates[0])
+    log(f"reduced dlrm: adam(warmup_cosine(1e-3, 2, 8, 1e-5)) at Adam's step "
+        f"4: lr_t {out['schedule']['lr_t']!r} read on the card")
+
+    tr = reduced_trainer(build, grad_compression=True)
+    tr.run(ds.batch, 4, log_every=0)
+    ef = [h["loss"] for h in tr.history]
+    check(all(np.isfinite(ef)) and not any(h["skipped"] for h in tr.history),
+          f"error feedback: losses {ef}")
+    out["error_feedback_losses"] = ef
+    log(f"reduced dlrm: Trainer(grad_compression=True) 4 steps: {ef}")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        whole = reduced_trainer(build)
+        whole.run(ds.batch, 6, log_every=0)
+        first = reduced_trainer(build, ckpt_dir=CKPT_DIR)
+        first.run(ds.batch, 3, log_every=0)            # saves step 3
+        second = reduced_trainer(build, ckpt_dir=CKPT_DIR)
+        check(second.restore() and second.step == 3, "restore found no step 3")
+        second.run(ds.batch, 6, log_every=0)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    resumed = [h["loss"] for h in first.history + second.history]
+    check(resumed == [h["loss"] for h in whole.history],
+          f"resumed losses {resumed} differ from the uninterrupted "
+          f"{[h['loss'] for h in whole.history]}")
+    check(all(torch.equal(a, b) for a, b in zip(leaves(second.params),
+                                                leaves(whole.params))),
+          "resumed parameters differ from the uninterrupted run's")
+    out["resume_losses"] = resumed
+    log(f"reduced dlrm: 3 steps, save, restore, 3 steps: the losses and "
+        f"parameters of 6 steps in one run, bit for bit")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2475,16 +3009,26 @@ def main() -> int:
     bag = phase_bag_path(dev, bst_train.pop("table"), bst_train.pop("seq_ids"))
     log(json.dumps({"bst_serve": bst_serve, "bst_train": bst_train,
                     "bag": bag}))
+    reduced = phase_reduced_checks(dev)
+    seg_grid = phase_segment_grid(dev)
+    table3 = phase_table3(dev)
+    wide_deep = phase_wide_deep(dev)
+    log(json.dumps({"reduced": reduced, "prefetched": step["prefetched"],
+                    "table3": table3["runs"], "wide_deep": {
+                        k: v for k, v in wide_deep.items() if k != "lookup"}}))
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
-                             **bst_serve.pop("lookup")})
+                             **bst_serve.pop("lookup"),
+                             **wide_deep.pop("lookup")})
+    extra = table3["recorded"]
     records = [kernel, *qat_records(qat_grid_errs, train, step,
                                     sasrec_train["step_inputs"],
-                                    bst_train["step_inputs"]),
+                                    bst_train["step_inputs"], extra),
                segment_sum_record(train, step, sasrec_train["step_inputs"],
-                                  bst_train["step_inputs"]),
+                                  bst_train["step_inputs"], extra, seg_grid),
                adam_record(train, step, sasrec_train["step_inputs"],
-                           bst_train["step_inputs"]),
+                           bst_train["step_inputs"], extra,
+                           reduced["schedule"]),
                bag_record(bag_grid_errs, bag),
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs)]
@@ -2492,7 +3036,11 @@ def main() -> int:
                "sasrec serve": sasrec_serve["launches"],
                "sasrec train": sasrec_train["launches"],
                "bst serve": bst_serve["launches"],
-               "bst train": bst_train["launches"], "bag": bag["launches"]}
+               "bst train": bst_train["launches"], "bag": bag["launches"],
+               **{f"table3 {name}": run["launches"]
+                  for name, run in table3["runs"].items()},
+               "wide-deep train": wide_deep["train"]["launches"],
+               "wide-deep serve": wide_deep["serve_launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

@@ -29,6 +29,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     import repro_torch.configs.bst  # noqa: F401  (registers)
     import repro_torch.configs.dlrm_criteo  # noqa: F401
     import repro_torch.configs.sasrec  # noqa: F401
+    import repro_torch.configs.wide_deep  # noqa: F401
     return _REGISTRY[arch_id]
 
 

@@ -10,8 +10,9 @@ Every compressor is a class of static methods:
 
 ``buffers`` are non-trained constants (group maps, frequency stats, width
 assignments); ``cfg`` is a plain dict or NamedTuple of static
-hyperparameters. Registered so far: ``mpe_search``, ``mpe_retrain``,
-``packed`` and the full-precision ``plain`` baseline.
+hyperparameters. Registered: ``mpe_search``, ``mpe_retrain``, ``packed``
+and the baselines of paper Table 3 (``plain``, ``lsq``, ``alpt``, ``qr``,
+``pep``, ``optfs``).
 """
 from __future__ import annotations
 

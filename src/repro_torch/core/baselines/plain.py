@@ -2,9 +2,9 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.api import BaseCompressor, register
+from repro_torch.kernels.segment_sum.ops import gather
 from repro_torch.nn import init as initializers
 
 
@@ -19,7 +19,9 @@ class PlainEmbedding(BaseCompressor):
     @staticmethod
     def lookup(params, buffers, ids, cfg, *, train=False, step=None):
         del buffers, cfg, train, step
-        return F.embedding(ids.long(), params["emb"])
+        # through ``gather``: its backward is the port's segment sum
+        rows = gather(params["emb"], ids.reshape(-1).long())
+        return rows.reshape(*ids.shape, rows.shape[-1])
 
     @staticmethod
     def storage_ratio(params, buffers, cfg):

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.quantizer import int_bounds
 
 _U32 = 0xFFFFFFFF
+PACK_ROWS = 1 << 20
 
 
 def words_per_row(d: int, b: int) -> int:
@@ -44,18 +45,25 @@ def as_int32_words(words: torch.Tensor) -> torch.Tensor:
 
 
 def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
-    """codes: (n, d) signed ints in [N_b, P_b] -> (n, W) int32 words."""
+    """codes: (n, d) signed ints in [N_b, P_b] -> (n, W) int32 words. Rows
+    are packed ``PACK_ROWS`` at a time: the int64 bit work holds several
+    copies of its rows, which for a whole table (41.9 M × 32 codes) would
+    be tens of GB."""
     n, d = codes.shape
     n_b, _ = int_bounds(b)
     w = words_per_row(d, b)
     w0, off, straddles, shift_hi, w1 = _bit_layout(d, b, w, codes.device)
-    u = codes.to(torch.int64) - n_b                     # (n, d) in [0, 2^b)
-    lo = (u << off) & _U32                              # overflow bits drop
-    hi = torch.where(straddles, u >> shift_hi, 0)
-    words = torch.zeros((n, w), dtype=torch.int64, device=codes.device)
-    words.index_add_(1, w0, lo)                         # disjoint bits: add == or
-    words.index_add_(1, w1, hi)
-    return as_int32_words(words)
+    out = torch.empty((n, w), dtype=torch.int32, device=codes.device)
+    for r in range(0, n, PACK_ROWS):
+        u = codes[r:r + PACK_ROWS].to(torch.int64) - n_b   # in [0, 2^b)
+        lo = (u << off) & _U32                              # overflow bits drop
+        hi = torch.where(straddles, u >> shift_hi, 0)
+        words = torch.zeros((u.shape[0], w), dtype=torch.int64,
+                            device=codes.device)
+        words.index_add_(1, w0, lo)                   # disjoint bits: add == or
+        words.index_add_(1, w1, hi)
+        out[r:r + PACK_ROWS] = as_int32_words(words)
+    return out
 
 
 def unpack_codes(words: torch.Tensor, b: int, d: int) -> torch.Tensor:

@@ -20,7 +20,12 @@ tree it is handed in place, so the pipeline takes host snapshots, as the
 reference does: of the initial parameters, which "mpe" and "lth" reset to,
 and of the search phase's results. The retrain phase starts from device
 copies of them; the search trainer and its optimizer state are freed before
-it starts.
+it starts, and the retrain trainer's optimizer state before the export
+(which holds several tables' worth of temporaries at once).
+
+With ``ckpt_dir`` each phase checkpoints under ``<ckpt_dir>/search`` and
+``<ckpt_dir>/retrain`` and restores from there first; ``prefetch`` makes and
+stages the batches ahead of the steps (``Trainer.run(prefetch=...)``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ def _on(tree, device):
 def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
                      mpe_cfg: MPEConfig, optimizer, search_steps: int,
                      retrain_steps: int, retrain_mode: str = "mpe",
-                     eval_fn: Callable | None = None, log_fn=print) -> dict:
+                     eval_fn: Callable | None = None, log_fn=print,
+                     ckpt_dir: str | None = None, prefetch=False) -> dict:
     if retrain_mode not in ("none", "lth", "mpe"):
         raise ValueError(retrain_mode)
     comp_cfg = mpe_cfg._asdict()
@@ -62,10 +68,12 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
     device = bundle["params"]["embedding"]["emb"].device
     init_snapshot = _snapshot(bundle["params"])
     trainer = Trainer(bundle["loss_fn"], bundle.pop("params"),
-                      bundle["buffers"], bundle["state"], optimizer)
+                      bundle["buffers"], bundle["state"], optimizer,
+                      ckpt_dir=None if ckpt_dir is None else f"{ckpt_dir}/search")
+    trainer.restore()
     log_fn(f"[mpe] search phase: {search_steps} steps")
     t0 = time.perf_counter()
-    trainer.run(data_fn, search_steps, log_fn=log_fn)
+    trainer.run(data_fn, search_steps, log_fn=log_fn, prefetch=prefetch)
     seconds["search"] = time.perf_counter() - t0
     # host snapshots: the trainers update their trees in place, so later
     # phases must not alias this one's device tensors
@@ -110,14 +118,18 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
                                      "beta": searched_beta, "bits_idx": fbits})
     # rebuilt only for the loss_fn closure; our params/state are swapped in
     trainer2 = Trainer(rb["loss_fn"], retrain_params, retrain_buffers,
-                       _on(search_state, device), optimizer)
+                       _on(search_state, device), optimizer,
+                       ckpt_dir=None if ckpt_dir is None else f"{ckpt_dir}/retrain")
     del rb
     t0 = time.perf_counter()
     if steps:
+        trainer2.restore()
         log_fn(f"[mpe] retrain phase ({retrain_mode}): {steps} steps")
-        trainer2.run(data_fn, steps, log_fn=log_fn)
+        trainer2.run(data_fn, steps, log_fn=log_fn, prefetch=prefetch)
     seconds["retrain"] = time.perf_counter() - t0
-    final_params = trainer2.params
+    final_params, final_state = trainer2.params, trainer2.state
+    retrain_history = trainer2.history
+    del trainer2  # its optimizer state: two tables the export does not read
 
     # ---------------- phase 4: packed export ----------------
     t0 = time.perf_counter()
@@ -132,7 +144,7 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
         "search_params": search_params,
         "final_params": final_params,
         "buffers": retrain_buffers,
-        "state": trainer2.state,
+        "state": final_state,
         "group_bits": group_bits.cpu().numpy(),
         "feature_bits_idx": fbits.cpu().numpy(),
         "avg_bits": avg_b,
@@ -141,12 +153,12 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
         "packed_meta": meta,
         "packed_bytes": packed_bytes,
         "search_history": search_history,
-        "retrain_history": trainer2.history,
+        "retrain_history": retrain_history,
         "seconds": seconds,
     }
     if eval_fn is not None:
         t0 = time.perf_counter()
-        result["eval"] = eval_fn(final_params, retrain_buffers, trainer2.state)
+        result["eval"] = eval_fn(final_params, retrain_buffers, final_state)
         seconds["eval"] = time.perf_counter() - t0
         log_fn(f"[mpe] eval: {result['eval']}")
     return result

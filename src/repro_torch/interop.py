@@ -1,14 +1,16 @@
 """The weight carrier: the reference's pytrees, as numpy, into the port.
 
 ``model_from_numpy`` takes the reference's (params, state, buffers) for a
-model (a DLRM, SASRec, BST), already turned into nested dicts/lists of numpy
-arrays by the caller, and returns the port's (params, state, buffers) on
-``device``. It carries the tables of the ``packed``, ``mpe_search``,
-``mpe_retrain`` and ``plain`` compressors with their buffers
-(``group_of_feature``, ``freq_sum``, ``bits_idx``), the model's other
-buffers (DLRM's field ``offsets``; BST's scalar ``item_offset`` and its
-``ctx_offsets`` vector) and its state (the BatchNorm statistics of DLRM's
-and BST's MLPs; SASRec has none); ``to_torch`` carries any
+model (a DLRM, Wide & Deep, SASRec, BST), already turned into nested
+dicts/lists of numpy arrays by the caller, and returns the port's (params,
+state, buffers) on ``device``. It carries the tables of the ``packed``,
+``mpe_search``, ``mpe_retrain`` compressors and of the Table-3 baselines
+(``plain``, ``lsq``, ``alpt``, ``qr``, ``pep``, ``optfs``) with their
+buffers (``group_of_feature``, ``freq_sum``, ``bits_idx``), the model's
+other parameters (Wide & Deep's ``wide`` vector and ``wide_bias``) and
+buffers (the field ``offsets`` of DLRM and Wide & Deep; BST's scalar
+``item_offset`` and its ``ctx_offsets`` vector) and its state (the
+BatchNorm statistics of the MLPs; SASRec has none); ``to_torch`` carries any
 other tree, such as an Adam state ({"step", "mu", "nu"}). A packed table's uint32 words
 pass through ``.view(np.int32)``, so the port holds the same bits. Both
 packages then compute the same function of the same weights: ``jax.random``
@@ -36,7 +38,8 @@ def to_torch(tree, device):
     return torch.tensor(arr, device=device)
 
 
-CARRIED = ("packed", "mpe_search", "mpe_retrain", "plain")
+CARRIED = ("packed", "mpe_search", "mpe_retrain", "plain", "lsq", "alpt",
+           "qr", "pep", "optfs")
 
 
 def model_from_numpy(params, state, buffers, cfg, device=None):

@@ -5,7 +5,9 @@ for tensors on the CPU.
 On CUDA tensors it launches the pass or raises; there is no fallback.
 ``adam_step_.launches`` counts launches, and only those. The step's
 constants go to the pass as the float32 values torch computes with (a
-Python float times a float32 tensor is taken in float32).
+Python float times a float32 tensor is taken in float32). ``lr`` is a
+Python float, or a schedule's value: a 0-d float32 tensor on the leaf's
+device, which the pass reads there (no step waits for the host).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ MOMENT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _kernel():
     fn = load_library("adam").adam_step
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [p, p, p, p, ll, i, p, p, p, p, f, f, f, f, f, f, f, p]
+    fn.argtypes = [p, p, p, p, ll, i, p, p, p, p, p, f, f, f, f, f, f, f,
+                   f, i, p]
     fn.restype = i
     return fn
 
@@ -35,11 +38,11 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _check(p, g, m, v, scale, ok, bc1, bc2):
+def _check(p, g, m, v, scale, ok, bc1, bc2, lr):
     """Raise on what the pass does not take: a float32 leaf p, its float32
     gradient g and moments m, v of one shape and moment type (float32 or
-    bfloat16), all contiguous, and float32 0-d scale, bc1, bc2 and a bool
-    0-d ok, all on p's device."""
+    bfloat16), all contiguous, and float32 0-d scale, bc1, bc2 (and lr, if
+    it is a tensor) and a bool 0-d ok, all on p's device."""
     if m.dtype not in MOMENT_TYPES or v.dtype != m.dtype:
         raise TypeError(f"moments must both be float32 or bfloat16, got "
                         f"{m.dtype} and {v.dtype}")
@@ -55,9 +58,11 @@ def _check(p, g, m, v, scale, ok, bc1, bc2):
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
-    for what, x, dtype in (("scale", scale, torch.float32),
-                           ("ok", ok, torch.bool), ("bc1", bc1, torch.float32),
-                           ("bc2", bc2, torch.float32)):
+    scalars = [("scale", scale, torch.float32), ("ok", ok, torch.bool),
+               ("bc1", bc1, torch.float32), ("bc2", bc2, torch.float32)]
+    if torch.is_tensor(lr):
+        scalars.append(("lr", lr, torch.float32))
+    for what, x, dtype in scalars:
         if x.device != p.device or x.dtype != dtype or x.numel() != 1:
             raise ValueError(f"{what} must be one {dtype} on {p.device}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
@@ -67,22 +72,28 @@ def adam_step_(p, g, m, v, scale, ok, bc1, bc2, *, lr, b1, b2, eps,
                weight_decay) -> None:
     """In place: ``p``, ``m`` and ``v`` take one Adam step with the gradient
     ``g * scale`` where the 0-d bool ``ok`` holds; where it does not, all
-    three keep their bits."""
+    three keep their bits. ``lr``: a float or a 0-d float32 tensor."""
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if p.device.type == "cpu":
         adam_step_ref_(p, g, m, v, scale, ok, bc1, bc2, **hyper)
         return
     if p.device.type != "cuda":
         raise ValueError(f"adam_step_ runs on CUDA or the CPU, not on {p.device}")
-    _check(p, g, m, v, scale, ok, bc1, bc2)
+    _check(p, g, m, v, scale, ok, bc1, bc2, lr)
     f32 = _f32
-    lr_wd = f32(lr * weight_decay) if weight_decay and p.ndim > 1 else 0.0
+    decay = bool(weight_decay) and p.ndim > 1
+    if torch.is_tensor(lr):   # a schedule's lr_t: the pass forms lr_t·wd
+        lr_ptr, neg_lr, lr_wd = lr.data_ptr(), 0.0, 0.0
+    else:
+        lr_ptr, neg_lr = None, f32(-lr)
+        lr_wd = f32(lr * weight_decay) if decay else 0.0
     with torch.cuda.device(p.device):
         err = _kernel()(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
             MOMENT_TYPES[m.dtype], scale.data_ptr(), ok.data_ptr(),
-            bc1.data_ptr(), bc2.data_ptr(), f32(-lr), f32(b1), f32(1 - b1),
-            f32(b2), f32(1 - b2), f32(eps), lr_wd,
+            bc1.data_ptr(), bc2.data_ptr(), lr_ptr, neg_lr, f32(b1),
+            f32(1 - b1), f32(b2), f32(1 - b2), f32(eps), lr_wd,
+            f32(weight_decay), int(decay),
             torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adam step launch failed: CUDA error {err}")

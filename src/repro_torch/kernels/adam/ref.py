@@ -19,7 +19,10 @@ def adam_step_ref_(p, g, m, v, scale, ok, bc1, bc2, *, lr, b1, b2, eps,
     it does not. The moments are stored in their own type (``m.dtype``);
     ``bc1`` and ``bc2`` are the bias corrections ``1 − b^step``; the
     decoupled weight decay applies to leaves of more than one dimension
-    only. The temporaries are this leaf's alone."""
+    only. ``lr`` is a float, or a schedule's value as a 0-d float32
+    tensor: then the decay's factor ``lr * weight_decay`` is a float32
+    product, as the reference forms it (with a float, a product of two
+    Python floats rounded once). The temporaries are this leaf's alone."""
     g = (g * scale).float()
     mu = (b1 * m.float() + (1 - b1) * g).to(m.dtype)
     nu = (b2 * v.float() + (1 - b2) * torch.square(g)).to(v.dtype)

@@ -4,7 +4,10 @@ Builds a DLRM whose embedding is the bit-packed mixed-precision table of
 paper §4, the way the reference's ``Packed.init`` does (the search layer's
 init, random γ scaled by 0.01, Eq. 11 sampling, the packed export) with
 weights drawn from ``--seed`` and the Zipf frequency prior of
-``SyntheticCTR``. It registers the ``serve_p99`` and ``serve_bulk`` cells,
+``SyntheticCTR``; or, with ``--train-steps N``, the table and MLP that the
+MPE pipeline trains in N search and N retrain steps on that stream
+(``train_packed_dlrm``, as the reference's launcher serves). It registers
+the ``serve_p99`` and ``serve_bulk`` cells,
 sends ``--requests`` requests of ``--batch`` rows (padded onto the p99
 cell) and optionally one ``--bulk`` job, and prints per-cell p50/p99 latency
 in the Figure-5 lookup-vs-compute split.
@@ -12,7 +15,7 @@ in the Figure-5 lookup-vs-compute split.
 Runs on the CUDA card unless ``--device`` names another:
 
     python -m repro_torch.launch.serve --arch dlrm-criteo --requests 20 --batch 300 --bulk 300000
-    python -m repro_torch.launch.serve --arch dlrm-criteo --reduced --device cpu
+    python -m repro_torch.launch.serve --arch dlrm-criteo --reduced --device cpu --train-steps 20
 """
 from __future__ import annotations
 
@@ -21,10 +24,48 @@ import json
 
 from repro_torch.configs.base import SERVE_ROWS, get_arch
 from repro_torch.core.compressors import Packed
+from repro_torch.core.mpe import MPEConfig
+from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
-from repro_torch.device import resolve_device
-from repro_torch.models.dlrm import DLRM
+from repro_torch.device import full_float32, resolve_device
+from repro_torch.embeddings.table import FieldSpec
+from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.serve.engine import Engine
+from repro_torch.train.optimizer import adam
+from repro_torch.zoo import dlrm_builder
+
+DEFAULT_VOCABS = (2000, 1000, 1500, 800)
+
+
+def train_packed_dlrm(*, field_vocabs=DEFAULT_VOCABS, train_steps: int = 120,
+                      train_batch: int = 1024, d_embed: int = 16,
+                      mlp_hidden=(64, 32), lam: float = 3e-5, seed: int = 0,
+                      device=None):
+    """The MPE pipeline in brief → (serve cfg, params, state, buffers, dataset
+    spec, pipeline result): the packed table and the retrained interaction
+    net are what the engine binds at cell registration. Runs on ``device``
+    (the CUDA card unless the caller names another)."""
+    device = resolve_device(device)
+    full_float32(device)
+    spec = CTRSpec(field_vocabs=tuple(field_vocabs), batch_size=train_batch,
+                   seed=seed)
+    ds = SyntheticCTR(spec)
+    fields = tuple(FieldSpec(f"f{i}", v) for i, v in enumerate(spec.field_vocabs))
+    base = DLRMConfig(fields=fields, d_embed=d_embed, mlp_hidden=tuple(mlp_hidden),
+                      backbone="dnn")
+    build = dlrm_builder(base, ds.expected_frequencies(), lam=lam, device=device)
+    res = run_mpe_pipeline(build, ds.batch, seed=seed,
+                           mpe_cfg=MPEConfig(lam=lam), optimizer=adam(1e-3),
+                           search_steps=train_steps, retrain_steps=train_steps,
+                           log_fn=lambda *a: None)
+    meta = res["packed_meta"]
+    cfg = base._replace(compressor="packed",
+                        comp_cfg={"bits": meta["bits"], "d": meta["d"],
+                                  "n": meta["n"]})
+    params = {k: v for k, v in res["final_params"].items() if k != "embedding"}
+    params["embedding"] = res["packed_table"]
+    buffers = dict(res["buffers"], embedding={"meta": meta})
+    return cfg, params, res["state"], buffers, spec, res
 
 
 def build_engine(cfg, params, state, buffers, *,
@@ -64,6 +105,10 @@ def main(argv=None):
                     help="also send one bulk job of this many rows")
     ap.add_argument("--p99-rows", type=int, default=SERVE_ROWS["serve_p99"])
     ap.add_argument("--bulk-rows", type=int, default=SERVE_ROWS["serve_bulk"])
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="serve what the MPE pipeline trains in this many "
+                         "search and retrain steps on the arch's fields "
+                         "(0: a random packed table from --seed)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -73,8 +118,14 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch).make_config(reduced=args.reduced)
-    params, buffers, state, spec = build_packed_dlrm(cfg, seed=args.seed,
-                                                     device=device)
+    if args.train_steps:
+        cfg, params, state, buffers, spec, _ = train_packed_dlrm(
+            field_vocabs=tuple(f.vocab for f in cfg.fields),
+            train_steps=args.train_steps, d_embed=cfg.d_embed,
+            mlp_hidden=cfg.mlp_hidden, seed=args.seed, device=device)
+    else:
+        params, buffers, state, spec = build_packed_dlrm(cfg, seed=args.seed,
+                                                         device=device)
     ratio = Packed.storage_ratio(params["embedding"], buffers["embedding"],
                                  cfg.comp_cfg)
     print(f"[serve] {args.arch} on {device}: {cfg.comp_cfg['n']} features, "

@@ -114,9 +114,9 @@ def test_carrier_keeps_packed_bits(rng):
         np.testing.assert_array_equal(got.numpy().view(np.uint32), sub)
     assert t_buffers["embedding"]["meta"] == {"bits": (0, 1, 2, 3, 4, 5, 6),
                                               "d": 16, "n": sum(VOCABS)}
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):   # a compressor the carrier does not know
         model_from_numpy(params, state, buffers,
-                         cfg._replace(compressor="qr"), "cpu")
+                         cfg._replace(compressor="hashing"), "cpu")
 
 
 @pytest.mark.parametrize("backbone", BACKBONES)

@@ -265,9 +265,10 @@ def _qat_inputs(rng, t, d, bits, device, onehot=False):
 def test_qat_kernels_match_plain_over_grid(cuda_device, rng, onehot):
     """out and drows bit-identical to the plain version (the same FMAs);
     dprobs, dalpha, dbeta, summed in float64 in another order, at rtol 1e-4 /
-    atol 1e-6."""
+    atol 1e-6. The grid has one width alone, b = 1..8 (the LSQ and ALPT
+    baselines' lookups: probability 1)."""
     grid = ([(0, 1, 2, 3, 4, 5, 6)] + [(0, b) for b in range(1, 9)]
-            + [tuple(range(10)), (0, 23, 24)])
+            + [(b,) for b in range(1, 9)] + [tuple(range(10)), (0, 23, 24)])
     for bits in grid:
         for d in (8, 16, 32, 33, 50, 64):
             for t in (1, 255, 257, 4099):
@@ -667,7 +668,7 @@ def test_bst_apply_and_training_launch_the_counted_kernels(cuda_device, rng):
                for h in trainer.history)
 
 
-@pytest.mark.parametrize("w", [7, 32, 50])
+@pytest.mark.parametrize("w", [1, 7, 32, 50])
 def test_segment_sum_kernel_matches_plain_on_a_hot_segment(cuda_device, rng,
                                                             w):
     """The gather's backward on 1.5 M ids, 1.1 M of them in one segment
@@ -687,6 +688,21 @@ def test_segment_sum_kernel_matches_plain_on_a_hot_segment(cuda_device, rng,
     assert int((ids == 4321).sum()) > 1_000_000
     want = segment_sum_ref(grad, ids, n)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, again)
+
+
+def test_segment_sum_kernel_on_two_segments(cuda_device, rng):
+    """QR's remainder table: 2.5 M ids in two segments of ~1.25 M rows each
+    (k = 2), width 16: within rtol 1e-6 / atol 1e-6 of the plain version,
+    twice bit-identical."""
+    t = 2_500_000
+    ids = torch.from_numpy(rng.integers(0, 2, t)).to(cuda_device)
+    grad = torch.randn((t, 16), device=cuda_device)
+    got = seg_ops.segment_sum(grad, ids, 2)
+    again = seg_ops.segment_sum(grad, ids, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, segment_sum_ref(grad, ids, 2), rtol=1e-6,
+                               atol=1e-6)
     assert torch.equal(got, again)
 
 
@@ -739,6 +755,71 @@ def test_adam_pass_matches_the_plain_chain_bit_for_bit(cuda_device, rng,
             for x, y, x0 in zip(got, want, (p, m, v)):
                 assert torch.equal(x, y)
                 assert torch.equal(x, x0) != ok
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 3e-6])
+def test_adam_pass_with_a_schedules_rate(cuda_device, rng, weight_decay):
+    """A schedule's ``lr_t`` (a float32 on the card) read by the pass from
+    device memory, its decay factor f32(lr_t·wd) formed in float32: bit for
+    bit the plain chain's, over rates where f32(lr_t·wd) and f32(lr·wd)
+    differ; a skipped step keeps every bit."""
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay)
+    bc1 = torch.full((), 0.1, device=cuda_device)
+    bc2 = torch.full((), 0.001, device=cuda_device)
+    scale = torch.full((), 0.37, device=cuda_device)
+    for lr in (1e-3, 3e-3, 7.25e-4):
+        lr_t = torch.full((), lr, device=cuda_device)
+        for shape in [(100_003, 16), (4099,), (2, 3)]:
+            p, g = (torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+                    .to(cuda_device) for s in (1.0, 3.0))
+            m = torch.from_numpy(rng.normal(0, 0.1, shape).astype(np.float32)
+                                 ).to(cuda_device)
+            v = torch.from_numpy(rng.uniform(0, 0.1, shape).astype(np.float32)
+                                 ).to(cuda_device)
+            for ok in (True, False):
+                ok_t = torch.full((), ok, device=cuda_device)
+                got = [x.clone() for x in (p, m, v)]
+                want = [x.clone() for x in (p, m, v)]
+                adam_ops.adam_step_(got[0], g, got[1], got[2], scale, ok_t,
+                                    bc1, bc2, lr=lr_t, **hyper)
+                adam_step_ref_(want[0], g, want[1], want[2], scale, ok_t, bc1,
+                               bc2, lr=lr_t, **hyper)
+                for x, y, x0 in zip(got, want, (p, m, v)):
+                    assert torch.equal(x, y)
+                    assert torch.equal(x, x0) != ok
+    with pytest.raises(ValueError, match="lr must be"):
+        adam_ops.adam_step_(p, g, m, v, scale, ok_t, bc1, bc2,
+                            lr=lr_t.double(), **hyper)
+
+
+def test_one_width_lookups_launch_the_qat_kernels(cuda_device, rng):
+    """LSQ (b = 6) and ALPT (b = 8, β = 0) look up through ``mpe_qat`` at
+    one width, forward and backward once a call, equal to their plain
+    versions on the CPU within the reference's contracts (out rtol 1e-5 /
+    atol 1e-7, gradients rtol 1e-4 / atol 1e-6)."""
+    from repro_torch.core.api import get_compressor
+    ids = torch.from_numpy(rng.integers(0, 5000, (4096, 3))).to(cuda_device)
+    g = torch.randn((4096, 3, 16), device=cuda_device)
+    for name, cfg in (("lsq", {"bits": 6}), ("alpt", {"bits": 8})):
+        comp = get_compressor(name)
+        params, _ = comp.init(torch.Generator(device=cuda_device).manual_seed(0),
+                              5000, 16, None, cfg)
+        outs, grads = {}, {}
+        for dev in (cuda_device, torch.device("cpu")):
+            p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+            before = (qat_ops.mixed_expectation_fwd.launches,
+                      qat_ops.mixed_expectation_bwd.launches)
+            out = comp.lookup(p, {}, ids.to(dev), cfg, train=True)
+            grads[dev.type] = torch.autograd.grad((out * g.to(dev)).sum(),
+                                                  list(p.values()))
+            outs[dev.type] = out.detach().cpu()
+            if dev.type == "cuda":
+                assert (qat_ops.mixed_expectation_fwd.launches - before[0],
+                        qat_ops.mixed_expectation_bwd.launches - before[1]) == (1, 1)
+        torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-5,
+                                   atol=1e-7)
+        for x, y in zip(grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)
 
 
 def _dlrm_with_a_large_table(device):

@@ -26,6 +26,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
 print(len(names))
 print(leaked)
+print(sorted(names))
 """
 
 
@@ -34,14 +35,33 @@ def _env(**extra):
     return env
 
 
+# the training path's modules (schedules, checkpoints, error feedback,
+# prefetch, the Table-3 baselines, Wide & Deep): each is imported by the
+# walk below and read by the source check
+TRAINING_PATH = ("train.optimizer", "train.checkpoint", "train.compression",
+                 "train.loop", "data.loader", "cache.prefetch",
+                 "core.pipeline", "core.baselines.lsq_uniform",
+                 "core.baselines.alpt", "core.baselines.qr_trick",
+                 "core.baselines.pep", "core.baselines.optfs",
+                 "models.wide_deep", "configs.wide_deep", "zoo",
+                 "launch.train", "launch.serve")
+
+
+def test_training_path_modules_are_in_the_port():
+    for name in TRAINING_PATH:
+        assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
+
+
 def test_every_port_module_imports_without_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                           capture_output=True, text=True, timeout=300,
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    n_modules, leaked = proc.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 25
+    n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
+    assert int(n_modules) >= 25 + len(TRAINING_PATH)
     assert leaked == "[]"
+    for name in TRAINING_PATH:
+        assert f"'repro_torch.{name}'" in names, name
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in

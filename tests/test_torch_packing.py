@@ -54,6 +54,18 @@ def test_pack_codes_bit_exact(b, d, rng):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
+@pytest.mark.parametrize("b", [1, 3, 6, 8])
+def test_pack_codes_in_row_chunks_bit_exact(b, rng, monkeypatch):
+    """Rows packed a few at a time (``PACK_ROWS``, 2^20 in use: it bounds
+    the int64 work of a whole table's export), a ragged last chunk
+    included, give the reference's words."""
+    monkeypatch.setattr(packing, "PACK_ROWS", 7)
+    codes = _random_codes(rng, b, 64, 50)
+    want = np.asarray(jpacking.pack_codes(jnp.asarray(codes), b))
+    got = packing.pack_codes(torch.from_numpy(codes), b)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
 @pytest.mark.parametrize("b", BITS)
 @pytest.mark.parametrize("d", DIMS)
 def test_unpack_codes_bit_exact(b, d, rng):

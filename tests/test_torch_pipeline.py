@@ -323,8 +323,11 @@ def test_training_launcher_on_the_cpu(capsys):
     plain = launch_train.main(["--reduced", "--device", "cpu", "--steps", "2",
                                "--batch", "128", "--compressor", "plain"])
     assert plain["storage_ratio"] == 1.0 and len(plain["history"]) == 2
-    with pytest.raises(SystemExit, match="baselines"):
-        launch_train.main(["--reduced", "--device", "cpu", "--compressor", "qr"])
+    qr = launch_train.main(["--reduced", "--device", "cpu", "--steps", "2",
+                            "--batch", "128", "--compressor", "qr"])
+    assert 0.5 < qr["storage_ratio"] < 0.51 and len(qr["history"]) == 2
+    with pytest.raises(SystemExit, match="unknown --compressor"):
+        launch_train.main(["--reduced", "--device", "cpu", "--compressor", "sq"])
 
 
 def test_training_launcher_needs_a_device(monkeypatch):
