@@ -34,12 +34,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    34,223,104 features, d=16, MLP 1024-512-256, widths {0..6}) initialised
    from a seed on the card, sampled and exported to the packed table there,
    served by ``build_engine`` with the 512-row ``serve_p99`` and
-   262,144-row ``serve_bulk`` cells. The kernel is held against its plain
-   version on the full-width table at both cell shapes; then, with the
-   launch counts set to 0, requests of 1, 300 and 512 rows and one bulk
+   262,144-row ``serve_bulk`` cells, each captured once as a CUDA graph
+   (with its Figure-5 lookup companion). The kernel is held against its
+   plain version on the full-width table at both cell shapes; then, with
+   the launch counts set to 0, requests of 1, 300 and 512 rows and one bulk
    request of 300,000 rows are scored, each of which must launch the
-   kernel. The scores must equal the same model run with the plain lookup
-   (rtol 1e-4, atol 1e-4).
+   kernel: a replay runs the kernels captured in its graph without calling
+   their wrappers, so a cell's launches are its replays times the lookups
+   captured in it. The scores must equal the same model run with the plain
+   lookup (rtol 1e-4, atol 1e-4).
 5. kernels: time the lookup and its plain version at both cell shapes with
    CUDA events, beside the least time the card needs to move the bytes that
    this run's ids need: warm (back-to-back calls on the same ids) and cold
@@ -48,7 +51,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    time per launch, and for a 300-row and the bulk request the device's
    busy time against the wall time, with the costliest device kernels and
    the bulk request's ``mpe_lookup_kernel`` ms beside the first lookup
-   kernel's.
+   kernel's; each request's graph replays must show ``mpe_lookup_kernel``.
+   Then the request lifecycle on phase 4's table and cells: a twin engine
+   on the warm cache registers with zero compiles; 64 requests of 1–512
+   rows submitted together are coalesced, each within 1e-4 of its lone
+   score and of the plain lookup's; an open loop of 300-row requests at
+   0.1×–2× the rate one 512-row request sustains (p50/p99, queue /
+   assembly / compute, goodput, sheds, occupancy); a run with a deadline
+   that sheds; one ``EngineServer`` round trip on localhost; each cell's
+   eager step against its replay, paired; ``launch.serve
+   --repack-headroom 0.5 --repack-budget 0.8`` at full width, whose swap
+   lands mid-stream with zero compiles: the live table must be the plan's
+   (rebuilt from the master) leaf for leaf, score equal to the plain
+   lookup on it and otherwise than on the table before the swap. The
+   path's ``mpe_lookup`` launches (replays × captured lookups) are counted
+   part by part, the counts at 0 just before each part (coalesced, open
+   loops, server, repack), each held to twice its dispatches (a cell and
+   its lookup companion); comparisons and timings fall outside the parts.
+   Memory: the graphs' pool read from the allocator's segments, and the
+   serving peak as reserved bytes (a replay allocates nothing; the pool
+   is reserved, not allocated).
 7. train path: ``repro_torch.launch.train --prefetch`` at full width and the
    ``train_batch`` cell's 65,536 rows — 8 search steps, Eq. 11 sampling,
    8 retrain steps, the packed export, eval on ``eval_set(4)`` — with the
@@ -209,11 +231,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, and the segment sum and the Adam pass, which
-replace library calls and no TPU kernel); the last line is
+replace library calls and no TPU kernel; ``launches_by_path`` has the
+lifecycle's, ``dlrm lifecycle``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -242,6 +266,7 @@ from repro_torch.embeddings import embedding_bag  # noqa: E402
 from repro_torch.embeddings.table import total_vocab  # noqa: E402
 from repro_torch.kernels.adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.adam.ref import adam_step_ref_  # noqa: E402
+from repro_torch.kernels import COUNTERS, counts  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
@@ -257,13 +282,16 @@ from repro_torch.kernels.mpe_qat.ref import (  # noqa: E402
 from repro_torch.kernels.segment_sum import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.serve import (build_engine,  # noqa: E402
                                       build_packed_dlrm)
+from repro_torch.launch.server import EngineClient, EngineServer  # noqa: E402
 from repro_torch.models.bst import BST, fields  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
 from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
+from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.stats import LatencyStats  # noqa: E402
 from repro_torch.train import optimizer as optimizer_module  # noqa: E402
 from repro_torch.train.loop import Trainer  # noqa: E402
@@ -334,6 +362,11 @@ PREFETCH_MAX_DEPTH = 16
 PREFETCH_STEPS = 8
 REDUCED_ROWS = 4096
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+LIFECYCLE_REQUESTS = 64          # concurrent requests, coalesced
+SWEEP_REQUESTS = 200             # open-loop requests of 300 rows a load
+SWEEP_LOADS = (0.1, 0.25, 0.5, 1.0, 2.0)   # x the rate one 512-row
+                                           # request sustains
+PAIRED_REPS = 20
 
 
 def log(msg: str):
@@ -576,6 +609,51 @@ def request_gids(spec, buffers, rows: int, step: int, dev) -> torch.Tensor:
     return torch.from_numpy(ids).to(dev) + buffers["offsets"][None, :]
 
 
+def plain_scores(model, ids: np.ndarray, dev) -> torch.Tensor:
+    """The logits of ``model`` = (cfg, params, state, buffers) for ``ids``
+    with the plain lookup on the card, on the host."""
+    cfg, params, state, buffers = model
+    table, meta = params["embedding"], buffers["embedding"]["meta"]
+    with torch.inference_mode():
+        gids = torch.from_numpy(ids).to(dev) + buffers["offsets"][None, :]
+        emb = packed_lookup_ref(table, meta, gids.reshape(-1)).reshape(
+            *gids.shape, meta["d"])
+        return DLRM.interact(params, state, emb, gids, cfg)[0].cpu()
+
+
+def reset_lookup_counts(*engines):
+    """The lookup's launch counts at 0: its wrapper's, and the replays of
+    the engines' cells (a replay runs the kernels captured in its CUDA
+    graph without calling their wrappers)."""
+    mpe_lookup_ops.packed_lookup.launches = 0
+    for engine in engines:
+        for reg in engine.registered_cells().values():
+            reg.cell.replays = 0
+
+
+def lookup_launches(*engines) -> int:
+    """``mpe_lookup`` launches since ``reset_lookup_counts``: the wrapper's
+    count plus, for each cell, its replays times the lookups captured in
+    its graph (engines sharing a cache are counted once)."""
+    caches = {id(e.cache): e.cache for e in engines}.values()
+    return (mpe_lookup_ops.packed_lookup.launches
+            + sum(c.launches().get("mpe_lookup", 0) for c in caches))
+
+
+def dispatches(*engines) -> int:
+    """Score-cell dispatches the engines' stats hold: each replays its
+    cell and the cell's lookup companion, one lookup each."""
+    return sum(s["count"] for e in engines for s in e.summary().values())
+
+
+def counted(engines, fn):
+    """``fn()`` with the lookup's counts at 0 just before it → (its result,
+    the ``mpe_lookup`` launches it made on the engines' caches)."""
+    reset_lookup_counts(*engines)
+    out = fn()
+    return out, lookup_launches(*engines)
+
+
 def phase_main_path(dev):
     cfg = get_arch("dlrm-criteo").make_config(backbone="dnn")
     n = cfg.comp_cfg["n"]
@@ -591,7 +669,20 @@ def phase_main_path(dev):
     log(f"init + sample + export on the card: {time.perf_counter() - t0:.1f} s; "
         f"storage ratio {ratio:.6f}; subtables {sub_rows}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.empty_cache()   # what the build left cached goes back
+    before = torch.cuda.memory_reserved()
     engine = build_engine(cfg, params, state, buffers, device=dev)
+    torch.cuda.synchronize()
+    cells_reserved = torch.cuda.memory_reserved() - before
+    pool_bytes = engine.cache.pool_bytes()
+    copy_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves(engine.live_packed_table()))
+    log(f"4 cells captured as CUDA graphs in "
+        f"{sum(r.cell.compile_s for r in engine.registered_cells().values()):.2f}"
+        f" s; their shared pool holds {pool_bytes / 1e9:.3f} GB; the "
+        f"engine's copy of the table {copy_bytes / 1e9:.3f} GB; reserved "
+        f"bytes grew {cells_reserved / 1e9:.3f} GB")
+    check(pool_bytes > 0, "the graphs' pool holds nothing")
 
     # the kernel against its plain version on the full-width table
     cell_gids = {shape: request_gids(spec, buffers, rows, 5_000, dev)
@@ -613,48 +704,58 @@ def phase_main_path(dev):
     requests = [SyntheticCTR(spec._replace(batch_size=rows)).batch(step)["ids"]
                 for step, rows in enumerate(REQUEST_ROWS * 5 + [BULK_ROWS],
                                             start=10_000)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    mpe_lookup_ops.packed_lookup.launches = 0
+    reset_lookup_counts(engine)
     outputs, request_ms = [], []
     for ids in requests:
-        before = mpe_lookup_ops.packed_lookup.launches
+        before = lookup_launches(engine)
         t0 = time.perf_counter()
         outputs.append(engine.score(ids, return_logits=True))
         request_ms.append((time.perf_counter() - t0) * 1e3)
-        check(mpe_lookup_ops.packed_lookup.launches > before,
+        check(lookup_launches(engine) > before,
               f"a {ids.shape[0]}-row request launched no mpe_lookup kernel")
-    launches = {"mpe_lookup": mpe_lookup_ops.packed_lookup.launches}
-    serve_peak = torch.cuda.max_memory_allocated()
+    launches = {"mpe_lookup": lookup_launches(engine)}
+    # what the card holds at the peak: the caching allocator's reserved
+    # bytes, the graphs' pool among them (a replay allocates nothing)
+    serve_peak = torch.cuda.max_memory_reserved()
+    serve_peak_allocated = torch.cuda.max_memory_allocated()
     log(f"main path: {len(requests)} requests, kernel launches {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+    check(launches["mpe_lookup"] == 2 * dispatches(engine),
+          f"{launches['mpe_lookup']} mpe_lookup launches for "
+          f"{dispatches(engine)} dispatches of a cell and its companion")
 
     # what came out: finite logits of the right shape, equal to the same
     # model run with the plain lookup on the card
-    with torch.inference_mode():
-        for ids, got in zip(requests, outputs):
-            check(got.shape == (ids.shape[0],) and np.isfinite(got).all(),
-                  f"bad scores for a {ids.shape[0]}-row request")
-            x = torch.from_numpy(ids).to(dev)
-            gids = x + buffers["offsets"][None, :]
-            emb = packed_lookup_ref(table, meta, gids.reshape(-1)).reshape(
-                *gids.shape, meta["d"])
-            want = DLRM.interact(params, state, emb, gids, cfg)[0].cpu()
-            compare(torch.from_numpy(got), want, SCORE_TOL, SCORE_TOL,
-                    f"scores of a {ids.shape[0]}-row request vs plain lookup")
+    model = (cfg, params, state, buffers)
+    for ids, got in zip(requests, outputs):
+        check(got.shape == (ids.shape[0],) and np.isfinite(got).all(),
+              f"bad scores for a {ids.shape[0]}-row request")
+        compare(torch.from_numpy(got), plain_scores(model, ids, dev),
+                SCORE_TOL, SCORE_TOL,
+                f"scores of a {ids.shape[0]}-row request vs plain lookup")
     summary = engine.stats.summary()
     log("per-cell latency:\n" + engine.stats.format_table())
     p99_req = [ms for ids, ms in zip(requests, request_ms)
                if ids.shape[0] <= SERVE_ROWS["serve_p99"]]
     log(f"request p50 (<=512 rows) {np.percentile(p99_req, 50):.3f} ms; "
         f"bulk request ({BULK_ROWS} rows) {request_ms[-1]:.3f} ms; "
-        f"serving peak memory {serve_peak / 1e9:.3f} GB")
+        f"serving peak reserved {serve_peak / 1e9:.3f} GB (allocated "
+        f"{serve_peak_allocated / 1e9:.3f} GB)")
     return {"table": table, "meta": meta, "cell_gids": cell_gids,
             "launches": launches, "max_abs_err": worst, "ratio": ratio,
             "cells": summary, "request_p50_ms": float(np.percentile(p99_req, 50)),
             "bulk_request_ms": request_ms[-1], "serve_peak_bytes": serve_peak,
+            "serve_peak_allocated_bytes": serve_peak_allocated,
             "engine": engine, "requests": {"300 rows": requests[1],
-                                           f"{BULK_ROWS} rows": requests[-1]}}
+                                           f"{BULK_ROWS} rows": requests[-1]},
+            "model": (cfg, params, state, buffers), "spec": spec,
+            "cells_pool_bytes": pool_bytes,
+            "cells_reserved_bytes": cells_reserved,
+            "table_copy_bytes": copy_bytes}
 
 
 def phase_kernel_times(main, grid_err: float) -> dict:
@@ -690,6 +791,8 @@ def phase_trace(main) -> dict:
         out[what] = {k: t[k] for k in ("wall_ms", "busy_ms", "idle_share", "top")}
         out[what]["lookup_ms"] = sum(ms for name, ms in t["by_name"].items()
                                      if "mpe_lookup_kernel" in name)
+        check(out[what]["lookup_ms"] > 0, f"the traced {what} request's "
+              f"graph replays ran no mpe_lookup_kernel")
         log(f"traced {what} request: wall {t['wall_ms']:.3f} ms, device busy "
             f"{t['busy_ms']:.3f} ms (idle share {t['idle_share']:.3f}); "
             f"mpe_lookup_kernel {out[what]['lookup_ms']:.3f} ms"
@@ -697,6 +800,279 @@ def phase_trace(main) -> dict:
                if reps == 1 else "") + "; top "
             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in t["top"]))
     return out
+
+
+def paired_ms(fns: dict, reps: int) -> dict:
+    """Host ms of each ``fns[name]()`` up to a synchronize, the calls taken
+    in turns (a, b, b, a, ...) so that drift in the host's speed falls on
+    both alike: {name: [ms, ...]}."""
+    names, out = list(fns), {name: [] for name in fns}
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def p50(values) -> float:
+    return float(np.percentile(values, 50))
+
+
+def open_loop_row(engine, res) -> dict:
+    """An open-loop run's end-to-end numbers: latency p50/p99, the queue /
+    assembly / compute split, goodput, sheds and occupancy."""
+    rs = engine.request_summary().get("score")
+    occ = engine.counters()["occupancy"]
+    row = {k: res[k] for k in ("offered_qps", "goodput_qps", "completed",
+                               "shed", "makespan_s")}
+    if rs is not None:
+        row.update({f"{part}_{q}": rs[part][f"{q}_ms"]
+                    for part in ("latency", "queue", "assembly", "compute")
+                    for q in ("p50", "p99")})
+    row["occupancy"] = {cell: v["occupancy"] for cell, v in occ.items()}
+    row["dispatches"] = {cell: s["count"]
+                         for cell, s in engine.summary().items()}
+    return row
+
+
+def phase_lifecycle(main, dev) -> dict:
+    """The request lifecycle at full width on phase 4's table and cells:
+    coalescing, a twin engine on the warm cache, an open-loop sweep, a
+    deadline run, a repack swapped mid-stream, the socket server, and each
+    cell's eager step against its CUDA-graph replay."""
+    t_phase = time.perf_counter()
+    model, spec, engine = main["model"], main["spec"], main["engine"]
+    cfg, params, state, buffers = model
+    shapes = dict(SERVE_ROWS)
+    compiles, hits = engine.compile_count, engine.cache.hits
+
+    def twin_engine() -> Engine:
+        """A fresh engine on phase 4's warm cache: its stats start empty."""
+        e = Engine(cache=engine.cache)
+        e.register_packed_model("dlrm", DLRM, cfg, params, state, buffers,
+                                shapes=shapes)
+        return e
+    twin = twin_engine()
+    check(twin.compile_count == compiles and engine.cache.hits == hits + 4,
+          "a twin engine on the warm cache compiled a cell")
+
+    # one stream object (its constructor walks all 34 M features' CDFs);
+    # a request of n rows is the first n of one of its 512-row batches
+    stream = SyntheticCTR(spec._replace(batch_size=512))
+
+    def ids_of(rows: int, step: int) -> np.ndarray:
+        return stream.batch(step)["ids"][:int(rows)]
+
+    # each request alone, then the same 64 submitted together: coalesced
+    sizes = np.random.default_rng(SEED).integers(1, 513, LIFECYCLE_REQUESTS)
+    reqs = [ids_of(n, 30_000 + i) for i, n in enumerate(sizes)]
+    lone = [engine.score(r, return_logits=True) for r in reqs]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the path's launches, part by part: each part's run with the counts
+    # at 0 just before it, each held to its dispatches (a cell and its
+    # lookup companion replay once a dispatch, one lookup each)
+    parts = {}
+
+    def coalesce():
+        t0 = time.perf_counter()
+        tickets = [twin.submit(r) for r in reqs]
+        twin.drain()
+        return tickets, (time.perf_counter() - t0) * 1e3
+    (tickets, coalesced_ms), parts["coalesced"] = counted([engine], coalesce)
+    got = [twin.poll(t) for t in tickets]
+    n_dispatches = dispatches(twin)
+    check(parts["coalesced"] == 2 * n_dispatches,
+          f"{parts['coalesced']} mpe_lookup launches for {n_dispatches} "
+          f"coalesced dispatches")
+    want = plain_scores(model, np.concatenate(reqs), dev)
+    bits_equal, worst = 0, 0.0
+    for r, g, alone, w in zip(reqs, got, lone,
+                              torch.split(want, [len(r) for r in reqs])):
+        g = torch.from_numpy(g)
+        worst = max(worst, within(g, w, {"rtol": SCORE_TOL, "atol": SCORE_TOL},
+                                  f"a coalesced {len(r)}-row request vs "
+                                  f"plain lookup"))
+        within(g, torch.from_numpy(alone),
+               {"rtol": SCORE_TOL, "atol": SCORE_TOL},
+               f"a coalesced {len(r)}-row request vs its lone score")
+        bits_equal += int(np.array_equal(g.numpy(), alone))
+    log(f"lifecycle: {LIFECYCLE_REQUESTS} requests of 1-512 rows "
+        f"({int(sizes.sum())} rows) in {n_dispatches} dispatch(es), "
+        f"{coalesced_ms:.3f} ms; occupancy {twin.counters()['occupancy']}; "
+        f"{bits_equal} equal to their lone scores bit for bit, all within "
+        f"{SCORE_TOL}; max |diff| vs plain {worst:.3e}")
+
+    # the rate one 512-row request sustains, and an open-loop sweep
+    ids_512 = ids_of(512, 40_000)
+    alone = {"512 rows": twin_engine()}
+    lone_ms = paired_ms({"r": lambda: alone["512 rows"].score(ids_512)},
+                        PAIRED_REPS)["r"]
+    rate = 1e3 / p50(lone_ms)
+    pool = [ids_of(300, 50_000 + i) for i in range(SWEEP_REQUESTS)]
+    sweep, open_engines = {}, []
+    deadline_ms = 2 * p50(lone_ms)
+
+    def open_loops():
+        for load in SWEEP_LOADS:
+            e = twin_engine()
+            res = launch_serve.run_open_loop(e, pool.__getitem__,
+                                             SWEEP_REQUESTS, load * rate,
+                                             seed=SEED)
+            check(res["completed"] == SWEEP_REQUESTS and res["shed"] == 0,
+                  f"the {load}x open loop lost requests: {res}")
+            sweep[f"{load}x"] = open_loop_row(e, res)
+            open_engines.append(e)
+        e = twin_engine()
+        res = launch_serve.run_open_loop(e, pool.__getitem__, SWEEP_REQUESTS,
+                                         2 * rate, seed=SEED + 1,
+                                         deadline_ms=deadline_ms)
+        check(res["shed"] > 0 and res["completed"] + res["shed"]
+              == SWEEP_REQUESTS, f"the deadline run shed nothing: {res}")
+        sweep["2x, deadline"] = dict(open_loop_row(e, res),
+                                     deadline_ms=deadline_ms)
+        open_engines.append(e)
+    _, parts["open loop"] = counted([engine], open_loops)
+    check(parts["open loop"] == 2 * dispatches(*open_engines),
+          f"{parts['open loop']} mpe_lookup launches for "
+          f"{dispatches(*open_engines)} open-loop dispatches")
+    del open_engines
+    for name, row in sweep.items():
+        log(f"open loop {name} of {rate:.1f} req/s (300 rows each): "
+            + json.dumps(row))
+
+    # the socket server, once, on localhost
+    ids_300 = ids_of(300, 70_000)
+    srv = EngineServer(twin).start()
+    before = dispatches(twin)
+
+    def round_trip():
+        with EngineClient(srv.host, srv.port) as client:
+            return client.score(ids_300)
+    try:
+        over_wire, parts["server"] = counted([engine], round_trip)
+    finally:
+        srv.shutdown()
+        for t in srv._threads:
+            t.join(timeout=30)
+    check(parts["server"] == 2 * (dispatches(twin) - before),
+          f"{parts['server']} mpe_lookup launches for the server's "
+          f"{dispatches(twin) - before} dispatches")
+    check(not any(t.is_alive() for t in srv._threads[:2]),
+          "the server's threads did not stop")
+    check(np.array_equal(over_wire, twin.score(ids_300, return_logits=True)),
+          "a request over the socket scored other bits than in process")
+    check(twin.compile_count == compiles, "the lifecycle compiled a cell")
+    lifecycle_peak = torch.cuda.max_memory_reserved()
+
+    # each cell's eager step against its replay, paired, on the same ids
+    bulk_ids = main["requests"][f"{BULK_ROWS} rows"]
+    paired = {}
+    for shape, rows in shapes.items():
+        reg = engine._score[shape]
+        x = reg.cell.stage(np.ascontiguousarray(bulk_ids[:rows]))
+
+        def eager(reg=reg, x=x):
+            with torch.inference_mode():
+                return reg.celldef.step_fn(*reg.bound, *x).cpu()
+
+        def replay(reg=reg, x=x):
+            return reg.cell.compiled(*x).cpu()
+        check(torch.equal(eager(), replay()),
+              f"the {shape} cell's replay differs from its eager step")
+        reps = PAIRED_REPS if rows <= 512 else 6
+        times = paired_ms({"eager": eager, "replay": replay}, reps)
+        paired[shape] = {k: p50(v) for k, v in times.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reg = engine._score["serve_bulk"]
+    with torch.inference_mode():
+        reg.celldef.step_fn(*reg.bound, *reg.cell.stage(np.ascontiguousarray(
+            bulk_ids[:SERVE_ROWS["serve_bulk"]])))
+    torch.cuda.synchronize()
+    eager_bulk_bytes = torch.cuda.max_memory_allocated() - base
+    alone[f"{BULK_ROWS} rows"] = twin_engine()
+    paired_ms({"r": lambda: alone[f"{BULK_ROWS} rows"].score(bulk_ids)}, 6)
+    # each request alone: p50 of its end to end, queue, assembly (gather,
+    # pad, pinned staging) and compute (replays to a synchronize)
+    request = {name: {part: e.request_summary()["score"][part]["p50_ms"]
+                      for part in ("latency", "queue", "assembly", "compute")}
+               for name, e in alone.items()}
+    log(f"paired p50, eager step vs graph replay (host ms to a synchronize "
+        f"and the output on the host): {json.dumps(paired)}; lifecycle "
+        f"request p50 {json.dumps(request)}; "
+        f"the graphs' pool holds {main['cells_pool_bytes'] / 1e9:.3f} GB; an "
+        f"eager bulk step {eager_bulk_bytes / 1e9:.3f} GB of activations; "
+        f"lifecycle peak reserved {lifecycle_peak / 1e9:.3f} GB")
+
+    # a headroom-packed table swapped to 0.8x its bytes mid-stream, through
+    # the serving entry point
+    argv = ["--arch", "dlrm-criteo", "--requests", "10", "--batch", "300",
+            "--repack-headroom", "0.5", "--repack-budget", "0.8",
+            "--seed", str(SEED)]
+    log(f"repack: python -m repro_torch.launch.serve {' '.join(argv)}")
+    r_engine = launch_serve.main(argv)
+    # its own cache: its cells' replays are its requests' (the captures'
+    # warm-up calls are registration's, not the path's)
+    parts["repack"] = r_engine.cache.launches().get("mpe_lookup", 0)
+    check(parts["repack"] == 2 * dispatches(r_engine),
+          f"{parts['repack']} mpe_lookup launches for the repack run's "
+          f"{dispatches(r_engine)} dispatches")
+    check(r_engine.swaps_applied == 1 and r_engine.compile_count == 4,
+          "the repack swap did not land, or compiled a cell")
+    # the launcher's plan again, from the master: the live tensors must be
+    # its table leaf for leaf, and the table before the swap another
+    master = launch_serve.packed_master(cfg, seed=SEED, device=dev)
+    planner, swapper = launch_serve.repack_tools(
+        r_engine, master, stream.expected_frequencies())
+    gbits = np.asarray(master["group_bits"])
+    plan = planner.plan_budget(gbits, int(0.8 * planner.bytes_packed(gbits)))
+    new_table, _ = swapper.build(plan.feature_bits_idx)
+    old_table, _ = swapper.build(master["feature_bits_idx"])
+    del master, planner, swapper
+    live = leaves(r_engine.live_packed_table())
+    check(all(torch.equal(a, b) for a, b in zip(live, leaves(new_table))),
+          "the live table after the swap is not the planned repack")
+    check(not all(torch.equal(a, b) for a, b in
+                  zip(leaves(old_table), leaves(new_table))),
+          "the planned repack is the table it replaced")
+    new_model = (cfg, dict(params, embedding=new_table), state, buffers)
+    old_model = (cfg, dict(params, embedding=old_table), state, buffers)
+    moved = 0
+    for rows in (1, 300, 512):
+        ids = ids_of(rows, 90_000 + rows)
+        got = torch.from_numpy(r_engine.score(ids, return_logits=True))
+        compare(got, plain_scores(new_model, ids, dev), SCORE_TOL, SCORE_TOL,
+                f"after the swap, a {rows}-row request vs plain lookup on "
+                f"the planned table")
+        moved += int(not torch.equal(got, plain_scores(old_model, ids, dev)))
+    check(moved > 0, "the scores after the swap equal those before it")
+    log(f"repack: the live table is the planned one leaf for leaf "
+        f"({plan.n_features_moved} features moved, {plan.bytes_before} -> "
+        f"{plan.bytes_packed} bytes); {moved} of 3 requests score otherwise "
+        f"than on the table before the swap")
+    del r_engine, new_model, old_model, new_table, old_table, live
+    launches = {"mpe_lookup": sum(parts.values())}
+    check(launches["mpe_lookup"] > 0, "the lifecycle launched no mpe_lookup")
+    log(f"lifecycle phase: {time.perf_counter() - t_phase:.1f} s, "
+        f"mpe_lookup launches {parts} = {launches}")
+    return {"launches": launches, "launch_parts": parts, "coalesced": {
+                "requests": LIFECYCLE_REQUESTS, "rows": int(sizes.sum()),
+                "dispatches": n_dispatches, "ms": coalesced_ms,
+                "bit_equal_to_lone": bits_equal, "max_abs_err": worst},
+            "rate_512_per_s": rate, "lone_512_p50_ms": p50(lone_ms),
+            "sweep": sweep, "paired_cell_p50_ms": paired,
+            "request_p50_ms": request,
+            "cells_pool_bytes": main["cells_pool_bytes"],
+            "cells_reserved_bytes": main["cells_reserved_bytes"],
+            "table_copy_bytes": main["table_copy_bytes"],
+            "eager_bulk_step_bytes": eager_bulk_bytes,
+            "lifecycle_peak_bytes": lifecycle_peak}
 
 
 def qat_inputs(gen, t, d, bits, dev, onehot=False):
@@ -769,24 +1145,9 @@ def phase_qat_grid(dev) -> tuple:
     return fwd_err, bwd_err
 
 
-COUNTERS = {"mpe_lookup": mpe_lookup_ops.packed_lookup,
-            "mixed_expectation_fwd": qat_ops.mixed_expectation_fwd,
-            "mixed_expectation_bwd": qat_ops.mixed_expectation_bwd,
-            "flash_attention_fwd": flash_ops.flash_attention_fwd,
-            "flash_attention_fwd_stats": flash_ops.flash_attention_fwd_stats,
-            "flash_attention_bwd": flash_ops.flash_attention_bwd,
-            "embedding_bag_fwd": bag_ops.embedding_bag_fwd,
-            "segment_sum": seg_ops.segment_sum,
-            "adam_step_": adam_ops.adam_step_}
-
-
 def reset_counts():
     for counter in COUNTERS.values():
         counter.launches = 0
-
-
-def counts() -> dict:
-    return {name: counter.launches for name, counter in COUNTERS.items()}
 
 
 def launched_since(before: dict) -> dict:
@@ -850,22 +1211,20 @@ def phase_train_path(dev) -> dict:
     with torch.inference_mode():
         for step, rows in enumerate((1, 300, 512, 3000), start=20_000):
             ids = SyntheticCTR(spec._replace(batch_size=rows)).batch(step)["ids"]
-            before = mpe_lookup_ops.packed_lookup.launches
+            before = lookup_launches(engine)
             got = engine.score(ids, return_logits=True)
-            check(mpe_lookup_ops.packed_lookup.launches > before,
+            check(lookup_launches(engine) > before,
                   f"a {rows}-row request to the trained table launched no "
                   f"mpe_lookup kernel")
             check(got.shape == (rows,) and np.isfinite(got).all(),
                   f"bad scores for a {rows}-row request to the trained table")
-            gids = torch.from_numpy(ids).to(dev) + buffers["offsets"][None, :]
-            emb = packed_lookup_ref(table, meta, gids.reshape(-1)).reshape(
-                *gids.shape, meta["d"])
-            want = DLRM.interact(params, res["state"], emb, gids, cfg)[0].cpu()
+            want = plain_scores((cfg, params, res["state"], buffers), ids,
+                                dev)
             compare(torch.from_numpy(got), want, SCORE_TOL, SCORE_TOL,
                     f"trained table, {rows}-row request vs plain lookup")
             served += 1
     launches = {"mixed_expectation_fwd": fwd, "mixed_expectation_bwd": bwd,
-                "mpe_lookup": mpe_lookup_ops.packed_lookup.launches,
+                "mpe_lookup": lookup_launches(engine),
                 "segment_sum": seg, "adam_step_": passes}
     table_bytes = cfg_table_bytes(res["final_params"]["embedding"]["emb"])
     sec = res["seconds"]
@@ -893,6 +1252,8 @@ def phase_train_path(dev) -> dict:
         f"{res['storage_ratio']:.6f}, avg bits {res['avg_bits']:.3f}, eval "
         f"{res['eval']}; losses {[round(x, 5) for x in out['losses']]}")
     del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()   # the cells' graph pool goes back
     return {**out, "res": res, "cfg": cfg}
 
 
@@ -2982,13 +3343,19 @@ def main() -> int:
     main_path = phase_main_path(dev)
     kernel = phase_kernel_times(main_path, grid_err)
     traced = phase_trace(main_path)
+    lifecycle = phase_lifecycle(main_path, dev)
+    log(json.dumps({"lifecycle": lifecycle}))
     log(json.dumps({"storage_ratio": main_path["ratio"],
                     "request_p50_ms": main_path["request_p50_ms"],
                     "bulk_request_ms": main_path["bulk_request_ms"],
                     "serve_peak_bytes": main_path["serve_peak_bytes"],
+                    "serve_peak_allocated_bytes":
+                        main_path["serve_peak_allocated_bytes"],
                     "cells": main_path["cells"], "traced": traced}))
     main_launches = main_path["launches"]
     del main_path
+    gc.collect()
+    torch.cuda.empty_cache()   # the cells' graph pool goes back
     train = phase_train_path(dev)
     step = phase_step_inputs(dev, train)
     del train["res"]
@@ -3032,7 +3399,9 @@ def main() -> int:
                bag_record(bag_grid_errs, bag),
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs)]
-    by_path = {"dlrm serve": main_launches, "dlrm train": train["launches"],
+    by_path = {"dlrm serve": main_launches,
+               "dlrm lifecycle": lifecycle["launches"],
+               "dlrm train": train["launches"],
                "sasrec serve": sasrec_serve["launches"],
                "sasrec train": sasrec_train["launches"],
                "bst serve": bst_serve["launches"],

@@ -77,15 +77,24 @@ class Packed(BaseCompressor):
     """
 
     @staticmethod
-    def init(gen: torch.Generator, n, d, freqs, cfg):
+    def draw(gen: torch.Generator, n, d, freqs, cfg):
+        """What ``init`` packs: the search layer's init (params, buffers)
+        and the Eq. 11 widths (group bits, feature bits) sampled from a γ
+        drawn at random and scaled by 0.01 — the full-precision master a
+        repack re-quantizes from."""
         c = as_mpe_config(cfg)
         params, buffers = MPESearchEmbedding.init(gen, n, d, freqs, c)
         gamma = 0.01 * torch.randn(params["gamma"].shape, generator=gen,
                                    device=gen.device)
         gb = sample_group_bits({**params, "gamma": gamma}, c)
         fb = feature_bits(gb, buffers["group_of_feature"])
+        return params, buffers, gb, fb
+
+    @staticmethod
+    def init(gen: torch.Generator, n, d, freqs, cfg):
+        params, _, _, fb = Packed.draw(gen, n, d, freqs, cfg)
         table, meta = build_packed_table(params["emb"], fb, params["alpha"],
-                                         params["beta"], c)
+                                         params["beta"], as_mpe_config(cfg))
         return table, {"meta": meta}
 
     @staticmethod

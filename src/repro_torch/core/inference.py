@@ -49,7 +49,9 @@ def build_packed_table(emb: torch.Tensor, bits_idx_per_feature: torch.Tensor,
     width bucket holds more real rows than its pinned capacity.
     """
     device = emb.device
-    bits_idx = bits_idx_per_feature.to(device=device, dtype=torch.int32)
+    # the table owns every tensor it holds (a swap writes them in place)
+    bits_idx = bits_idx_per_feature.to(device=device, dtype=torch.int32,
+                                       copy=True)
     n, d = emb.shape
     if row_pad_multiple is None:
         n_widths = sum(1 for b in cfg.bits if b != 0)
@@ -83,8 +85,8 @@ def build_packed_table(emb: torch.Tensor, bits_idx_per_feature: torch.Tensor,
         "subtables": subtables,
         "local_idx": local_idx,
         "width_idx": bits_idx,
-        "alpha": alpha.to(torch.float32),
-        "beta": beta.to(torch.float32),
+        "alpha": alpha.to(torch.float32, copy=True),
+        "beta": beta.to(torch.float32, copy=True),
     }
     meta = {"bits": tuple(cfg.bits), "d": d, "n": n}
     return table, meta

@@ -3,7 +3,33 @@
 Each package holds ``ref.py`` (the plain PyTorch version, which CPU tensors
 take) and ``ops.py`` (the wrapper, which launches the kernel built from
 ``repro_torch/csrc/<name>.cu`` for CUDA tensors and counts its launches).
+``COUNTERS`` names every wrapper whose ``launches`` counts its kernel's
+launches; ``counts()`` reads them all.
 """
-from repro_torch.kernels.embedding_bag.ops import embedding_bag_kernel
+from repro_torch.kernels.adam.ops import adam_step_
+from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fwd,
+                                                   embedding_bag_kernel)
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_stats)
+from repro_torch.kernels.mpe_lookup.ops import packed_lookup
+from repro_torch.kernels.mpe_qat.ops import (mixed_expectation_bwd,
+                                             mixed_expectation_fwd)
+from repro_torch.kernels.segment_sum.ops import segment_sum
 
-__all__ = ["embedding_bag_kernel"]
+COUNTERS = {"mpe_lookup": packed_lookup,
+            "mixed_expectation_fwd": mixed_expectation_fwd,
+            "mixed_expectation_bwd": mixed_expectation_bwd,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_fwd_stats": flash_attention_fwd_stats,
+            "flash_attention_bwd": flash_attention_bwd,
+            "embedding_bag_fwd": embedding_bag_fwd,
+            "segment_sum": segment_sum,
+            "adam_step_": adam_step_}
+
+
+def counts() -> dict:
+    """Every wrapper's launch count, by kernel name."""
+    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+
+
+__all__ = ["COUNTERS", "counts", "embedding_bag_kernel"]

@@ -1,4 +1,4 @@
-"""Serving launcher: score a synthetic CTR request stream from a packed table.
+"""Serving launcher: drive the packed-table engine with a traffic mix.
 
 Builds a DLRM whose embedding is the bit-packed mixed-precision table of
 paper §4, the way the reference's ``Packed.init`` does (the search layer's
@@ -7,34 +7,71 @@ weights drawn from ``--seed`` and the Zipf frequency prior of
 ``SyntheticCTR``; or, with ``--train-steps N``, the table and MLP that the
 MPE pipeline trains in N search and N retrain steps on that stream
 (``train_packed_dlrm``, as the reference's launcher serves). It registers
-the ``serve_p99`` and ``serve_bulk`` cells,
-sends ``--requests`` requests of ``--batch`` rows (padded onto the p99
-cell) and optionally one ``--bulk`` job, and prints per-cell p50/p99 latency
-in the Figure-5 lookup-vs-compute split.
+the ``serve_p99`` and ``serve_bulk`` cells — captured once as CUDA graphs on
+the card — sends ``--requests`` requests of ``--batch`` rows (padded onto
+the p99 cell) and optionally one ``--bulk`` job, and prints per-cell p50/p99
+latency in the Figure-5 lookup-vs-compute split.
+
+``--qps`` switches to **open-loop** mode: request arrivals follow seeded
+exponential inter-arrival times at the offered rate (arrivals don't wait for
+service), and concurrent requests coalesce through the admission queue +
+scheduler onto shared padded cells. The report then adds the per-request
+queue-wait / batch-assembly / compute breakdown, shed counts and per-cell
+occupancy.
+
+``--repack-budget`` demonstrates **serving-time precision adaptation**
+(``repro_torch.serve.repack``): halfway through the request stream (at the
+open loop's first round with ``--qps``) the planner emits a new per-group
+assignment at that fraction of the current packed payload bytes and the
+swapper re-packs it and swaps it into the live cells in place — the run
+asserts the swap compiled nothing. ``--repack-headroom`` packs the serving
+table with spare per-width row capacity so demoted groups can land in
+intermediate widths.
+
+The reference's tiered-cache, drift, writeback and mesh flags raise, naming
+the ROADMAP item that brings them.
 
 Runs on the CUDA card unless ``--device`` names another:
 
     python -m repro_torch.launch.serve --arch dlrm-criteo --requests 20 --batch 300 --bulk 300000
-    python -m repro_torch.launch.serve --arch dlrm-criteo --reduced --device cpu --train-steps 20
+    python -m repro_torch.launch.serve --qps 2000 --requests 200 --batch 300 --deadline-ms 20
+    python -m repro_torch.launch.serve --reduced --device cpu --requests 20 --repack-budget 0.8 --repack-headroom 0.5
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import SERVE_ROWS, get_arch
-from repro_torch.core.compressors import Packed
-from repro_torch.core.mpe import MPEConfig
+from repro_torch.core.compressors import Packed, as_mpe_config
+from repro_torch.core.inference import build_packed_table
+from repro_torch.core.mpe import MPEConfig, make_groups
 from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.device import full_float32, resolve_device
-from repro_torch.embeddings.table import FieldSpec
+from repro_torch.embeddings.table import FieldSpec, total_vocab
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.queue import DONE, FAILED, SHED
+from repro_torch.serve.repack import (RepackPlanner, TableSwapper,
+                                      headroom_capacities,
+                                      subtable_capacities)
 from repro_torch.train.optimizer import adam
 from repro_torch.zoo import dlrm_builder
 
 DEFAULT_VOCABS = (2000, 1000, 1500, 800)
+# the reference's flags whose modules are not ported yet
+NOT_PORTED_FLAGS = {
+    "hot_frac": "ROADMAP Queue 1 item 4 (the tiered cache)",
+    "cache_policy": "ROADMAP Queue 1 item 4 (the tiered cache)",
+    "drift": "ROADMAP Queue 1 item 4 (DriftingCTR)",
+    "shift_at": "ROADMAP Queue 1 item 4 (DriftingCTR)",
+    "writeback": "ROADMAP Queue 1 item 4 (the tiered cache)",
+    "mesh": "ROADMAP Queue 1 item 6 (distribution)",
+}
 
 
 def train_packed_dlrm(*, field_vocabs=DEFAULT_VOCABS, train_steps: int = 120,
@@ -71,13 +108,22 @@ def train_packed_dlrm(*, field_vocabs=DEFAULT_VOCABS, train_steps: int = 120,
 def build_engine(cfg, params, state, buffers, *,
                  p99_rows: int = SERVE_ROWS["serve_p99"],
                  bulk_rows: int = SERVE_ROWS["serve_bulk"],
-                 device=None) -> Engine:
+                 lookup_split: bool = True, device=None,
+                 queue_capacity: int = 1024, quotas=None,
+                 shed_watermark: float = 1.0,
+                 coalesce_window_ms: float = 0.0, clock=None) -> Engine:
     """An engine with the standard cell-shape registry for one DLRM table,
-    on ``device`` (the CUDA card unless the caller names another)."""
-    engine = Engine(device=device)
+    on ``device`` (the CUDA card unless the caller names another).
+    ``quotas`` / ``shed_watermark`` / ``coalesce_window_ms`` / ``clock``
+    pass through to the engine's multi-tenant admission and scheduling
+    policy."""
+    engine = Engine(device=device, queue_capacity=queue_capacity,
+                    quotas=quotas, shed_watermark=shed_watermark,
+                    coalesce_window_ms=coalesce_window_ms, clock=clock)
     engine.register_packed_model(
         "dlrm", DLRM, cfg, params, state, buffers,
-        shapes={"serve_p99": p99_rows, "serve_bulk": bulk_rows})
+        shapes={"serve_p99": p99_rows, "serve_bulk": bulk_rows},
+        lookup_split=lookup_split)
     return engine
 
 
@@ -89,6 +135,169 @@ def build_packed_dlrm(cfg, *, seed: int = 0, device=None):
     freqs = SyntheticCTR(spec).expected_frequencies()
     params, buffers, state = DLRM.init(cfg, freqs, seed=seed, device=device)
     return params, buffers, state, spec
+
+
+def packed_master(cfg, *, seed: int = 0, device=None) -> dict:
+    """The full-precision master behind ``build_packed_dlrm(cfg, seed=seed)``'s
+    random table: ``Packed.draw`` from a generator seeded as ``DLRM.init``
+    seeds its own, which draws the table first. A ``run_mpe_pipeline``-shaped
+    dict holding what ``repack_tools`` reads: ``final_params["embedding"]``
+    ({emb, alpha, beta}), ``group_bits``, ``feature_bits_idx`` and
+    ``packed_meta``."""
+    device = resolve_device(device)
+    spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields), seed=seed)
+    freqs = SyntheticCTR(spec).expected_frequencies()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = total_vocab(cfg.fields)
+    params, _, gb, fb = Packed.draw(gen, n, cfg.d_embed, freqs, cfg.comp_cfg)
+    return {"final_params": {"embedding": {k: params[k] for k in
+                                           ("emb", "alpha", "beta")}},
+            "group_bits": gb.cpu().numpy(),
+            "feature_bits_idx": fb.cpu().numpy(),
+            "packed_meta": {"bits": tuple(cfg.comp_cfg["bits"]),
+                            "d": cfg.d_embed, "n": n}}
+
+
+def repack_tools(engine, res, frequencies, *, lam: float = 3e-5):
+    """A ``(RepackPlanner, TableSwapper)`` pair bound to a live engine.
+
+    ``res`` is the ``run_mpe_pipeline`` result dict or ``packed_master``'s
+    (the swapper re-packs from its full-precision master embedding);
+    ``frequencies`` orders the planner's demote/promote priorities and
+    recovers the feature→group map the table was sampled with (serving
+    buffers don't carry it). Capacities default to the engine's live
+    subtable shapes."""
+    mpe_cfg = MPEConfig(bits=tuple(res["packed_meta"]["bits"]), lam=lam)
+    gof, _ = make_groups(frequencies, mpe_cfg.group_size)
+    planner = RepackPlanner(res["packed_meta"], gof.numpy(),
+                            subtable_capacities(engine.live_packed_table()),
+                            frequencies=frequencies)
+    emb = res["final_params"]["embedding"]
+    swapper = TableSwapper(engine, emb["emb"], emb["alpha"], emb["beta"],
+                           mpe_cfg)
+    return planner, swapper
+
+
+def run_open_loop(engine, make_ids, n_requests: int, qps: float, *,
+                  seed: int = 0, deadline_ms: float | None = None,
+                  kind: str = "score", on_submit=None) -> dict:
+    """Open-loop replay: offered traffic at ``qps`` on a virtual timeline.
+
+    Arrivals are seeded exponential inter-arrival times (Poisson traffic at
+    the offered rate); they **don't wait for service** — when the offered
+    rate exceeds capacity the queue grows until the admission policy sheds.
+    The scheduler threads the virtual clock through dispatch (queue-wait is
+    virtual time from arrival to first dispatch) while assembly/compute are
+    measured on the engine's clock. Inject ``serve.TickClock`` into the
+    engine to make the whole trajectory deterministic: it then equals the
+    reference's, read for read.
+
+    ``on_submit(i, ids)`` (optional) runs right before request ``i`` is
+    admitted.
+
+    Returns {tickets, makespan_s, offered_qps, goodput_qps, completed,
+    shed, failed} — per-request latency percentiles live in
+    ``engine.request_summary()``.
+    """
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / qps, size=n_requests))
+    tickets, shed = [], 0
+    now, i = 0.0, 0
+    while i < n_requests or engine.scheduler.busy:
+        if not engine.scheduler.busy and i < n_requests and arrivals[i] > now:
+            now = float(arrivals[i])        # idle server: jump to the arrival
+        while i < n_requests and arrivals[i] <= now:
+            ids = make_ids(i)
+            if on_submit is not None:
+                on_submit(i, ids)
+            t = engine.submit(ids, kind=kind, now=float(arrivals[i]),
+                              deadline_ms=deadline_ms)
+            if t is None:
+                shed += 1
+            tickets.append(t)
+            i += 1
+        now = engine.sched_step(now=now)
+        if (not engine.scheduler._progress and i < n_requests
+                and float(arrivals[i]) < now):
+            # the round held for its coalescing window and jumped the cursor
+            # past the next arrival — cap the jump so that arrival gets to
+            # join the held batch before the window decision is remade
+            now = float(arrivals[i])
+    completed = sum(1 for t in tickets
+                    if t is not None and engine._requests[t].status == DONE)
+    shed += sum(1 for t in tickets
+                if t is not None and engine._requests[t].status == SHED)
+    failed = sum(1 for t in tickets
+                 if t is not None and engine._requests[t].status == FAILED)
+    makespan = max(now, float(arrivals[-1])) if n_requests else now
+    return {"tickets": tickets, "makespan_s": makespan,
+            "offered_qps": qps,
+            "goodput_qps": completed / makespan if makespan > 0 else 0.0,
+            "completed": completed, "shed": shed, "failed": failed}
+
+
+def run_open_loop_mix(engine, make_ids, streams, *, seed: int = 0,
+                      kind: str = "score") -> dict:
+    """Multi-tenant open-loop replay: merge several Poisson request streams
+    onto one virtual timeline.
+
+    Each stream is a dict: ``{"tenant": str, "qps": float, "n_requests":
+    int, "priority": int = 0, "deadline_ms": float | None = None,
+    "batch": int | None = None}``. Arrivals across streams interleave in
+    timestamp order and every request is submitted with its stream's
+    tenant/priority/deadline. ``make_ids(i, batch)`` makes the i-th
+    request's id batch (``batch=None`` means the stream's default size).
+
+    Returns {makespan_s, per_stream: {tenant: {offered_qps, completed,
+    shed, failed, goodput_qps}}}; per-lane/per-tenant percentiles live in
+    ``engine.request_summary(by=...)``.
+    """
+    rng = np.random.default_rng(seed)
+    events = []     # (arrival_t, global_idx, stream)
+    gi = 0
+    for s in streams:
+        arr = np.cumsum(rng.exponential(1.0 / s["qps"],
+                                        size=s["n_requests"]))
+        for t in arr:
+            events.append((float(t), gi, s))
+            gi += 1
+    events.sort(key=lambda e: (e[0], e[1]))
+    tickets = {id(s): [] for s in streams}
+    submitted_shed = {id(s): 0 for s in streams}
+    now, i = 0.0, 0
+    while i < len(events) or engine.scheduler.busy:
+        if not engine.scheduler.busy and i < len(events) \
+                and events[i][0] > now:
+            now = events[i][0]
+        while i < len(events) and events[i][0] <= now:
+            t_arr, idx, s = events[i]
+            t = engine.submit(make_ids(idx, s.get("batch")), kind=kind,
+                              now=t_arr, deadline_ms=s.get("deadline_ms"),
+                              tenant=s.get("tenant", "default"),
+                              priority=s.get("priority", 0))
+            if t is None:
+                submitted_shed[id(s)] += 1
+            tickets[id(s)].append(t)
+            i += 1
+        now = engine.sched_step(now=now)
+        if (not engine.scheduler._progress and i < len(events)
+                and events[i][0] < now):
+            now = events[i][0]
+    makespan = max(now, events[-1][0]) if events else now
+    per_stream = {}
+    for s in streams:
+        stats = {DONE: 0, SHED: submitted_shed[id(s)], FAILED: 0}
+        for t in tickets[id(s)]:
+            if t is None:
+                continue
+            st = engine._requests[t].status
+            if st in stats:
+                stats[st] += 1
+        per_stream[s.get("tenant", "default")] = {
+            "offered_qps": s["qps"], "completed": stats[DONE],
+            "shed": stats[SHED], "failed": stats[FAILED],
+            "goodput_qps": (stats[DONE] / makespan if makespan > 0 else 0.0)}
+    return {"makespan_s": makespan, "per_stream": per_stream}
 
 
 def main(argv=None):
@@ -109,43 +318,143 @@ def main(argv=None):
                     help="serve what the MPE pipeline trains in this many "
                          "search and retrain steps on the arch's fields "
                          "(0: a random packed table from --seed)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--qps", type=float, default=None,
+                    help="open-loop mode: offer --requests requests of "
+                         "--batch rows at this rate with seeded exponential "
+                         "inter-arrival times; concurrent requests coalesce "
+                         "through the admission queue onto shared cells")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="open-loop per-request deadline: requests still "
+                         "queued past it are shed instead of dispatched")
+    ap.add_argument("--queue-capacity", type=int, default=1024,
+                    help="admission-queue bound (reject-on-full shedding)")
+    ap.add_argument("--coalesce-window-ms", type=float, default=0.0,
+                    help="max-wait coalescing window: hold a light load up "
+                         "to this long for a fuller bucket (0 dispatches "
+                         "immediately)")
+    ap.add_argument("--repack-budget", type=float, default=None,
+                    help="serving-time precision adaptation: halfway through "
+                         "the request stream, plan a new per-group "
+                         "assignment at this fraction of the current packed "
+                         "payload bytes and swap it into the live cells "
+                         "(zero recompiles, asserted)")
+    ap.add_argument("--repack-headroom", type=float, default=None,
+                    help="pack the serving table with every non-zero width "
+                         "bucket sized to hold this fraction of the features "
+                         "(headroom_capacities)")
+    for flag in NOT_PORTED_FLAGS:
+        ap.add_argument("--" + flag.replace("_", "-"), default=None,
+                        help=f"not ported yet: {NOT_PORTED_FLAGS[flag]}")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the open-loop "
+                         "inter-arrival times")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--json", default=None,
                     help="write the latency summary to this path")
     args = ap.parse_args(argv)
+    for flag, item in NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: it comes "
+                f"with {item}")
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch).make_config(reduced=args.reduced)
+    res = None
     if args.train_steps:
-        cfg, params, state, buffers, spec, _ = train_packed_dlrm(
+        cfg, params, state, buffers, spec, res = train_packed_dlrm(
             field_vocabs=tuple(f.vocab for f in cfg.fields),
             train_steps=args.train_steps, d_embed=cfg.d_embed,
             mlp_hidden=cfg.mlp_hidden, seed=args.seed, device=device)
     else:
         params, buffers, state, spec = build_packed_dlrm(cfg, seed=args.seed,
                                                          device=device)
+    repacking = args.repack_budget is not None \
+        or args.repack_headroom is not None
+    if repacking and res is None:
+        res = packed_master(cfg, seed=args.seed, device=device)
+    if args.repack_headroom is not None:
+        emb = res["final_params"]["embedding"]
+        caps = headroom_capacities(res["packed_meta"],
+                                   fraction=args.repack_headroom)
+        table, meta = build_packed_table(
+            emb["emb"], torch.from_numpy(np.asarray(res["feature_bits_idx"])),
+            emb["alpha"], emb["beta"], as_mpe_config(cfg.comp_cfg),
+            row_capacities=caps)
+        params["embedding"] = table
+        res = dict(res, packed_table=table, packed_meta=meta)
+        print(f"[serve] headroom capacities: {caps}")
     ratio = Packed.storage_ratio(params["embedding"], buffers["embedding"],
                                  cfg.comp_cfg)
     print(f"[serve] {args.arch} on {device}: {cfg.comp_cfg['n']} features, "
           f"packed ratio={ratio:.4f}")
     engine = build_engine(cfg, params, state, buffers,
                           p99_rows=args.p99_rows, bulk_rows=args.bulk_rows,
-                          device=device)
+                          device=device, queue_capacity=args.queue_capacity,
+                          coalesce_window_ms=args.coalesce_window_ms)
+    print(f"[serve] registered cells: "
+          f"{dict(sorted(engine.registered_shapes.items()))} "
+          f"(compiles={engine.compile_count})")
     req_ds = SyntheticCTR(spec._replace(batch_size=args.batch))
-    for step in range(args.requests):
-        engine.score(req_ds.batch(10_000 + step)["ids"])
+    repack_info = None
+
+    def queue_repack():
+        """Plan at the budget and queue the swap — it lands atomically at
+        the engine's next ``sched_step`` boundary, mid-stream."""
+        nonlocal repack_info
+        freqs = SyntheticCTR(spec).expected_frequencies()
+        planner, swapper = repack_tools(engine, res, freqs)
+        gbits = np.asarray(res["group_bits"])
+        plan = planner.plan_budget(
+            gbits, int(args.repack_budget * planner.bytes_packed(gbits)))
+        swapper.repack(plan)
+        repack_info = (engine.compile_count, plan)
+
+    open_loop = None
+    if args.qps:
+        engine.score(req_ds.batch(9_999)["ids"])   # the dispatch path warm
+        if args.repack_budget is not None:
+            queue_repack()   # applies at the open loop's first round
+        open_loop = run_open_loop(
+            engine, lambda i: req_ds.batch(10_000 + i)["ids"], args.requests,
+            args.qps, seed=args.seed, deadline_ms=args.deadline_ms)
+    else:
+        for step in range(args.requests):
+            if args.repack_budget is not None and step == args.requests // 2:
+                queue_repack()
+            engine.score(req_ds.batch(10_000 + step)["ids"])
+    if repack_info is not None:
+        c0, plan = repack_info
+        if engine.compile_count != c0 or engine.swaps_applied != 1:
+            raise RuntimeError("the serving-time repack recompiled a cell or "
+                               "did not land — the zero-recompile swap is "
+                               "broken")
+        print(f"[serve] repack: bytes {plan.bytes_before} -> "
+              f"{plan.bytes_packed} ({plan.n_features_moved} features "
+              f"moved), swaps={engine.swaps_applied}, recompiles=0")
     if args.bulk:
         engine.score(SyntheticCTR(spec._replace(batch_size=args.bulk))
                      .batch(99_999)["ids"])
     skip = min(3, max(args.requests - 1, 0))  # drop the first, cold requests
     print(engine.stats.format_table(skip_warmup=skip))
+    if open_loop is not None:
+        print(f"[serve] open loop: offered={open_loop['offered_qps']:.1f}qps "
+              f"goodput={open_loop['goodput_qps']:.1f}qps "
+              f"completed={open_loop['completed']} shed={open_loop['shed']}")
+        print(engine.rstats.format_table(skip_warmup=skip))
+    counters = engine.counters()
+    print(f"[serve] cell cache: compiles={counters['compiles']} "
+          f"hits={counters['hits']} replays={engine.cache.replays()}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": str(device), "storage_ratio": ratio,
                        "cells": engine.stats.summary(skip_warmup=skip),
-                       "counters": engine.counters()}, f, indent=2)
+                       "requests": engine.request_summary(skip_warmup=skip),
+                       "open_loop": ({k: v for k, v in open_loop.items()
+                                      if k != "tickets"}
+                                     if open_loop is not None else None),
+                       "counters": counters}, f, indent=2)
     return engine
 
 

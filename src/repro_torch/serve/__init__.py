@@ -1,1 +1,55 @@
-"""Packed-table serving: request batcher, latency stats, engine."""
+"""Packed-table serving: the request lifecycle of the paper's §4 deployment
+path, composable bottom-up.
+
+  ``cache``     — CellCache: capture-once memo of serving executables keyed
+                  by (arch, shape, device, bound tensors): a CUDA graph on
+                  the card, the eager step on the CPU.
+  ``batcher``   — RequestBatcher: buckets arbitrary request sizes onto the
+                  registered cell shapes; ``pack`` coalesces many requests
+                  into shared chunks whose ``Span``s scatter outputs back.
+  ``queue``     — AdmissionQueue: the bounded multi-lane arrival edge —
+                  priority lanes with EDF order, per-tenant quotas,
+                  watermark and deadline shedding, per-kind/per-tenant
+                  counters.
+  ``scheduler`` — Scheduler: drains the queue into coalesced cell
+                  dispatches (with an optional max-wait window) and
+                  isolates dispatch faults to the requests of the failed
+                  chunk.
+  ``clock``     — ManualClock / TickClock: injectable time sources for
+                  deterministic lifecycle tests and open-loop replay.
+  ``engine``    — Engine: ``submit``/``poll``/``drain`` lifecycle with
+                  ``score`` as a synchronous wrapper; Figure-5 per-cell
+                  latency split and per-request queue / assembly / compute
+                  breakdown.
+  ``repack``    — RepackPlanner / TableSwapper: serving-time precision
+                  adaptation, swapped in place with zero recompiles.
+
+The tiered lane, decode, two-tower retrieval and ``PressureAdapter`` come
+with ROADMAP Queue 1 items 4 and 5.
+"""
+from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
+from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,
+                                     device_signature)
+from repro_torch.serve.cells import (ServeCellDef, baseline_score_cell,
+                                     packed_lookup_cell, packed_score_cell,
+                                     packed_score_step)
+from repro_torch.serve.clock import ManualClock, TickClock
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.queue import (AdmissionQueue, Request,
+                                     RequestFailedError, TenantQuota)
+from repro_torch.serve.repack import (RepackPlan, RepackPlanner,
+                                      TableSwapper, headroom_capacities,
+                                      subtable_capacities)
+from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.stats import LatencyStats, RequestStats
+
+__all__ = [
+    "CellCache", "CellKey", "CompiledCell", "device_signature",
+    "Chunk", "Span", "RequestBatcher", "LatencyStats", "RequestStats",
+    "AdmissionQueue", "Request", "TenantQuota", "RequestFailedError",
+    "ManualClock", "TickClock", "Scheduler",
+    "ServeCellDef", "baseline_score_cell", "packed_score_cell",
+    "packed_score_step", "packed_lookup_cell", "Engine",
+    "RepackPlan", "RepackPlanner", "TableSwapper",
+    "headroom_capacities", "subtable_capacities",
+]

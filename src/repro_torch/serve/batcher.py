@@ -126,6 +126,22 @@ class RequestBatcher:
         return out
 
     @staticmethod
+    def gather(arrs, chunk: Chunk) -> np.ndarray:
+        """Assemble a coalesced chunk's valid rows from the per-request
+        arrays (``arrs[span.req]``), in span order."""
+        parts = [np.asarray(arrs[s.req])[s.src_start:s.src_start + s.n]
+                 for s in chunk.spans]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    @staticmethod
+    def scatter(out, chunk: Chunk, sinks):
+        """Scatter a cell output's valid rows back per requester:
+        ``sinks[span.req][span.src_start : +span.n] = out[span.dst_start : +span.n]``."""
+        for s in chunk.spans:
+            sinks[s.req][s.src_start:s.src_start + s.n] = \
+                np.asarray(out)[s.dst_start:s.dst_start + s.n]
+
+    @staticmethod
     def pad(arr: np.ndarray, rows: int) -> tuple[np.ndarray, np.ndarray]:
         """Pad axis 0 to ``rows`` with zeros; returns (padded, validity mask)."""
         arr = np.asarray(arr)

@@ -1,0 +1,121 @@
+"""Serve-cell builders: (model, config, bound state) → capturable cell defs.
+
+The port of the reference's ``repro.serve.cells``: each builder binds real
+tensors (a packed table, the MLP and its BatchNorm statistics) and fixes the
+batch shape, so the same builder serves a 3-field test table on the CPU and
+the Criteo-scale table on the card.
+
+A ``ServeCellDef`` separates *bound* inputs (params/state/buffers — moved to
+the engine's device once, at registration) from *request* inputs (ids —
+fresh every call); ``repro_torch.serve.cache.CellCache`` turns the pair into
+one executable: a CUDA graph captured once on the card, the eager step on
+the CPU. The reference's partition specs have no counterpart on one device.
+
+Tiered, two-tower and LM cells are not ported yet (ROADMAP Queue 1 items 4
+and 5).
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.inference import packed_lookup_fn
+
+
+class ServeCellDef(NamedTuple):
+    """One capturable serving cell: a step function plus everything the
+    ``CellCache`` needs to build it — *bound* inputs (params/state, fixed
+    at registration), the request inputs' ``(shape, dtype)``, and the
+    identity fields (``arch``/``shape``/``kind``/``batch``) that key the
+    cache."""
+    arch: str              # architecture identity (cache-key component)
+    shape: str             # shape name, e.g. "serve_p99"
+    kind: str              # score | lookup
+    batch: int             # leading-dim capacity of the executable
+    step_fn: Callable      # step_fn(*bound, *request) -> outputs
+    bound: tuple           # trees fixed at registration (params, state, ...)
+    request_specs: tuple   # ((shape, dtype), ...) for the per-request inputs
+    meta: dict
+    static: Any = None     # config baked into step_fn closures (cfg, top_k…)
+
+    @property
+    def name(self) -> str:
+        return f"{self.arch}/{self.shape}"
+
+    @property
+    def fingerprint_blob(self) -> str:
+        """The raw repr the fingerprint digests: kind, batch, meta and the
+        static config, as the reference's."""
+        return repr((self.kind, self.batch, sorted(self.meta.items(), key=str),
+                     self.static))
+
+    @property
+    def fingerprint(self) -> str:
+        """Digest of everything baked into the executable beyond its input
+        shapes — the step closure's static config (``static``), kind and
+        meta. Part of the cache key: two same-named registrations with
+        different baked-in config must not share an executable."""
+        return hashlib.sha1(self.fingerprint_blob.encode()).hexdigest()[:12]
+
+
+def packed_score_step(model, cfg, *, top_k: int | None = None):
+    """The packed-table scoring computation: eval-mode forward over a packed
+    embedding config, optionally topped with a candidate ``top_k``
+    (``(values, indices)``). The reference's sharded lookup
+    (``shard_lookup``) comes with ROADMAP Queue 1 item 6."""
+    def serve_step(params, state, buffers, ids):
+        logits = model.apply(params, buffers, state, {"ids": ids}, cfg)[0]
+        if top_k is not None:
+            return tuple(torch.topk(logits, top_k))
+        return logits
+    return serve_step
+
+
+def packed_score_cell(model, cfg, params, state, buffers, *, batch: int,
+                      arch: str, shape: str) -> ServeCellDef:
+    """Batched CTR scoring from a packed table: ``ids (B, F) -> logits (B,)``.
+
+    ``cfg`` must carry ``compressor="packed"`` with the table's comp_cfg;
+    ``params["embedding"]`` is the packed table."""
+    n_fields = len(cfg.fields)
+    return ServeCellDef(
+        arch=arch, shape=shape, kind="score", batch=batch,
+        step_fn=packed_score_step(model, cfg),
+        bound=(params, state, buffers),
+        request_specs=(((batch, n_fields), torch.int32),),
+        meta={"kind": "score", "batch": batch, "n_fields": n_fields},
+        static=cfg,
+    )
+
+
+def baseline_score_cell(model, cfg, params, state, buffers, *, batch: int,
+                        arch: str, shape: str) -> ServeCellDef:
+    """Batched CTR scoring for a *baseline* compressor (plain, qr, pep,
+    optfs, alpt, lsq — anything registered in ``core.compressors``):
+    ``ids (B, F) -> logits (B,)``. The reference's differs from
+    ``packed_score_cell`` only in its partition specs, so on one device
+    the two are one cell."""
+    return packed_score_cell(model, cfg, params, state, buffers, batch=batch,
+                             arch=arch, shape=shape)
+
+
+def packed_lookup_cell(table, meta, offsets, *, batch: int, n_fields: int,
+                       arch: str, shape: str) -> ServeCellDef:
+    """Lookup-only companion cell: the packed gather+unpack+dequant slice of a
+    score cell, at the same padded shape. The engine times it per dispatch
+    to report the Figure-5 lookup-vs-compute split."""
+    lookup = packed_lookup_fn(meta)
+
+    def lookup_step(tbl, offs, ids):
+        return lookup(tbl, ids + offs[None, :])
+
+    return ServeCellDef(
+        arch=arch, shape=f"{shape}.lookup", kind="lookup", batch=batch,
+        step_fn=lookup_step,
+        bound=(table, offsets),
+        request_specs=(((batch, n_fields), torch.int32),),
+        meta={"kind": "lookup", "batch": batch, "n_fields": n_fields},
+        static=(tuple(meta["bits"]), meta["d"], meta["n"]),
+    )

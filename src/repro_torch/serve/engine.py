@@ -1,44 +1,64 @@
-"""The serving engine, synchronous subset: score requests over registered
-cell shapes from a packed table.
+"""The serving engine: a submit/poll request lifecycle over captured cells.
 
-A request of any size is planned onto the registered shapes (``serve_p99``,
-``serve_bulk``) by ``RequestBatcher``, padded with id 0, run in eval mode on
-the engine's device, and unpadded — the per-request plan that the
-reference's request lifecycle reproduces bit for bit for a lone request.
-Each dispatch is timed on the host clock up to a device synchronize, and the
-lookup alone is timed at the same padded shape for the paper's Figure-5
-lookup-vs-compute split. On the card the lookup is the CUDA ``mpe_lookup``
-kernel.
+Request flow for a scored request:
 
-The admission queue, scheduler, tenancy, repack, tiered cells and decode
-are not part of this subset.
+  submit(ids) ──▶ AdmissionQueue (bounded; deadlines; tenant quotas; shed)
+      ──▶ Scheduler.step: coalesce pending requests across callers onto the
+          registered cell shapes (one padded cell call serves many
+          requests; outputs scatter back per requester via Chunk.spans)
+      ──▶ poll(ticket) → logits (n,)
+
+``score`` is a thin synchronous wrapper (submit + drain + poll): a lone
+request packs onto exactly the chunks the per-request planner chooses. The
+port of the reference's ``repro.serve.engine``: the same names, signatures,
+clock reads, counters and summaries.
+
+Every executable is built exactly once per (arch, shape, device, bound
+tensors) by the ``CellCache``: on the card a CUDA graph captured at
+registration, whose replays launch the ``mpe_lookup`` kernel and the MLP's
+products; on the CPU the eager step. The model's tensors move to the
+engine's device once, at registration. Per-cell wall-clock is recorded with
+the lookup-only companion cell timed alongside, for the paper's Figure-5
+lookup-vs-compute split, plus per-dispatch occupancy; per-request
+queue-wait / batch-assembly / compute land in ``RequestStats``.
+
+Not ported yet, each raising where it is asked for: the tiered lane and
+its policies (ROADMAP Queue 1 item 4), decode and two-tower retrieval
+(item 5), the mesh (item 6).
 """
 from __future__ import annotations
 
+import gc
 import time
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.inference import packed_lookup_fn
 from repro_torch.device import full_float32, resolve_device
 from repro_torch.serve.batcher import RequestBatcher
-from repro_torch.serve.stats import LatencyStats
+from repro_torch.serve.cache import CellCache, CompiledCell
+from repro_torch.serve.cells import (ServeCellDef, packed_lookup_cell,
+                                     packed_score_cell)
+from repro_torch.serve.queue import (DONE, FAILED, SHED, AdmissionQueue,
+                                     RequestFailedError, TenantQuota)
+from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.stats import LatencyStats, RequestStats
+from repro_torch.train.tree import tree_map
+
+NOT_PORTED = {"tiered": "ROADMAP Queue 1 item 4 (the tiered cache)",
+              "decode": "ROADMAP Queue 1 item 5 (the LM)",
+              "retrieve": "ROADMAP Queue 1 item 5 (two-tower retrieval)"}
 
 
-class ScoreCell(NamedTuple):
-    """One registered score shape: ``step`` maps padded ids (rows, F) int32
-    on the engine's device to logits (rows,); ``lookup`` is its lookup-only
-    half, timed for the Figure-5 split (None when not requested)."""
-    arch: str
-    shape: str
-    step: Callable
-    lookup: Callable | None
-
-    @property
-    def name(self) -> str:
-        return f"{self.arch}/{self.shape}"
+class RegisteredCell(NamedTuple):
+    """A cell after registration: its definition, the warm executable, the
+    bound tensors it reads (on the engine's device), and the optional
+    Figure-5 lookup-split companion cell."""
+    celldef: ServeCellDef
+    cell: CompiledCell
+    bound: tuple
+    lookup: "RegisteredCell | None"
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -55,73 +75,375 @@ def _on_device(tree, device):
     return tree
 
 
+def _write_in_place(dst: dict, src: dict):
+    """Copy the tree ``src`` into the tensors of ``dst``, key by key, on the
+    current stream (the one cells replay on), under the grad mode ``dst``'s
+    tensors were made in: an inference tensor is written in inference mode
+    only."""
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _write_in_place(v, src[k])
+            continue
+        mode = torch.inference_mode() if v.is_inference() else torch.no_grad()
+        with mode:
+            v.copy_(src[k])
+
+
+def not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: it comes with "
+                              f"{NOT_PORTED[what]}")
+
+
 class Engine:
-    """Front-end over registered score cells and the request batcher.
+    """Front-end over the cell cache + request batcher, on one device (the
+    CUDA card unless ``device`` names another, or the device of a shared
+    ``cache``); cells from several models can coexist, keyed by their
+    ``arch`` identity."""
 
-    Runs on the CUDA card unless ``device`` names another."""
-
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, cache: CellCache | None = None,
+                 queue_capacity: int = 1024, *,
+                 quotas: dict[str, TenantQuota] | None = None,
+                 shed_watermark: float = 1.0,
+                 coalesce_window_ms: float = 0.0,
+                 clock=None):
+        if cache is None:
+            cache = CellCache(device)
+        elif device is not None and resolve_device(device).type \
+                != cache.device.type:
+            raise ValueError(f"engine device {device} differs from its "
+                             f"cache's {cache.device}")
+        self.cache = cache
+        self.device = cache.device
         full_float32(self.device)   # serving starts here
+        # every timestamp in the lifecycle flows from this one callable —
+        # inject repro_torch.serve.clock.ManualClock for deterministic tests
+        self._clock = clock if clock is not None else time.perf_counter
         self.stats = LatencyStats()
-        self._score: dict[str, ScoreCell] = {}
+        self.rstats = RequestStats()
+        self.queue = AdmissionQueue(queue_capacity, quotas=quotas,
+                                    shed_watermark=shed_watermark)
+        self.scheduler = Scheduler(self,
+                                   coalesce_window_ms=coalesce_window_ms)
+        self._requests: dict[int, object] = {}          # ticket -> Request
+        self._score: dict[str, RegisteredCell] = {}     # bucket name -> cell
         self._score_batcher = RequestBatcher()
-        self._completed = 0
+        self._pending_swaps: list[tuple] = []           # (arch, table, meta)
+        self.swaps_applied = 0
+        # the tier policy's moves: zeros until the tiered cache is ported
+        self.tier_moves = {"plans": 0, "promotions": 0, "demotions": 0,
+                           "bytes": 0}
+
+    # -- registration -------------------------------------------------------
+
+    def _compile(self, celldef: ServeCellDef) -> RegisteredCell:
+        bound = tuple(_on_device(b, self.device) for b in celldef.bound)
+        # the fingerprint covers config baked into the step closure (model
+        # cfg, top_k, …); the bound tensors' addresses, what a graph reads
+        key = self.cache.key(
+            celldef.arch,
+            f"{celldef.shape}@{celldef.batch}#{celldef.fingerprint}",
+            bound=bound)
+
+        def build():
+            return celldef.step_fn, bound, celldef.request_specs, celldef.meta
+
+        cell = self.cache.get_or_compile(key, build)
+        return RegisteredCell(celldef._replace(bound=bound), cell, bound, None)
+
+    def register(self, celldef: ServeCellDef,
+                 lookup_cell: ServeCellDef | None = None) -> RegisteredCell:
+        """Build (or warm-hit) a cell and route it by kind. Score cells also
+        register their capacity as a batcher bucket under their shape name."""
+        if celldef.kind == "tiered_score":
+            not_ported("tiered")
+        if celldef.kind in ("decode", "decode_slotted"):
+            not_ported("decode")
+        if celldef.kind == "retrieve":
+            not_ported("retrieve")
+        if celldef.kind != "score":
+            raise ValueError(f"unroutable cell kind {celldef.kind!r}")
+        reg = self._compile(celldef)
+        if lookup_cell is not None:
+            reg = reg._replace(lookup=self._compile(lookup_cell))
+        self._score[celldef.shape] = reg
+        self._score_batcher.register(celldef.shape, celldef.batch)
+        return reg
 
     def register_packed_model(self, arch, model, cfg, params, state, buffers,
                               *, shapes: dict[str, int],
                               lookup_split: bool = True):
         """Register one score cell per (shape name → row capacity) for a flat
-        CTR model serving from a packed table. The model's tensors move to
-        the engine's device once, here."""
-        params, state, buffers = (_on_device(t, self.device)
-                                  for t in (params, state, buffers))
+        CTR model serving from a packed table, each with its lookup-split
+        companion when ``lookup_split``. The model's tensors move to the
+        engine's device once, here, and every cell reads those tensors; the
+        packed table is the cache's own copy (``CellCache.bind``), which a
+        swap writes in place and the caller's table never sees."""
+        state, buffers = (_on_device(t, self.device) for t in (state, buffers))
+        params = dict(_on_device(params, self.device),
+                      embedding=self.cache.bind(params["embedding"], self))
         meta = {k: cfg.comp_cfg[k] for k in ("bits", "d", "n")}
-        lookup = packed_lookup_fn(meta)
-        offsets = buffers["offsets"]
-
-        def step(ids):
-            return model.apply(params, buffers, state, {"ids": ids}, cfg)[0]
-
-        def lookup_step(ids):
-            return lookup(params["embedding"], ids + offsets[None, :])
-
+        n_fields = len(cfg.fields)
         for shape, rows in shapes.items():
-            self._score[shape] = ScoreCell(arch, shape, step,
-                                           lookup_step if lookup_split else None)
-            self._score_batcher.register(shape, rows)
+            cd = packed_score_cell(model, cfg, params, state, buffers,
+                                   batch=rows, arch=arch, shape=shape)
+            lc = None
+            if lookup_split:
+                lc = packed_lookup_cell(params["embedding"], meta,
+                                        buffers["offsets"], batch=rows,
+                                        n_fields=n_fields, arch=arch,
+                                        shape=shape)
+            self.register(cd, lookup_cell=lc)
 
-    def _timed_call(self, fn, x):
-        t0 = time.perf_counter()
-        out = fn(x)
+    def register_tiered_model(self, *args, **kwargs):
+        not_ported("tiered")
+
+    # -- serving-time precision adaptation (repro_torch.serve.repack) -------
+
+    def request_swap(self, table, meta, *, arch: str | None = None):
+        """Queue an atomic packed-table swap (serving-time precision
+        adaptation, ``repro_torch.serve.repack``).
+
+        The swap applies at the **next ``sched_step`` boundary**, never
+        mid-round: the scheduler reads every chunk's output before the round
+        ends, so no coalesced batch can see a torn table. The new ``table``
+        must match the live table's shapes and dtypes exactly (a
+        capacity-conforming repack — ``TableSwapper`` guarantees this): it
+        is copied into the bound tensors in place, which the captured graphs
+        read by address, so **zero recompiles** occur. Engines on one cache
+        that registered over the same table share those tensors, so the
+        swap raises while another of them lives: register it over a table
+        of its own to swap one engine alone."""
+        self._pending_swaps.append((arch, table, dict(meta)))
+
+    def live_packed_table(self, *, arch: str | None = None):
+        """The packed table (tensors on the engine's device) bound into the
+        score cells of ``arch`` — the shape template a repack must conform
+        to."""
+        for reg in self._score.values():
+            if arch is None or reg.celldef.arch == arch:
+                return reg.bound[0]["embedding"]
+        raise ValueError(f"no packed score cell registered for arch={arch!r}")
+
+    def _apply_swaps(self):
+        while self._pending_swaps:
+            arch, table, meta = self._pending_swaps.pop(0)
+            self._swap_now(arch, table, meta)
+
+    def _swap_now(self, arch, table, meta):
+        regs = [reg for reg in self._score.values()
+                if arch is None or reg.celldef.arch == arch]
+        if not regs:
+            raise ValueError(
+                f"table swap targets no registered cell (arch={arch!r})")
+        live = [reg.bound[0]["embedding"] for reg in regs]
+        live += [reg.lookup.bound[0] for reg in regs if reg.lookup is not None]
+        for old in live:
+            self._check_swap_layout(old, table, "packed-table")
+        # the score cells and their lookup companions read one table
+        tables = list({t["width_idx"].data_ptr(): t for t in live}.values())
+        for old in tables:
+            others = self._sharers(old)
+            if others:
+                raise ValueError(
+                    f"table swap would change the scores of {others} "
+                    f"other engine(s) registered over the same packed table "
+                    f"on this cache; register them over a table of their "
+                    f"own")
+        for old in tables:
+            _write_in_place(old, table)
+        self.swaps_applied += 1
+
+    def _sharers(self, table) -> int:
+        """How many other live engines read the bound ``table``."""
+        n = sum(e is not self for e in self.cache.holders(table))
+        if n:
+            gc.collect()     # an engine is a reference cycle: drop dead ones
+            n = sum(e is not self for e in self.cache.holders(table))
+        return n
+
+    @staticmethod
+    def _check_swap_layout(old, new, what: str):
+        """A swap must be invisible to the executable: identical tree
+        structure, shapes and dtypes — otherwise the captured graph could
+        not read it."""
+        def sig(tree):
+            return tree_map(lambda x: (tuple(x.shape), str(x.dtype)), tree)
+        if sig(old) != sig(new):
+            raise ValueError(
+                f"table swap would change the compiled {what} layout — "
+                f"repack with row_capacities pinned to the live table "
+                f"(repro_torch.serve.repack.subtable_capacities)")
+
+    # -- request lifecycle: submit / poll / drain ---------------------------
+
+    def _timed_call(self, reg: RegisteredCell, *request):
+        t0 = self._clock()
+        out = reg.cell.compiled(*request)
         if self.device.type == "cuda":
-            # deliberate timing barrier: wall-clock per dispatch is the product
+            # deliberate timing barrier: wall-clock per call is the product
             torch.cuda.synchronize(self.device)
-        return out, (time.perf_counter() - t0) * 1e3
+        return out, (self._clock() - t0) * 1e3
+
+    def submit(self, ids, *, kind: str = "score",
+               deadline_ms: float | None = None, now: float | None = None,
+               tenant: str = "default", priority: int = 0) -> int | None:
+        """Admit an (n, F) scoring request into the queue -> ticket, or None
+        when the admission policy sheds it (queue full, load watermark, or
+        tenant queue-share quota; all counted per kind and tenant).
+
+        ``tenant``/``priority`` place the request in the multi-tenant
+        scheduling lanes (priority 0 is most urgent; dispatch is EDF within
+        a lane). ``now`` overrides the arrival timestamp for open-loop
+        replay; ``deadline_ms`` is relative to it — requests still queued
+        past their deadline are shed at drain."""
+        if kind == "tiered":
+            not_ported("tiered")
+        if kind != "score":
+            raise ValueError(
+                f"unroutable request kind {kind!r} (use 'score'; LM "
+                f"generation goes through submit_decode)")
+        ids = np.asarray(ids, np.int32)
+        req = self.queue.submit(
+            kind, ids, ids.shape[0],
+            now=self._clock() if now is None else now,
+            deadline_ms=deadline_ms, tenant=tenant, priority=priority)
+        if req is None:
+            self.rstats.record_shed(kind, tenant=tenant)
+            return None
+        self._requests[req.ticket] = req
+        return req.ticket
+
+    def submit_decode(self, *args, **kwargs):
+        not_ported("decode")
+
+    def poll(self, ticket: int):
+        """The completed (n,) logits for ``ticket``, or None while the
+        request is still queued/in flight. Raises ``RuntimeError`` on a shed
+        ticket and ``RequestFailedError`` on a ticket whose dispatch raised.
+
+        A finished ticket (done, shed or failed) is consumed by its poll;
+        polling it again raises KeyError."""
+        req = self._requests[ticket]
+        if req.status == SHED:
+            del self._requests[ticket]
+            raise RuntimeError(
+                f"request {ticket} was shed (deadline passed while queued)")
+        if req.status == FAILED:
+            del self._requests[ticket]
+            raise RequestFailedError(
+                f"request {ticket} failed in dispatch: {req.error}")
+        if req.status != DONE:
+            return None
+        del self._requests[ticket]
+        return req.result
+
+    def try_poll(self, ticket: int) -> dict:
+        """Non-raising poll for harness code (the socket server): always
+        returns ``{"status": ...}`` — ``pending``, ``done`` (+ ``result``),
+        ``shed``, ``failed`` (+ ``error``), or ``unknown`` (never issued, or
+        already consumed). Terminal tickets are consumed like ``poll``."""
+        req = self._requests.get(ticket)
+        if req is None:
+            return {"status": "unknown"}
+        if req.status == SHED:
+            del self._requests[ticket]
+            return {"status": "shed"}
+        if req.status == FAILED:
+            del self._requests[ticket]
+            return {"status": "failed", "error": req.error}
+        if req.status != DONE:
+            return {"status": "pending"}
+        del self._requests[ticket]
+        return {"status": "done", "result": req.result}
+
+    def sched_step(self, *, now: float | None = None) -> float:
+        """Run one scheduling round (coalesce + dispatch the score lane).
+        ``now=None`` uses the engine's clock; an explicit ``now`` threads a
+        virtual open-loop timeline through the dispatch timestamps and
+        returns the advanced cursor.
+
+        Queued table swaps (``request_swap``) apply here, *before* the round
+        dispatches — the atomic swap point: every chunk of a round reads
+        the same table."""
+        self._apply_swaps()
+        return self.scheduler.step(now=now)
+
+    def drain(self, *, now: float | None = None) -> float:
+        """Scheduling rounds until the queue is empty. Returns the final
+        clock cursor."""
+        cursor = now
+        while self.scheduler.busy:
+            cursor = self.sched_step(now=cursor)
+        return cursor if cursor is not None else self._clock()
+
+    # -- synchronous wrappers (submit + drain + poll) -----------------------
 
     def score(self, ids, *, return_logits: bool = False) -> np.ndarray:
-        """Score an (n, F) id batch; any n — planned onto the registered cell
-        shapes. Returns probabilities (or raw logits)."""
-        ids = np.asarray(ids, np.int32)
-        out = np.empty((ids.shape[0],), np.float32)
-        with torch.inference_mode():
-            for chunk, padded, _mask in self._score_batcher.split(ids):
-                cell = self._score[chunk.bucket]
-                x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
-                y, total_ms = self._timed_call(cell.step, x)
-                lookup_ms = None
-                if cell.lookup is not None:
-                    _, lookup_ms = self._timed_call(cell.lookup, x)
-                self.stats.record(cell.name, total_ms, lookup_ms,
-                                  valid_rows=chunk.n_valid,
-                                  capacity_rows=chunk.rows)
-                out[chunk.start:chunk.start + chunk.n_valid] = \
-                    RequestBatcher.unpad(y, chunk.n_valid).cpu().numpy()
-        self._completed += 1
+        """Score an (n, F) id batch; any n — the scheduler packs it onto the
+        registered cell shapes. Returns probabilities (or raw logits)."""
+        ticket = self.submit(ids)
+        if ticket is None:
+            raise RuntimeError("request shed: admission queue full")
+        self.drain()
+        out = self.poll(ticket)
         return out if return_logits else _sigmoid(out)
 
+    def score_tiered(self, *args, **kwargs):
+        not_ported("tiered")
+
+    def retrieve(self, *args, **kwargs):
+        not_ported("retrieve")
+
+    def decode(self, *args, **kwargs):
+        not_ported("decode")
+
+    # -- introspection ------------------------------------------------------
+
+    def registered_cells(self) -> dict:
+        """Every registered cell, keyed by its ``CellKey``: {key:
+        RegisteredCell}, lookup-split companions under their own keys."""
+        out = {}
+        for reg in self._score.values():
+            for r in (reg, reg.lookup):
+                if r is not None:
+                    out[r.cell.key] = r
+        return out
+
+    @property
+    def compile_count(self) -> int:
+        return self.cache.compiles
+
+    @property
+    def registered_shapes(self) -> dict:
+        """The score-path cell-shape registry: shape name → row capacity."""
+        return self._score_batcher.shapes
+
     def counters(self) -> dict:
-        """Per-cell occupancy (valid rows / padded rows over every dispatch)
-        and goodput — completed requests — by lane."""
-        return {"occupancy": self.stats.occupancy(),
-                "goodput": {"by_lane": {"score:p0": self._completed}}}
+        """Cell-cache counters plus per-cell occupancy (valid rows / padded
+        rows over every dispatch — the coalescing win), the admission
+        queue's depth/shed counters (per kind and per tenant), goodput —
+        completed-request counts — split by lane and by tenant, and the
+        tier moves (zeros until the tiered cache is ported)."""
+        out = dict(self.cache.counters())
+        out["occupancy"] = self.stats.occupancy()
+        out["queue"] = self.queue.counters()
+        out["goodput"] = {"by_lane": self.rstats.lane_counts(),
+                          "by_tenant": self.rstats.tenant_counts()}
+        out["tier_moves"] = dict(self.tier_moves)
+        return out
+
+    def summary(self, *, skip_warmup: int = 0) -> dict:
+        """Per-cell latency percentiles (Figure-5 lookup/compute split) with
+        per-cell ``occupancy`` merged in where dispatches recorded it."""
+        return self.stats.summary(skip_warmup=skip_warmup)
+
+    def request_summary(self, *, skip_warmup: int = 0,
+                        by: str = "kind") -> dict:
+        """Per-request breakdown: end-to-end latency plus the three-way
+        queue-wait / batch-assembly / compute split. ``by`` groups the
+        records: ``"kind"``, ``"lane"`` (``kind:p<priority>``) or
+        ``"tenant"`` (with per-tenant shed/failed counts)."""
+        summaries = {"kind": self.rstats.summary,
+                     "lane": self.rstats.lane_summary,
+                     "tenant": self.rstats.tenant_summary}
+        return summaries[by](skip_warmup=skip_warmup)

@@ -3,7 +3,9 @@ attention, embedding-bag, segment-sum and Adam kernels against their plain
 PyTorch versions, their wrappers' checks and launch counts, the backwards'
 repeatability, the engine on the card against the engine on the CPU, DLRM
 and SASRec training and BST serving and training that go through the
-kernels, the trainer's in-place step and its peak memory.
+kernels, the trainer's in-place step and its peak memory, and the serving
+cells captured as CUDA graphs: replays against the eager step, the kernel
+a replay runs, in-place table swaps, steady memory, a capture that fails.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -11,6 +13,8 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -38,13 +42,16 @@ from repro_torch.kernels.adam.ref import adam_step_ref_
 from repro_torch.kernels.segment_sum import ops as seg_ops
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.serve import build_engine
+from repro_torch.launch.serve import (build_engine, build_packed_dlrm,
+                                      packed_master, repack_tools)
 from repro_torch.models.bst import BST
 from repro_torch.models.dlrm import DLRM
 from repro_torch.models.dlrm import DLRMConfig
 from repro_torch.embeddings.table import FieldSpec
 from repro_torch.models.sasrec import SASRec
 from repro_torch.nn.attention import MHA
+from repro_torch.serve import (CellCache, Engine, RequestBatcher,
+                               headroom_capacities)
 from repro_torch.train.loop import Trainer
 from repro_torch.train.optimizer import adam
 from repro_torch.train.tree import leaves, tree_map
@@ -232,9 +239,10 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device, rng):
     card = build_engine(cfg, params, state, buffers, p99_rows=64,
                         bulk_rows=256, device=cuda_device)
     ids = SyntheticCTR(spec._replace(batch_size=300)).batch(5)["ids"]
-    before = ops.packed_lookup.launches
+    # the card's cells are CUDA graphs: their replays launch the kernel
+    before = card.cache.launches()["mpe_lookup"]
     got = card.score(ids, return_logits=True)
-    assert ops.packed_lookup.launches > before
+    assert card.cache.launches()["mpe_lookup"] > before
     np.testing.assert_allclose(got, cpu.score(ids, return_logits=True),
                                rtol=1e-4, atol=1e-4)
 
@@ -877,6 +885,11 @@ def test_trainer_step_peak_memory_is_under_five_and_a_half_tables(
     bytes and the small rest: the table, its two Adam moments, its gradient
     and the clip's square of the gradient (one leaf at a time); nothing of
     a second tree (the tree route held nine and more)."""
+    # from a clean card: no other test's graphs, nor the cuBLAS workspace
+    # of the streams they were captured on
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
     trainer, ds = _dlrm_with_a_large_table(cuda_device)
     trainer.run(ds.batch, 1, log_every=0)
     table = trainer.params["embedding"]["emb"]
@@ -887,3 +900,129 @@ def test_trainer_step_peak_memory_is_under_five_and_a_half_tables(
     peak = torch.cuda.max_memory_allocated()
     ratio = peak / (table.numel() * table.element_size())
     assert ratio < 5.5, ratio
+
+
+def _graph_engine(device, *, headroom=None):
+    """The reduced DLRM's random packed table (optionally repacked with
+    headroom) behind 64/256-row cells on ``device``."""
+    cfg = make_config(reduced=True)
+    params, buffers, state, spec = build_packed_dlrm(cfg, seed=1,
+                                                     device=device)
+    master = packed_master(cfg, seed=1, device=device)
+    if headroom is not None:
+        emb = master["final_params"]["embedding"]
+        params["embedding"], _ = build_packed_table(
+            emb["emb"], torch.from_numpy(master["feature_bits_idx"]),
+            emb["alpha"], emb["beta"], MPEConfig(bits=cfg.comp_cfg["bits"]),
+            row_capacities=headroom_capacities(master["packed_meta"],
+                                               fraction=headroom))
+    engine = build_engine(cfg, params, state, buffers, p99_rows=64,
+                          bulk_rows=256, device=device)
+    return cfg, spec, (params, buffers, state), master, engine
+
+
+def _padded(spec, rows, step):
+    return SyntheticCTR(spec._replace(batch_size=rows)).batch(step)["ids"]
+
+
+def test_replayed_cell_equals_the_eager_step_bit_for_bit(cuda_device):
+    _, spec, _, _, engine = _graph_engine(cuda_device)
+    for shape, rows in (("serve_p99", 64), ("serve_bulk", 256)):
+        reg = engine._score[shape]
+        x = reg.cell.stage(_padded(spec, rows, 7))
+        for r in (reg, reg.lookup):
+            got = r.cell.compiled(*x).clone()
+            with torch.inference_mode():
+                want = r.celldef.step_fn(*r.bound, *x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, r.celldef.kind)
+            assert r.cell.replays == 1
+            assert r.cell.captured == {"mpe_lookup": 1}
+        # a short chunk is padded with rows of id 0 in the staging buffer,
+        # over what a full one left there
+        short = _padded(spec, 10, 8)
+        x = reg.cell.stage(short)
+        assert torch.equal(x[0].cpu(),
+                           torch.from_numpy(RequestBatcher.pad(short, rows)[0]))
+
+
+def test_a_profiled_replay_runs_the_lookup_kernel(cuda_device):
+    _, spec, _, _, engine = _graph_engine(cuda_device)
+    reg = engine._score["serve_p99"]
+    x = reg.cell.stage(_padded(spec, 64, 3))
+    before = ops.packed_lookup.launches
+    for r in (reg, reg.lookup):
+        # the profiler now and then drops part of a short window: take it
+        # again, a few replays each time
+        for _ in range(3):
+            names = _kernel_names(
+                lambda r=r: [r.cell.compiled(*x) for _ in range(5)])
+            if any("mpe_lookup_kernel" in n for n in names):
+                break
+        assert any("mpe_lookup_kernel" in n for n in names), names
+    assert ops.packed_lookup.launches == before       # no wrapper call
+    assert engine.cache.launches()["mpe_lookup"] >= 2
+
+
+def test_a_swap_is_seen_by_the_next_replay(cuda_device):
+    cfg, spec, model, master, engine = _graph_engine(cuda_device,
+                                                     headroom=0.5)
+    ids = _padded(spec, 50, 11)
+    old = engine.score(ids, return_logits=True)
+    table = engine.live_packed_table()
+    ptrs = [t.data_ptr() for t in leaves(table)]
+    compiles = engine.compile_count
+    freqs = SyntheticCTR(spec).expected_frequencies()
+    planner, swapper = repack_tools(engine, master, freqs)
+    gbits = np.asarray(master["group_bits"])
+    plan = planner.plan_budget(gbits, int(0.6 * planner.bytes_packed(gbits)))
+    new_table, _ = swapper.build(plan.feature_bits_idx)
+    swapper.repack(plan)
+    engine.sched_step()
+    got = engine.score(ids, return_logits=True)
+    assert engine.compile_count == compiles and engine.swaps_applied == 1
+    assert [t.data_ptr() for t in leaves(table)] == ptrs
+    params, buffers, state = model
+    with torch.inference_mode():
+        want = DLRM.apply(dict(params, embedding=new_table), buffers, state,
+                          {"ids": torch.from_numpy(ids).to(cuda_device)},
+                          cfg)[0].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert not np.array_equal(got, old)
+
+
+def test_requests_move_neither_compiles_nor_reserved_bytes(cuda_device):
+    cfg, spec, (params, buffers, state), _, engine = _graph_engine(
+        cuda_device)
+    twin = Engine(cache=engine.cache)
+    twin.register_packed_model("dlrm", DLRM, cfg, params, state, buffers,
+                               shapes={"serve_p99": 64, "serve_bulk": 256})
+    assert engine.compile_count == 4 and engine.cache.hits == 4
+    for e in (engine, twin):
+        e.score(_padded(spec, 3, 1))
+        e.score(_padded(spec, 200, 2))
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    replays = sum(engine.cache.replays().values())
+    for i, rows in enumerate((1, 64, 65, 256, 300, 600) * 4):
+        for e in (engine, twin):
+            e.submit(_padded(spec, rows, 100 + i))
+        engine.drain()
+        twin.drain()
+    torch.cuda.synchronize()
+    assert engine.compile_count == 4
+    assert torch.cuda.memory_reserved() == reserved
+    assert sum(engine.cache.replays().values()) > replays
+
+
+def test_a_failed_capture_raises(cuda_device):
+    cache = CellCache(cuda_device)
+
+    def host_sync_step(ids):
+        return ids * int(ids.sum().item())   # a host read inside the step
+    with pytest.raises(RuntimeError, match="capturing"):
+        cache.get_or_compile(cache.key("bad", "x@4"),
+                             lambda: (host_sync_step, (),
+                                      (((4, 3), torch.int32),), {}))
+    assert cache.counters() == {"compiles": 0, "hits": 0, "cells": 0}
+    assert torch.ones(3, device=cuda_device).sum().item() == 3.0

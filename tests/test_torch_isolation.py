@@ -47,8 +47,15 @@ TRAINING_PATH = ("train.optimizer", "train.checkpoint", "train.compression",
                  "launch.train", "launch.serve")
 
 
+# the serving stack's modules (queue, scheduler, clocks, the graph cell
+# cache, cells, repack, the socket server)
+SERVING_PATH = ("serve.clock", "serve.queue", "serve.stats", "serve.batcher",
+                "serve.cells", "serve.cache", "serve.scheduler",
+                "serve.engine", "serve.repack", "launch.server")
+
+
 def test_training_path_modules_are_in_the_port():
-    for name in TRAINING_PATH:
+    for name in TRAINING_PATH + SERVING_PATH:
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -58,9 +65,9 @@ def test_every_port_module_imports_without_jax_or_reference():
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
-    assert int(n_modules) >= 25 + len(TRAINING_PATH)
+    assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH)
     assert leaked == "[]"
-    for name in TRAINING_PATH:
+    for name in TRAINING_PATH + SERVING_PATH:
         assert f"'repro_torch.{name}'" in names, name
 
 
