@@ -9,7 +9,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    matrix products and convolutions run in full float32 (TF32 off), as the
    reference trains and serves.
 2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
-   ``flash_attention``, ``embedding_bag``, ``segment_sum``, ``adam``) from
+   ``flash_attention``, ``embedding_bag``, ``segment_sum``, ``adam``,
+   ``tiered_cold``) from
    the sources in this checkout, one nvcc each, started together; print
    the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
@@ -29,7 +30,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and backward against theirs over B {1, 4, 16, 1024} × L {1, 3, 7, 20,
    50} × d {4, 8, 16, 32, 50, 64, 128} × int32 and int64 ids × bool and
    float masks, every fourth bag all masked: rtol 1e-5 / atol 1e-6 (the
-   reference's contract), both run twice bit-identical.
+   reference's contract), both run twice bit-identical. The tiered cache's
+   cold fill against its plain version over b ∈ 1..8 × d ∈ {8, 16, 50,
+   64} × cold counts {0, 1, 255, 4,096} (a buffer with a junk tail):
+   bit-identical, and the rows equal to the monolithic lookup's.
 4. serve path: the full-width ``dlrm-criteo`` config (dnn, 39 fields,
    34,223,104 features, d=16, MLP 1024-512-256, widths {0..6}) initialised
    from a seed on the card, sampled and exported to the packed table there,
@@ -71,6 +75,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    Memory: the graphs' pool read from the allocator's segments, and the
    serving peak as reserved bytes (a replay allocates nothing; the pool
    is reserved, not allocated).
+6b. the tiered cache on phase 4's table and prior: ``TieredTableStore``s
+   at hot fractions 0, 0.1 and 1.0 (build time, device and host bytes per
+   tier, the prior's predicted hit rate), ``tiered_p99`` cells for each
+   and ``tiered_bulk`` for 0 and 0.1, each captured as a CUDA graph that
+   holds one ``mpe_lookup`` and one ``tiered_cold`` launch. On every cell
+   at its capacity the embeddings (the hot lookup, then the cold fill
+   over its zeros) equal the plain lookup of the monolithic table bit for
+   bit, the cold fill its plain version, the replay its eager step, and
+   the scores the monolithic cell's within 1e-4. With the counts at 0,
+   requests of 1, 300 and 512 rows (five each) and one of 300,000
+   through ``score_tiered``, overlap on and off (bit-identical), each
+   dispatch launching both kernels once; p50 and its assembly / compute
+   split beside the monolithic cell's p50 on the same ids; the hit and
+   miss counts and ``bytes_moved`` equal to a numpy recount of the tier
+   bits. At the bulk chunk: the H2D copy, host routing and the kernel
+   timed beside its byte bound and its plain version. Then ``launch.serve
+   --hot-frac 0.1 --cache-policy decay --writeback 4 --shift-at 4`` at
+   full width (no capture mid-stream, promotions > 0, each plan and
+   observation timed); a ``PressureAdapter`` swap through ``refresh`` on
+   its engine (no capture, no hot-tier tensor moved, the tiered scores and
+   the store's lookups those of the swapped table); the drift sweep of
+   ``benchmarks/baselines/BENCH_prefetch.json``'s config (decay >= static
+   + 0.25 and > 0.5, beside the reference's 0.5585 and 0.0302).
 7. train path: ``repro_torch.launch.train --prefetch`` at full width and the
    ``train_batch`` cell's 65,536 rows — 8 search steps, Eq. 11 sampling,
    8 retrain steps, the packed export, eval on ``eval_set(4)`` — with the
@@ -230,9 +257,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit for bit, the lookup timed at both cells beside its bound.
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
-seven ported TPU kernels, and the segment sum and the Adam pass, which
-replace library calls and no TPU kernel; ``launches_by_path`` has the
-lifecycle's, ``dlrm lifecycle``); the last line is
+seven ported TPU kernels, the segment sum and the Adam pass, which
+replace library calls and no TPU kernel, and the tiered cold fill, which
+replaces the reference's eager cold path; ``launches_by_path`` has the
+lifecycle's, ``dlrm lifecycle``, and the tiered lane's, ``dlrm tiered``);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -252,6 +281,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.cache import (DecayAdmissionPolicy,  # noqa: E402
+                               StaticTierPolicy, TieredTableStore,
+                               tiered_hot_lookup)
 from repro_torch.cache.prefetch import PrefetchPipeline  # noqa: E402
 from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
 from repro_torch.core import compressors, quantizer  # noqa: E402
@@ -261,8 +293,10 @@ from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding  # noqa: E402
 from repro_torch.core.packing import words_per_row  # noqa: E402
 from repro_torch.core.sampling import (feature_bits,  # noqa: E402
                                        sample_group_bits)
-from repro_torch.data.synthetic import CTRSpec, SyntheticCTR  # noqa: E402
+from repro_torch.data.synthetic import (CTRSpec, DriftingCTR,  # noqa: E402
+                                        SyntheticCTR)
 from repro_torch.embeddings import embedding_bag  # noqa: E402
+from repro_torch.embeddings.frequency import hot_feature_mask  # noqa: E402
 from repro_torch.embeddings.table import total_vocab  # noqa: E402
 from repro_torch.kernels.adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.adam.ref import adam_step_ref_  # noqa: E402
@@ -281,6 +315,8 @@ from repro_torch.kernels.mpe_qat.ref import (  # noqa: E402
     mixed_expectation_bwd_ref, mixed_expectation_fwd_ref)
 from repro_torch.kernels.segment_sum import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref  # noqa: E402
+from repro_torch.kernels.tiered_cold import ops as cold_ops  # noqa: E402
+from repro_torch.kernels.tiered_cold.ref import cold_fill_ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.serve import (build_engine,  # noqa: E402
@@ -291,8 +327,11 @@ from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
 from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
+from repro_torch.serve.cache import CellCache  # noqa: E402
+from repro_torch.serve.clock import TickClock  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
-from repro_torch.serve.stats import LatencyStats  # noqa: E402
+from repro_torch.serve.repack import PressureAdapter  # noqa: E402
+from repro_torch.serve.stats import LatencyStats, RequestStats  # noqa: E402
 from repro_torch.train import optimizer as optimizer_module  # noqa: E402
 from repro_torch.train.loop import Trainer  # noqa: E402
 from repro_torch.train.optimizer import adam, warmup_cosine  # noqa: E402
@@ -328,6 +367,18 @@ BST_STEPS = 8
 BST_BATCHES = 2                 # made once, reused in turn
 BST_PLAIN_CHUNK = 131_072       # rows a plain-kernel yardstick apply takes
 ZIPF_A = 1.1
+COLD_SOURCE = "src/repro_torch/csrc/tiered_cold.cu"
+COLD_GRID_CAP = 4096             # the grid's largest cold count
+TIERED_FRACTIONS = (0.0, 0.1, 1.0)
+TIERED_BULK = (0.0, 0.1)         # the fractions that also get tiered_bulk
+TIERED_REQUESTS = REQUEST_ROWS * 5
+LAUNCH_REQUESTS = 8              # the tiered launcher's closed-loop requests
+LAUNCH_POLICY_EVERY = 8          # rounds between plans: two plans in all
+DRIFT = {"vocabs": (600, 400, 500), "train_steps": 20, "train_batch": 512,
+         "cell_rows": 128, "requests": 48, "qps": 400.0, "batch": 256,
+         "shift_at": 12, "shift_frac": 0.4, "hot": 0.2, "halflife": 12.0,
+         "every": 1, "max_moves": 256, "writeback": 8}   # BENCH_prefetch.json
+REF_STEADY = {"decay": 0.5585, "static": 0.0302}   # its steady hit rates
 TOP_K = 100
 SEG_SOURCE = "src/repro_torch/csrc/segment_sum.cu"
 # the segment sum against its plain version: both sum a segment's c rows in
@@ -568,7 +619,7 @@ def phase_build():
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag",
-             "segment_sum", "adam")
+             "segment_sum", "adam", "tiered_cold")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -1073,6 +1124,471 @@ def phase_lifecycle(main, dev) -> dict:
             "table_copy_bytes": main["table_copy_bytes"],
             "eager_bulk_step_bytes": eager_bulk_bytes,
             "lifecycle_peak_bytes": lifecycle_peak}
+
+
+def cold_bytes(used_words: int, k: int, d: int) -> int:
+    """Bytes the cold fill must move: the staged buffer's used words, read
+    once, and the K rows of d float32 outputs, written once."""
+    return 4 * used_words + 4 * k * d
+
+
+def cold_case(rng, b: int, d: int, n_cold: int, dev, extra: int = 0):
+    """A (0, b) table of 1,000 features on the card behind a store that
+    keeps only the zero-width features hot, ``n_cold`` ids of its cold
+    features staged through the store, and the staged buffer copied into
+    one ``extra`` words longer whose tail is junk: the kernel reads its
+    counts, not its length."""
+    emb = torch.from_numpy(rng.normal(0, 3e-3, (1000, d)).astype(np.float32))
+    widx = torch.from_numpy(rng.integers(0, 2, 1000).astype(np.int32))
+    beta = torch.from_numpy(rng.normal(0, 1e-4, d).astype(np.float32))
+    alpha = torch.tensor([1.0, 1e-3], dtype=torch.float32)
+    table, meta = build_packed_table(emb.to(dev), widx.to(dev), alpha.to(dev),
+                                     beta.to(dev), MPEConfig(bits=(0, b)))
+    store = TieredTableStore(table, meta, rng.random(1000), 0.0, device=dev)
+    ids = rng.choice(np.nonzero(~store._is_hot_np)[0], n_cold).astype(np.int32)
+    fill = store.prefetch_cold(ids)
+    buf = torch.from_numpy(rng.integers(-2**31, 2**31 - 1,
+                                        fill.buffer.numel() + extra,
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    buf[:fill.buffer.numel()] = fill.buffer
+    return table, meta, store, ids, buf
+
+
+def phase_cold_grid(dev) -> float:
+    """The cold-fill kernel against its plain version over b ∈ 1..8 ×
+    d ∈ {8, 16, 50, 64} × cold counts {0, 1, 255, capacity}: bit for bit,
+    and the filled rows equal to the monolithic lookup's."""
+    rng = np.random.default_rng(SEED)
+    for b in range(1, 9):
+        for d in (8, 16, 50, 64):
+            for n_cold in (0, 1, 255, COLD_GRID_CAP):
+                table, meta, store, ids, buf = cold_case(
+                    rng, b, d, n_cold, dev, extra=COLD_GRID_CAP * 3)
+                out = torch.full((n_cold + 7, d), 3.0, device=dev)
+                want = cold_fill_ref(out.clone(), buf, meta["bits"], d,
+                                     store.hot["alpha"], store.hot["beta"])
+                cold_ops.cold_fill(out, buf, meta, store.hot["alpha"],
+                                   store.hot["beta"])
+                torch.cuda.synchronize()
+                check(torch.equal(out, want),
+                      f"cold grid b={b} d={d} cold={n_cold}: kernel vs plain")
+                lookup = packed_lookup_ref(
+                    table, meta, torch.from_numpy(ids).to(dev))
+                check(torch.equal(out[:n_cold], lookup),
+                      f"cold grid b={b} d={d} cold={n_cold}: vs the lookup")
+    log(f"cold-fill grid: 128 cases bit-identical to the plain version and "
+        f"to the monolithic lookup")
+    return 0.0
+
+
+def store_bytes(store) -> dict:
+    """Bytes a store holds on the card (the hot tier and its routing
+    vectors) and on the host (the packed mirror and the routing vectors)."""
+    dev = sum(t.numel() * t.element_size() for t in leaves(store.hot))
+    host = sum(v.nbytes for v in store._mirror.values()) + sum(
+        a.nbytes for a in (store._is_hot_np, store._width_idx_np,
+                           store._tier_local_np, store._local_idx_np))
+    return {"device": dev, "host": host,
+            "device_subtables": sum(t.numel() * t.element_size() for t in
+                                    store.hot["subtables"].values())}
+
+
+def recount(store, gid_batches, meta) -> dict:
+    """The store's counters recounted in numpy from its tier bits: hot and
+    cold lookups and the cold rows' packed bytes."""
+    hot = cold = nbytes = 0
+    row = np.array([words_per_row(meta["d"], b) * 4 if b else 0
+                    for b in meta["bits"]])
+    for gids in gid_batches:
+        flat = gids.reshape(-1)
+        is_hot = store._is_hot_np[flat]
+        hot += int(is_hot.sum())
+        cold += int((~is_hot).sum())
+        nbytes += int(row[store._width_idx_np[flat[~is_hot]]].sum())
+    return {"hot_lookups": hot, "cold_lookups": cold, "bytes_moved": nbytes}
+
+
+def tiered_launches(cache) -> dict:
+    out = cache.launches()
+    return {k: out.get(k, 0) for k in ("mpe_lookup", "tiered_cold")}
+
+
+def check_tiered_cell(tc, ids, model, main_engine, table, dev,
+                      what) -> dict:
+    """One tiered cell on ``ids`` (its capacity's rows): the embeddings the
+    cell's two kernels give (the hot lookup, then the cold fill over its
+    zeros) equal the plain lookup of the monolithic table bit for bit; the
+    cold fill equals its plain version bit for bit; the replay equals the
+    eager step bit for bit and the monolithic cell within the serving
+    contract. Returns the cold buffer (a clone of its used words) and K."""
+    cfg, params, state, buffers = model
+    store, meta = tc.store, tc.store.meta
+    x, fill = tc.stage(ids)
+    cold = tc.cold_input(fill)
+    gids = torch.from_numpy(ids).to(dev) + buffers["offsets"][None, :]
+
+    def kernels():
+        with torch.inference_mode():
+            base = tiered_hot_lookup(store.hot, meta["bits"], meta["d"], gids)
+            got = cold_ops.cold_fill(base.clone(), cold, meta,
+                                     store.hot["alpha"], store.hot["beta"])
+            plain = cold_fill_ref(base.clone().view(-1, meta["d"]), cold,
+                                  meta["bits"], meta["d"], store.hot["alpha"],
+                                  store.hot["beta"])
+            return got.view(-1, meta["d"]), plain
+    got, plain = uncounted(kernels)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), f"{what}: cold fill kernel vs plain")
+    want = packed_lookup_ref(table, meta, gids.reshape(-1))
+    check(torch.equal(got, want), f"{what}: tiered embeddings vs the plain "
+          f"lookup of the monolithic table")
+    with torch.inference_mode():
+        eager = tc.reg.celldef.step_fn(*tc.reg.bound, x, cold).cpu()
+    replay = tc.reg.cell.compiled(x, cold).cpu()
+    check(torch.equal(eager, replay), f"{what}: replay vs eager step")
+    mono = torch.from_numpy(main_engine.score(ids, return_logits=True))
+    err = compare(replay, mono, SCORE_TOL, SCORE_TOL,
+                  f"{what}: tiered scores vs the monolithic cell")
+    k = sum(fill.counts)
+    used = fill.buffer.numel()
+    return {"buffer": cold[:used].clone(), "k": k, "used": used,
+            "max_abs_err": err}
+
+
+def drift_sweep(dev) -> dict:
+    """BENCH_prefetch.json's drift sweep on the card: a quick pipeline's
+    table, a tiered cell of 128 rows, 48 open-loop requests of 256 rows at
+    400 req/s under a TickClock, a popularity shift of 0.4 at request 12,
+    writebacks every 8; the static split against the decay policy."""
+    c = DRIFT
+    serve_cfg, params, state, buffers, spec, res = \
+        launch_serve.train_packed_dlrm(
+            field_vocabs=c["vocabs"], train_steps=c["train_steps"],
+            train_batch=c["train_batch"], seed=SEED, device=dev)
+    freqs = SyntheticCTR(spec).expected_frequencies()
+    master = res["final_params"]["embedding"]["emb"].detach().cpu().numpy()
+    offs = buffers["offsets"].cpu().numpy().astype(np.int64)
+    n, shift_at = c["requests"], c["shift_at"]
+    steady_mark = shift_at + (n - shift_at) // 2
+    points = {}
+    for name in ("static", "decay"):
+        store = TieredTableStore(res["packed_table"], res["packed_meta"],
+                                 freqs, c["hot"], device=dev)
+        engine = Engine(device=dev, clock=TickClock())
+        engine.register_tiered_model("dlrm", DLRM, serve_cfg, params, state,
+                                     buffers, store,
+                                     shapes={"tiered": c["cell_rows"]})
+        policy = (DecayAdmissionPolicy(store.meta["n"],
+                                       halflife=c["halflife"],
+                                       max_moves=c["max_moves"])
+                  if name == "decay" else StaticTierPolicy())
+        engine.attach_tier_policy(policy, every=c["every"])
+        req_ds = DriftingCTR(spec._replace(batch_size=c["batch"]),
+                             shift_at=shift_at, shift_frac=c["shift_frac"],
+                             step0=10_000)
+        snap = {}
+
+        def on_submit(i, ids, engine=engine, store=store, snap=snap):
+            if i == steady_mark:
+                snap.update(store.counters())
+            if i and i % c["writeback"] == 0:
+                gids = np.unique(np.asarray(ids, np.int64) + offs[None, :])
+                engine.writeback_embeddings(gids, master[gids])
+        compiles0 = engine.compile_count
+        ol = launch_serve.run_open_loop(
+            engine, lambda i: req_ds.batch(10_000 + i)["ids"], n, c["qps"],
+            kind="tiered", on_submit=on_submit)
+        cnt = store.counters()
+        hot_d = cnt["hot_lookups"] - snap["hot_lookups"]
+        tot_d = hot_d + cnt["cold_lookups"] - snap["cold_lookups"]
+        points[name] = {
+            "hit_rate": cnt["hit_rate"], "steady_hit_rate": hot_d / tot_d,
+            "reference_steady_hit_rate": REF_STEADY[name],
+            **{k: cnt[k] for k in ("bytes_moved", "promotions", "demotions",
+                                   "writebacks")},
+            "completed": ol["completed"], "shed": ol["shed"],
+            "captures_during_run": engine.compile_count - compiles0}
+        check(points[name]["captures_during_run"] == 0
+              and ol["completed"] == n, f"drift {name}: {points[name]}")
+        log(f"drift sweep {name}: steady hit rate "
+            f"{points[name]['steady_hit_rate']:.4f} (the reference's "
+            f"{REF_STEADY[name]}); {json.dumps(points[name])}")
+    s, a = (points[k]["steady_hit_rate"] for k in ("static", "decay"))
+    check(a >= s + 0.25 and a > 0.5,
+          f"drift sweep: decay {a:.4f} against static {s:.4f}")
+    return points
+
+
+def phase_tiered(main, dev) -> dict:
+    """The tiered cache at full width on phase 4's table and prior: stores
+    at hot fractions 0, 0.1 and 1.0 with their tiered cells checked and
+    served; the launcher with the decay policy, writebacks and a shift; a
+    PressureAdapter swap through ``refresh``; the drift sweep."""
+    t_phase = time.perf_counter()
+    model, spec, engine = main["model"], main["spec"], main["engine"]
+    cfg, params, state, buffers = model
+    table, meta = main["table"], main["meta"]
+    stream = SyntheticCTR(spec._replace(batch_size=512))
+    freqs = stream.expected_frequencies()
+    offs = buffers["offsets"].cpu().numpy()
+    n_top = int(np.ceil(0.1 * freqs.size))
+    predicted = float(np.partition(freqs, freqs.size - n_top)[-n_top:].sum()
+                      / freqs.sum())
+    t0 = time.perf_counter()
+    hot_feature_mask(freqs, 0.1)
+    mask_s = time.perf_counter() - t0
+    log(f"tiered: the prior puts {predicted:.4f} of the expected traffic on "
+        f"the {n_top} hottest features (hot fraction 0.1; the hot mask, a "
+        f"lexsort of every feature, took {mask_s:.2f} s)")
+    stores, info = {}, {}
+    for hf in TIERED_FRACTIONS:
+        t0 = time.perf_counter()
+        stores[hf] = TieredTableStore(table, meta, freqs, hf, device=dev)
+        torch.cuda.synchronize()
+        info[hf] = {"build_s": time.perf_counter() - t0,
+                    "predicted_hit_rate": float(
+                        freqs[stores[hf]._is_hot_np].sum() / freqs.sum()),
+                    "storage": stores[hf].storage(),
+                    "bytes": store_bytes(stores[hf])}
+        log(f"store at hot fraction {hf}: {json.dumps(info[hf])}")
+    cache = CellCache(dev)
+    engines = {}
+    for hf, store in stores.items():
+        shapes = {"tiered_p99": SERVE_ROWS["serve_p99"]}
+        if hf in TIERED_BULK:
+            shapes["tiered_bulk"] = SERVE_ROWS["serve_bulk"]
+        engines[hf] = Engine(cache=cache)
+        engines[hf].register_tiered_model("dlrm", DLRM, cfg, params, state,
+                                          buffers, store, shapes=shapes)
+    compiles = cache.compiles
+    check(compiles == 2 * len(TIERED_FRACTIONS) - 1,
+          f"{compiles} tiered cells captured")
+    for hf, e in engines.items():
+        for shape, tc in e._tiered.items():
+            check(tc.reg.cell.captured == {"mpe_lookup": 1, "tiered_cold": 1},
+                  f"{shape} at {hf} captured {tc.reg.cell.captured}")
+
+    # each cell at its capacity: embeddings, kernels, replay, scores
+    bulk_ids = main["requests"][f"{BULK_ROWS} rows"]
+    fills, cell_err = {}, 0.0
+    for hf, e in engines.items():
+        for shape, tc in e._tiered.items():
+            rows = tc.reg.celldef.batch
+            ids = (stream.batch(60_000)["ids"][:rows] if rows <= 512
+                   else np.ascontiguousarray(bulk_ids[:rows]))
+            r = check_tiered_cell(tc, ids, model, engine, table, dev,
+                                  f"{shape} at hot fraction {hf}")
+            cell_err = max(cell_err, r.pop("max_abs_err"))
+            fills[(hf, shape)] = r
+        stores[hf].reset_counters()
+    log(f"tiered cells: embeddings bit-identical to the monolithic lookup at "
+        f"hot fractions {TIERED_FRACTIONS}; replays equal their eager steps; "
+        f"scores within {SCORE_TOL} of the monolithic cells (max |diff| "
+        f"{cell_err:.3e})")
+
+    # requests through score_tiered, overlap on and off, the counts at 0
+    requests = [stream.batch(61_000 + i)["ids"][:rows]
+                for i, rows in enumerate(TIERED_REQUESTS)] + [bulk_ids]
+    mono = {}
+    for i, ids in enumerate(requests):
+        t0 = time.perf_counter()
+        mono[i] = engine.score(ids, return_logits=True)
+        mono[f"{i} ms"] = (time.perf_counter() - t0) * 1e3
+    reset_lookup_counts(*engines.values())
+    cold_ops.cold_fill.launches = 0
+    rows_out, outs = {}, {}
+    for hf, e in engines.items():
+        for overlap in (True, False):
+            for i, ids in enumerate(requests):
+                e.rstats = RequestStats()
+                t0 = time.perf_counter()
+                outs[(hf, overlap, i)] = e.score_tiered(
+                    ids, overlap=overlap, return_logits=True)
+                ms = (time.perf_counter() - t0) * 1e3
+                rs = e.request_summary()["tiered"]
+                rows_out[(hf, overlap, i)] = {
+                    "rows": int(ids.shape[0]), "ms": ms,
+                    **{part: rs[part]["p50_ms"]
+                       for part in ("assembly", "compute")}}
+    launches = tiered_launches(cache)
+    n_dispatch = dispatches(*engines.values())
+    check(launches == {"mpe_lookup": n_dispatch, "tiered_cold": n_dispatch},
+          f"tiered launches {launches} for {n_dispatch} dispatches")
+    check(mpe_lookup_ops.packed_lookup.launches == 0
+          and cold_ops.cold_fill.launches == 0,
+          "a tiered request called a kernel wrapper outside its graph")
+    worst = 0.0
+    for (hf, overlap, i), got in outs.items():
+        check(np.isfinite(got).all() and got.shape == (len(requests[i]),),
+              f"bad tiered scores at {hf}")
+        check(np.array_equal(got, outs[(hf, True, i)]),
+              f"overlap on and off differ at {hf}, request {i}")
+        worst = max(worst, within(torch.from_numpy(got),
+                                  torch.from_numpy(mono[i]),
+                                  {"rtol": SCORE_TOL, "atol": SCORE_TOL},
+                                  f"tiered request {i} at {hf} vs the "
+                                  f"monolithic cell"))
+    gid_batches = [r.astype(np.int64) + offs[None, :] for r in requests] * 2
+    served = {}
+    for hf, store in stores.items():
+        c = store.counters()
+        want = recount(store, gid_batches, meta)
+        check({k: c[k] for k in want} == want,
+              f"counters at {hf}: {c} against the recount {want}")
+        small = [rows_out[(hf, True, i)] for i in range(len(TIERED_REQUESTS))]
+        bulk_on = rows_out[(hf, True, len(requests) - 1)]
+        bulk_off = rows_out[(hf, False, len(requests) - 1)]
+        served[hf] = {
+            "hit_rate": c["hit_rate"],
+            "predicted_hit_rate": info[hf]["predicted_hit_rate"],
+            "bytes_moved": c["bytes_moved"], "recount": want,
+            "request_p50_ms": p50([r["ms"] for r in small]),
+            "request_assembly_p50_ms": p50([r["assembly"] for r in small]),
+            "request_compute_p50_ms": p50([r["compute"] for r in small]),
+            "monolithic_request_p50_ms": p50(
+                [mono[f"{i} ms"] for i in range(len(TIERED_REQUESTS))]),
+            "bulk_overlap": bulk_on, "bulk_sync": bulk_off,
+            "monolithic_bulk_ms": mono[f"{len(requests) - 1} ms"]}
+        log(f"tiered requests at hot fraction {hf}: {json.dumps(served[hf])}")
+
+    # the bulk fills: H2D copy, host routing, and the kernel's time
+    shapes = {}
+    for hf in TIERED_BULK:
+        tc = engines[hf]._tiered["tiered_bulk"]
+        f = fills[(hf, "tiered_bulk")]
+        used, k = f["used"], f["k"]
+        # the copy a chunk's fill makes: pinned host words to the card
+        host = torch.empty((used,), dtype=torch.int32, pin_memory=True)
+        host.copy_(f["buffer"].cpu())
+        dst = torch.empty_like(f["buffer"])
+        h2d = cuda_ms(lambda: dst.copy_(host, non_blocking=True), 5)
+        del host, dst
+        chunk = np.ascontiguousarray(bulk_ids[:SERVE_ROWS["serve_bulk"]])
+        t0 = time.perf_counter()
+        tc.stage(chunk)
+        torch.cuda.synchronize()
+        route_ms = (time.perf_counter() - t0) * 1e3
+        stores[hf].reset_counters()
+        out = torch.zeros((chunk.size, meta["d"]), device=dev)
+        alpha, beta = stores[hf].hot["alpha"], stores[hf].hot["beta"]
+        buf = f["buffer"]
+
+        def kernel(out=out, buf=buf, alpha=alpha, beta=beta):
+            cold_ops.cold_fill(out, buf, meta, alpha, beta)
+
+        def plain(out=out, buf=buf, alpha=alpha, beta=beta):
+            cold_fill_ref(out, buf, meta["bits"], meta["d"], alpha, beta)
+        ms = uncounted(lambda: cuda_ms(kernel, 20))
+        plain_ms = cuda_ms(plain, 3)
+        nbytes = cold_bytes(used, k, meta["d"])
+        shapes[f"dlrm tiered_bulk at hot {hf}"] = {
+            "cold_rows": k, "used_words": used, "bytes": nbytes,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "h2d_ms": h2d, "h2d_gb_per_s": 4 * used / h2d / 1e6,
+            "route_and_gather_ms": route_ms}
+        log(f"tiered_bulk at hot {hf}: "
+            + json.dumps(shapes[f"dlrm tiered_bulk at hot {hf}"]))
+    del fills
+
+    # the launcher: decay policy, writebacks, a popularity shift
+    argv = ["--arch", "dlrm-criteo", "--requests", str(LAUNCH_REQUESTS),
+            "--batch", "300", "--hot-frac", "0.1", "--cache-policy", "decay",
+            "--policy-every", str(LAUNCH_POLICY_EVERY), "--writeback", "4",
+            "--shift-at", str(LAUNCH_REQUESTS // 2), "--seed", str(SEED)]
+    log(f"tiered launcher: python -m repro_torch.launch.serve {' '.join(argv)}")
+    plan_s, observe_s = [], []
+
+    class TimedPolicy(DecayAdmissionPolicy):
+        """The launcher's policy, each full-width plan and each chunk's
+        observation timed."""
+        def plan(self, store):
+            t0 = time.perf_counter()
+            out = super().plan(store)
+            plan_s.append(time.perf_counter() - t0)
+            return out
+
+        def observe(self, ids):
+            t0 = time.perf_counter()
+            super().observe(ids)
+            observe_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    launch_serve.DecayAdmissionPolicy = TimedPolicy
+    try:
+        r_engine = launch_serve.main(argv)
+    finally:
+        launch_serve.DecayAdmissionPolicy = DecayAdmissionPolicy
+    launcher_s = time.perf_counter() - t0
+    r_store = r_engine._tier_stores()[0]
+    moves = dict(r_engine.tier_moves)
+    check(r_engine.compile_count == 6, f"the launcher captured "
+          f"{r_engine.compile_count} cells, not its 6: a capture mid-stream")
+    check(moves["promotions"] > 0 and moves["plans"] == len(plan_s) > 0,
+          f"the launcher's policy moved nothing: {moves}")
+    launcher_launches = tiered_launches(r_engine.cache)
+    log(f"tiered launcher: {launcher_s:.1f} s; moves {moves}; counters "
+        f"{json.dumps(r_store.counters())}; its full-width plans "
+        f"{[round(s, 3) for s in plan_s]} s, its observations p50 "
+        f"{p50(observe_s) * 1e3:.3f} ms a chunk; launches {launcher_launches}")
+
+    # a PressureAdapter swap through refresh, on the launcher's engine
+    master = launch_serve.packed_master(cfg, seed=SEED, device=dev)
+    planner, swapper = launch_serve.repack_tools(r_engine, master, freqs)
+    hot_ptrs = [t.data_ptr() for t in leaves(r_store.hot)]
+    ids = stream.batch(62_000)["ids"][:300]
+    r_engine.score_tiered(ids)
+    adapter = r_engine.attach_adapter(PressureAdapter(
+        planner, swapper, master["group_bits"], every=1, promote_below=0.0))
+    t0 = time.perf_counter()
+    r_engine.sched_step()                 # the adapter plans and queues
+    r_engine.sched_step()                 # the swap lands: refresh
+    swap_s = time.perf_counter() - t0
+    r_engine._adapters.remove(adapter)    # one swap is the check
+    check(adapter.repacks == 1 and r_engine.swaps_applied == 1,
+          f"the adapter's swap did not land ({adapter.repacks} repacks, "
+          f"{r_engine.swaps_applied} swaps)")
+    check(r_engine.compile_count == 6
+          and [t.data_ptr() for t in leaves(r_store.hot)] == hot_ptrs,
+          "the swap recaptured a cell or moved a hot-tier tensor")
+    feature_bits = adapter.assignment[planner.gof]
+    new_table, _ = swapper.build(feature_bits)
+    got = torch.from_numpy(r_engine.score_tiered(ids, return_logits=True))
+    new_model = (cfg, dict(params, embedding=new_table), state, buffers)
+    adapter_err = compare(got, plain_scores(new_model, ids, dev), SCORE_TOL,
+                          SCORE_TOL, "after the adapter's swap, tiered scores "
+                          "vs plain lookup on the swapped table")
+    gids = torch.from_numpy(ids).to(dev) + buffers["offsets"][None, :]
+    check(torch.equal(
+        r_store.lookup(ids + offs[None, :]).reshape(-1, meta["d"]),
+        packed_lookup_ref(new_table, meta, gids.reshape(-1))),
+        "after the swap the store's lookup differs from the swapped table")
+    adapter_info = {"features_moved": int(
+                        (feature_bits != master["feature_bits_idx"]).sum()),
+                    "bytes_before": adapter.base_bytes,
+                    "bytes_after": planner.bytes_packed(adapter.assignment),
+                    "swap_and_refresh_s": swap_s, "max_abs_err": adapter_err}
+    log(f"PressureAdapter: {json.dumps(adapter_info)}")
+    del r_engine, r_store, master, planner, swapper, adapter, new_table
+    del new_model
+
+    drift = drift_sweep(dev)
+    record = {"name": "tiered_cold", "route": "cuda", "source": COLD_SOURCE,
+              "replaces": "no TPU kernel: the reference's cold path "
+                          "src/repro/cache/tiers.py:509 (cold_part: jitted "
+                          "unpack and scatter, eager dequantize) and its "
+                          "jnp.where merge, src/repro/serve/cells.py:268",
+              "launches": launches["tiered_cold"], "max_abs_err": 0.0,
+              **{k: shapes["dlrm tiered_bulk at hot 0.1"][k]
+                 for k in ("ms", "plain_ms", "bound_ms")},
+              "bound_by": "bytes", "library_ms": None,
+              "library_call": "no single PyTorch call", "shapes": shapes}
+    log(f"tiered phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "launcher_launches": launcher_launches,
+            "record": record, "stores": info, "served": served,
+            "mask_s": mask_s, "plan_s": plan_s,
+            "observe_p50_ms": p50(observe_s) * 1e3, "launcher_s": launcher_s,
+            "moves": moves, "adapter": adapter_info, "drift": drift,
+            "predicted_hit_rate_top_0.1": predicted}
 
 
 def qat_inputs(gen, t, d, bits, dev, onehot=False):
@@ -2736,7 +3252,7 @@ def phase_bst_train(dev, prior) -> dict:
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
                 "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
                 "mpe_lookup": 0, "embedding_bag_fwd": 0, "segment_sum": 4,
-                "adam_step_": len(leaves(trainer.params))}
+                "adam_step_": len(leaves(trainer.params)), "tiered_cold": 0}
     outs, step_ms = [], []
     t_all = time.perf_counter()
     for step in range(BST_STEPS):
@@ -3336,6 +3852,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_build()
     grid_err = phase_kernel_grid(dev)
+    phase_cold_grid(dev)
     qat_grid_errs = phase_qat_grid(dev)
     flash_grid_errs = phase_flash_grid(dev)
     bag_grid_errs = phase_bag_grid(dev)
@@ -3345,6 +3862,9 @@ def main() -> int:
     traced = phase_trace(main_path)
     lifecycle = phase_lifecycle(main_path, dev)
     log(json.dumps({"lifecycle": lifecycle}))
+    tiered = phase_tiered(main_path, dev)
+    log(json.dumps({"tiered": {k: v for k, v in tiered.items()
+                               if k != "record"}}))
     log(json.dumps({"storage_ratio": main_path["ratio"],
                     "request_p50_ms": main_path["request_p50_ms"],
                     "bulk_request_ms": main_path["bulk_request_ms"],
@@ -3396,11 +3916,13 @@ def main() -> int:
                adam_record(train, step, sasrec_train["step_inputs"],
                            bst_train["step_inputs"], extra,
                            reduced["schedule"]),
-               bag_record(bag_grid_errs, bag),
+               bag_record(bag_grid_errs, bag), tiered["record"],
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs)]
     by_path = {"dlrm serve": main_launches,
                "dlrm lifecycle": lifecycle["launches"],
+               "dlrm tiered": tiered["launches"],
+               "dlrm tiered launcher": tiered["launcher_launches"],
                "dlrm train": train["launches"],
                "sasrec serve": sasrec_serve["launches"],
                "sasrec train": sasrec_train["launches"],

@@ -5,7 +5,8 @@ popularity, per-feature latent weights drawn from a hash, planted pairwise
 interactions, and a bias calibrated to the positive ratio. Its
 ``expected_frequencies`` is MPE's frequency prior. Batches are pure
 functions of (seed, step, host_id, n_hosts), identical to the reference's
-generator on the same spec.
+generator on the same spec. ``DriftingCTR`` rotates the popular ids as
+the steps go (the tiered cache's drifting traffic).
 """
 from __future__ import annotations
 
@@ -102,3 +103,59 @@ class SyntheticCTR:
     def eval_set(self, n_batches: int, start_step: int = 1_000_000):
         """Held-out batches: steps far past any training step."""
         return [self.batch(start_step + i) for i in range(n_batches)]
+
+
+class DriftingCTR(SyntheticCTR):
+    """Non-stationary power-law-with-drift request stream.
+
+    Ids are drawn from the same per-field Zipf popularity ranks as
+    ``SyntheticCTR``, then **rotated** within each field's vocabulary by a
+    step-dependent offset:
+
+        id = (zipf_rank_draw + offset_f(step)) mod vocab_f
+        offset_f(step) = floor(drift_rate · step)
+                         + (floor(shift_frac · vocab_f) if step ≥ shift_at)
+
+    so the marginal distribution stays exactly power-law at every step while
+    *which* features are popular drifts continuously (``drift_rate`` ids per
+    step) and/or jumps wholesale at ``shift_at``. The frequency prior
+    (``expected_frequencies``) describes step 0, so a static hot/cold split
+    seeded from it decays as the stream drifts — the workload of the
+    traffic-adaptive tier policy (``repro_torch.cache.policy``). Batches are
+    pure functions of (seed, step, host_id, n_hosts), identical to the
+    reference's.
+    """
+
+    def __init__(self, spec: CTRSpec, *, drift_rate: float = 0.0,
+                 shift_at: int | None = None, shift_frac: float = 0.3,
+                 step0: int = 0):
+        super().__init__(spec)
+        self.drift_rate = float(drift_rate)
+        self.shift_at = None if shift_at is None else int(shift_at)
+        self.shift_frac = float(shift_frac)
+        self.step0 = int(step0)     # drift clock zero (serving streams often
+        # start at a large step to stay disjoint from training batches)
+
+    def field_offset(self, field: int, step: int) -> int:
+        """The rotation applied to ``field``'s ids at ``step``."""
+        v = int(self.spec.field_vocabs[field])
+        t = max(step - self.step0, 0)
+        off = int(np.floor(self.drift_rate * t))
+        if self.shift_at is not None and t >= self.shift_at:
+            off += int(self.shift_frac * v)
+        return off % v
+
+    def batch(self, step: int, host_id: int = 0, n_hosts: int = 1) -> dict:
+        s = self.spec
+        rng = np.random.default_rng(
+            np.random.SeedSequence([s.seed, step, host_id, n_hosts]))
+        ids = np.empty((s.batch_size, self.n_fields), np.int64)
+        for f in range(self.n_fields):
+            u = rng.random(s.batch_size)
+            v = int(s.field_vocabs[f])
+            ids[:, f] = (np.searchsorted(self._cdfs[f], u)
+                         + self.field_offset(f, step)) % v
+        z = self.true_logit(ids)
+        label = (rng.random(s.batch_size)
+                 < 1.0 / (1.0 + np.exp(-z))).astype(np.int32)
+        return {"ids": ids.astype(np.int32), "label": label}

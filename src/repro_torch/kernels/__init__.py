@@ -15,6 +15,7 @@ from repro_torch.kernels.mpe_lookup.ops import packed_lookup
 from repro_torch.kernels.mpe_qat.ops import (mixed_expectation_bwd,
                                              mixed_expectation_fwd)
 from repro_torch.kernels.segment_sum.ops import segment_sum
+from repro_torch.kernels.tiered_cold.ops import cold_fill
 
 COUNTERS = {"mpe_lookup": packed_lookup,
             "mixed_expectation_fwd": mixed_expectation_fwd,
@@ -24,7 +25,8 @@ COUNTERS = {"mpe_lookup": packed_lookup,
             "flash_attention_bwd": flash_attention_bwd,
             "embedding_bag_fwd": embedding_bag_fwd,
             "segment_sum": segment_sum,
-            "adam_step_": adam_step_}
+            "adam_step_": adam_step_,
+            "tiered_cold": cold_fill}
 
 
 def counts() -> dict:

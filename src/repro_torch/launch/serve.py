@@ -28,14 +28,23 @@ asserts the swap compiled nothing. ``--repack-headroom`` packs the serving
 table with spare per-width row capacity so demoted groups can land in
 intermediate widths.
 
-The reference's tiered-cache, drift, writeback and mesh flags raise, naming
-the ROADMAP item that brings them.
+``--hot-frac`` also serves through a hot/cold ``TieredTableStore``
+(``repro_torch.cache``) on the ``tiered_p99``/``tiered_bulk`` cells.
+``--cache-policy decay`` turns the store's hit/miss stream into a
+**traffic-adaptive hot set** (``repro_torch.cache.policy``): exponential-decay
+admission scores plan bounded promotion/demotion batches every
+``--policy-every`` scheduling rounds, applied in place — no re-pack, no
+recapture. ``--drift``/``--shift-at`` make the request stream non-stationary
+(``DriftingCTR``), and ``--writeback N`` interleaves writebacks of the
+master embedding with live traffic. The reference's mesh flag raises,
+naming the ROADMAP item that brings it.
 
 Runs on the CUDA card unless ``--device`` names another:
 
     python -m repro_torch.launch.serve --arch dlrm-criteo --requests 20 --batch 300 --bulk 300000
     python -m repro_torch.launch.serve --qps 2000 --requests 200 --batch 300 --deadline-ms 20
     python -m repro_torch.launch.serve --reduced --device cpu --requests 20 --repack-budget 0.8 --repack-headroom 0.5
+    python -m repro_torch.launch.serve --reduced --device cpu --qps 400 --requests 60 --batch 60 --hot-frac 0.2 --cache-policy decay --decay-halflife 16 --policy-every 2 --shift-at 20 --writeback 8
 """
 from __future__ import annotations
 
@@ -45,12 +54,14 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.cache.policy import DecayAdmissionPolicy, StaticTierPolicy
+from repro_torch.cache.tiers import TieredTableStore
 from repro_torch.configs.base import SERVE_ROWS, get_arch
 from repro_torch.core.compressors import Packed, as_mpe_config
 from repro_torch.core.inference import build_packed_table
 from repro_torch.core.mpe import MPEConfig, make_groups
 from repro_torch.core.pipeline import run_mpe_pipeline
-from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
+from repro_torch.data.synthetic import CTRSpec, DriftingCTR, SyntheticCTR
 from repro_torch.device import full_float32, resolve_device
 from repro_torch.embeddings.table import FieldSpec, total_vocab
 from repro_torch.models.dlrm import DLRM, DLRMConfig
@@ -65,11 +76,6 @@ from repro_torch.zoo import dlrm_builder
 DEFAULT_VOCABS = (2000, 1000, 1500, 800)
 # the reference's flags whose modules are not ported yet
 NOT_PORTED_FLAGS = {
-    "hot_frac": "ROADMAP Queue 1 item 4 (the tiered cache)",
-    "cache_policy": "ROADMAP Queue 1 item 4 (the tiered cache)",
-    "drift": "ROADMAP Queue 1 item 4 (DriftingCTR)",
-    "shift_at": "ROADMAP Queue 1 item 4 (DriftingCTR)",
-    "writeback": "ROADMAP Queue 1 item 4 (the tiered cache)",
     "mesh": "ROADMAP Queue 1 item 6 (distribution)",
 }
 
@@ -108,15 +114,18 @@ def train_packed_dlrm(*, field_vocabs=DEFAULT_VOCABS, train_steps: int = 120,
 def build_engine(cfg, params, state, buffers, *,
                  p99_rows: int = SERVE_ROWS["serve_p99"],
                  bulk_rows: int = SERVE_ROWS["serve_bulk"],
-                 lookup_split: bool = True, device=None,
+                 lookup_split: bool = True, store=None, device=None,
                  queue_capacity: int = 1024, quotas=None,
                  shed_watermark: float = 1.0,
                  coalesce_window_ms: float = 0.0, clock=None) -> Engine:
     """An engine with the standard cell-shape registry for one DLRM table,
     on ``device`` (the CUDA card unless the caller names another).
-    ``quotas`` / ``shed_watermark`` / ``coalesce_window_ms`` / ``clock``
-    pass through to the engine's multi-tenant admission and scheduling
-    policy."""
+
+    With a ``repro_torch.cache.TieredTableStore`` in ``store``, the same
+    shapes are also registered as tiered cells (``tiered_p99``/
+    ``tiered_bulk``) served through ``engine.score_tiered``. ``quotas`` /
+    ``shed_watermark`` / ``coalesce_window_ms`` / ``clock`` pass through to
+    the engine's multi-tenant admission and scheduling policy."""
     engine = Engine(device=device, queue_capacity=queue_capacity,
                     quotas=quotas, shed_watermark=shed_watermark,
                     coalesce_window_ms=coalesce_window_ms, clock=clock)
@@ -124,6 +133,10 @@ def build_engine(cfg, params, state, buffers, *,
         "dlrm", DLRM, cfg, params, state, buffers,
         shapes={"serve_p99": p99_rows, "serve_bulk": bulk_rows},
         lookup_split=lookup_split)
+    if store is not None:
+        engine.register_tiered_model(
+            "dlrm", DLRM, cfg, params, state, buffers, store,
+            shapes={"tiered_p99": p99_rows, "tiered_bulk": bulk_rows})
     return engine
 
 
@@ -193,7 +206,8 @@ def run_open_loop(engine, make_ids, n_requests: int, qps: float, *,
     reference's, read for read.
 
     ``on_submit(i, ids)`` (optional) runs right before request ``i`` is
-    admitted.
+    admitted — the hook the launcher uses to interleave writebacks
+    (``Engine.writeback_embeddings``) with live traffic.
 
     Returns {tickets, makespan_s, offered_qps, goodput_qps, completed,
     shed, failed} — per-request latency percentiles live in
@@ -342,6 +356,41 @@ def main(argv=None):
                     help="pack the serving table with every non-zero width "
                          "bucket sized to hold this fraction of the features "
                          "(headroom_capacities)")
+    ap.add_argument("--hot-frac", type=float, default=None,
+                    help="also serve through a hot/cold TieredTableStore "
+                         "pinning this fraction of features on the device "
+                         "(repro_torch.cache; requests go through "
+                         "score_tiered with cold fills staged one chunk "
+                         "ahead)")
+    ap.add_argument("--cache-policy", choices=("static", "decay"),
+                    default=None,
+                    help="tier policy over the TieredTableStore (requires "
+                         "--hot-frac; open-loop requests then ride the "
+                         "tiered lane): 'decay' adapts the hot set with "
+                         "exponential-decay admission scores, 'static' "
+                         "keeps the frequency split but runs the same "
+                         "observation/plan machinery")
+    ap.add_argument("--decay-halflife", type=float, default=256.0,
+                    help="decay-policy score half-life, in observation "
+                         "ticks (one tick per dispatched chunk)")
+    ap.add_argument("--policy-every", type=int, default=8,
+                    help="plan/apply tier moves every this many scheduling "
+                         "rounds")
+    ap.add_argument("--writeback", type=int, default=0,
+                    help="every N requests, write the request's features' "
+                         "master embeddings back through "
+                         "Engine.writeback_embeddings (0 disables)")
+    ap.add_argument("--drift", type=float, default=0.0,
+                    help="non-stationary traffic: rotate each field's "
+                         "popularity ranks by this many ids per request "
+                         "step (DriftingCTR)")
+    ap.add_argument("--shift-at", type=int, default=None,
+                    help="hard popularity shift: from this request step on, "
+                         "rotate each field's hot set by --shift-frac of "
+                         "its vocabulary")
+    ap.add_argument("--shift-frac", type=float, default=0.3,
+                    help="fraction of each field's vocabulary the "
+                         "--shift-at popularity shift moves")
     for flag in NOT_PORTED_FLAGS:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet: {NOT_PORTED_FLAGS[flag]}")
@@ -358,6 +407,8 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet: it comes "
                 f"with {item}")
+    if args.cache_policy is not None and args.hot_frac is None:
+        ap.error("--cache-policy requires --hot-frac (a tiered store)")
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch).make_config(reduced=args.reduced)
@@ -372,7 +423,7 @@ def main(argv=None):
                                                          device=device)
     repacking = args.repack_budget is not None \
         or args.repack_headroom is not None
-    if repacking and res is None:
+    if (repacking or args.writeback) and res is None:
         res = packed_master(cfg, seed=args.seed, device=device)
     if args.repack_headroom is not None:
         emb = res["final_params"]["embedding"]
@@ -389,14 +440,52 @@ def main(argv=None):
                                  cfg.comp_cfg)
     print(f"[serve] {args.arch} on {device}: {cfg.comp_cfg['n']} features, "
           f"packed ratio={ratio:.4f}")
+    store = None
+    if args.hot_frac is not None:
+        freqs = SyntheticCTR(spec).expected_frequencies()
+        store = TieredTableStore(params["embedding"],
+                                 buffers["embedding"]["meta"], freqs,
+                                 args.hot_frac, device=device)
+        s = store.storage()
+        print(f"[serve] tiered store: hot_frac={args.hot_frac} "
+              f"hot={s['hot_bytes']}B (device) cold={s['cold_bytes']}B (host)")
     engine = build_engine(cfg, params, state, buffers,
                           p99_rows=args.p99_rows, bulk_rows=args.bulk_rows,
-                          device=device, queue_capacity=args.queue_capacity,
+                          store=store, device=device,
+                          queue_capacity=args.queue_capacity,
                           coalesce_window_ms=args.coalesce_window_ms)
     print(f"[serve] registered cells: "
           f"{dict(sorted(engine.registered_shapes.items()))} "
           f"(compiles={engine.compile_count})")
-    req_ds = SyntheticCTR(spec._replace(batch_size=args.batch))
+    if args.cache_policy is not None:
+        if args.cache_policy == "decay":
+            policy = DecayAdmissionPolicy(store.meta["n"],
+                                          halflife=args.decay_halflife)
+        else:
+            policy = StaticTierPolicy()
+        engine.attach_tier_policy(policy, every=args.policy_every)
+        print(f"[serve] cache policy: {args.cache_policy} "
+              f"(halflife={args.decay_halflife}, every={args.policy_every})")
+    # request stream at the requested batch size
+    if args.drift or args.shift_at is not None:
+        req_ds = DriftingCTR(spec._replace(batch_size=args.batch),
+                             drift_rate=args.drift, shift_at=args.shift_at,
+                             shift_frac=args.shift_frac, step0=10_000)
+        print(f"[serve] drifting traffic: rate={args.drift} "
+              f"shift_at={args.shift_at} shift_frac={args.shift_frac}")
+    else:
+        req_ds = SyntheticCTR(spec._replace(batch_size=args.batch))
+
+    on_submit = None
+    if args.writeback:
+        master = res["final_params"]["embedding"]["emb"].detach().cpu().numpy()
+        offs = buffers["offsets"].cpu().numpy().astype(np.int64)
+
+        def on_submit(i, ids):
+            if i == 0 or i % args.writeback:
+                return
+            gids = np.unique(np.asarray(ids, np.int64) + offs[None, :])
+            engine.writeback_embeddings(gids, master[gids])
     repack_info = None
 
     def queue_repack():
@@ -411,19 +500,29 @@ def main(argv=None):
         swapper.repack(plan)
         repack_info = (engine.compile_count, plan)
 
+    req_kind = "tiered" if args.cache_policy is not None else "score"
     open_loop = None
     if args.qps:
-        engine.score(req_ds.batch(9_999)["ids"])   # the dispatch path warm
+        warm_ids = req_ds.batch(9_999)["ids"]
+        engine.score(warm_ids)                     # the dispatch path warm
+        if req_kind == "tiered":
+            engine.score_tiered(warm_ids)
         if args.repack_budget is not None:
             queue_repack()   # applies at the open loop's first round
         open_loop = run_open_loop(
             engine, lambda i: req_ds.batch(10_000 + i)["ids"], args.requests,
-            args.qps, seed=args.seed, deadline_ms=args.deadline_ms)
+            args.qps, seed=args.seed, deadline_ms=args.deadline_ms,
+            kind=req_kind, on_submit=on_submit)
     else:
         for step in range(args.requests):
             if args.repack_budget is not None and step == args.requests // 2:
                 queue_repack()
-            engine.score(req_ds.batch(10_000 + step)["ids"])
+            ids = req_ds.batch(10_000 + step)["ids"]
+            if on_submit is not None:
+                on_submit(step, ids)
+            engine.score(ids)
+            if store is not None:
+                engine.score_tiered(ids)
     if repack_info is not None:
         c0, plan = repack_info
         if engine.compile_count != c0 or engine.swaps_applied != 1:
@@ -434,8 +533,11 @@ def main(argv=None):
               f"{plan.bytes_packed} ({plan.n_features_moved} features "
               f"moved), swaps={engine.swaps_applied}, recompiles=0")
     if args.bulk:
-        engine.score(SyntheticCTR(spec._replace(batch_size=args.bulk))
-                     .batch(99_999)["ids"])
+        bulk_ids = SyntheticCTR(spec._replace(batch_size=args.bulk)).batch(
+            99_999)["ids"]
+        engine.score(bulk_ids)
+        if store is not None:
+            engine.score_tiered(bulk_ids)
     skip = min(3, max(args.requests - 1, 0))  # drop the first, cold requests
     print(engine.stats.format_table(skip_warmup=skip))
     if open_loop is not None:
@@ -446,6 +548,18 @@ def main(argv=None):
     counters = engine.counters()
     print(f"[serve] cell cache: compiles={counters['compiles']} "
           f"hits={counters['hits']} replays={engine.cache.replays()}")
+    if store is not None:
+        c = store.counters()
+        print(f"[serve] tiers: hit_rate={c['hit_rate']:.3f} "
+              f"cold_bytes_moved={c['bytes_moved']}")
+        if args.cache_policy is not None:
+            m = engine.tier_moves
+            print(f"[serve] tier policy: plans={m['plans']} "
+                  f"promotions={m['promotions']} demotions={m['demotions']} "
+                  f"moved_bytes={m['bytes']}")
+        if args.writeback:
+            print(f"[serve] writeback: writes={c['writebacks']} "
+                  f"bytes={c['writeback_bytes']}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": str(device), "storage_ratio": ratio,
@@ -454,7 +568,9 @@ def main(argv=None):
                        "open_loop": ({k: v for k, v in open_loop.items()
                                       if k != "tickets"}
                                      if open_loop is not None else None),
-                       "counters": counters}, f, indent=2)
+                       "counters": counters,
+                       "tiers": (store.counters() if store is not None
+                                 else None)}, f, indent=2)
     return engine
 
 

@@ -21,24 +21,27 @@ path, composable bottom-up.
                   ``score`` as a synchronous wrapper; Figure-5 per-cell
                   latency split and per-request queue / assembly / compute
                   breakdown.
-  ``repack``    — RepackPlanner / TableSwapper: serving-time precision
-                  adaptation, swapped in place with zero recompiles.
+  ``repack``    — RepackPlanner / TableSwapper / PressureAdapter:
+                  serving-time precision adaptation, swapped in place with
+                  zero recompiles, driven by the tiered stores' counters.
 
-The tiered lane, decode, two-tower retrieval and ``PressureAdapter`` come
-with ROADMAP Queue 1 items 4 and 5.
+The tiered lane serves from ``repro_torch.cache.TieredTableStore``
+(``Engine.register_tiered_model``/``score_tiered``/``attach_tier_policy``).
+Decode and two-tower retrieval come with ROADMAP Queue 1 item 5.
 """
 from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
 from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,
                                      device_signature)
 from repro_torch.serve.cells import (ServeCellDef, baseline_score_cell,
                                      packed_lookup_cell, packed_score_cell,
-                                     packed_score_step)
+                                     packed_score_step, tiered_score_cell)
 from repro_torch.serve.clock import ManualClock, TickClock
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.queue import (AdmissionQueue, Request,
                                      RequestFailedError, TenantQuota)
-from repro_torch.serve.repack import (RepackPlan, RepackPlanner,
-                                      TableSwapper, headroom_capacities,
+from repro_torch.serve.repack import (PressureAdapter, RepackPlan,
+                                      RepackPlanner, TableSwapper,
+                                      headroom_capacities,
                                       subtable_capacities)
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
@@ -49,7 +52,8 @@ __all__ = [
     "AdmissionQueue", "Request", "TenantQuota", "RequestFailedError",
     "ManualClock", "TickClock", "Scheduler",
     "ServeCellDef", "baseline_score_cell", "packed_score_cell",
-    "packed_score_step", "packed_lookup_cell", "Engine",
-    "RepackPlan", "RepackPlanner", "TableSwapper",
+    "packed_score_step", "packed_lookup_cell", "tiered_score_cell",
+    "Engine", "RepackPlan", "RepackPlanner", "TableSwapper",
+    "PressureAdapter",
     "headroom_capacities", "subtable_capacities",
 ]

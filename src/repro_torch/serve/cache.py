@@ -87,7 +87,9 @@ class CompiledCell:
     (the counterpart of the reference's ``device_put`` to the cell's input
     shardings), padding a request of fewer rows than the cell with rows of
     id 0: on the card into the graph's static inputs, through pinned
-    staging buffers padded in place; on the CPU into tensors.
+    staging buffers padded in place, and returns them all; on the CPU into
+    tensors, and returns those. A call that stages the leading inputs only
+    always stages those.
     ``compiled(*request)`` runs the executable on them and returns its
     output — on the card the graph's static output, valid until the next
     replay of any cell of the cache."""
@@ -115,6 +117,12 @@ class CompiledCell:
         return f"{self.key.arch}/{self.key.shape}"
 
     @property
+    def inputs(self) -> tuple:
+        """The graph's static request inputs on the card (empty on the
+        CPU): what a replay reads."""
+        return self._inputs
+
+    @property
     def launches(self) -> dict:
         """Kernel launches this executable's calls made, by kernel name."""
         return {name: self.replays * n for name, n in self.captured.items()}
@@ -124,11 +132,13 @@ class CompiledCell:
             return tuple(torch.from_numpy(np.ascontiguousarray(
                 RequestBatcher.pad(r, self.rows)[0])) for r in request)
         if not self._staging:
+            # pinned buffers for the inputs staged here (a tiered cell's
+            # cold buffer comes staged by the engine)
             self._staging = tuple(
                 torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                for x in self._inputs)
+                for x in self._inputs[:len(request)])
             self._staged = torch.cuda.Event()
-            self._dirty = [self.rows] * len(self._inputs)
+            self._dirty = [self.rows] * len(self._staging)
         self._staged.synchronize()    # the last copy out of them has ended
         for k, (buf, x, r) in enumerate(zip(self._staging, self._inputs,
                                             request)):

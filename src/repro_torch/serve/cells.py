@@ -11,8 +11,7 @@ fresh every call); ``repro_torch.serve.cache.CellCache`` turns the pair into
 one executable: a CUDA graph captured once on the card, the eager step on
 the CPU. The reference's partition specs have no counterpart on one device.
 
-Tiered, two-tower and LM cells are not ported yet (ROADMAP Queue 1 items 4
-and 5).
+Two-tower and LM cells are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -21,7 +20,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.cache.tiers import cold_buffer_words, tiered_hot_lookup_fn
 from repro_torch.core.inference import packed_lookup_fn
+from repro_torch.kernels.tiered_cold.ops import cold_fill
 
 
 class ServeCellDef(NamedTuple):
@@ -32,7 +33,7 @@ class ServeCellDef(NamedTuple):
     cache."""
     arch: str              # architecture identity (cache-key component)
     shape: str             # shape name, e.g. "serve_p99"
-    kind: str              # score | lookup
+    kind: str              # score | lookup | tiered_score
     batch: int             # leading-dim capacity of the executable
     step_fn: Callable      # step_fn(*bound, *request) -> outputs
     bound: tuple           # trees fixed at registration (params, state, ...)
@@ -118,4 +119,48 @@ def packed_lookup_cell(table, meta, offsets, *, batch: int, n_fields: int,
         request_specs=(((batch, n_fields), torch.int32),),
         meta={"kind": "lookup", "batch": batch, "n_fields": n_fields},
         static=(tuple(meta["bits"]), meta["d"], meta["n"]),
+    )
+
+
+def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
+                      batch: int, arch: str, shape: str) -> ServeCellDef:
+    """Batched CTR scoring from a **tiered** table: ``(ids (B, F), cold
+    (words,)) -> logits (B,)``.
+
+    Hot rows are gathered on the device inside the cell from the bound hot
+    tier (``TieredTableStore.hot``) by the packed lookup, which leaves the
+    zero row at every cold id; the cold rows arrive as the request's staged
+    cold buffer (``TieredTableStore.prefetch_cold``, copied one chunk ahead
+    by the engine) and the cold-fill kernel writes them over those zeros,
+    so no merge is needed. The interaction net is the model's own
+    ``interact``, so the scores match the monolithic score cell.
+
+    ``params`` is the serving param tree *without* the ``"embedding"``
+    entry (the tiered store owns the table). The cell binds the store's
+    own tensors, which its moves, writebacks and refreshes write in place;
+    the cold buffer is sized for every id of the batch cold at the widest
+    width (``cold_buffer_words``). The reference's sharded hot lookup
+    (``shard_lookup``) comes with ROADMAP Queue 1 item 6."""
+    n_fields = len(cfg.fields)
+    d = int(meta["d"])
+    bits = tuple(int(b) for b in meta["bits"])
+    hot_lookup = tiered_hot_lookup_fn(bits, d)
+    fill_meta = {"bits": bits, "d": d}
+
+    def tiered_step(p, st, bufs, hot_tree, ids, cold):
+        gids = ids + bufs["offsets"][None, :]
+        emb = hot_lookup(hot_tree, gids)                        # 0 at cold
+        cold_fill(emb, cold, fill_meta, hot_tree["alpha"], hot_tree["beta"])
+        logits, _ = model.interact(p, st, emb, gids, cfg)
+        return logits
+
+    return ServeCellDef(
+        arch=arch, shape=shape, kind="tiered_score", batch=batch,
+        step_fn=tiered_step,
+        bound=(params, state, buffers, hot),
+        request_specs=(((batch, n_fields), torch.int32),
+                       ((cold_buffer_words(batch * n_fields, meta),),
+                        torch.int32)),
+        meta={"kind": "tiered_score", "batch": batch, "n_fields": n_fields},
+        static=(cfg, bits, d),
     )

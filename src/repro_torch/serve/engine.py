@@ -8,10 +8,10 @@ Request flow for a scored request:
           requests; outputs scatter back per requester via Chunk.spans)
       ──▶ poll(ticket) → logits (n,)
 
-``score`` is a thin synchronous wrapper (submit + drain + poll): a lone
-request packs onto exactly the chunks the per-request planner chooses. The
-port of the reference's ``repro.serve.engine``: the same names, signatures,
-clock reads, counters and summaries.
+``score`` and ``score_tiered`` are thin synchronous wrappers (submit +
+drain + poll): a lone request packs onto exactly the chunks the per-request
+planner chooses. The port of the reference's ``repro.serve.engine``: the
+same names, signatures, clock reads, counters and summaries.
 
 Every executable is built exactly once per (arch, shape, device, bound
 tensors) by the ``CellCache``: on the card a CUDA graph captured at
@@ -22,9 +22,14 @@ the lookup-only companion cell timed alongside, for the paper's Figure-5
 lookup-vs-compute split, plus per-dispatch occupancy; per-request
 queue-wait / batch-assembly / compute land in ``RequestStats``.
 
-Not ported yet, each raising where it is asked for: the tiered lane and
-its policies (ROADMAP Queue 1 item 4), decode and two-tower retrieval
-(item 5), the mesh (item 6).
+The tiered lane serves from a ``repro_torch.cache.TieredTableStore``: its
+cells bind the store's own tensors (the hot tier), which tier moves,
+writebacks and refreshes write in place, so a move reaches the captured
+graphs with no rebind; each chunk's cold rows are staged one chunk ahead
+(``ColdStaging``) while the previous chunk's replay computes.
+
+Not ported yet, each raising where it is asked for: decode and two-tower
+retrieval (ROADMAP Queue 1 item 5), the mesh (item 6).
 """
 from __future__ import annotations
 
@@ -35,19 +40,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.cache.tiers import ColdStaging
 from repro_torch.device import full_float32, resolve_device
 from repro_torch.serve.batcher import RequestBatcher
-from repro_torch.serve.cache import CellCache, CompiledCell
+from repro_torch.serve.cache import CellCache, CompiledCell, bound_signature
 from repro_torch.serve.cells import (ServeCellDef, packed_lookup_cell,
-                                     packed_score_cell)
+                                     packed_score_cell, tiered_score_cell)
 from repro_torch.serve.queue import (DONE, FAILED, SHED, AdmissionQueue,
                                      RequestFailedError, TenantQuota)
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
 from repro_torch.train.tree import tree_map
 
-NOT_PORTED = {"tiered": "ROADMAP Queue 1 item 4 (the tiered cache)",
-              "decode": "ROADMAP Queue 1 item 5 (the LM)",
+NOT_PORTED = {"decode": "ROADMAP Queue 1 item 5 (the LM)",
               "retrieve": "ROADMAP Queue 1 item 5 (two-tower retrieval)"}
 
 
@@ -59,6 +64,38 @@ class RegisteredCell(NamedTuple):
     cell: CompiledCell
     bound: tuple
     lookup: "RegisteredCell | None"
+
+
+class TieredCell(NamedTuple):
+    """A tiered score cell plus the ``TieredTableStore`` that feeds it, the
+    per-field id offsets used to globalize request ids for the cold
+    prefetch (the cell itself re-globalizes on the device), and on the card
+    the cell's double-buffered cold staging."""
+    reg: RegisteredCell
+    store: object             # repro_torch.cache.TieredTableStore
+    offsets: np.ndarray       # (F,) int32
+    staging: ColdStaging | None = None
+
+    def stage(self, rows: np.ndarray) -> tuple:
+        """One chunk's inputs: its ids padded into the cell's input, and its
+        cold fill issued (on the card into the next staging slot, copied
+        on the side stream) → (ids tensor, ColdPrefetch). Padding rows are
+        not routed: they fetch nothing and stay out of the counters."""
+        fill = self.store.prefetch_cold(rows + self.offsets[None, :],
+                                        staging=self.staging)
+        return self.reg.cell.stage(rows)[0], fill
+
+    def cold_input(self, fill):
+        """The cell's cold input holding ``fill``: on the card the graph's
+        static buffer, into which the staged copy is copied on the current
+        stream once it has landed; on the CPU the fill's own buffer."""
+        if self.staging is None:
+            return fill.buffer
+        fill.wait(self.staging.device)
+        cold = self.reg.cell.inputs[1]
+        cold[:fill.buffer.numel()].copy_(fill.buffer)
+        self.staging.consumed(fill)
+        return cold
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -127,9 +164,18 @@ class Engine:
         self._requests: dict[int, object] = {}          # ticket -> Request
         self._score: dict[str, RegisteredCell] = {}     # bucket name -> cell
         self._score_batcher = RequestBatcher()
+        self._tiered: dict[str, TieredCell] = {}        # bucket name -> cell
+        self._tiered_batcher = RequestBatcher()
         self._pending_swaps: list[tuple] = []           # (arch, table, meta)
         self.swaps_applied = 0
-        # the tier policy's moves: zeros until the tiered cache is ported
+        # traffic-adaptive tiering (repro_torch.cache.policy): one policy
+        # drives every registered tiered store; adapters
+        # (repro_torch.serve.repack.PressureAdapter) ride the same hook
+        self._tier_policy = None
+        self._policy_every = 8
+        self._policy_rounds = 0
+        self._adapters: list = []
+        self._hot_seen: dict[str, int] = {}     # shape -> store.hot_version
         self.tier_moves = {"plans": 0, "promotions": 0, "demotions": 0,
                            "bytes": 0}
 
@@ -154,8 +200,6 @@ class Engine:
                  lookup_cell: ServeCellDef | None = None) -> RegisteredCell:
         """Build (or warm-hit) a cell and route it by kind. Score cells also
         register their capacity as a batcher bucket under their shape name."""
-        if celldef.kind == "tiered_score":
-            not_ported("tiered")
         if celldef.kind in ("decode", "decode_slotted"):
             not_ported("decode")
         if celldef.kind == "retrieve":
@@ -194,8 +238,36 @@ class Engine:
                                         shape=shape)
             self.register(cd, lookup_cell=lc)
 
-    def register_tiered_model(self, *args, **kwargs):
-        not_ported("tiered")
+    def register_tiered_model(self, arch, model, cfg, params, state, buffers,
+                              store, *, shapes: dict[str, int]):
+        """Register one **tiered** score cell per (shape name → row capacity)
+        serving from a ``repro_torch.cache.TieredTableStore``: the store's
+        hot tier binds into the cell (the store's own tensors, on the
+        engine's device), cold rows ride each request as staged fills (see
+        ``score_tiered``).
+
+        ``params`` may carry an ``"embedding"`` entry (the monolithic packed
+        table) — it is dropped; the store owns the table now."""
+        if store.device.type != self.device.type:
+            raise ValueError(f"the store's hot tier lies on {store.device}, "
+                             f"the engine serves on {self.device}")
+        state, buffers = (_on_device(t, self.device) for t in (state, buffers))
+        p = _on_device({k: v for k, v in params.items() if k != "embedding"},
+                       self.device)
+        offsets = buffers["offsets"]
+        offsets = np.asarray(offsets.cpu() if torch.is_tensor(offsets)
+                             else offsets, np.int32)
+        for shape, rows in shapes.items():
+            cd = tiered_score_cell(model, cfg, p, state, buffers, store.hot,
+                                   store.meta, batch=rows, arch=arch,
+                                   shape=shape)
+            reg = self._compile(cd)
+            staging = None
+            if self.device.type == "cuda":
+                staging = ColdStaging(cd.request_specs[1][0][0], self.device)
+            self._tiered[shape] = TieredCell(reg, store, offsets, staging)
+            self._tiered_batcher.register(shape, rows)
+            self._hot_seen[shape] = store.hot_version
 
     # -- serving-time precision adaptation (repro_torch.serve.repack) -------
 
@@ -232,7 +304,9 @@ class Engine:
     def _swap_now(self, arch, table, meta):
         regs = [reg for reg in self._score.values()
                 if arch is None or reg.celldef.arch == arch]
-        if not regs:
+        tiered = {shape: tc for shape, tc in self._tiered.items()
+                  if arch is None or tc.reg.celldef.arch == arch}
+        if not regs and not tiered:
             raise ValueError(
                 f"table swap targets no registered cell (arch={arch!r})")
         live = [reg.bound[0]["embedding"] for reg in regs]
@@ -251,6 +325,13 @@ class Engine:
                     f"own")
         for old in tables:
             _write_in_place(old, table)
+        refreshed = set()
+        for shape, tc in tiered.items():
+            if id(tc.store) not in refreshed:    # one refresh per store
+                refreshed.add(id(tc.store))
+                tc.store.refresh(table, meta)
+            self._tiered[shape] = self._rebind_hot(tc)
+            self._hot_seen[shape] = tc.store.hot_version
         self.swaps_applied += 1
 
     def _sharers(self, table) -> int:
@@ -274,6 +355,101 @@ class Engine:
                 f"repack with row_capacities pinned to the live table "
                 f"(repro_torch.serve.repack.subtable_capacities)")
 
+    # -- traffic-adaptive tiering (repro_torch.cache.policy) ----------------
+
+    def attach_tier_policy(self, policy, *, every: int = 8):
+        """Wire an admission/eviction policy (``cache.DecayAdmissionPolicy``
+        or ``cache.StaticTierPolicy``) into the serving loop: every
+        registered tiered store feeds its lookup stream to the policy, and
+        every ``every``-th ``sched_step`` the policy plans a bounded batch
+        of promotions/demotions that the stores apply incrementally, in
+        place — no re-pack, no recapture. Returns the policy."""
+        stores = self._tier_stores()
+        if not stores:
+            raise ValueError(
+                "attach_tier_policy requires a registered tiered model "
+                "(register_tiered_model)")
+        for store in stores:
+            store.attach_policy(policy)
+        self._tier_policy = policy
+        self._policy_every = int(every)
+        return policy
+
+    def attach_adapter(self, adapter):
+        """Register a drift adapter (``repro_torch.serve.repack.
+        PressureAdapter``) on the policy cadence hook: ``adapter.step(
+        engine)`` runs once per ``sched_step``, after tier moves apply — the
+        adapter decides its own cadence and may queue atomic table swaps
+        (``request_swap``), which land at the *next* round's swap point."""
+        self._adapters.append(adapter)
+        return adapter
+
+    def _tier_stores(self) -> list:
+        """The distinct ``TieredTableStore``s behind the tiered cells (one
+        store usually backs several shape buckets)."""
+        stores, seen = [], set()
+        for tc in self._tiered.values():
+            if id(tc.store) not in seen:
+                seen.add(id(tc.store))
+                stores.append(tc.store)
+        return stores
+
+    def _policy_step(self):
+        if self._tier_policy is None and not self._adapters:
+            return
+        self._policy_rounds += 1
+        if (self._tier_policy is not None
+                and self._policy_rounds % self._policy_every == 0):
+            for store in self._tier_stores():
+                plan = self._tier_policy.plan(store)
+                self.tier_moves["plans"] += 1
+                if plan.n_moves:
+                    s = store.apply_moves(plan.promote, plan.demote)
+                    self.tier_moves["promotions"] += s["promotions"]
+                    self.tier_moves["demotions"] += s["demotions"]
+                    self.tier_moves["bytes"] += s["bytes"]
+        for adapter in self._adapters:
+            adapter.step(self)
+        self._sync_tiered()
+
+    def _sync_tiered(self):
+        """Check every tiered cell whose store wrote its hot tier
+        (promotions, writebacks) since the last sync — the counterpart of
+        the reference's rebind: the store wrote in place, so there is
+        nothing to rebind, only the layout to hold."""
+        for shape, tc in list(self._tiered.items()):
+            if self._hot_seen.get(shape) != tc.store.hot_version:
+                self._tiered[shape] = self._rebind_hot(tc)
+                self._hot_seen[shape] = tc.store.hot_version
+
+    def _rebind_hot(self, tc: TieredCell) -> TieredCell:
+        """The reference re-``device_put``s the store's new hot arrays; the
+        port's store wrote its tensors in place, which the cell's graph
+        reads by address. What stays is the check: the cell must still read
+        the store's tensors, at the same shapes and addresses."""
+        reg = tc.reg
+        hot_i = len(reg.bound) - 1          # (params, state, buffers, hot)
+        self._check_swap_layout(reg.bound[hot_i], tc.store.hot, "hot-tier")
+        if bound_signature(reg.bound[hot_i]) != bound_signature(tc.store.hot):
+            raise RuntimeError(
+                f"the tiered cell {reg.celldef.name} no longer reads its "
+                f"store's hot tier: a store must write its tensors in place")
+        return tc
+
+    def writeback_embeddings(self, ids, vectors) -> dict:
+        """Flow training-time embedding updates (global feature ids →
+        full-precision vectors) into every registered tiered store:
+        re-quantized under each feature's current width, mirror written
+        first, hot copies patched in place. Call between scheduling
+        rounds."""
+        out = {"written": 0, "bytes": 0}
+        for store in self._tier_stores():
+            s = store.writeback(ids, vectors)
+            out["written"] += s["written"]
+            out["bytes"] += s["bytes"]
+        self._sync_tiered()
+        return out
+
     # -- request lifecycle: submit / poll / drain ---------------------------
 
     def _timed_call(self, reg: RegisteredCell, *request):
@@ -286,27 +462,31 @@ class Engine:
 
     def submit(self, ids, *, kind: str = "score",
                deadline_ms: float | None = None, now: float | None = None,
-               tenant: str = "default", priority: int = 0) -> int | None:
+               overlap: bool = True, tenant: str = "default",
+               priority: int = 0) -> int | None:
         """Admit an (n, F) scoring request into the queue -> ticket, or None
         when the admission policy sheds it (queue full, load watermark, or
         tenant queue-share quota; all counted per kind and tenant).
 
-        ``tenant``/``priority`` place the request in the multi-tenant
+        ``kind`` routes the request to a lane: ``"score"`` (packed cells) or
+        ``"tiered"`` (hot/cold store cells, where ``overlap`` controls the
+        one-chunk-ahead cold-fill staging). ``tenant``/``priority`` place
+        the request in the multi-tenant
         scheduling lanes (priority 0 is most urgent; dispatch is EDF within
         a lane). ``now`` overrides the arrival timestamp for open-loop
         replay; ``deadline_ms`` is relative to it — requests still queued
         past their deadline are shed at drain."""
-        if kind == "tiered":
-            not_ported("tiered")
-        if kind != "score":
+        if kind not in ("score", "tiered"):
             raise ValueError(
-                f"unroutable request kind {kind!r} (use 'score'; LM "
-                f"generation goes through submit_decode)")
+                f"unroutable request kind {kind!r} (use 'score' or 'tiered'; "
+                f"LM generation goes through submit_decode)")
         ids = np.asarray(ids, np.int32)
         req = self.queue.submit(
             kind, ids, ids.shape[0],
             now=self._clock() if now is None else now,
-            deadline_ms=deadline_ms, tenant=tenant, priority=priority)
+            deadline_ms=deadline_ms,
+            meta={"overlap": overlap} if kind == "tiered" else None,
+            tenant=tenant, priority=priority)
         if req is None:
             self.rstats.record_shed(kind, tenant=tenant)
             return None
@@ -364,8 +544,11 @@ class Engine:
 
         Queued table swaps (``request_swap``) apply here, *before* the round
         dispatches — the atomic swap point: every chunk of a round reads
-        the same table."""
+        the same table. The tier policy and drift adapters run right after
+        the swap point (``_policy_step``), so tier moves are likewise never
+        observed mid-round."""
         self._apply_swaps()
+        self._policy_step()
         return self.scheduler.step(now=now)
 
     def drain(self, *, now: float | None = None) -> float:
@@ -388,8 +571,28 @@ class Engine:
         out = self.poll(ticket)
         return out if return_logits else _sigmoid(out)
 
-    def score_tiered(self, *args, **kwargs):
-        not_ported("tiered")
+    def score_tiered(self, ids, *, overlap: bool = True,
+                     return_logits: bool = False) -> np.ndarray:
+        """Score an (n, F) id batch through the tiered hot/cold store.
+
+        Hot rows are gathered on the device inside the cell; each chunk's
+        cold-row fill (packed words, host-gathered) is staged **one chunk
+        ahead** while the previous chunk's cell is still computing, so the
+        cold transfer hides under compute. ``overlap=False`` stages each
+        fill synchronously right before its dispatch. Results are identical
+        either way (the pipeline only moves bytes earlier)."""
+        ticket = self.submit(ids, kind="tiered", overlap=overlap)
+        if ticket is None:
+            raise RuntimeError("request shed: admission queue full")
+        self.drain()
+        out = self.poll(ticket)
+        return out if return_logits else _sigmoid(out)
+
+    def tier_counters(self) -> dict:
+        """Per-bucket ``TieredTableStore.counters()`` (stores may be shared
+        across buckets, in which case the numbers repeat)."""
+        return {name: tc.store.counters()
+                for name, tc in sorted(self._tiered.items())}
 
     def retrieve(self, *args, **kwargs):
         not_ported("retrieve")
@@ -401,9 +604,12 @@ class Engine:
 
     def registered_cells(self) -> dict:
         """Every registered cell, keyed by its ``CellKey``: {key:
-        RegisteredCell}, lookup-split companions under their own keys."""
+        RegisteredCell}; tiered cells unwrap to their ``RegisteredCell``,
+        lookup-split companions under their own keys."""
         out = {}
-        for reg in self._score.values():
+        regs = list(self._score.values())
+        regs += [tc.reg for tc in self._tiered.values()]
+        for reg in regs:
             for r in (reg, reg.lookup):
                 if r is not None:
                     out[r.cell.key] = r
@@ -423,7 +629,7 @@ class Engine:
         rows over every dispatch — the coalescing win), the admission
         queue's depth/shed counters (per kind and per tenant), goodput —
         completed-request counts — split by lane and by tenant, and the
-        tier moves (zeros until the tiered cache is ported)."""
+        tier policy's moves."""
         out = dict(self.cache.counters())
         out["occupancy"] = self.stats.occupancy()
         out["queue"] = self.queue.counters()

@@ -24,8 +24,9 @@ Three pieces:
   - ``Engine.request_swap`` / ``Engine._apply_swaps`` — the atomic swap
     point: queued swaps apply only **between** ``sched_step``s.
 
-``PressureAdapter``, which reads the tiered stores' counters, comes with
-the tiered cache (ROADMAP Queue 1 item 4).
+``PressureAdapter`` closes the loop from live serving counters: it reads
+the tiered stores' windowed hit/miss counts and plans pressure or promote
+repacks, which the swapper queues.
 """
 from __future__ import annotations
 
@@ -285,4 +286,72 @@ class TableSwapper:
             summary.update(bytes_packed=plan.bytes_packed,
                            bytes_before=plan.bytes_before,
                            n_features_moved=plan.n_features_moved)
+        return summary
+
+
+class PressureAdapter:
+    """Drive ``RepackPlanner.plan_pressure`` from *live* serving counters —
+    precision follows traffic drift automatically.
+
+    Attach with ``Engine.attach_adapter``; ``step(engine)`` runs once per
+    ``sched_step`` (after the tier policy's moves). Every ``every`` rounds
+    the adapter takes a **windowed** hit/miss delta across the engine's
+    tiered stores — windowing, not cumulative counters, so old traffic
+    can't mask fresh drift — and plans against it:
+
+      - miss share above ``promote_below`` → ``plan_pressure`` narrows the
+        tail (cold thrash makes each miss's bytes cheaper);
+      - miss share at/below ``promote_below`` → ``plan_promote`` spends the
+        recovered headroom widening the hottest groups back toward the
+        baseline byte payload.
+
+    A plan moving fewer than ``min_moved`` features is dropped (the swap
+    re-quantizes from the master embedding). Queued swaps land at the
+    *next* round's atomic swap point, with zero recaptures: the capacities
+    were pinned when the serving table was built."""
+
+    def __init__(self, planner: RepackPlanner, swapper: TableSwapper,
+                 group_bits_idx, *, every: int = 32, max_shrink: float = 0.5,
+                 promote_below: float = 0.02, min_moved: int = 1):
+        self.planner = planner
+        self.swapper = swapper
+        self.assignment = np.asarray(group_bits_idx, np.int32).copy()
+        self.base_bytes = planner.bytes_packed(self.assignment)
+        self.every = int(every)
+        self.max_shrink = float(max_shrink)
+        self.promote_below = float(promote_below)
+        self.min_moved = int(min_moved)
+        self._rounds = 0
+        self._seen = (0, 0)     # cumulative (hot, cold) at last window edge
+        self.repacks = 0
+
+    def step(self, engine) -> dict | None:
+        """One cadence tick; returns the repack summary when a swap was
+        queued this round, else None."""
+        self._rounds += 1
+        if self._rounds % self.every:
+            return None
+        hot = cold = 0
+        for store in engine._tier_stores():
+            c = store.counters()
+            hot += c["hot_lookups"]
+            cold += c["cold_lookups"]
+        window = {"hot_lookups": hot - self._seen[0],
+                  "cold_lookups": cold - self._seen[1]}
+        self._seen = (hot, cold)
+        total = window["hot_lookups"] + window["cold_lookups"]
+        if total == 0:
+            return None
+        miss = window["cold_lookups"] / total
+        if miss <= self.promote_below:
+            plan = self.planner.plan_promote(self.assignment,
+                                             bytes_budget=self.base_bytes)
+        else:
+            plan = self.planner.plan_pressure(self.assignment, window,
+                                              max_shrink=self.max_shrink)
+        if plan.n_features_moved < self.min_moved:
+            return None
+        summary = self.swapper.repack(plan)
+        self.assignment = plan.group_bits_idx
+        self.repacks += 1
         return summary

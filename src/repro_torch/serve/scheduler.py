@@ -1,15 +1,18 @@
 """Coalescing scheduler: the dispatch edge of the request lifecycle.
 
-The port of the reference's ``repro.serve.scheduler`` for the score lane.
+The port of the reference's ``repro.serve.scheduler`` for the score and
+tiered lanes.
 The scheduler drains the ``AdmissionQueue`` and turns *many* callers'
 requests into *few* cell-shaped dispatches on the captured-cell substrate
 (``CellCache`` executables — never rebuilt, never reshaped):
 
-  - **score lane** — pending requests come out of the queue in priority/EDF
-    order (the queue owns lane ordering and per-tenant quotas) and are
-    coalesced by ``RequestBatcher.pack`` into the registered cell shapes:
-    one padded cell call carries row spans from many requests, and the
-    outputs scatter back per requester (``Chunk.spans``).
+  - **score / tiered lanes** — pending requests come out of the queue in
+    priority/EDF order (the queue owns lane ordering and per-tenant quotas)
+    and are coalesced by ``RequestBatcher.pack`` into the registered cell
+    shapes: one padded cell call carries row spans from many requests, and
+    the outputs scatter back per requester (``Chunk.spans``). A tiered
+    chunk's cold rows are staged one chunk ahead of the replay that reads
+    them.
   - **max-wait coalescing window** — with ``coalesce_window_ms > 0`` the
     lane *holds* a light load (fewer pending rows than the smallest
     registered bucket) for up to the window, trading p99 for occupancy; the
@@ -24,24 +27,26 @@ Time is driven by the caller: ``step(now=None)`` uses the engine's clock
 (live serving), while an explicit ``now`` advances a virtual timeline by
 measured work (deterministic open-loop replay — ``launch/serve.py --qps``).
 The clock is read at the reference's points and in its order, so a replay
-under ``TickClock`` follows the reference's trajectory. The tiered and
-decode lanes come with ROADMAP Queue 1 items 4 and 5.
+under ``TickClock`` follows the reference's trajectory. The decode lane
+comes with ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.serve.queue import DISPATCHED, DONE, FAILED
 
 # lanes the scheduler coalesces through RequestBatcher.pack
-SCORED_KINDS = ("score",)
+SCORED_KINDS = ("score", "tiered")
 
 
 class Scheduler:
     """Drains the admission queue into coalesced cell dispatches.
 
-    One ``step`` handles the score lane once, in the queue's priority/EDF
+    One ``step`` handles the score and tiered lanes once each, in the
+    queue's priority/EDF
     order, subject to tenant quotas and the max-wait window. ``step``
     returns the advanced ``now`` cursor so an open-loop replay can thread a
     virtual timeline through it — when a round dispatches nothing because
@@ -83,6 +88,7 @@ class Scheduler:
         cursor = self.engine._clock() if wall else float(now)
         self._progress = False
         cursor = self._dispatch_scored("score", cursor, wall)
+        cursor = self._dispatch_scored("tiered", cursor, wall)
         if not wall and not self._progress:
             # the lane held for its coalescing window: jump the virtual
             # cursor to the expiry so drain() terminates. The hold test is
@@ -100,15 +106,18 @@ class Scheduler:
         for req in expired:
             self.engine.rstats.record_shed(req.kind, tenant=req.tenant)
 
-    # -- score lane ----------------------------------------------------------
+    # -- score / tiered lanes ------------------------------------------------
 
     def _take(self, kind: str, cursor: float):
-        """Drain the lane, applying the max-wait coalescing window: below the
-        smallest bucket's row count the lane holds (everything stays queued)
-        until the oldest pending request ages past the window."""
+        """Drain one scored lane, applying the max-wait coalescing window:
+        below the smallest bucket's row count the lane holds (everything
+        stays queued) until the oldest pending request ages past the
+        window."""
         engine = self.engine
         if self.coalesce_window_ms > 0:
-            shapes = engine._score_batcher.shapes
+            batcher = (engine._score_batcher if kind == "score"
+                       else engine._tiered_batcher)
+            shapes = batcher.shapes
             min_rows = min(shapes.values()) if shapes else 0
             return engine.queue.take(kind, now=cursor, min_rows=min_rows,
                                      max_wait_s=self.coalesce_window_ms / 1e3)
@@ -140,7 +149,13 @@ class Scheduler:
 
         for req in ready:
             req.result = np.empty((req.n_rows,), np.float32)
-        chunks = engine._score_batcher.pack([r.n_rows for r in ready])
+        batcher = (engine._score_batcher if kind == "score"
+                   else engine._tiered_batcher)
+        chunks = batcher.pack([r.n_rows for r in ready])
+
+        if kind == "tiered":
+            return self._dispatch_tiered(ready, chunks, cursor, wall)
+
         for chunk in chunks:
             reg = engine._score[chunk.bucket]
             try:
@@ -170,6 +185,65 @@ class Scheduler:
                                    wall)
             self._scatter(ready, chunk, y, assembly_ms, total_ms, cursor,
                           kind)
+        return cursor
+
+    def _dispatch_tiered(self, ready, chunks, cursor: float,
+                         wall: bool) -> float:
+        """Tiered chunks stage each chunk's cold fill one chunk ahead of the
+        in-flight replay (on the card: gathered into one of the cell's two
+        pinned slots and copied on a side stream while the other slot's
+        copy is read). ``overlap=False`` on every coalesced request stages
+        synchronously. The clock is read where the reference reads it."""
+        engine = self.engine
+        overlap = all((r.meta or {}).get("overlap", True) for r in ready)
+        payloads = [r.payload for r in ready]
+        cuda = engine.device.type == "cuda"
+
+        def stage(chunk):
+            t0 = engine._clock()
+            tc = engine._tiered[chunk.bucket]
+            rows = RequestBatcher.gather(payloads, chunk)
+            x, fill = tc.stage(rows)
+            return tc, x, fill, (engine._clock() - t0) * 1e3
+
+        def safe_stage(chunk):
+            try:
+                return stage(chunk)
+            except Exception as err:   # staged one ahead: defer to its chunk
+                return err
+
+        staged = safe_stage(chunks[0]) if overlap else None
+        for k, chunk in enumerate(chunks):
+            try:
+                if overlap:
+                    if isinstance(staged, Exception):
+                        raise staged
+                    tc, x, fill, assembly_ms = staged
+                else:
+                    tc, x, fill, assembly_ms = stage(chunk)
+                self._mark_dispatch(ready, chunk, cursor)
+                t0 = engine._clock()
+                y = tc.reg.cell.compiled(x, tc.cold_input(fill))
+                if overlap and k + 1 < len(chunks):
+                    staged = safe_stage(chunks[k + 1])   # under y's replay
+                if cuda:
+                    # deliberate timing barrier: chunk latency feeds stats
+                    torch.cuda.synchronize(engine.device)
+                total_ms = (engine._clock() - t0) * 1e3
+                # read before the next replay: the cells share one pool
+                y = y.cpu().numpy()
+            except Exception as err:   # fault injection: fail only this chunk
+                self._fail_chunk(ready, chunk, err, cursor, "tiered")
+                if overlap and k + 1 < len(chunks):
+                    staged = safe_stage(chunks[k + 1])
+                continue
+            engine.stats.record(tc.reg.celldef.name, total_ms,
+                                valid_rows=chunk.n_valid,
+                                capacity_rows=chunk.rows)
+            cursor = self._advance(cursor, (assembly_ms + total_ms) / 1e3,
+                                   wall)
+            self._scatter(ready, chunk, y, assembly_ms, total_ms, cursor,
+                          "tiered")
         return cursor
 
     @staticmethod

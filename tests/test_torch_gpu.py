@@ -1,11 +1,14 @@
 """The port on the card: the CUDA ``mpe_lookup``, ``mpe_qat``, flash
-attention, embedding-bag, segment-sum and Adam kernels against their plain
-PyTorch versions, their wrappers' checks and launch counts, the backwards'
+attention, embedding-bag, segment-sum, Adam and tiered cold-fill kernels
+against their plain PyTorch versions, their wrappers' checks and launch counts, the backwards'
 repeatability, the engine on the card against the engine on the CPU, DLRM
 and SASRec training and BST serving and training that go through the
 kernels, the trainer's in-place step and its peak memory, and the serving
 cells captured as CUDA graphs: replays against the eager step, the kernel
-a replay runs, in-place table swaps, steady memory, a capture that fails.
+a replay runs, in-place table swaps, steady memory, a capture that fails;
+the tiered cells' replays against their eager steps and the monolithic
+cells, and tier moves, writebacks and refreshes that keep every bound
+tensor where it was.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -19,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cache import DecayAdmissionPolicy, TieredTableStore
 from repro_torch.configs.dlrm_criteo import make_config
 from repro_torch.core.inference import build_packed_table
 from repro_torch.core.mpe import MPEConfig
-from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
+from repro_torch.data.synthetic import CTRSpec, DriftingCTR, SyntheticCTR
 from repro_torch.configs.bst import make_config as bst_config
 from repro_torch.configs.sasrec import make_config as sasrec_config
 from repro_torch.embeddings import embedding_bag
@@ -41,6 +45,8 @@ from repro_torch.kernels.adam import ops as adam_ops
 from repro_torch.kernels.adam.ref import adam_step_ref_
 from repro_torch.kernels.segment_sum import ops as seg_ops
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+from repro_torch.kernels.tiered_cold import ops as cold_ops
+from repro_torch.kernels.tiered_cold.ref import cold_fill_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.serve import (build_engine, build_packed_dlrm,
                                       packed_master, repack_tools)
@@ -1026,3 +1032,143 @@ def test_a_failed_capture_raises(cuda_device):
                                       (((4, 3), torch.int32),), {}))
     assert cache.counters() == {"compiles": 0, "hits": 0, "cells": 0}
     assert torch.ones(3, device=cuda_device).sum().item() == 3.0
+
+
+# -- the tiered cache: the cold-fill kernel, tiered cells, in-place moves ----
+
+def _cold_case(rng, b, d, n_cold, device, extra=0):
+    """A (0, b) table on ``device`` behind a store with nothing hot but the
+    zero-width features, ``n_cold`` ids of cold features staged through the
+    store, and the fill's buffer copied into one ``extra`` words longer
+    whose tail is junk (the kernel must read its counts, not its length)."""
+    table, meta = _table(rng, (0, b), 1000, d, device)
+    freqs = rng.random(1000)
+    store = TieredTableStore(table, meta, freqs, 0.0, device=device)
+    cold = np.nonzero(~store._is_hot_np)[0]
+    ids = rng.choice(cold, n_cold).astype(np.int32)
+    fill = store.prefetch_cold(ids)
+    buf = torch.from_numpy(rng.integers(-2**31, 2**31 - 1,
+                                        fill.buffer.numel() + extra,
+                                        dtype=np.int64).astype(np.int32))
+    buf = buf.to(device)
+    buf[:fill.buffer.numel()] = fill.buffer
+    return store, meta, ids, buf
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("d", [8, 16, 50, 64])
+def test_cold_fill_kernel_matches_plain(cuda_device, rng, b, d):
+    for n_cold in (0, 1, 255, 4096):
+        store, meta, ids, buf = _cold_case(rng, b, d, n_cold, cuda_device,
+                                           extra=4096 * 3)
+        out = torch.full((n_cold + 7, d), 3.0, device=cuda_device)
+        want = cold_fill_ref(out.clone(), buf, meta["bits"], d,
+                             store.hot["alpha"], store.hot["beta"])
+        before = cold_ops.cold_fill.launches
+        cold_ops.cold_fill(out, buf, meta, store.hot["alpha"],
+                           store.hot["beta"])
+        torch.cuda.synchronize()
+        assert cold_ops.cold_fill.launches == before + 1
+        assert torch.equal(out, want), (b, d, n_cold)
+        # with the hot lookup's zeros under it: the monolithic lookup
+        if n_cold:
+            got = store.lookup(ids)
+            table_ids = torch.from_numpy(ids).to(cuda_device)
+            assert torch.equal(got, packed_lookup_ref(
+                _store_table(store), meta, table_ids)), (b, d, n_cold)
+
+
+def _store_table(store):
+    """The monolithic packed table behind a store, rebuilt from its host
+    mirror (what the store's lookups must equal)."""
+    dev = store.device
+    return {"subtables": {k: torch.from_numpy(v).to(dev)
+                          for k, v in store._mirror.items()},
+            "width_idx": torch.from_numpy(store._width_idx_np).to(dev),
+            "local_idx": torch.from_numpy(store._local_idx_np).to(dev),
+            "alpha": store.hot["alpha"], "beta": store.hot["beta"]}
+
+
+def test_cold_fill_kernel_rejects_what_it_does_not_take(cuda_device, rng):
+    store, meta, _, buf = _cold_case(rng, 4, 16, 10, cuda_device)
+    out = torch.zeros((10, 16), device=cuda_device)
+    a, be = store.hot["alpha"], store.hot["beta"]
+    with pytest.raises(TypeError):
+        cold_ops.cold_fill(out, buf.float(), meta, a, be)
+    with pytest.raises(ValueError):
+        cold_ops.cold_fill(out, buf.cpu(), meta, a, be)
+    with pytest.raises(ValueError):
+        cold_ops.cold_fill(out[:, :8], buf, meta, a, be)
+
+
+def _tiered_engine(device, hot_fraction=0.1):
+    """The reduced DLRM's random packed table behind 64/256-row score and
+    tiered cells on ``device``, the store at ``hot_fraction``."""
+    cfg = make_config(reduced=True)
+    params, buffers, state, spec = build_packed_dlrm(cfg, seed=1,
+                                                     device=device)
+    freqs = SyntheticCTR(spec).expected_frequencies()
+    store = TieredTableStore(params["embedding"], buffers["embedding"]["meta"],
+                             freqs, hot_fraction, device=device)
+    engine = build_engine(cfg, params, state, buffers, p99_rows=64,
+                          bulk_rows=256, store=store, device=device)
+    return cfg, spec, (params, buffers, state), store, engine
+
+
+@pytest.mark.parametrize("hot_fraction", [0.0, 0.1, 1.0])
+def test_tiered_replay_equals_eager_and_the_monolithic_cell(cuda_device,
+                                                           hot_fraction):
+    cfg, spec, _, store, engine = _tiered_engine(cuda_device, hot_fraction)
+    for shape, rows in (("tiered_p99", 64), ("tiered_bulk", 256)):
+        tc = engine._tiered[shape]
+        x, fill = tc.stage(_padded(spec, rows, 7))
+        cold = tc.cold_input(fill)
+        got = tc.reg.cell.compiled(x, cold).clone()
+        with torch.inference_mode():
+            want = tc.reg.celldef.step_fn(*tc.reg.bound, x, cold)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+        assert tc.reg.cell.captured == {"mpe_lookup": 1, "tiered_cold": 1}
+    for rows in (1, 64, 300, 600):
+        ids = _padded(spec, rows, 20 + rows)
+        a = engine.score_tiered(ids, return_logits=True, overlap=True)
+        b = engine.score_tiered(ids, return_logits=True, overlap=False)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(a, engine.score(ids, return_logits=True),
+                                   rtol=0, atol=1e-6)
+    assert engine.compile_count == 6
+
+
+def test_tier_moves_writebacks_and_refresh_stay_in_place(cuda_device, rng):
+    cfg, spec, (params, buffers, state), store, engine = _tiered_engine(
+        cuda_device, 0.1)
+    policy = engine.attach_tier_policy(
+        DecayAdmissionPolicy(store.meta["n"], halflife=4.0, max_moves=64),
+        every=1)
+    bound = [t.data_ptr() for tc in engine._tiered.values()
+             for t in leaves(tc.reg.bound) if torch.is_tensor(t)]
+    hot = [t.data_ptr() for t in leaves(store.hot)]
+    compiles = engine.compile_count
+    drift = DriftingCTR(spec._replace(batch_size=100), shift_at=3,
+                        shift_frac=0.4)
+    master = packed_master(cfg, seed=1, device=cuda_device)
+    emb = master["final_params"]["embedding"]["emb"].cpu().numpy()
+    offs = buffers["offsets"].cpu().numpy()
+    for step in range(8):
+        ids = drift.batch(step)["ids"]
+        engine.score_tiered(ids)
+        gids = np.unique(ids.astype(np.int64) + offs[None, :])
+        engine.writeback_embeddings(gids[:50], emb[gids[:50]])
+    assert engine.tier_moves["promotions"] > 0
+    assert store.counters()["writebacks"] > 0 and policy.observations > 0
+    store.refresh(params["embedding"], buffers["embedding"]["meta"])
+    engine.sched_step()
+    assert [t.data_ptr() for tc in engine._tiered.values()
+            for t in leaves(tc.reg.bound) if torch.is_tensor(t)] == bound
+    assert [t.data_ptr() for t in leaves(store.hot)] == hot
+    assert engine.compile_count == compiles
+    ids = drift.batch(50)["ids"]
+    got = engine.score_tiered(ids, return_logits=True)
+    # the refresh re-seated the original table: the monolithic cells agree
+    np.testing.assert_allclose(got, engine.score(ids, return_logits=True),
+                               rtol=0, atol=1e-6)

@@ -54,8 +54,14 @@ SERVING_PATH = ("serve.clock", "serve.queue", "serve.stats", "serve.batcher",
                 "serve.engine", "serve.repack", "launch.server")
 
 
+# the tiered cache's modules (the store, the policy, the frequency split,
+# the cold-fill kernel)
+TIERED_PATH = ("embeddings.frequency", "cache.tiers", "cache.policy",
+               "kernels.tiered_cold.ops", "kernels.tiered_cold.ref")
+
+
 def test_training_path_modules_are_in_the_port():
-    for name in TRAINING_PATH + SERVING_PATH:
+    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH:
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -65,9 +71,10 @@ def test_every_port_module_imports_without_jax_or_reference():
                           cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
-    assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH)
+    assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH) \
+        + len(TIERED_PATH)
     assert leaked == "[]"
-    for name in TRAINING_PATH + SERVING_PATH:
+    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH:
         assert f"'repro_torch.{name}'" in names, name
 
 

@@ -299,19 +299,13 @@ def test_window_holds_then_releases(model):
 def test_unported_lanes_raise_naming_their_item(model):
     port, _ = engines(model)
     ids = request_ids(model, 1, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port.submit(ids, kind="tiered")
     with pytest.raises(ValueError, match="unroutable"):
         port.submit(ids, kind="retrieve")
     for call, item in ((port.submit_decode, "item 5"),
-                       (port.retrieve, "item 5"),
-                       (port.score_tiered, "item 4"),
-                       (port.register_tiered_model, "item 4")):
+                       (port.retrieve, "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             call(ids)
-    for flag, value in (("--hot-frac", "0.2"), ("--cache-policy", "decay"),
-                        ("--drift", "0.5"), ("--shift-at", "3"),
-                        ("--writeback", "4"), ("--mesh", "2,2")):
+    for flag, value in (("--mesh", "2,2"),):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             launch.main(["--reduced", "--device", "cpu", flag, value])
 

@@ -5,9 +5,10 @@
   joins its thread;
 - ``cache.PrefetchPipeline`` stages ``depth`` steps ahead, serves each step
   once made, and restarts after a jump (as the reference's test in
-  ``tests/test_cache.py``), with batches equal to ``data_fn``'s; its
-  tiered-cache arguments raise, and with no device named it stages on the
-  card, or raises where there is none;
+  ``tests/test_cache.py``), with batches equal to ``data_fn``'s; with a
+  tiered store it stages each step's cold fill in step order and keeps at
+  most ``depth + 1`` of them; with no device named it stages on the card,
+  or raises where there is none;
 - ``Trainer.run`` refuses a pre-built pipeline that stages on another
   device than the trainer's;
 - ``Trainer.run(prefetch=True)`` (and a pre-built pipeline of depth 3)
@@ -92,11 +93,32 @@ def test_pipeline_stages_ahead_and_restarts():
         pipe.close()
 
 
-def test_pipeline_refuses_the_tiered_cache():
-    with pytest.raises(NotImplementedError, match="tiered-cache slice"):
-        PrefetchPipeline(lambda s: {}, store=object(), device="cpu")
+def test_pipeline_cold_fills_bounded_and_in_step_order():
+    """The reference's ``test_prefetch_pipeline_cold_fills_bounded`` on the
+    port: staged cold fills never accumulate (unconsumed fills of past
+    steps go at the next call), and the store sees the steps in order."""
+    class FakeStore:
+        def __init__(self):
+            self.seen = []
+
+        def prefetch_cold(self, ids, valid=None):
+            self.seen.append(int(np.asarray(ids)[0, 0]))
+            return ("fill", self.seen[-1])
+
     with pytest.raises(ValueError, match="depth"):
         PrefetchPipeline(lambda s: {}, depth=0, device="cpu")
+    store = FakeStore()
+    pipe = PrefetchPipeline(lambda s: {"ids": np.full((2, 2), s, np.int32)},
+                            depth=3, store=store, device="cpu")
+    try:
+        for step in range(25):
+            pipe(step)                         # never calls take_cold
+            assert len(pipe._cold) <= pipe.depth + 1
+        assert pipe.take_cold(25) == ("fill", 25)  # current read-ahead usable
+        assert pipe.take_cold(0) is None           # long gone
+        assert store.seen == list(range(28))       # each step once, in order
+    finally:
+        pipe.close()
 
 
 def test_pipeline_stages_on_the_card_unless_told(monkeypatch):
