@@ -159,11 +159,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    their plain versions (as in 8) and timed beside them and the bound; the
    segment sum against its plain version (``F.embedding``'s dense backward
    in float64; elementwise within 2^-22·|want| + c·2^-52·Σ|rows| for a
-   segment of c rows: two float64 sums in any order, each rounded once),
-   twice bit-identical, timed beside it,
-   the library's float32 dense backward it replaces and the bound; the Adam
-   pass against the plain chain bit for bit, a skipped one bit-unchanged,
-   timed on the table beside it and ``torch._fused_adamw_``. Every leaf is
+   segment of c rows: two float64 sums in any order, each rounded once)
+   on the rows the ids touch, every other row 0, twice bit-identical,
+   timed beside it, the library's float32 dense backward it replaces and
+   the bound; what
+   the step's Adam pass left, and one more launch with the flag negated (a
+   skipped pass: bit-unchanged), against the plain chain on host copies of
+   the state from before the step, bit for bit, by slices of rows; timed
+   on the table beside it and ``torch._fused_adamw_``. Every leaf is
    still where it was (updated in place), and a step with a NaN loss leaves
    every bit of the parameters and Adam's state. Then Eq. 11 sampling, the
    packed export, and the trained table served as in 10; one more step
@@ -256,11 +259,57 @@ Phases, each of which raises (and so exits non-zero) on failure:
    lookup's (rtol = atol = 1e-4), the lookups equal to the plain version
    bit for bit, the lookup timed at both cells beside its bound.
 
+20. two-tower retrieval at full width (4 user fields × 8,388,608 + 4 item
+   fields × 2,097,152 = 41,943,040 rows, d = 64, towers 1024-512-256 with
+   BatchNorm, ``mpe_search``, Zipf(1.1) priors per field): at 2,048 rows
+   of a batch the in-batch softmax by blocks of 768 rows against the whole
+   (B, B) matrix (the loss at rtol 1e-5, the towers' gradients at rtol
+   1e-5); 8 ``Trainer`` steps with ``adam(1e-3)`` and λ = 1e-5 at 65,536
+   rows on batches made once (Zipf user and item ids, logQ from the item
+   prior), each launching the ``mpe_qat`` forward and backward once a
+   tower, the segment sum once a gather (four) and the Adam pass once a
+   leaf, every loss finite, no step skipped, the peak under 70 GB (and as
+   tables); one step traced; one more step's ``mpe_qat``, segment-sum and
+   Adam arguments held against their plain versions as in 11 (the Adam
+   pass on the 2,684,354,560-element table leaf too, timed in the traced
+   step only); Eq. 11 sampling and the packed export of the whole
+   table; then ``retrieval_cand`` through ``Engine.register(
+   two_tower_retrieval_cell(..., n_cands=1,048,576, top_k=100))``: one
+   lookup a tower in the graph, both equal to the plain version bit for
+   bit on a full chunk, the items' one timed; requests of 1,048,576,
+   3,000,000 (three chunks) and 1,000 candidates through
+   ``engine.retrieve``, each top 100 against the plain lookup's route
+   (scores within 1e-4, indices where the scores are distinct), then each
+   timed 10 times (p50) with the counts at 0, two lookups a replay; the
+   graph pool's bytes.
+21. GIN at full width (5 layers, d = 64, learnable ε; λ = 1e-5,
+   ``adam(1e-3)``): the molecule cell (128 graphs × 30 nodes / 64 edges,
+   atom vocabulary 119, ``mpe_search``) 8 steps, then Eq. 11 sampling and
+   the atom table's average width; ``full_graph_sm`` (cora's geometry,
+   2,708 nodes / 10,556 edges, 1,433 features: its first scatter is wider
+   than a 256-column tile) 4 steps; ``ogb_products`` (2,449,029 nodes /
+   61,859,140 edges, 100 features, 47 classes, the graph from
+   ``make_sbm_graph``, its host seconds printed) 2 steps. Each step's
+   launches are counted and checked (the segment sum for each scatter and
+   each gather whose input takes a gradient, the lookup's two gathers on
+   the molecule cell, the Adam pass once a leaf); every loss finite, no
+   step skipped, every ε moved. The molecule and cora steps' kernel
+   arguments are recorded and held against their plain versions as in 11.
+   One ``ogb_products`` step traced: the segment-sum kernels ran, and no
+   library ``index_add_``, scatter-add, gather or dense embedding backward
+   kernel. ``scatter_sum`` at cora's first scatter (10,556 × 1,433), at
+   1,048,576 × 1,433 and at ``ogb_products``' shape (61,859,140 × 100):
+   bit-identical to its plain version (taken by column tiles), twice
+   bit-identical, timed beside the byte bound, the plain version and
+   ``index_add_`` (timed only).
+
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, the segment sum and the Adam pass, which
 replace library calls and no TPU kernel, and the tiered cold fill, which
 replaces the reference's eager cold path; ``launches_by_path`` has the
-lifecycle's, ``dlrm lifecycle``, and the tiered lane's, ``dlrm tiered``);
+lifecycle's, ``dlrm lifecycle``, the tiered lane's, ``dlrm tiered``, and
+since phases 20–21 ``two-tower train``, ``two-tower serve``, ``gin
+molecule train``, ``gin cora train`` and ``gin products train``);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -286,13 +335,16 @@ from repro_torch.cache import (DecayAdmissionPolicy,  # noqa: E402
                                tiered_hot_lookup)
 from repro_torch.cache.prefetch import PrefetchPipeline  # noqa: E402
 from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
+from repro_torch.configs.gin_tu import GRAPH_CELLS  # noqa: E402
 from repro_torch.core import compressors, quantizer  # noqa: E402
 from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
 from repro_torch.core.inference import build_packed_table  # noqa: E402
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding  # noqa: E402
 from repro_torch.core.packing import words_per_row  # noqa: E402
-from repro_torch.core.sampling import (feature_bits,  # noqa: E402
-                                       sample_group_bits)
+from repro_torch.core.sampling import (average_bits,  # noqa: E402
+                                       feature_bits, sample_group_bits)
+from repro_torch.data.graphs import (make_molecule_batch,  # noqa: E402
+                                     make_sbm_graph)
 from repro_torch.data.synthetic import (CTRSpec, DriftingCTR,  # noqa: E402
                                         SyntheticCTR)
 from repro_torch.embeddings import embedding_bag  # noqa: E402
@@ -323,11 +375,16 @@ from repro_torch.launch.serve import (build_engine,  # noqa: E402
                                       build_packed_dlrm)
 from repro_torch.launch.server import EngineClient, EngineServer  # noqa: E402
 from repro_torch.models.bst import BST, fields  # noqa: E402
+from repro_torch.models import two_tower as two_tower_module  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
+from repro_torch.models.gnn import GIN  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
+from repro_torch.models.two_tower import (TwoTower,  # noqa: E402
+                                          in_batch_softmax)
 from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
 from repro_torch.serve.cache import CellCache  # noqa: E402
+from repro_torch.serve.cells import two_tower_retrieval_cell  # noqa: E402
 from repro_torch.serve.clock import TickClock  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.repack import PressureAdapter  # noqa: E402
@@ -367,6 +424,19 @@ BST_STEPS = 8
 BST_BATCHES = 2                 # made once, reused in turn
 BST_PLAIN_CHUNK = 131_072       # rows a plain-kernel yardstick apply takes
 ZIPF_A = 1.1
+TT_LAM = 1e-5                   # the reference's two-tower train cell
+TT_STEPS = 8
+TT_BATCHES = 2                  # made once, reused in turn
+TT_CHECK_ROWS = 2048            # the blocked loss beside the whole matrix
+TT_CHECK_BLOCK = 768            # blocks of rows there: not a divisor
+TT_PEAK_LIMIT_GB = 70.0         # a two-tower step's peak must stay under it
+TT_REQUESTS = (1_048_576, 3_000_000, 1_000)   # candidates a request
+TT_REQUEST_REPS = 10
+TT_PLAIN_CHUNK = 262_144        # candidates a plain-route score pass takes
+GIN_LAM = 1e-5                  # the reference's GIN train cells
+GIN_STEPS = {"molecule": 8, "full_graph_sm": 4, "ogb_products": 2}
+GIN_WIDE_ROWS = 1_048_576       # a 1,433-wide scatter at a timeable size
+GIN_WIDE_SEGMENTS = 100_000
 COLD_SOURCE = "src/repro_torch/csrc/tiered_cold.cu"
 COLD_GRID_CAP = 4096             # the grid's largest cold count
 TIERED_FRACTIONS = (0.0, 0.1, 1.0)
@@ -387,6 +457,8 @@ SEG_SOURCE = "src/repro_torch/csrc/segment_sum.cu"
 # |got - want| <= SEG_RTOL·|want| + c·2^-52·Σ|rows| (``segment_sum_bound``)
 SEG_RTOL = 2.0 ** -22
 ADAM_SOURCE = "src/repro_torch/csrc/adam.cu"
+ADAM_WRITES = {"adam_step_": (0, 2, 3)}    # p, m, v: the pass writes them
+ADAM_SLICE = 1 << 26            # elements of a leaf the plain chain takes at a time
 # peak device memory at train_batch while the trainer held the old and the
 # new trees at once in each step (chip_smoke.py on an H100 80GB HBM3, 700 W)
 TWO_TREE_PEAK_GB = {"dlrm": 31.405, "sasrec": 30.720, "bst": 19.840}
@@ -401,6 +473,12 @@ LIBRARY_SEGMENT_KERNELS = ("sum_and_scatter", "compute_grad_weight",
                            "segment_offsets_kernel")
 # paper Table 3's rows other than MPE, at full DLRM width: the gathers a
 # step's backward sums (QR: quotient and remainder; OptFS: rows and gates)
+# and the library's other scatters: index_add_, scatter_add (and gather),
+# index_put_ with accumulate, the dense embedding backward's feature kernel
+GIN_LIBRARY_SCATTERS = LIBRARY_SEGMENT_KERNELS + (
+    "indexFuncLargeIndex", "indexFuncSmallIndex",
+    "_scatter_gather_elementwise_kernel", "index_put_with_sort_kernel",
+    "embedding_backward_feature_kernel")
 BASELINES = ("plain", "lsq", "alpt", "qr", "pep", "optfs")
 BASELINE_GATHERS = {"plain": 1, "lsq": 1, "alpt": 1, "qr": 2, "pep": 1,
                     "optfs": 2}
@@ -2091,17 +2169,19 @@ def qat_records(grid_errs, train, step, sasrec_inputs, bst_inputs,
 
 
 def segment_sum_record(train, step, sasrec_inputs, bst_inputs, extra=(),
-                       grid=()) -> dict:
+                       grid=(), named=None) -> dict:
     """The gathers' backward: ms at the SASRec step's gather with the
     hottest segment, every gather of the recorded DLRM, SASRec, BST and
-    baseline steps and the grid's cases under ``shapes``; the largest
-    |difference| also as a share of its gather's largest |gradient|."""
+    baseline steps and the grid's cases under ``shapes``, with the
+    ``named`` ones (GIN's scatters); the largest |difference| also as a
+    share of its gather's largest |gradient|."""
     shapes = {f"{model} gather {i} ({r['rows']} x {r['w']} -> {r['n']})": r
               for model, inputs in step_inputs_by_model(step, sasrec_inputs,
                                                         bst_inputs, extra)
               for i, r in enumerate(inputs["segment_sum"])}
     shapes.update({f"grid ({r['rows']} x {r['w']} -> {r['n']})": r
                    for r in grid})
+    shapes.update(named or {})
     head = max(sasrec_inputs["segment_sum"], key=lambda r: r["hot_segment"])
     return {"name": "segment_sum", "route": "cuda", "source": SEG_SOURCE,
             "replaces": "aten::embedding_dense_backward, the backward of the "
@@ -2260,24 +2340,26 @@ def with_plain_kernels(fn):
             COUNTERS[name].launches = n
 
 
-def captured(fn, wrappers: dict, clone=()) -> dict:
+def captured(fn, wrappers: dict, writes=None) -> dict:
     """``fn()`` with each kernel wrapper named in ``wrappers`` ({name: the
     module its caller looks it up in}) recording the arguments of its calls;
     returns {name: [args, ...]}, keyword arguments as a dict after the
-    positional ones. The tensors of the wrappers named in ``clone`` (which
-    update them in place) are recorded as copies taken before the call. The
-    launches ``fn`` makes are a comparison's and are not counted."""
+    positional ones. A wrapper named in ``writes`` ({name: positions of the
+    arguments it updates in place}) ends each record with host copies of
+    those arguments taken before the call (a whole table's copies would
+    not fit on the card beside it). The launches ``fn`` makes are a
+    comparison's and are not counted."""
     calls, before = {name: [] for name in wrappers}, counts()
+    writes = writes or {}
 
     def recorder(name):
-        def keep(x):
-            if not torch.is_tensor(x):
-                return x
-            return x.detach().clone() if name in clone else x.detach()
-
         def call(*args, **kw):
-            calls[name].append(tuple(keep(x) for x in args)
-                               + ((kw,) if kw else ()))
+            record = tuple(x.detach() if torch.is_tensor(x) else x
+                           for x in args) + ((kw,) if kw else ())
+            if name in writes:
+                record += (tuple(args[i].detach().to("cpu", copy=True)
+                                 for i in writes[name]),)
+            calls[name].append(record)
             return COUNTERS[name](*args, **kw)
         call.launches = 0       # the wrapper counts under its module's name
         return call
@@ -2332,12 +2414,15 @@ def segment_sum_bound(grad, ids, n, want) -> torch.Tensor:
 
 def check_segment_sums(calls, what: str) -> list:
     """Each recorded gather backward (grad, ids, n): the kernel against its
-    plain version (float64 in both, other orders: ``segment_sum_bound``, so
-    a row of a rounding-size gradient is held to its own size), twice
-    bit-identical; then timed (its wrapper: the sort, the zeroed gradient
-    and the kernels) beside the plain version, the library's dense
-    backward in float32 (the call it replaces on the path) and the byte
-    bound (the gradient rows, the ids, the dense output)."""
+    plain version on the ids renumbered over the rows they touch (the same
+    sums in a (rows touched, w) gradient: two float64 copies of a whole
+    41.9 M x 64 table's would not fit beside the kernel's outputs), held to
+    ``segment_sum_bound`` there (float64 in both, other orders, so a row of
+    a rounding-size gradient is held to its own size); every row no id
+    touches 0; twice bit-identical; then timed (its wrapper: the sort, the
+    zeroed gradient and the kernels) beside the plain version, the
+    library's dense backward in float32 (the call it replaces on the path)
+    and the byte bound (the gradient rows, the ids, the dense output)."""
     out = []
     for grad, ids, n in calls:
         t, w = grad.shape
@@ -2345,20 +2430,25 @@ def check_segment_sums(calls, what: str) -> list:
         got, again = uncounted(lambda: (seg_ops.segment_sum(grad, ids, n),
                                         seg_ops.segment_sum(grad, ids, n)))
         torch.cuda.synchronize()
-        want = segment_sum_ref(grad, ids, n)
-        diff = (got.double() - want.double()).abs()
-        inside = bool((diff <= segment_sum_bound(grad, ids, n, want)).all())
+        check(torch.equal(got, again), f"{label}: two runs gave other bits")
+        del again
+        uniq, inv = torch.unique(ids.long(), return_inverse=True)
+        want = segment_sum_ref(grad, inv, uniq.numel())
+        diff = (got[uniq].double() - want.double()).abs()
+        inside = bool((diff <= segment_sum_bound(grad, inv, uniq.numel(),
+                                                 want)).all())
         err, top = float(diff.max()), float(want.abs().max())
         differ, nonzero = int((diff > 0).sum()), int((want != 0).sum())
         del diff
-        log(f"{label}: {differ} of {got.numel()} elements differ ({nonzero} "
-            f"nonzero), max |diff| {err:.3e}, {err / max(top, 1e-30):.3e} of "
-            f"max |want| {top:.3e}")
+        got.index_fill_(0, uniq, 0.0)
+        log(f"{label}: {differ} of {want.numel()} touched elements differ "
+            f"({nonzero} nonzero), max |diff| {err:.3e}, "
+            f"{err / max(top, 1e-30):.3e} of max |want| {top:.3e}")
         check(inside, f"{label}: outside 2^-22·|want| + c·2^-52·Σ|rows| of "
               f"the plain version (max |diff| {err:.3e})")
-        check(torch.equal(got, again), f"{label}: two runs gave other bits")
-        hot = int(torch.bincount(ids, minlength=n).max())
-        del got, again, want
+        check(not bool(got.any()), f"{label}: a row no id touches is not 0")
+        hot = int(torch.bincount(inv).max())
+        del got, want, uniq, inv
         nbytes = grad.numel() * 4 + ids.numel() * ids.element_size() + n * w * 4
         row = {"rows": t, "w": w, "n": n, "hot_segment": hot,
                "max_abs_err": err, "max_abs_want": top,
@@ -2398,38 +2488,53 @@ def fused_adamw_ms(p, g, m, v, hyper) -> float | None:
         return None
 
 
+def leaf_slices(p) -> list:
+    """Row ranges of about ``ADAM_SLICE`` elements of a leaf of two or more
+    dimensions (a slice keeps the leaf's ndim, on which the decay keys);
+    the whole leaf (``...``) otherwise."""
+    if p.ndim < 2:
+        return [...]
+    rows = max(1, ADAM_SLICE // p[0].numel())
+    return [slice(r, r + rows) for r in range(0, p.shape[0], rows)]
+
+
 def check_adam(calls, what: str, timed: bool = True) -> dict:
-    """Each recorded Adam pass (its leaf, gradient and moments as they were
-    before the step): the pass on copies against the plain chain on copies,
-    bit for bit, with the step's flag and with the flag false (then every
-    bit unchanged); the largest leaf timed beside the plain chain,
-    ``torch._fused_adamw_`` and the byte bound (p, m, v read and written,
-    g read once)."""
-    for p, g, m, v, scale, ok, bc1, bc2, hyper in calls:
-        for flag in (ok, ~ok):
-            got = [x.clone() for x in (p, m, v)]
-            want = [x.clone() for x in (p, m, v)]
-            uncounted(lambda: adam_ops.adam_step_(got[0], g, got[1], got[2],
-                                                  scale, flag, bc1, bc2,
-                                                  **hyper))
-            adam_step_ref_(want[0], g, want[1], want[2], scale, flag, bc1, bc2,
-                           **hyper)
-            check(all(torch.equal(x, y) for x, y in zip(got, want)),
-                  f"{what}: the Adam pass on a {tuple(p.shape)} leaf differs "
-                  f"from the plain chain (flag {bool(flag)})")
-            if not bool(flag):
-                check(all(torch.equal(x, y) for x, y in zip(got, (p, m, v))),
-                      f"{what}: a skipped Adam pass changed bits")
-            del got, want
-    p, g, m, v, scale, ok, bc1, bc2, hyper = max(calls,
-                                                 key=lambda c: c[0].numel())
+    """Each recorded Adam pass (the live leaf, gradient and moments, and host
+    copies of the leaf and moments from before the step; ``captured``
+    with ``ADAM_WRITES``): what the step's own launch left, then what one
+    more launch with the flag negated leaves (a skipped pass: every bit
+    unchanged), each bit for bit against the plain chain on the host
+    copies, one ``leaf_slices`` range at a time (a 2.7 G-element leaf's
+    copies do not fit on the card beside it); the largest leaf timed on
+    copies beside the plain chain, ``torch._fused_adamw_`` and the byte
+    bound (p, m, v read and written, g read once)."""
+    for p, g, m, v, scale, ok, bc1, bc2, hyper, pre in calls:
+        flags = (ok, ~ok)
+        for k, flag in enumerate(flags):
+            if k:
+                uncounted(lambda: adam_ops.adam_step_(p, g, m, v, scale, flag,
+                                                      bc1, bc2, **hyper))
+            for rows in leaf_slices(p):
+                want = [x[rows].to(p.device, copy=True) for x in pre]
+                for f in flags[:k + 1]:
+                    adam_step_ref_(want[0], g[rows], want[1], want[2], scale,
+                                   f, bc1, bc2, **hyper)
+                check(all(torch.equal(x[rows], w)
+                          for x, w in zip((p, m, v), want)),
+                      f"{what}: the Adam pass on a {tuple(p.shape)} leaf "
+                      f"differs from the plain chain (flag {bool(flag)}, "
+                      f"{'one launch after ' if k else ''}the step's launch)")
+                del want
+    p, g, m, v, scale, ok, bc1, bc2, hyper, _ = max(
+        calls, key=lambda c: c[0].numel())
     nbytes = p.numel() * (2 * 4 + 4 + 2 * 2 * m.element_size())
     row = {"leaves": len(calls), "elements": p.numel(), "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0.0}
     if not timed:
         log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the "
             f"plain chain, a skipped one bit-unchanged")
         return row
+    p, m, v = (x.clone() for x in (p, m, v))
     row.update(uncounted(lambda: {
         "ms": cuda_ms(lambda: adam_ops.adam_step_(p, g, m, v, scale, ok, bc1,
                                                   bc2, **hyper), 10),
@@ -2451,7 +2556,7 @@ def check_step_inputs(trainer, batch, step: int, what: str) -> dict:
     |difference| of each kernel and the times."""
     calls = captured(lambda: trainer.train_step(batch, step),
                      {"mixed_expectation_bwd": qat_ops, "segment_sum": seg_ops,
-                      "adam_step_": optimizer_module}, clone=("adam_step_",))
+                      "adam_step_": optimizer_module}, writes=ADAM_WRITES)
     errs = {"qat_fwd": 0.0, "qat_bwd": 0.0}
     qat = []
     for i, (rows, probs, alpha, beta, g, bits) in enumerate(
@@ -3803,8 +3908,8 @@ def phase_reduced_checks(dev) -> dict:
     batch = {key: torch.from_numpy(np.asarray(v)).to(dev)
              for key, v in ds.batch(3).items()}
     calls = captured(lambda: tr.train_step(batch, 3),
-                     {"adam_step_": optimizer_module}, clone=("adam_step_",))
-    rates = [c[-1]["lr"] for c in calls["adam_step_"]]
+                     {"adam_step_": optimizer_module}, writes=ADAM_WRITES)
+    rates = [c[-2]["lr"] for c in calls["adam_step_"]]
     check(all(torch.is_tensor(r) and r.device == batch["ids"].device
               for r in rates),
           "the scheduled Adam pass was not handed its rate on the card")
@@ -3843,6 +3948,583 @@ def phase_reduced_checks(dev) -> dict:
     out["resume_losses"] = resumed
     log(f"reduced dlrm: 3 steps, save, restore, 3 steps: the losses and "
         f"parameters of 6 steps in one run, bit for bit")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: two-tower retrieval at full width
+# ---------------------------------------------------------------------------
+
+def two_tower_prior(cfg) -> dict:
+    """Zipf(1.1) over each field's ids ranked by popularity: the expected
+    lookups a row of every feature (MPE's grouping prior), each field's CDF
+    for drawing ids, and each vocabulary's log probabilities, from which an
+    item's log sampling probability (logQ) is the sum over its fields."""
+    by_vocab = {f.vocab: zipf_prior(f.vocab)
+                for f in (*cfg.user_fields, *cfg.item_fields)}
+    return {"freqs": np.concatenate([by_vocab[f.vocab] for f in
+                                     (*cfg.user_fields, *cfg.item_fields)]),
+            "cdf": {v: np.cumsum(p) for v, p in by_vocab.items()},
+            "logp": {v: np.log(p).astype(np.float32)
+                     for v, p in by_vocab.items()}}
+
+
+def two_tower_batch(rng, prior, cfg, rows: int, dev) -> dict:
+    """A training batch on the card: Zipf(1.1) user and item ids per field,
+    and each item's logQ under the item prior."""
+    def ids(fields):
+        return np.stack([zipf_ids(rng, prior["cdf"][f.vocab], rows)
+                         for f in fields], axis=1)
+    user, item = ids(cfg.user_fields), ids(cfg.item_fields)
+    logq = sum(prior["logp"][f.vocab][item[:, i]]
+               for i, f in enumerate(cfg.item_fields)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            (("user_ids", user), ("item_ids", item), ("item_logq", logq))}
+
+
+def whole_matrix_ce(u, v, logq, temperature: float) -> torch.Tensor:
+    """The reference's in-batch softmax: the whole (B, B) logits."""
+    logits = (u @ v.T) / temperature - logq[None, :]
+    return torch.mean(-torch.log_softmax(logits, dim=-1).diagonal())
+
+
+def check_blocked_loss(trainer, buffers, batch, cfg) -> dict:
+    """At ``TT_CHECK_ROWS`` rows of a training batch, the model's loss by
+    blocks of ``TT_CHECK_BLOCK`` rows (a non-divisor) against the whole
+    (B, B) matrix on the same towers' outputs: the cross-entropy at rtol
+    1e-5 and the towers' gradients at rtol 1e-5, atol 1e-7 of the largest;
+    then ``loss_fn`` itself by blocks against the whole matrix."""
+    part = {k: v[:TT_CHECK_ROWS] for k, v in batch.items()}
+    params, state = trainer.params, trainer.state
+
+    def towers():
+        with torch.no_grad():
+            u, _ = TwoTower.user_tower(params, buffers, state,
+                                       part["user_ids"], cfg, train=True)
+            v, _ = TwoTower.item_tower(params, buffers, state,
+                                       part["item_ids"], cfg, train=True)
+        return u, v
+    u, v = uncounted(towers)
+    block = two_tower_module.LOSS_BLOCK_ROWS
+    two_tower_module.LOSS_BLOCK_ROWS = TT_CHECK_BLOCK
+    try:
+        got_in = [x.clone().requires_grad_(True) for x in (u, v)]
+        want_in = [x.clone().requires_grad_(True) for x in (u, v)]
+        got = in_batch_softmax(*got_in, part["item_logq"], cfg.temperature)
+        want = whole_matrix_ce(*want_in, part["item_logq"], cfg.temperature)
+        got_g = torch.autograd.grad(got, got_in)
+        want_g = torch.autograd.grad(want, want_in)
+        model_ce = uncounted(lambda: TwoTower.loss_fn(
+            params, buffers, state, part, cfg, lam=TT_LAM)[1][1])
+    finally:
+        two_tower_module.LOSS_BLOCK_ROWS = block
+    torch.cuda.synchronize()
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    check(rel <= 1e-5, f"two-tower: the blocked loss {float(got)} is not the "
+          f"whole-matrix loss {float(want)} (rtol 1e-5)")
+    model_rel = abs(float(model_ce) - float(want)) / abs(float(want))
+    check(model_rel <= 1e-5, f"two-tower: loss_fn's cross-entropy "
+          f"{float(model_ce)} by blocks is not the whole-matrix one "
+          f"{float(want)}")
+    top = max(float(g.abs().max()) for g in want_g)
+    grad_err = max(max_abs(g, w) for g, w in zip(got_g, want_g))
+    for g, w in zip(got_g, want_g):
+        check(bool(torch.isclose(g, w, rtol=1e-5, atol=1e-7 * top).all()),
+              f"two-tower: the blocked loss's gradients differ from the "
+              f"whole matrix's by {max_abs(g, w):.3e}")
+    log(f"two-tower: the loss at {TT_CHECK_ROWS} rows by blocks of "
+        f"{TT_CHECK_BLOCK} {float(got):.7f}, the whole matrix "
+        f"{float(want):.7f} (rel {rel:.2e}; loss_fn {float(model_ce):.7f}); "
+        f"gradients within {grad_err:.3e} (largest {top:.3e})")
+    return {"rows": TT_CHECK_ROWS, "block": TT_CHECK_BLOCK,
+            "blocked": float(got), "whole": float(want), "rel": rel,
+            "loss_fn": float(model_ce), "grad_max_abs_err": grad_err}
+
+
+def two_tower_plain_scores(params, buffers, state, cfg, user, cands):
+    """Every candidate's score through the plain lookup, in chunks of
+    ``TT_PLAIN_CHUNK`` candidates, on the card: the yardstick of the
+    engine's top-k."""
+    def run():
+        with torch.inference_mode():
+            u, _ = TwoTower.user_tower(params, buffers, state, user, cfg)
+            out = []
+            for lo in range(0, cands.shape[0], TT_PLAIN_CHUNK):
+                v, _ = TwoTower.item_tower(params, buffers, state,
+                                           cands[lo:lo + TT_PLAIN_CHUNK], cfg)
+                out.append((v @ u[0]) / cfg.temperature)
+            return torch.cat(out)
+    return with_plain_kernels(run)
+
+
+def serve_two_tower(sparams, sbuffers, state, scfg, rng, prior, dev) -> dict:
+    """``retrieval_cand`` through ``Engine.register(two_tower_retrieval_cell
+    (..., n_cands=1,048,576, top_k=100))`` and ``engine.retrieve``: the
+    graph holds one lookup a tower; each request of ``TT_REQUESTS``
+    candidates equals the plain lookup's route (top-100 scores within
+    ``SCORE_TOL``, indices where the scores are distinct), then is timed
+    ``TT_REQUEST_REPS`` times with the counts at 0, each replay launching
+    two lookups."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved_before = torch.cuda.memory_reserved()
+    engine = Engine(device=dev)
+    t0 = time.perf_counter()
+    reg = engine.register(two_tower_retrieval_cell(
+        TwoTower, scfg, sparams, state, sbuffers, n_cands=N_CANDIDATES,
+        top_k=TOP_K, arch="two-tower-retrieval"))
+    capture_s = time.perf_counter() - t0
+    check(reg.cell.captured == {"mpe_lookup": 2},
+          f"two-tower retrieval cell captured {reg.cell.captured}, not one "
+          f"mpe_lookup a tower")
+    pool = engine.cache.pool_bytes()
+    log(f"two-tower retrieval cell ({N_CANDIDATES} candidates, top "
+        f"{TOP_K}) captured in {capture_s:.2f} s: {reg.cell.captured}; the "
+        f"graph pool {pool / 1e9:.3f} GB")
+    user = np.stack([zipf_ids(rng, prior["cdf"][f.vocab], 1)
+                     for f in scfg.user_fields], axis=1)
+    most = max(TT_REQUESTS)
+    cands = np.stack([rng.integers(0, f.vocab, most, dtype=np.int32)
+                      for f in scfg.item_fields], axis=1)
+    out = {"capture_s": capture_s, "pool_bytes": pool, "captured":
+           reg.cell.captured, "requests": {}}
+    user_t = torch.from_numpy(user).to(dev)
+    # the cell's step run eagerly on a full corpus chunk: both lookups
+    # equal the plain version bit for bit; the items' lookup timed
+    staged = reg.cell.stage(user, cands[:N_CANDIDATES],
+                            np.ones((N_CANDIDATES,), bool))
+
+    def step():
+        with torch.inference_mode():
+            return reg.celldef.step_fn(*reg.bound, *staged)
+    calls = recorded_lookups(step)
+    check(len(calls) == 2, f"two-tower retrieval step: {len(calls)} lookups, "
+          f"not one a tower")
+    check_lookup_bits(calls, "two-tower retrieval_cand")
+    out["lookup"] = {"two-tower retrieval_cand items": time_lookup(
+        *calls[1], "two-tower retrieval_cand items", plain=True)}
+    del calls, staged
+    for size in TT_REQUESTS:
+        part = cands[:size]
+        got_s, got_i = engine.retrieve(user, part)
+        want = two_tower_plain_scores(sparams, sbuffers, state, scfg, user_t,
+                                      torch.from_numpy(part).to(dev))
+        want_s, want_i = torch.topk(want, min(TOP_K, size))
+        del want
+        err, distinct = check_topk(torch.from_numpy(got_s).to(dev),
+                                   torch.from_numpy(got_i).to(dev),
+                                   want_s, want_i,
+                                   f"two-tower retrieve of {size} candidates")
+        out["requests"][size] = {"max_abs_err": err,
+                                 "distinct_indices": distinct}
+    reset_lookup_counts(engine)
+    replays = 0
+    for size in TT_REQUESTS:
+        part = cands[:size]
+        ms = time_requests(lambda p=part: engine.retrieve(user, p),
+                           TT_REQUEST_REPS)
+        replays += TT_REQUEST_REPS * -(-size // N_CANDIDATES)
+        row = out["requests"][size]
+        row.update({"chunks": -(-size // N_CANDIDATES), "ms": ms,
+                    "p50_ms": p50(ms), "max_ms": max(ms)})
+        log(f"two-tower retrieve of {size} candidates ({row['chunks']} "
+            f"chunk(s)): p50 {row['p50_ms']:.3f} ms, max {row['max_ms']:.3f} "
+            f"ms of {TT_REQUEST_REPS} (host clock, the engine's synchronize "
+            f"and the top-k's read included)")
+    launches = lookup_launches(engine)
+    check(reg.cell.replays == replays and launches == 2 * replays,
+          f"two-tower serve: {reg.cell.replays} replays and {launches} "
+          f"lookups, not {replays} and {2 * replays}")
+    out["launches"] = {**{name: 0 for name in COUNTERS},
+                       "mpe_lookup": launches}
+    out["peak_reserved_bytes"] = (torch.cuda.max_memory_reserved()
+                                  - reserved_before)
+    log(f"two-tower serve: {replays} replays, {launches} mpe_lookup "
+        f"launches (two a replay); serving reserved "
+        f"{out['peak_reserved_bytes'] / 1e9:.3f} GB above what was reserved "
+        f"before")
+    del engine, reg
+    gc.collect()
+    return out
+
+
+def phase_two_tower(dev) -> dict:
+    """Two-tower retrieval at full width: 8 ``Trainer`` steps at 65,536
+    rows, the blocked loss against the whole matrix, Eq. 11 sampling and
+    the packed export of the whole table, then ``retrieval_cand`` through
+    the engine."""
+    cfg = get_arch("two-tower-retrieval").make_config()
+    fields_ = (*cfg.user_fields, *cfg.item_fields)
+    n = total_vocab(fields_)
+    log(f"two-tower: {len(cfg.user_fields)} user fields x "
+        f"{cfg.user_fields[0].vocab} + {len(cfg.item_fields)} item fields x "
+        f"{cfg.item_fields[0].vocab} = {n} rows, d={cfg.d_embed}, towers "
+        f"{cfg.tower_hidden}, {cfg.compressor}")
+    t0 = time.perf_counter()
+    prior = two_tower_prior(cfg)
+    rng = np.random.default_rng(SEED + 20)
+    batches = [two_tower_batch(rng, prior, cfg, TRAIN_ROWS, dev)
+               for _ in range(TT_BATCHES)]
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, buffers, state = TwoTower.init(cfg, prior["freqs"], seed=SEED,
+                                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        return TwoTower.loss_fn(p, bu, st, batch, cfg, lam=TT_LAM, train=True,
+                                step=step)
+
+    trainer = Trainer(loss_fn, params, buffers, state, adam(1e-3))
+    del params
+    table_bytes = cfg_table_bytes(trainer.params["embedding"]["emb"])
+    log(f"two-tower: prior and {TT_BATCHES} batches of {TRAIN_ROWS} rows on "
+        f"the host in {batch_s:.1f} s; init on the card {init_s:.1f} s; "
+        f"table {table_bytes / 1e9:.3f} GB")
+    blocked = check_blocked_loss(trainer, buffers, batches[0], cfg)
+    torch.cuda.synchronize()
+    live_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # a step: one lookup a tower (the mpe_qat forward and backward once
+    # each), the two gathers of each lookup summed back (rows and group
+    # probabilities), the Adam pass once a leaf
+    per_step = {**{name: 0 for name in COUNTERS},
+                "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
+                "segment_sum": 4, "adam_step_": len(leaves(trainer.params))}
+    outs, step_ms = [], []
+    t_all = time.perf_counter()
+    for step in range(TT_STEPS):
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(trainer.train_step(batches[step % TT_BATCHES], step))
+        if step == 0:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        check(launched == per_step, f"two-tower step {step} launched "
+              f"{launched}, not {per_step}")
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t_all) * 1e3 - step_ms[0]
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o["loss"]) for o in outs]
+    check(all(np.isfinite(x) for x in losses), f"a loss was not finite: {losses}")
+    check(not any(bool(o["skipped"]) for o in outs), "a step was skipped")
+    check(peak < TT_PEAK_LIMIT_GB * 1e9, f"two-tower step peak "
+          f"{peak / 1e9:.3f} GB, not under {TT_PEAK_LIMIT_GB} GB")
+    log(f"two-tower train: {TT_STEPS} steps at {TRAIN_ROWS} rows, launches "
+        f"{launches}; first step {step_ms[0]:.1f} ms, then "
+        f"{steady_ms / (TT_STEPS - 1):.1f} ms a step (host clock to a "
+        f"synchronize over {TT_STEPS - 1} steps); peak memory "
+        f"{peak / 1e9:.3f} GB, {peak / table_bytes:.2f} tables "
+        f"({live_before / 1e9:.3f} GB live before); losses "
+        f"{[round(x, 5) for x in losses]}")
+    traced = trace(lambda: trainer.train_step(batches[0], TT_STEPS), 1)
+    step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                        "top")}
+    step_view["kernel_ms"] = step_kernel_ms(traced["by_name"])
+    log(f"traced two-tower train step: wall {traced['wall_ms']:.1f} ms, "
+        f"device busy {traced['busy_ms']:.1f} ms (idle share "
+        f"{traced['idle_share']:.3f}); kernels {step_view['kernel_ms']}; top "
+        + "; ".join(f"{name} {ms:.2f} ms" for name, ms in traced["top"]))
+    # one more step's mpe_qat, segment-sum and Adam arguments, held against
+    # their plain versions (the segment sums once the trainer is gone: the
+    # plain version's float64 gradient of the whole table is 21.5 GB)
+    calls = captured(lambda: trainer.train_step(batches[1], TT_STEPS + 1),
+                     {"mixed_expectation_bwd": qat_ops,
+                      "segment_sum": seg_ops, "adam_step_": optimizer_module},
+                     writes=ADAM_WRITES)
+    # the table leaf's pass (41,943,040 x 64, past 2^31 elements) is timed
+    # in the traced step only: copies of its p, m, v do not fit beside it
+    adam_row = {**check_adam(calls.pop("adam_step_"), "two-tower step",
+                             timed=False),
+                "traced_step_ms_all_leaves": step_view["kernel_ms"]["adam"]}
+    qat, qat_errs = [], [0.0, 0.0]
+    for i, (rows, probs, alpha, beta, g, bits) in enumerate(
+            calls["mixed_expectation_bwd"]):
+        label = f"two-tower step: mpe_qat tower {i} at {rows.shape[0]} x {rows.shape[1]}"
+        f, b = uncounted(lambda: check_qat(rows, probs, alpha, beta, g, bits,
+                                           label))
+        qat_errs = [max(qat_errs[0], f), max(qat_errs[1], b)]
+        qat.append({**time_qat(rows, probs, alpha, beta, g, bits, label),
+                    "max_abs_err_fwd": f, "max_abs_err_bwd": b})
+    del calls["mixed_expectation_bwd"]
+
+    # Eq. 11 sampling and the packed export of the whole table
+    mpe = as_mpe_config(cfg.comp_cfg)
+    trainer.carry["opt"] = None         # Adam's moments: two tables
+    emb = trainer.params["embedding"]
+    t0 = time.perf_counter()
+    fb = feature_bits(sample_group_bits(emb, mpe),
+                      buffers["embedding"]["group_of_feature"])
+    table, meta = build_packed_table(emb["emb"], fb, emb["alpha"], emb["beta"],
+                                     mpe)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    scfg = serve_cfg(cfg, n)
+    ratio = Packed.storage_ratio(table, {"meta": meta}, scfg.comp_cfg)
+    sparams = {k: v for k, v in trainer.params.items() if k != "embedding"}
+    sparams = {**tree_map(lambda x: x.detach(), sparams), "embedding": table}
+    sstate = trainer.state
+    sbuffers = {**{k: v for k, v in buffers.items() if k != "embedding"},
+                "embedding": {"meta": meta}}
+    del trainer, emb, fb, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"two-tower export: Eq. 11 sampling and the packed table of {n} rows "
+        f"in {export_s:.2f} s; storage ratio {ratio:.6f}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB live after the "
+        f"training trees were freed")
+    seg = uncounted(lambda: check_segment_sums(calls.pop("segment_sum"),
+                                               "two-tower step"))
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = serve_two_tower(sparams, sbuffers, sstate, scfg, rng, prior, dev)
+    return {"launches": launches, "first_step_ms": step_ms[0],
+            "step_ms": steady_ms / (TT_STEPS - 1), "peak_bytes": peak,
+            "table_bytes": table_bytes, "peak_tables": peak / table_bytes,
+            "live_bytes_before": live_before, "losses": losses,
+            "blocked_loss": blocked, "traced_step": step_view,
+            "storage_ratio": ratio, "export_s": export_s, "init_s": init_s,
+            "served": served,
+            "step_inputs": {"errs": {"qat_fwd": qat_errs[0],
+                                     "qat_bwd": qat_errs[1]},
+                            "mpe_qat": qat, "segment_sum": seg,
+                            "adam": adam_row}}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: GIN at full width
+# ---------------------------------------------------------------------------
+
+def gin_per_step(cfg, n_leaves: int) -> dict:
+    """The launches one GIN step makes: a segment sum for each layer's
+    message scatter and, on graph readout, the pooling (forwards); one for
+    each message gather whose input takes a gradient (every layer's but the
+    first on dense features, which take none) and, on categorical input,
+    the lookup's two gathers (backwards); the ``mpe_qat`` forward and
+    backward once on categorical input; the Adam pass once a leaf."""
+    categorical = cfg.input_mode == "categorical"
+    seg = (cfg.n_layers + (cfg.readout == "graph")
+           + cfg.n_layers - (not categorical) + 2 * categorical)
+    return {**{name: 0 for name in COUNTERS},
+            "mixed_expectation_fwd": int(categorical),
+            "mixed_expectation_bwd": int(categorical),
+            "segment_sum": seg, "adam_step_": n_leaves}
+
+
+def gin_device_graph(graph: dict, dev) -> dict:
+    """The graph's arrays on the card (the static counts dropped)."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in graph.items()
+            if isinstance(v, np.ndarray)}
+
+
+def train_gin(shape: str, batches: list, dev, *, n_steps: int) -> dict:
+    """``n_steps`` ``Trainer`` steps of full-width GIN on ``shape``'s cell
+    (``batches`` in turn), each step's launches checked against
+    ``gin_per_step``; returns the trainer, the per-step ms, the launches and
+    the peak memory."""
+    cfg = get_arch("gin-tu").make_config(shape=shape)
+    cell = GRAPH_CELLS[shape]
+    freqs = (zipf_prior(cfg.atom_vocab)
+             if cfg.input_mode == "categorical" else None)
+    params, buffers = GIN.init(cfg, freqs, seed=SEED, device=dev)
+    n_graphs = cell.n_graphs
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        graph = dict(batch, n_graphs=n_graphs) if n_graphs else batch
+        loss, ce = GIN.loss_fn(p, bu, graph, cfg, lam=GIN_LAM, train=True,
+                               step=step)
+        return loss, (st, ce)
+
+    trainer = Trainer(loss_fn, params, buffers, {}, adam(1e-3))
+    per_step = gin_per_step(cfg, len(leaves(trainer.params)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, step_ms = [], []
+    for step in range(n_steps):
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(trainer.train_step(batches[step % len(batches)], step))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        check(launched == per_step, f"gin {shape} step {step} launched "
+              f"{launched}, not {per_step}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o["loss"]) for o in outs]
+    check(all(np.isfinite(x) for x in losses),
+          f"gin {shape}: a loss was not finite: {losses}")
+    check(not any(bool(o["skipped"]) for o in outs),
+          f"gin {shape}: a step was skipped")
+    eps = [float(layer["eps"]) for layer in trainer.params["layers"]]
+    check(all(e != 0.0 for e in eps), f"gin {shape}: an ε did not move: {eps}")
+    log(f"gin {shape}: {n_steps} steps, {per_step['segment_sum']} segment "
+        f"sums and {per_step['adam_step_']} Adam passes a step; step ms "
+        f"{[round(x, 2) for x in step_ms]} (host clock to a synchronize); "
+        f"peak memory {peak / 1e9:.3f} GB; losses "
+        f"{[round(x, 5) for x in losses]}; ε {[round(e, 6) for e in eps]}")
+    return {"trainer": trainer, "cfg": cfg, "buffers": buffers,
+            "launches": launches, "step_ms": step_ms, "peak_bytes": peak,
+            "losses": losses, "eps": eps, "per_step": per_step}
+
+
+def scatter_record(x, seg, n: int, what: str, plain_cols: int) -> dict:
+    """``scatter_sum`` forward at a path's shape held against its plain
+    version bit for bit (the plain version by column tiles of
+    ``plain_cols``: its float64 copy of the whole may not fit), twice
+    bit-identical; then timed beside the tiled plain version,
+    ``index_add_`` (one PyTorch call for the same sums, in float32; timed
+    only) and the byte bound (x read once, the segment ids, the output
+    written once)."""
+    t, w = x.shape
+    label = f"{what}: scatter_sum ({t} x {w} -> {n})"
+    got, again = uncounted(lambda: (seg_ops.scatter_sum(x, seg, n),
+                                    seg_ops.scatter_sum(x, seg, n)))
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{label}: two runs gave other bits")
+    del again
+    differ = 0
+    for c in range(0, w, plain_cols):
+        want = segment_sum_ref(x[:, c:c + plain_cols], seg, n)
+        differ += int((got[:, c:c + plain_cols] != want).sum())
+        del want
+    check(differ == 0, f"{label}: {differ} elements differ from the plain "
+          f"version")
+    hot = int(torch.bincount(seg, minlength=n).max())
+    del got
+    nbytes = t * w * 4 + t * seg.element_size() + n * w * 4
+
+    def plain():
+        for c in range(0, w, plain_cols):
+            segment_sum_ref(x[:, c:c + plain_cols], seg, n)
+
+    row = {"rows": t, "w": w, "n": n, "hot_segment": hot, "max_abs_err": 0.0,
+           "max_abs_want": None, "max_err_over_max_want": 0.0,
+           "elements_differ": 0, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "plain_by_columns": plain_cols}
+    row.update(uncounted(lambda: {
+        "ms": cuda_ms(lambda: seg_ops.scatter_sum(x, seg, n), 5, warmup=1),
+        "plain_ms": cuda_ms(plain, 1, warmup=0),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            (n, w), device=x.device).index_add_(0, seg, x), 3, warmup=1)}))
+    log(f"{label}: bit-identical to the plain version, twice; hot segment "
+        f"{hot} rows; {row['ms']:.4f} ms a call, the sort included (plain "
+        f"{row['plain_ms']:.4f} ms by {plain_cols} columns; index_add_ "
+        f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
+        f"{row['bound_ms'] / row['ms']:.1%} of it)")
+    return row
+
+
+def phase_gin(dev) -> dict:
+    """GIN at full width (5 layers, d 64, learnable ε): the molecule cell,
+    ``full_graph_sm`` (cora's geometry: its 1,433-wide first scatter) and
+    ``ogb_products`` (61.9 M edges), each step's launches checked; one
+    traced ``ogb_products`` step; the scatter at ``ogb_products``' shape
+    and at w = 1,433 held against its plain version and timed."""
+    out = {}
+    cell = GRAPH_CELLS["molecule"]
+    mol = [make_molecule_batch(cell.n_graphs, cell.n_nodes, cell.n_edges,
+                               atom_vocab=cell.atom_vocab, seed=SEED + s)
+           for s in range(GIN_STEPS["molecule"])]
+    mol = [gin_device_graph(b, dev) for b in mol]
+    res = train_gin("molecule", mol, dev, n_steps=GIN_STEPS["molecule"])
+    step = check_step_inputs(res["trainer"], mol[0], GIN_STEPS["molecule"],
+                             "gin molecule")
+    cfg = res["cfg"]
+    mpe = as_mpe_config(cfg.comp_cfg)
+    emb = res["trainer"].params["embedding"]
+    fb = feature_bits(sample_group_bits(emb, mpe),
+                      res["buffers"]["embedding"]["group_of_feature"])
+    bits = average_bits(fb, mpe)
+    log(f"gin molecule: Eq. 11 sampling, the atom table's average width "
+        f"{bits:.4f} bits (ratio {bits / 32:.4f})")
+    out["molecule"] = {k: res[k] for k in ("launches", "step_ms", "peak_bytes",
+                                           "losses", "eps")}
+    out["molecule"].update({"avg_bits": bits, "step_inputs": step})
+    del res, mol
+
+    cell = GRAPH_CELLS["full_graph_sm"]
+    cora = make_sbm_graph(cell.n_nodes, cell.n_edges, cell.d_feat,
+                          cell.n_classes, seed=SEED)
+    cora_dev = gin_device_graph(cora, dev)
+    res = train_gin("full_graph_sm", [cora_dev], dev,
+                    n_steps=GIN_STEPS["full_graph_sm"])
+    step = check_step_inputs(res["trainer"], cora_dev,
+                             GIN_STEPS["full_graph_sm"], "gin cora")
+    widths = sorted({r["w"] for r in step["segment_sum"]})
+    check(max(widths) == cell.d_feat, f"gin cora: no {cell.d_feat}-wide "
+          f"scatter among the step's segment sums ({widths})")
+    out["full_graph_sm"] = {k: res[k] for k in ("launches", "step_ms",
+                                                "peak_bytes", "losses", "eps")}
+    out["full_graph_sm"]["step_inputs"] = step
+    del res
+    scatter = {"cora w 1433": scatter_record(
+        torch.from_numpy(cora["x"]).to(dev)[cora_dev["edge_src"].long()],
+        cora_dev["edge_dst"], cell.n_nodes, "gin cora", 128)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    wide = torch.randn((GIN_WIDE_ROWS, cell.d_feat), generator=gen, device=dev)
+    wide_seg = torch.randint(0, GIN_WIDE_SEGMENTS, (GIN_WIDE_ROWS,),
+                             generator=gen, device=dev).to(torch.int32)
+    scatter[f"w 1433, {GIN_WIDE_ROWS} rows"] = scatter_record(
+        wide, wide_seg, GIN_WIDE_SEGMENTS, "gin wide", 128)
+    del wide, wide_seg, cora, cora_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cell = GRAPH_CELLS["ogb_products"]
+    t0 = time.perf_counter()
+    products = make_sbm_graph(cell.n_nodes, cell.n_edges, cell.d_feat,
+                              cell.n_classes, seed=SEED)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    products_dev = gin_device_graph(products, dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    del products
+    log(f"gin ogb_products: the graph ({cell.n_nodes} nodes, {cell.n_edges} "
+        f"edges, {cell.d_feat} features) made on the host in {graph_s:.1f} s "
+        f"(make_sbm_graph), copied to the card in {copy_s:.2f} s")
+    res = train_gin("ogb_products", [products_dev], dev,
+                    n_steps=GIN_STEPS["ogb_products"])
+    trainer = res["trainer"]
+    traced = trace(lambda: trainer.train_step(products_dev,
+                                              GIN_STEPS["ogb_products"]), 1)
+    kernel_ms = step_kernel_ms(traced["by_name"])
+    library = {name: ms for name, ms in traced["by_name"].items()
+               if any(k in name for k in GIN_LIBRARY_SCATTERS)}
+    check(kernel_ms["segment_sum"] > 0, "traced gin ogb_products step: no "
+          "segment-sum kernel in the trace")
+    check(not library, f"traced gin ogb_products step: library scatter "
+          f"kernels ran: {library}")
+    step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                        "top")}
+    step_view["kernel_ms"] = kernel_ms
+    log(f"traced gin ogb_products step: wall {traced['wall_ms']:.1f} ms, "
+        f"device busy {traced['busy_ms']:.1f} ms (idle share "
+        f"{traced['idle_share']:.3f}); kernels {kernel_ms}; no library "
+        f"scatter; top " + "; ".join(f"{name} {ms:.2f} ms"
+                                     for name, ms in traced["top"]))
+    out["ogb_products"] = {k: res[k] for k in ("launches", "step_ms",
+                                               "peak_bytes", "losses", "eps")}
+    out["ogb_products"].update({"graph_host_s": graph_s, "copy_s": copy_s,
+                                "traced_step": step_view})
+    del res, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.randn((cell.n_edges, cell.d_feat), generator=gen, device=dev)
+    scatter["ogb_products"] = scatter_record(
+        x, products_dev["edge_dst"], cell.n_nodes, "gin ogb_products", 20)
+    del x, products_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["scatter"] = scatter
     return out
 
 
@@ -3903,16 +4585,31 @@ def main() -> int:
     log(json.dumps({"reduced": reduced, "prefetched": step["prefetched"],
                     "table3": table3["runs"], "wide_deep": {
                         k: v for k, v in wide_deep.items() if k != "lookup"}}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_tower = phase_two_tower(dev)
+    gin = phase_gin(dev)
+    log(json.dumps({"two_tower": {k: v for k, v in two_tower.items()
+                                  if k != "step_inputs"},
+                    "gin": {shape: {k: v for k, v in run.items()
+                                    if k != "step_inputs"}
+                            for shape, run in gin.items()}}))
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
                              **bst_serve.pop("lookup"),
-                             **wide_deep.pop("lookup")})
-    extra = table3["recorded"]
+                             **wide_deep.pop("lookup"),
+                             **two_tower["served"].pop("lookup")})
+    extra = [*table3["recorded"],
+             ("gin molecule", gin["molecule"]["step_inputs"]),
+             ("gin cora", gin["full_graph_sm"]["step_inputs"]),
+             ("two-tower", two_tower["step_inputs"])]
     records = [kernel, *qat_records(qat_grid_errs, train, step,
                                     sasrec_train["step_inputs"],
                                     bst_train["step_inputs"], extra),
                segment_sum_record(train, step, sasrec_train["step_inputs"],
-                                  bst_train["step_inputs"], extra, seg_grid),
+                                  bst_train["step_inputs"], extra, seg_grid,
+                                  {f"gin scatter {name}": row for name, row
+                                   in gin["scatter"].items()}),
                adam_record(train, step, sasrec_train["step_inputs"],
                            bst_train["step_inputs"], extra,
                            reduced["schedule"]),
@@ -3931,7 +4628,12 @@ def main() -> int:
                **{f"table3 {name}": run["launches"]
                   for name, run in table3["runs"].items()},
                "wide-deep train": wide_deep["train"]["launches"],
-               "wide-deep serve": wide_deep["serve_launches"]}
+               "wide-deep serve": wide_deep["serve_launches"],
+               "two-tower train": two_tower["launches"],
+               "two-tower serve": two_tower["served"]["launches"],
+               "gin molecule train": gin["molecule"]["launches"],
+               "gin cora train": gin["full_graph_sm"]["launches"],
+               "gin products train": gin["ogb_products"]["launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

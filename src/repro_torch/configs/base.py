@@ -1,6 +1,6 @@
 """ArchSpec: the contract between configs/, the launchers and the tests.
 
-  make_config(reduced[, backbone]) -> model config NamedTuple
+  make_config(reduced[, backbone | shape]) -> model config NamedTuple
   shapes                         -> tuple of shape-cell names
 """
 from __future__ import annotations
@@ -10,8 +10,8 @@ from typing import Callable, NamedTuple
 
 class ArchSpec(NamedTuple):
     arch_id: str
-    family: str                    # recsys
-    make_config: Callable          # (reduced: bool[, backbone: str]) -> config
+    family: str                    # recsys | gnn
+    make_config: Callable          # (reduced: bool[, backbone | shape]) -> config
     shapes: tuple
     citation: str = ""
     notes: str = ""
@@ -28,11 +28,16 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
 def get_arch(arch_id: str) -> ArchSpec:
     import repro_torch.configs.bst  # noqa: F401  (registers)
     import repro_torch.configs.dlrm_criteo  # noqa: F401
+    import repro_torch.configs.gin_tu  # noqa: F401
     import repro_torch.configs.sasrec  # noqa: F401
+    import repro_torch.configs.two_tower_retrieval  # noqa: F401
     import repro_torch.configs.wide_deep  # noqa: F401
     return _REGISTRY[arch_id]
 
 
+# the graph cells of the reference's configs/base.py, each with its own
+# geometry (configs/gin_tu.py)
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 # the recsys cells of the reference's launch/cells.py, and the rows of its
 # serving cells
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")

@@ -42,6 +42,13 @@
 // the segment once. A segment of a million rows is so cut over 16 K chunks
 // summed by as many workers, whose partials 256 threads add.
 //
+// Width. A worker's lanes hold at most kMaxW = 256 columns. A wider row
+// (GIN's first layer sums raw node features, 1,433 wide on cora) is cut
+// into column tiles of at most kMaxW, each launched over the same sorted
+// positions with the row stride `ld` of the full width, one after another
+// on the stream, so nothing is copied. A tile's sums are the whole row's
+// sums of its columns, so the result does not depend on the cut.
+//
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, bound with ctypes.
 
@@ -90,14 +97,15 @@ struct BagRows {
 };
 
 // V floats a load, CPL columns a lane (a multiple of V), kAhead positions
-// loaded ahead; kBag: the bag form.
+// loaded ahead; kBag: the bag form. w columns of rows ld floats apart, in
+// grad and out alike.
 template <int V, int CPL, int kAhead, bool kBag>
 __global__ void __launch_bounds__(kThreads)
 segment_chunk_kernel(const float* __restrict__ grad,
                      const int* __restrict__ ids,
                      const long long* __restrict__ order, long long n_pos,
-                     int w, long long n_chunks, float* __restrict__ out,
-                     Partials part, BagRows bag) {
+                     int w, long long ld, long long n_chunks,
+                     float* __restrict__ out, Partials part, BagRows bag) {
   const int lw = (w + CPL - 1) / CPL;
   const int per_warp = 32 / lw;
   const int lane = threadIdx.x & 31;
@@ -126,7 +134,7 @@ segment_chunk_kernel(const float* __restrict__ grad,
     if (!before && !after) {
 #pragma unroll
       for (int x = 0; x < CPL; ++x) {
-        if (c0 + x < w) out[cur * w + c0 + x] = static_cast<float>(acc[x]);
+        if (c0 + x < w) out[cur * ld + c0 + x] = static_cast<float>(acc[x]);
       }
       return;
     }
@@ -154,7 +162,7 @@ segment_chunk_kernel(const float* __restrict__ grad,
 #pragma unroll
       for (int x = 0; x < CPL; x += V) {
         if (in && c0 + x < w) {
-          load_vec<V>(grad + src * w + c0 + x, row[u] + x);
+          load_vec<V>(grad + src * ld + c0 + x, row[u] + x);
         } else {
 #pragma unroll
           for (int y = 0; y < V; ++y) row[u][x + y] = 0.0f;
@@ -192,7 +200,7 @@ segment_chunk_kernel(const float* __restrict__ grad,
 // kIlp independent strided sums each, then a tree, column by column.
 __global__ void __launch_bounds__(kCombineThreads)
 segment_combine_kernel(const int* __restrict__ ids, long long n_pos, int w,
-                       long long n_chunks, Partials part,
+                       long long ld, long long n_chunks, Partials part,
                        float* __restrict__ out) {
   const long long c = blockIdx.x;
   if (!part.has_start[c]) return;  // the same for the whole block
@@ -216,7 +224,7 @@ segment_combine_kernel(const int* __restrict__ ids, long long n_pos, int w,
       const long long at = static_cast<long long>(col) * n_chunks + c;
       double s = part.start[at];
       for (long long x = 1; x <= n; ++x) s += part.cont[at + x];
-      out[seg * w + col] = static_cast<float>(s);
+      out[seg * ld + col] = static_cast<float>(s);
     }
     return;
   }
@@ -242,7 +250,7 @@ segment_combine_kernel(const int* __restrict__ ids, long long n_pos, int w,
       __syncthreads();
     }
     if (tid == 0) {
-      out[seg * w + col] = static_cast<float>(part.start[at] + scratch[0]);
+      out[seg * ld + col] = static_cast<float>(part.start[at] + scratch[0]);
     }
     __syncthreads();
   }
@@ -254,8 +262,8 @@ bool aligned(const void* p, int bytes) {
 
 template <int V, int CPL, int kAhead, bool kBag>
 cudaError_t launch(const float* grad, const int* ids, const long long* order,
-                   long long n_pos, int w, long long n_chunks, float* out,
-                   Partials part, BagRows bag, cudaStream_t st) {
+                   long long n_pos, int w, long long ld, long long n_chunks,
+                   float* out, Partials part, BagRows bag, cudaStream_t st) {
   const int per_warp = 32 / ((w + CPL - 1) / CPL);
   const long long per_block = static_cast<long long>(per_warp) * kWarps;
   const long long blocks = (n_chunks + per_block - 1) / per_block;
@@ -264,12 +272,12 @@ cudaError_t launch(const float* grad, const int* ids, const long long* order,
   }
   auto chunks = segment_chunk_kernel<V, CPL, kAhead, kBag>;
   chunks<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      grad, ids, order, n_pos, w, n_chunks, out, part, bag);
+      grad, ids, order, n_pos, w, ld, n_chunks, out, part, bag);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned owners = static_cast<unsigned>(n_chunks);  // one per chunk
   segment_combine_kernel<<<owners, kCombineThreads, 0, st>>>(
-      ids, n_pos, w, n_chunks, part, out);
+      ids, n_pos, w, ld, n_chunks, part, out);
   return cudaGetLastError();
 }
 
@@ -281,36 +289,44 @@ template <bool kBag>
 int run(const void* grad, const void* ids, const void* order, long long n_pos,
         int w, void* out, void* scratch, void* flags, BagRows bag,
         void* stream) {
-  if (n_pos < 0 || w < 1 || w > kMaxW) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_pos < 0 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pos == 0) return 0;
   const long long n_chunks = chunks_of(n_pos);
+  const int tile = w < kMaxW ? w : kMaxW;
   double* s = static_cast<double*>(scratch);
-  const Partials part{s, s + static_cast<long long>(w) * n_chunks,
+  const Partials part{s, s + static_cast<long long>(tile) * n_chunks,
                       static_cast<unsigned char*>(flags)};
-  const auto* g = static_cast<const float*>(grad);
   const auto* i = static_cast<const int*>(ids);
   const auto* o = static_cast<const long long*>(order);
-  auto* y = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  // rows of up to 8 columns (the group probabilities) take the scalar one
-  const bool vec = w > 8 && w <= 128;
-  if (vec && w % 4 == 0 && aligned(grad, 16)) {
-    err = launch<4, 4, 8, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
-  } else if (vec && w % 2 == 0 && aligned(grad, 8)) {
-    err = launch<2, 4, 8, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
-  } else {
-    err = launch<1, 8, 4, kBag>(g, i, o, n_pos, w, n_chunks, y, part, bag, st);
+  // the column tiles, one after another on the stream: each reuses the
+  // partials the one before it has finished with
+  for (int c = 0; c < w; c += kMaxW) {
+    const int tw = w - c < kMaxW ? w - c : kMaxW;
+    const float* g = static_cast<const float*>(grad) + c;
+    float* y = static_cast<float*>(out) + c;
+    cudaError_t err;
+    // rows of up to 8 columns (the group probabilities) take the scalar one
+    const bool vec = tw > 8 && tw <= 128;
+    if (vec && tw % 4 == 0 && w % 4 == 0 && aligned(g, 16)) {
+      err = launch<4, 4, 8, kBag>(g, i, o, n_pos, tw, w, n_chunks, y, part,
+                                  bag, st);
+    } else if (vec && tw % 2 == 0 && w % 2 == 0 && aligned(g, 8)) {
+      err = launch<2, 4, 8, kBag>(g, i, o, n_pos, tw, w, n_chunks, y, part,
+                                  bag, st);
+    } else {
+      err = launch<1, 8, 4, kBag>(g, i, o, n_pos, tw, w, n_chunks, y, part,
+                                  bag, st);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(err);
+  return 0;
 }
 
 }  // namespace
 
-// Chunks of n_pos sorted positions: the scratch needs 2 * w * chunks
-// doubles and chunks flag bytes.
+// Chunks of n_pos sorted positions: the scratch needs 2 * min(w, 256) *
+// chunks doubles and chunks flag bytes.
 extern "C" long long segment_sum_chunks(long long n_pos) {
   return chunks_of(n_pos);
 }
@@ -318,8 +334,9 @@ extern "C" long long segment_sum_chunks(long long n_pos) {
 // On `stream`; returns cudaGetLastError() (0 = ok). Device pointers: grad
 // (n_pos, w) float32; ids (n_pos,) int32, sorted, each in [0, n_out);
 // order (n_pos,) int64, the gradient row of each sorted position; out
-// (n_out, w) float32, zeroed by the caller; scratch 2 * w * chunks doubles
-// and flags `chunks` bytes (segment_sum_chunks). All contiguous.
+// (n_out, w) float32, zeroed by the caller; scratch 2 * min(w, 256) *
+// chunks doubles and flags `chunks` bytes (segment_sum_chunks). All
+// contiguous. Any w >= 1: rows wider than 256 are summed in column tiles.
 extern "C" int segment_sum(const void* grad, const void* ids, const void* order,
                            long long n_pos, int w, void* out, void* scratch,
                            void* flags, void* stream) {

@@ -1,18 +1,22 @@
 """The weight carrier: the reference's pytrees, as numpy, into the port.
 
 ``model_from_numpy`` takes the reference's (params, state, buffers) for a
-model (a DLRM, Wide & Deep, SASRec, BST), already turned into nested
-dicts/lists of numpy arrays by the caller, and returns the port's (params,
-state, buffers) on ``device``. It carries the tables of the ``packed``,
-``mpe_search``, ``mpe_retrain`` compressors and of the Table-3 baselines
-(``plain``, ``lsq``, ``alpt``, ``qr``, ``pep``, ``optfs``) with their
-buffers (``group_of_feature``, ``freq_sum``, ``bits_idx``), the model's
-other parameters (Wide & Deep's ``wide`` vector and ``wide_bias``) and
-buffers (the field ``offsets`` of DLRM and Wide & Deep; BST's scalar
-``item_offset`` and its ``ctx_offsets`` vector) and its state (the
-BatchNorm statistics of the MLPs; SASRec has none); ``to_torch`` carries any
-other tree, such as an Adam state ({"step", "mu", "nu"}). A packed table's uint32 words
-pass through ``.view(np.int32)``, so the port holds the same bits. Both
+model (a DLRM, Wide & Deep, SASRec, BST, two-tower, GIN), already turned
+into nested dicts/lists of numpy arrays by the caller, and returns the
+port's (params, state, buffers) on ``device``. It carries the tables of
+the ``packed``, ``mpe_search``, ``mpe_retrain`` compressors and of the
+Table-3 baselines (``plain``, ``lsq``, ``alpt``, ``qr``, ``pep``,
+``optfs``) with their buffers (``group_of_feature``, ``freq_sum``,
+``bits_idx``), the model's other parameters (Wide & Deep's ``wide``
+vector and ``wide_bias``; GIN's 0-d learnable ε) and buffers (the field
+``offsets`` of DLRM and Wide & Deep; BST's scalar ``item_offset`` and its
+``ctx_offsets`` vector; the two-tower's ``user_offsets`` and
+``item_offsets``) and its state (the BatchNorm statistics of the MLPs, the
+two towers' each under its own key; SASRec has none, and GIN, which has
+none, passes ``{}``). A GIN on dense features has no table, and its
+buffers no ``embedding``. ``to_torch`` carries any other tree, such as an
+Adam state ({"step", "mu", "nu"}). A packed table's uint32 words pass
+through ``.view(np.int32)``, so the port holds the same bits. Both
 packages then compute the same function of the same weights: ``jax.random``
 and ``torch.Generator`` never agree, so parity tests start both from one
 carried set of parameters.
@@ -56,6 +60,6 @@ def model_from_numpy(params, state, buffers, cfg, device=None):
         t_buffers["embedding"] = {"meta": {
             "bits": tuple(cfg.comp_cfg["bits"]), "d": int(cfg.comp_cfg["d"]),
             "n": int(cfg.comp_cfg["n"])}}
-    else:
+    elif "embedding" in buffers:    # a GIN on dense features has no table
         t_buffers["embedding"] = to_torch(buffers["embedding"], device)
     return to_torch(params, device), to_torch(state, device), t_buffers

@@ -17,6 +17,11 @@ in float32 inside the kernel (``segment_sum_bag``), so the (B·L, w)
 products are never written to device memory; on the CPU the plain
 version sums the same products.
 
+``scatter_sum(x, seg, n)`` is the segment sum as a forward: GIN's message
+passing and graph pooling (the reference's ``jax.ops.segment_sum``), whose
+backward is the gather ``g[seg]``. Rows of any width: the kernel sums rows
+wider than 256 columns in column tiles, which changes no sum.
+
 On CUDA tensors it launches the kernel or raises; there is no fallback.
 ``segment_sum.launches`` counts launches (one is the chunk kernel and its
 combine), and only those.
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
-MAX_W = 256          # kMaxW in csrc/segment_sum.cu
+TILE_W = 256         # kMaxW in csrc/segment_sum.cu: the widest column tile
 MAX_N = 2 ** 31 - 1  # the kernel's ids are int32
 
 
@@ -51,11 +56,11 @@ def _library():
 
 def _check(grad, ids, n, t=None):
     """Raise on what the kernel does not take: a float32 contiguous
-    (rows, w) gradient with 1 <= w <= 256, int32 or int64 ids (t,) on its
-    device (t = rows unless given), and n < 2^31."""
+    (rows, w) gradient with w >= 1, int32 or int64 ids (t,) on its device
+    (t = rows unless given), and n < 2^31."""
     t = grad.shape[0] if t is None else t
-    if grad.ndim != 2 or not 1 <= grad.shape[1] <= MAX_W:
-        raise ValueError(f"grad must be (T, w) with 1 <= w <= {MAX_W}, got "
+    if grad.ndim != 2 or grad.shape[1] < 1:
+        raise ValueError(f"grad must be (T, w) with w >= 1, got "
                          f"{tuple(grad.shape)}")
     if grad.dtype != torch.float32:
         raise TypeError(f"grad: expected torch.float32, got {grad.dtype}")
@@ -118,7 +123,7 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
     sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
     lib = _library()
     chunks = lib.segment_sum_chunks(t)
-    scratch = torch.empty((2 * w * chunks,), dtype=torch.float64,
+    scratch = torch.empty((2 * min(w, TILE_W) * chunks,), dtype=torch.float64,
                           device=grad.device)
     flags = torch.empty((chunks,), dtype=torch.uint8, device=grad.device)
     dev = grad.device
@@ -161,3 +166,22 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for 1-D ids (T,) -> (T, w), differentiable in the
     table: its gradient is ``segment_sum`` of the cotangent."""
     return _Gather.apply(table, ids)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg, n):
+        ctx.save_for_backward(seg)
+        return segment_sum(x.contiguous(), seg, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return g.index_select(0, seg), None, None
+
+
+def scatter_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, w): row i is the sum of the rows of ``x`` (T, w) whose segment id
+    ``seg`` (T,) is i, 0 where there is none (``segment_sum``); its gradient
+    in ``x`` is the gather ``g[seg]``."""
+    return _ScatterSum.apply(x, seg, n)

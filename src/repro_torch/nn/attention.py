@@ -5,7 +5,7 @@ projections around attention over the whole sequence, causal or not.
 Attention runs through ``kernels/flash_attention`` (the CUDA kernels on the
 card). What the LM transformers add — RoPE, qk-norm, a KV cache, an extra
 mask, and the reference's ``gqa_attention`` with per-row offsets and valid
-lengths — comes with the LM slice (ROADMAP Queue 1 item 9); asking for any
+lengths — comes with the LM slice (ROADMAP Queue 1 item 5.4); asking for any
 of it raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.nn.linear import Dense
 
-LM_SLICE = "comes with the LM slice (ROADMAP Queue 1 item 9)"
+LM_SLICE = "comes with the LM slice (ROADMAP Queue 1 item 5.4)"
 
 
 class MHA:

@@ -16,6 +16,13 @@ def normal(gen: torch.Generator, shape, std=EMBED_STD):
     return std * torch.randn(shape, generator=gen, device=gen.device)
 
 
+def he_normal(gen: torch.Generator, shape):
+    """N(0, 2 / fan_in) for a (fan_in, fan_out) kernel."""
+    fan_in = shape[0]
+    return torch.randn(shape, generator=gen, device=gen.device) * math.sqrt(
+        2.0 / fan_in)
+
+
 def glorot_uniform(gen: torch.Generator, shape):
     """U(-l, l) with l = sqrt(6 / (fan_in + fan_out)) for a (fan_in, fan_out)
     kernel."""

@@ -10,8 +10,9 @@ from repro_torch.nn import init as initializers
 class Dense:
     @staticmethod
     def init(gen: torch.Generator, d_in: int, d_out: int, *,
-             use_bias: bool = True):
-        params = {"kernel": initializers.glorot_uniform(gen, (d_in, d_out))}
+             use_bias: bool = True,
+             kernel_init=initializers.glorot_uniform):
+        params = {"kernel": kernel_init(gen, (d_in, d_out))}
         if use_bias:
             params["bias"] = torch.zeros((d_out,), device=gen.device)
         return params

@@ -26,15 +26,18 @@ path, composable bottom-up.
                   zero recompiles, driven by the tiered stores' counters.
 
 The tiered lane serves from ``repro_torch.cache.TieredTableStore``
-(``Engine.register_tiered_model``/``score_tiered``/``attach_tier_policy``).
-Decode and two-tower retrieval come with ROADMAP Queue 1 item 5.
+(``Engine.register_tiered_model``/``score_tiered``/``attach_tier_policy``);
+the retrieve lane serves two-tower retrieval (``two_tower_retrieval_cell``,
+``Engine.retrieve``). Decode comes with the LM (ROADMAP Queue 1 item 5.4),
+the mesh with item 6 and ``ServeCellDef.abstract_signature`` with item 7.
 """
 from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
 from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,
                                      device_signature)
 from repro_torch.serve.cells import (ServeCellDef, baseline_score_cell,
                                      packed_lookup_cell, packed_score_cell,
-                                     packed_score_step, tiered_score_cell)
+                                     packed_score_step, tiered_score_cell,
+                                     two_tower_retrieval_cell)
 from repro_torch.serve.clock import ManualClock, TickClock
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.queue import (AdmissionQueue, Request,
@@ -53,6 +56,7 @@ __all__ = [
     "ManualClock", "TickClock", "Scheduler",
     "ServeCellDef", "baseline_score_cell", "packed_score_cell",
     "packed_score_step", "packed_lookup_cell", "tiered_score_cell",
+    "two_tower_retrieval_cell",
     "Engine", "RepackPlan", "RepackPlanner", "TableSwapper",
     "PressureAdapter",
     "headroom_capacities", "subtable_capacities",

@@ -68,6 +68,11 @@ def bound_signature(bound) -> str:
     return hashlib.sha1(repr(sig).encode()).hexdigest()[:12]
 
 
+def _leading(request_specs) -> tuple:
+    """The leading dim of each request input."""
+    return tuple(shape[0] for shape, _ in request_specs)
+
+
 class CellKey(NamedTuple):
     """Identity of one serving executable: the same (arch, shape) on another
     device, with other static config baked into the shape string's
@@ -85,8 +90,9 @@ class CompiledCell:
 
     ``stage(*request)`` puts host arrays where the executable reads them
     (the counterpart of the reference's ``device_put`` to the cell's input
-    shardings), padding a request of fewer rows than the cell with rows of
-    id 0: on the card into the graph's static inputs, through pinned
+    shardings), padding each input of fewer rows than the cell's with rows
+    of zeros (id 0; False for a mask): on the card into the graph's static
+    inputs, through pinned
     staging buffers padded in place, and returns them all; on the CPU into
     tensors, and returns those. A call that stages the leading inputs only
     always stages those.
@@ -95,10 +101,10 @@ class CompiledCell:
     replay of any cell of the cache."""
 
     def __init__(self, key: CellKey, step: Callable, *, compile_s: float,
-                 meta: dict, rows: int, graph=None, inputs: tuple = (),
+                 meta: dict, rows: tuple, graph=None, inputs: tuple = (),
                  output=None, captured: dict | None = None):
         self.key = key
-        self.rows = rows              # the leading dim of every input
+        self.rows = rows              # the leading dim of each input
         self.compile_s = compile_s
         self.meta = dict(meta)
         self.replays = 0
@@ -130,7 +136,8 @@ class CompiledCell:
     def stage(self, *request) -> tuple:
         if self._graph is None:
             return tuple(torch.from_numpy(np.ascontiguousarray(
-                RequestBatcher.pad(r, self.rows)[0])) for r in request)
+                RequestBatcher.pad(r, rows)[0]))
+                for r, rows in zip(request, self.rows))
         if not self._staging:
             # pinned buffers for the inputs staged here (a tiered cell's
             # cold buffer comes staged by the engine)
@@ -138,14 +145,14 @@ class CompiledCell:
                 torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                 for x in self._inputs[:len(request)])
             self._staged = torch.cuda.Event()
-            self._dirty = [self.rows] * len(self._staging)
+            self._dirty = list(self.rows[:len(self._staging)])
         self._staged.synchronize()    # the last copy out of them has ended
         for k, (buf, x, r) in enumerate(zip(self._staging, self._inputs,
                                             request)):
             n = r.shape[0]
-            if n > self.rows:
+            if n > self.rows[k]:
                 raise ValueError(f"chunk of {n} rows exceeds the cell's "
-                                 f"{self.rows}")
+                                 f"{self.rows[k]}")
             rows = buf.numpy()
             np.copyto(rows[:n], r, casting="no")
             rows[n:self._dirty[k]] = 0     # the padding: rows of id 0
@@ -259,7 +266,7 @@ class CellCache:
             cell = self._capture(key, step, request_specs, meta, t0)
         else:
             cell = CompiledCell(key, step, compile_s=0.0, meta=meta,
-                                rows=request_specs[0][0][0])
+                                rows=_leading(request_specs))
         self._cells[key] = cell
         self.compiles += 1
         return cell
@@ -301,7 +308,7 @@ class CellCache:
                     kernels.COUNTERS[name].launches = n
             torch.cuda.synchronize(dev)
         return CompiledCell(key, step, compile_s=time.perf_counter() - t0,
-                            meta=meta, rows=request_specs[0][0][0],
+                            meta=meta, rows=_leading(request_specs),
                             graph=graph, inputs=inputs, output=output,
                             captured=captured)
 

@@ -11,7 +11,7 @@ fresh every call); ``repro_torch.serve.cache.CellCache`` turns the pair into
 one executable: a CUDA graph captured once on the card, the eager step on
 the CPU. The reference's partition specs have no counterpart on one device.
 
-Two-tower and LM cells are not ported yet (ROADMAP Queue 1 item 5).
+LM decode cells are not ported yet (ROADMAP Queue 1 item 5.4).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ class ServeCellDef(NamedTuple):
     cache."""
     arch: str              # architecture identity (cache-key component)
     shape: str             # shape name, e.g. "serve_p99"
-    kind: str              # score | lookup | tiered_score
+    kind: str              # score | lookup | tiered_score | retrieve
     batch: int             # leading-dim capacity of the executable
     step_fn: Callable      # step_fn(*bound, *request) -> outputs
     bound: tuple           # trees fixed at registration (params, state, ...)
@@ -163,4 +163,36 @@ def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
                         torch.int32)),
         meta={"kind": "tiered_score", "batch": batch, "n_fields": n_fields},
         static=(cfg, bits, d),
+    )
+
+
+def two_tower_retrieval_cell(model, cfg, params, state, buffers, *,
+                             n_cands: int, top_k: int = 100, arch: str,
+                             shape: str = "retrieval_cand") -> ServeCellDef:
+    """One user against a padded candidate corpus → masked top-k:
+    ``(user_ids (1, Fu), cand_ids (C, Fi), cand_mask (C,)) -> (scores,
+    indices)``, C = ``n_cands``.
+
+    Padded candidates score ``-inf`` through the validity mask, so they can
+    never enter the top-k of a real request. The towers read their
+    BatchNorm running statistics (eval mode); ``cfg`` carries the
+    ``packed`` compressor, so each tower is one packed lookup. The
+    reference's partition specs have no counterpart on one device."""
+    fu, fi = len(cfg.user_fields), len(cfg.item_fields)
+
+    def retrieve_step(p, st, bufs, user_ids, cand_ids, cand_mask):
+        u, _ = model.user_tower(p, bufs, st, user_ids, cfg)
+        v, _ = model.item_tower(p, bufs, st, cand_ids, cfg)
+        scores = (v @ u[0]) / cfg.temperature
+        scores = scores.masked_fill(~cand_mask, float("-inf"))
+        return tuple(torch.topk(scores, top_k))
+
+    return ServeCellDef(
+        arch=arch, shape=shape, kind="retrieve", batch=n_cands,
+        step_fn=retrieve_step,
+        bound=(params, state, buffers),
+        request_specs=(((1, fu), torch.int32), ((n_cands, fi), torch.int32),
+                       ((n_cands,), torch.bool)),
+        meta={"kind": "retrieve", "n_cands": n_cands, "top_k": top_k},
+        static=cfg,
     )

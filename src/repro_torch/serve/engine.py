@@ -28,8 +28,12 @@ writebacks and refreshes write in place, so a move reaches the captured
 graphs with no rebind; each chunk's cold rows are staged one chunk ahead
 (``ColdStaging``) while the previous chunk's replay computes.
 
-Not ported yet, each raising where it is asked for: decode and two-tower
-retrieval (ROADMAP Queue 1 item 5), the mesh (item 6).
+The retrieve lane serves two-tower retrieval: one user against a
+candidate corpus of any size, chunked onto the registered cell's capacity
+(``two_tower_retrieval_cell``) and the per-chunk top-ks merged.
+
+Not ported yet, each raising where it is asked for: decode (ROADMAP Queue 1
+item 5.4, the LM), the mesh (item 6).
 """
 from __future__ import annotations
 
@@ -52,8 +56,7 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
 from repro_torch.train.tree import tree_map
 
-NOT_PORTED = {"decode": "ROADMAP Queue 1 item 5 (the LM)",
-              "retrieve": "ROADMAP Queue 1 item 5 (two-tower retrieval)"}
+NOT_PORTED = {"decode": "ROADMAP Queue 1 item 5.4 (the LM)"}
 
 
 class RegisteredCell(NamedTuple):
@@ -166,6 +169,7 @@ class Engine:
         self._score_batcher = RequestBatcher()
         self._tiered: dict[str, TieredCell] = {}        # bucket name -> cell
         self._tiered_batcher = RequestBatcher()
+        self._retrieve: dict[str, RegisteredCell] = {}  # arch -> cell
         self._pending_swaps: list[tuple] = []           # (arch, table, meta)
         self.swaps_applied = 0
         # traffic-adaptive tiering (repro_torch.cache.policy): one policy
@@ -199,18 +203,20 @@ class Engine:
     def register(self, celldef: ServeCellDef,
                  lookup_cell: ServeCellDef | None = None) -> RegisteredCell:
         """Build (or warm-hit) a cell and route it by kind. Score cells also
-        register their capacity as a batcher bucket under their shape name."""
+        register their capacity as a batcher bucket under their shape name;
+        retrieve cells serve ``retrieve`` for their arch."""
         if celldef.kind in ("decode", "decode_slotted"):
             not_ported("decode")
-        if celldef.kind == "retrieve":
-            not_ported("retrieve")
-        if celldef.kind != "score":
+        if celldef.kind not in ("score", "retrieve"):
             raise ValueError(f"unroutable cell kind {celldef.kind!r}")
         reg = self._compile(celldef)
         if lookup_cell is not None:
             reg = reg._replace(lookup=self._compile(lookup_cell))
-        self._score[celldef.shape] = reg
-        self._score_batcher.register(celldef.shape, celldef.batch)
+        if celldef.kind == "retrieve":
+            self._retrieve[celldef.arch] = reg
+        else:
+            self._score[celldef.shape] = reg
+            self._score_batcher.register(celldef.shape, celldef.batch)
         return reg
 
     def register_packed_model(self, arch, model, cfg, params, state, buffers,
@@ -594,8 +600,44 @@ class Engine:
         return {name: tc.store.counters()
                 for name, tc in sorted(self._tiered.items())}
 
-    def retrieve(self, *args, **kwargs):
-        not_ported("retrieve")
+    def retrieve(self, user_ids, cand_ids, *, arch: str | None = None):
+        """Top-k retrieval of one user against a candidate corpus of any
+        size. An oversized corpus is chunked onto the cell's candidate
+        capacity and the per-chunk top-ks merged; padded candidates are
+        masked to -inf inside the cell. Returns (scores, indices) as numpy,
+        sorted by score, best first."""
+        reg = self._pick(self._retrieve, arch, "retrieval")
+        cap = reg.celldef.batch
+        top_k = reg.celldef.meta["top_k"]
+        user = np.asarray(user_ids, np.int32)
+        cand_ids = np.asarray(cand_ids, np.int32)
+        all_scores, all_idx = [], []
+        for start in range(0, cand_ids.shape[0], cap):
+            part = cand_ids[start:start + cap]
+            request = reg.cell.stage(user, part,
+                                     np.ones((part.shape[0],), bool))
+            (scores, idx), total_ms = self._timed_call(reg, *request)
+            self.stats.record(reg.celldef.name, total_ms)
+            keep = min(top_k, part.shape[0])
+            # read before the next replay writes the graph's outputs
+            all_scores.append(scores[:keep].cpu().numpy())
+            all_idx.append(idx[:keep].cpu().numpy() + start)
+        scores = np.concatenate(all_scores)
+        idx = np.concatenate(all_idx)
+        order = np.argsort(-scores)[:top_k]
+        return scores[order], idx[order]
+
+    @staticmethod
+    def _pick(table: dict, arch: str | None, what: str) -> RegisteredCell:
+        if not table:
+            raise ValueError(f"no {what} cell registered")
+        if arch is not None:
+            return table[arch]
+        if len(table) > 1:
+            raise ValueError(
+                f"multiple {what} cells registered ({sorted(table)}); "
+                f"pass arch=")
+        return next(iter(table.values()))
 
     def decode(self, *args, **kwargs):
         not_ported("decode")
@@ -609,6 +651,7 @@ class Engine:
         out = {}
         regs = list(self._score.values())
         regs += [tc.reg for tc in self._tiered.values()]
+        regs += list(self._retrieve.values())
         for reg in regs:
             for r in (reg, reg.lookup):
                 if r is not None:

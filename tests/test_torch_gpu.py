@@ -1172,3 +1172,141 @@ def test_tier_moves_writebacks_and_refresh_stay_in_place(cuda_device, rng):
     # the refresh re-seated the original table: the monolithic cells agree
     np.testing.assert_allclose(got, engine.score(ids, return_logits=True),
                                rtol=0, atol=1e-6)
+
+
+def _ragged_segments(rng, t, n):
+    """``t`` segment ids into ``n`` segments of ragged sizes: a hot one
+    holding a third of the rows, the rest Zipf-spread, every fifth segment
+    left empty."""
+    seg = (rng.zipf(1.3, t) % n).astype(np.int64)
+    seg[rng.random(t) < 0.33] = n // 2
+    seg[seg % 5 == 4] = 0
+    return seg
+
+
+@pytest.mark.parametrize("w", [1, 64, 100, 257, 1433])
+def test_scatter_sum_matches_plain_at_every_width(cuda_device, rng, w):
+    """The scatter-sum forward at widths on both sides of the kernel's
+    256-column tile (1,433 is cora's feature width: five full tiles and one
+    of 153): bit-identical to the plain version (both sum in float64 and
+    round once), twice bit-identical, one launch a call; its gradient is
+    the gather of the cotangent. A tile's sums are the row's: the result
+    equals the kernel run on each 256-column slice alone."""
+    t, n = 40_000, 3_000
+    seg = torch.from_numpy(_ragged_segments(rng, t, n)).to(cuda_device)
+    x = torch.randn((t, w), device=cuda_device, requires_grad=True)
+    before = seg_ops.segment_sum.launches
+    got = seg_ops.scatter_sum(x, seg, n)
+    again = seg_ops.scatter_sum(x, seg, n)
+    torch.cuda.synchronize()
+    assert seg_ops.segment_sum.launches == before + 2
+    assert got.shape == (n, w)
+    assert torch.equal(got, again)
+    assert torch.equal(got, segment_sum_ref(x.detach(), seg, n))
+    tiles = [seg_ops.segment_sum(x.detach()[:, c:c + 256].contiguous(), seg, n)
+             for c in range(0, w, 256)]
+    assert torch.equal(got, torch.cat(tiles, dim=1))
+    g = torch.randn_like(got)
+    (dx,) = torch.autograd.grad(got, x, g)
+    assert torch.equal(dx, g[seg])
+
+
+def _packed_two_tower(device, *, seed=0):
+    """A small two-tower with a random packed table on ``device``: 2 user
+    fields, 1 item field of 5,000 rows, d = 16, towers 32-16."""
+    from repro_torch.models.two_tower import TwoTower, TwoTowerConfig
+    cfg = TwoTowerConfig(
+        user_fields=(FieldSpec("u0", 3000), FieldSpec("u1", 2000)),
+        item_fields=(FieldSpec("i0", 5000),), d_embed=16,
+        tower_hidden=(32, 16), compressor="packed",
+        comp_cfg={"bits": (0, 1, 2, 3, 4, 5, 6), "d": 16, "n": 10_000,
+                  "group_size": 16})
+    params, buffers, state = TwoTower.init(cfg, seed=seed, device=device)
+    meta = buffers["embedding"]["meta"]
+    cfg = cfg._replace(comp_cfg={k: meta[k] for k in ("bits", "d", "n")})
+    return TwoTower, cfg, params, buffers, state
+
+
+def test_retrieve_replays_the_captured_cell(cuda_device, rng):
+    """``Engine.retrieve`` on the card through a captured retrieval cell of
+    4,096 candidates: a corpus of 10,000 goes in three chunks, each a
+    replay holding one lookup a tower; the scores equal the same model's
+    on the CPU (rtol 1e-4, atol 1e-5), the indices too where the scores
+    are apart, and a replay equals the eager step bit for bit."""
+    from repro_torch.serve import two_tower_retrieval_cell
+    model, cfg, params, buffers, state = _packed_two_tower(cuda_device)
+    engine = Engine(device=cuda_device)
+    reg = engine.register(two_tower_retrieval_cell(
+        model, cfg, params, state, buffers, n_cands=4096, top_k=10,
+        arch="tt"))
+    assert reg.cell.captured == {"mpe_lookup": 2}
+    user = np.stack([rng.integers(0, v, 1) for v in (3000, 2000)],
+                    1).astype(np.int32)
+    cands = rng.integers(0, 5000, (10_000, 1)).astype(np.int32)
+    before = ops.packed_lookup.launches
+    scores, idx = engine.retrieve(user, cands)
+    assert ops.packed_lookup.launches == before      # replays, no wrapper
+    assert reg.cell.replays == 3
+    assert engine.cache.launches()["mpe_lookup"] == 6
+    cpu = [tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, t)
+           for t in (params, buffers, state)]
+    with torch.no_grad():
+        want_s, want_i = model.retrieval_score(
+            cpu[0], cpu[1], cpu[2], torch.from_numpy(user),
+            torch.from_numpy(cands), cfg, top_k=10)
+    np.testing.assert_allclose(scores, want_s.numpy(), rtol=1e-4, atol=1e-5)
+    apart = np.abs(np.diff(want_s.numpy())) > 1e-4
+    keep = np.concatenate([[True], apart]) & np.concatenate([apart, [True]])
+    np.testing.assert_array_equal(idx[keep], want_i.numpy()[keep])
+    x = reg.cell.stage(user, cands[:4096], np.ones((4096,), bool))
+    got = [o.clone() for o in reg.cell.compiled(*x)]
+    with torch.inference_mode():
+        want = reg.celldef.step_fn(*reg.bound, *x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_gin_molecule_steps_launch_the_counted_kernels(cuda_device):
+    """Two GIN steps at full width (5 layers, d = 64, learnable ε) on the
+    molecule cell under ``mpe_search``: each step launches the ``mpe_qat``
+    forward and backward once, the segment sum 13 times (five message
+    scatters and the pooling forward; five message gathers' and the
+    lookup's two gathers' backwards) and the Adam pass once a leaf (31,
+    five 0-d ε among them); finite losses, no step skipped, every ε
+    moved."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.mpe import MPEConfig
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.models.gnn import GIN
+    cfg = get_arch("gin-tu").make_config(shape="molecule")
+    cfg = cfg._replace(comp_cfg=MPEConfig(group_size=16)._asdict())
+    params, buffers = GIN.init(cfg, seed=0, device=cuda_device)
+    n_leaves = len(leaves(params))
+    assert n_leaves == 31
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        graph = dict(batch, n_graphs=128)
+        loss, ce = GIN.loss_fn(p, bu, graph, cfg, lam=3e-5, step=step)
+        return loss, (st, ce)
+
+    def data(step):
+        b = make_molecule_batch(128, 30, 64, atom_vocab=119, seed=step)
+        b.pop("n_graphs")
+        return b
+
+    trainer = Trainer(loss_fn, params, buffers, {}, adam(3e-3))
+    names = ("mixed_expectation_fwd", "mixed_expectation_bwd")
+    for step in range(2):
+        before = {"seg": seg_ops.segment_sum.launches,
+                  "adam": adam_ops.adam_step_.launches,
+                  **{k: getattr(qat_ops, k).launches for k in names}}
+        trainer.run(data, step + 1, log_every=0)
+        torch.cuda.synchronize()
+        assert seg_ops.segment_sum.launches - before["seg"] == 13
+        assert adam_ops.adam_step_.launches - before["adam"] == n_leaves
+        for k in names:
+            assert getattr(qat_ops, k).launches - before[k] == 1
+    assert all(np.isfinite(h["loss"]) and not h["skipped"]
+               for h in trainer.history)
+    assert all(float(layer["eps"]) != 0.0
+               for layer in trainer.params["layers"])

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or the JAX package, and the chip smoke run refuses to report
-without a CUDA card or outside the repository."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
+nor the examples' twins ``examples/*_torch.py``) imports JAX or the JAX
+package, and the chip smoke run refuses to report without a CUDA card or
+outside the repository."""
 import os
 import re
 import shutil
@@ -12,6 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
                        re.MULTILINE)
 
@@ -60,8 +62,15 @@ TIERED_PATH = ("embeddings.frequency", "cache.tiers", "cache.policy",
                "kernels.tiered_cold.ops", "kernels.tiered_cold.ref")
 
 
+# two-tower retrieval, GIN and its graphs, the Criteo loader, the tree
+# utilities
+MODEL_PATH = ("nn.module", "models.two_tower", "configs.two_tower_retrieval",
+              "models.gnn.gin", "configs.gin_tu", "data.graphs",
+              "data.criteo")
+
+
 def test_training_path_modules_are_in_the_port():
-    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH:
+    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH:
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -72,19 +81,46 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
     assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH) \
-        + len(TIERED_PATH)
+        + len(TIERED_PATH) + len(MODEL_PATH)
     assert leaked == "[]"
-    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH:
+    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH:
         assert f"'repro_torch.{name}'" in names, name
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
-                                        [*PORT.rglob("*.py"),
+                                        [*PORT.rglob("*.py"), *TWINS,
                                          ROOT / "chip_smoke.py"]))
 def test_source_names_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert FORBIDDEN.findall(text) == []
     assert "import jax" not in text
+
+
+_IMPORT_TWIN = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location('twin', sys.argv[1])
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+assert callable(module.main)
+print(sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))
+"""
+
+
+def test_the_examples_have_their_twins():
+    names = {p.name for p in TWINS}
+    assert names == {"quickstart_torch.py", "serve_packed_torch.py",
+                     "train_ctr_end_to_end_torch.py",
+                     "gnn_molecule_mpe_torch.py"}
+
+
+@pytest.mark.parametrize("twin", [p.name for p in TWINS])
+def test_an_example_twin_imports_without_jax_or_reference(twin):
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_TWIN, str(ROOT / "examples" / twin)],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_chip_smoke_fails_without_a_card():

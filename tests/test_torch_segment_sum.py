@@ -110,8 +110,9 @@ def test_wrapper_checks_what_the_kernel_takes(rng):
         ops._check(grad, ids[:5], 5)
     with pytest.raises(ValueError, match="contiguous"):
         ops._check(torch.zeros(7, 10).t(), ids, 5)
-    with pytest.raises(ValueError, match="1 <= w <= 256"):
-        ops._check(torch.zeros(10, 300), ids, 5)
+    ops._check(torch.zeros(10, 300), ids, 5)     # wide rows: column tiles
+    with pytest.raises(ValueError, match="w >= 1"):
+        ops._check(torch.zeros(10, 0), ids, 5)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.segment_sum(grad.to("meta"), ids.to("meta"), 5)
 
