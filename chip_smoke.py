@@ -10,11 +10,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reference trains and serves.
 2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
    ``flash_attention``, ``embedding_bag``, ``segment_sum``, ``adam``,
-   ``tiered_cold``) from
+   ``tiered_cold``, ``kv_cache_write``, ``decode_attention``) from
    the sources in this checkout, one nvcc each, started together; print
    the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
-   version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64} (rtol 1e-6), and
+   version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64, 2048} (rtol 1e-6), and
    the ``mpe_qat`` forward and backward against theirs over rows {1, 255,
    257, 4099} × d {8, 16, 32, 33, 50, 64} × widths (0..6) and (0, b), b ∈ 1..8 ×
    softmax and one-hot probabilities, and one width alone (b), b ∈ 1..8,
@@ -303,14 +303,60 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit-identical, timed beside the byte bound, the plain version and
    ``index_add_`` (timed only).
 
+22. the LM's kernels against their plain versions: ``kv_cache_write``
+   over B {1, 3, 8} × T {1, 63, 64, 65, 4,096, 8,193} × H {1, 8} × hd {16, 64,
+   128} × s {1, T} × int8 (bf16 and float32 values), bf16 and float32
+   caches, at mixed lengths (0, T − s, T, between) and one shared length:
+   bit-identical, cache and scales; ``decode_attention`` over the same B,
+   T, hd × (Hq, Hkv) {(1, 1), (2, 1), (8, 1), (16, 8)} × s {1, 4} × int8
+   (bf16 and float32 queries), bf16 and float32 caches: within 3e-5 with
+   float32 queries, else one bf16 ulp plus one bf16 step of each
+   probability weighted by |v|. The lookup grid of phase 3 also runs at
+   d = 2,048 (the LM's rows: 384 words at 6 bits).
+23. flash attention at internlm2-1.8b's prefill shapes (16 heads of 128,
+   causal, the tiled route): S = 4,096 against the plain version on every
+   head, S = 32,768 on two (b, h) slices; timed beside the bound, the plain
+   version over every head and SDPA's forward.
+24. internlm2-1.8b at full width (24 layers, d 2,048, 16 / 8 heads of 128,
+   d_ff 8,192, vocab 92,544, bf16), its token table packed on the card
+   (``Packed.init`` over ``TokenStream``'s Zipf frequencies). The slotted
+   lane: ``lm_decode_slotted_cell`` (8 slots × 32,768, int8 cache) captured
+   as a CUDA graph (one lookup, 48 cache writes, 24 decode attentions), its
+   caches the graph's static inputs reset to fresh ones after the capture's
+   warm-ups; 24 requests from ``TokenStream`` (prompts of 16–128 tokens,
+   16–32 new, a deadline on every third) through ``submit_decode``, every
+   8th step held against the plain route on a copy of the caches from
+   before it (logits within 0.1 of each row's largest, or twice the gap of
+   the plain route's twin — its probabilities kept in float32 — on the same
+   step where larger; greedy tokens equal where the plain top-2 margin
+   exceeds that); again with the counts at 0
+   (the same tokens; launches = replays × captured); the step at full
+   context (8 × 32,768) timed and traced beside its bound, and layer 0's
+   two kernels timed there beside theirs and their plain versions.
+25. ``LM.prefill`` of 32,768 tokens into an int8 cache (flash over the
+   dequantized cache, one lookup, 48 writes) against the plain route (the
+   long attention chunked by 4,096), layer 0's cache bit-identical to the
+   plain route's; the lookup at those ids timed; 8 ``Engine.decode`` steps
+   on ``lm_decode_cell``, the first copying the prefill's caches into the
+   cell's, the rest reading the cell's own (the caches returned alias the
+   graph's), each held against the plain route. long_500k: the decode cell
+   at 1 × 524,288, its cache filled from the seed in place (codes
+   ~ N(0, 127/4), scales 1.5 times a 256-token prefill's), one step against
+   the plain route, 4 timed, traced and layer 0's kernels timed.
+26. deepseek-moe-16b at full width, 2 of its 28 layers: phase 25's prefill
+   (4,096 tokens) and 8 decode steps; the MoE combine on the segment-sum
+   kernel, once a layer, in the graph too.
+
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, the segment sum and the Adam pass, which
-replace library calls and no TPU kernel, and the tiered cold fill, which
-replaces the reference's eager cold path; ``launches_by_path`` has the
-lifecycle's, ``dlrm lifecycle``, the tiered lane's, ``dlrm tiered``, and
-since phases 20–21 ``two-tower train``, ``two-tower serve``, ``gin
-molecule train``, ``gin cora train`` and ``gin products train``);
-the last line is
+replace library calls and no TPU kernel, the tiered cold fill, which
+replaces the reference's eager cold path, and the LM's ``kv_cache_write``
+and ``decode_attention``; ``launches_by_path`` has the lifecycle's,
+``dlrm lifecycle``, the tiered lane's, ``dlrm tiered``, since phases
+20–21 ``two-tower train``, ``two-tower serve``, ``gin molecule train``,
+``gin cora train`` and ``gin products train``, and since phases 24–26
+``lm slotted``, ``lm prefill``, ``lm decode``, ``lm long_500k``, ``moe
+prefill`` and ``moe decode``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -337,6 +383,7 @@ from repro_torch.cache.prefetch import PrefetchPipeline  # noqa: E402
 from repro_torch.configs.base import SERVE_ROWS, get_arch  # noqa: E402
 from repro_torch.configs.gin_tu import GRAPH_CELLS  # noqa: E402
 from repro_torch.core import compressors, quantizer  # noqa: E402
+from repro_torch.core.quantizer import dequantize_symmetric  # noqa: E402
 from repro_torch.core.compressors import Packed, as_mpe_config  # noqa: E402
 from repro_torch.core.inference import build_packed_table  # noqa: E402
 from repro_torch.core.mpe import MPEConfig, MPESearchEmbedding  # noqa: E402
@@ -347,6 +394,7 @@ from repro_torch.data.graphs import (make_molecule_batch,  # noqa: E402
                                      make_sbm_graph)
 from repro_torch.data.synthetic import (CTRSpec, DriftingCTR,  # noqa: E402
                                         SyntheticCTR)
+from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.embeddings import embedding_bag  # noqa: E402
 from repro_torch.embeddings.frequency import hot_feature_mask  # noqa: E402
 from repro_torch.embeddings.table import total_vocab  # noqa: E402
@@ -354,12 +402,19 @@ from repro_torch.kernels.adam import ops as adam_ops  # noqa: E402
 from repro_torch.kernels.adam.ref import adam_step_ref_  # noqa: E402
 from repro_torch.kernels import COUNTERS, counts  # noqa: E402
 from repro_torch.kernels.build import build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, grouped_attention)
 from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     bwd_ref, flash_attention_ref, fwd_stats_ref)
+from repro_torch.kernels.kv_cache_write import ops as kvw_ops  # noqa: E402
+from repro_torch.kernels.kv_cache_write.ops import as_lengths  # noqa: E402
+from repro_torch.kernels.kv_cache_write.ref import (  # noqa: E402
+    kv_cache_write_ref)
 from repro_torch.kernels.mpe_lookup import ops as mpe_lookup_ops  # noqa: E402
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref  # noqa: E402
 from repro_torch.kernels.mpe_qat import ops as qat_ops  # noqa: E402
@@ -378,13 +433,19 @@ from repro_torch.models.bst import BST, fields  # noqa: E402
 from repro_torch.models import two_tower as two_tower_module  # noqa: E402
 from repro_torch.models.dlrm import DLRM  # noqa: E402
 from repro_torch.models.gnn import GIN  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.models.lm import transformer as transformer_module  # noqa: E402
 from repro_torch.models.sasrec import SASRec  # noqa: E402
 from repro_torch.models.two_tower import (TwoTower,  # noqa: E402
                                           in_batch_softmax)
 from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
+from repro_torch.nn import moe as moe_module  # noqa: E402
+from repro_torch.nn.chunked import chunked_gqa_attention  # noqa: E402
 from repro_torch.serve.cache import CellCache  # noqa: E402
-from repro_torch.serve.cells import two_tower_retrieval_cell  # noqa: E402
+from repro_torch.serve.cells import (lm_decode_cell,  # noqa: E402
+                                     lm_decode_slotted_cell,
+                                     two_tower_retrieval_cell)
 from repro_torch.serve.clock import TickClock  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.repack import PressureAdapter  # noqa: E402
@@ -697,7 +758,8 @@ def phase_build():
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag",
-             "segment_sum", "adam", "tiered_cold")
+             "segment_sum", "adam", "tiered_cold", "kv_cache_write",
+             "decode_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -715,7 +777,7 @@ def phase_kernel_grid(dev) -> float:
     rng = np.random.default_rng(SEED)
     worst = 0.0
     for b in range(1, 9):
-        for d in (8, 16, 50, 64):
+        for d in (8, 16, 50, 64, 2048):
             n = 1000
             cfg = MPEConfig(bits=(0, b))
             emb = torch.from_numpy(rng.normal(0, 3e-3, (n, d)).astype(np.float32))
@@ -3357,7 +3419,8 @@ def phase_bst_train(dev, prior) -> dict:
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
                 "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
                 "mpe_lookup": 0, "embedding_bag_fwd": 0, "segment_sum": 4,
-                "adam_step_": len(leaves(trainer.params)), "tiered_cold": 0}
+                "adam_step_": len(leaves(trainer.params)), "tiered_cold": 0,
+                "kv_cache_write": 0, "decode_attention": 0}
     outs, step_ms = [], []
     t_all = time.perf_counter()
     for step in range(BST_STEPS):
@@ -4528,6 +4591,805 @@ def phase_gin(dev) -> dict:
     return out
 
 
+# -- the LM: its kernels' grid, flash at its shapes, and its serving paths ---
+
+KVW_SOURCE = "src/repro_torch/csrc/kv_cache_write.cu"
+DECODE_ATT_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+LM_ARCH, MOE_ARCH = "internlm2-1.8b", "deepseek-moe-16b"
+MOE_LAYERS = 2                  # of deepseek-moe-16b's 28
+LM_SLOTS, LM_MAX_LEN = 8, 32768  # decode_32k cut to one card: 8 slots
+LM_REQUESTS = 24
+LM_PROMPT = (16, 128)           # prompt lengths, both ends included
+LM_NEW = (16, 32)               # max_new, both ends included
+LM_DEADLINE_MS = 60_000.0       # on every third request
+LM_CHECK_EVERY = 8              # slotted steps between plain-route checks
+LM_PREFILL = 32768              # prefill_32k cut to one sequence
+LM_FLASH_S = 4096               # a prefill short enough for the plain version
+LM_DECODE_STEPS = 8
+LONG_LEN, LONG_STEPS = 524288, 4
+LONG_PROBE = 256                # the prefill that calibrates long_500k's scales
+LONG_SCALE_MARGIN = 1.5         # its scales over the probe's
+LONG_CODE_STD = 127 / 4         # its codes ~ N(0, 127/4): absmax near 127
+LONG_FILL_CHUNK = 1 << 28       # codes drawn at a time
+MOE_PREFILL, MOE_STEPS = 4096, 8
+LM_LOGIT_TOL = 0.1              # |kernel - plain| over the row's max |plain|
+LM_PLAIN_CHUNK = 4096           # blocks of the plain long-sequence route
+LM_TIMED_STEPS = 20
+DECODE_ATT_F32_TOL = dict(rtol=3e-5, atol=3e-5)   # float32 queries
+DECODE_GRID_B = (1, 3, 8)
+DECODE_GRID_T = (1, 63, 64, 65, 4096, 8193)
+DECODE_GRID_GROUPS = ((1, 1), (2, 1), (8, 1), (16, 8))   # (Hq, Hkv)
+DECODE_GRID_HD = (16, 64, 128)
+DECODE_GRID_KINDS = (("int8", torch.bfloat16), ("int8", torch.float32),
+                     ("bf16", torch.bfloat16), ("f32", torch.float32))
+CACHE_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16,
+                "f32": torch.float32}
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(torch.clamp_min(x.abs(), 2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def decode_attention_error(got, q, k, v, ks, vs, off, valid, want,
+                           what: str) -> float:
+    """``got`` against the plain ``want`` under the contract: within 3e-5
+    (rtol and atol) with float32 queries; with bf16 ones within one bf16
+    ulp of the output plus one bf16 step of each probability (2^-8) weighted
+    by |v| — both round float32 probabilities to bf16, and their float32
+    sums, taken in other orders, move one across a rounding boundary now
+    and then. Returns the largest |difference|."""
+    g, w = got.float(), want.float()
+    if q.dtype == torch.float32:
+        return within(g, w, DECODE_ATT_F32_TOL, what)
+    weight = decode_attention_ref(q, k, v.abs(), ks, vs, off, valid).float()
+    tol = bf16_ulp(w) + 2.0 ** -8 * weight
+    check(bool(((g - w).abs() <= tol).all()),
+          f"{what}: outside one bf16 ulp (max |diff| {max_abs(g, w):.3e})")
+    return max_abs(g, w)
+
+
+def lm_cache_case(gen, b, t, h, hd, s, kind, q_dtype, dev):
+    """A cache of ``kind`` holding random content (its scales between
+    0.01 and 0.05), new values (one row in two four times louder than its
+    scale holds) and mixed lengths: fresh (0), at the end (T - s), past it
+    (T), between."""
+    dtype = CACHE_DTYPES[kind]
+    if dtype == torch.int8:
+        cache = torch.randint(-127, 128, (b, t, h, hd), generator=gen,
+                              device=dev, dtype=torch.int8)
+        scale = 0.01 + 0.04 * torch.rand((b, 1, h, 1), generator=gen,
+                                         device=dev)
+    else:
+        cache = torch.randn((b, t, h, hd), generator=gen, device=dev).to(dtype)
+        scale = None
+    loud = torch.where(torch.rand((b, 1, h, 1), generator=gen, device=dev)
+                       < 0.5, 4.0, 0.1)
+    vals = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+            * loud).to(q_dtype)
+    picks = [0, t - s, t, max(t - s - 1, 0), (t - s) // 2]
+    lens = torch.tensor([picks[i % len(picks)] for i in range(b)],
+                        dtype=torch.int32, device=dev)
+    return cache, scale, vals, lens
+
+
+def phase_lm_grid(dev) -> dict:
+    """``kv_cache_write`` and ``decode_attention`` against their plain
+    versions: B {1, 3, 8} × T {1, 63, 64, 65, 4096} × mixed lengths × hd
+    {16, 64, 128}; the write over H {1, 2, 8} × s {1, T} × int8, bf16 and
+    float32 caches (values bf16 or float32), bit for bit, a shared length
+    too; attention over (Hq, Hkv) {(1, 1), (2, 1), (8, 1), (16, 8)} × s
+    {1, 4} × int8 (bf16 and float32 queries), bf16 and float32 caches,
+    under ``decode_attention_error``'s contract."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_write = n_att = 0
+    worst = {"kv_cache_write": 0.0, "decode_attention": 0.0}
+    for b in DECODE_GRID_B:
+        for t in DECODE_GRID_T:
+            for hd in DECODE_GRID_HD:
+                for kind, q_dtype in DECODE_GRID_KINDS:
+                    for h in (1, 8):
+                        for s in sorted({1, t}):
+                            cache, scale, vals, lens = lm_cache_case(
+                                gen, b, t, h, hd, s, kind, q_dtype, dev)
+                            for ln in (lens, lens[:1].reshape(())):
+                                c1, c2 = cache.clone(), cache.clone()
+                                s1, s2 = ((None, None) if scale is None
+                                          else (scale.clone(), scale.clone()))
+                                kvw_ops.kv_cache_write(c1, s1, vals, ln)
+                                kv_cache_write_ref(c2, s2, vals, ln)
+                                check(torch.equal(c1, c2) and (
+                                    s1 is None or torch.equal(s1, s2)),
+                                    f"kv_cache_write B={b} T={t} H={h} "
+                                    f"hd={hd} s={s} {kind}: not bit-identical")
+                                n_write += 1
+                    for hq, hkv in DECODE_GRID_GROUPS:
+                        for s in sorted({1, min(4, t)}):
+                            k, ks, _, lens = lm_cache_case(
+                                gen, b, t, hkv, hd, s, kind, q_dtype, dev)
+                            v, vs, _, _ = lm_cache_case(
+                                gen, b, t, hkv, hd, s, kind, q_dtype, dev)
+                            q = torch.randn((b, s, hq, hd), generator=gen,
+                                            device=dev).to(q_dtype)
+                            off = torch.clamp(lens, max=t - s)
+                            got = da_ops.decode_attention(
+                                q, k, v, ks, vs, q_offset=off,
+                                kv_valid_len=off + s)
+                            want = decode_attention_ref(q, k, v, ks, vs, off,
+                                                        off + s)
+                            worst["decode_attention"] = max(
+                                worst["decode_attention"],
+                                decode_attention_error(
+                                    got, q, k, v, ks, vs, off, off + s, want,
+                                    f"decode_attention B={b} T={t} "
+                                    f"({hq}, {hkv}) hd={hd} s={s} {kind} "
+                                    f"q {q_dtype}"))
+                            n_att += 1
+    torch.cuda.synchronize()
+    log(f"LM kernel grid: kv_cache_write {n_write} cases bit-identical to "
+        f"its plain version; decode_attention {n_att} cases within the "
+        f"contract, max |diff| {worst['decode_attention']:.3e}")
+    return {**worst, "cases": {"kv_cache_write": n_write,
+                               "decode_attention": n_att}}
+
+
+def lm_flash_row(q, k, v, what: str, slices=None) -> dict:
+    """The flash forward (causal) at one of the LM's shapes, (B, S, H, hd)
+    with the kv heads repeated to the query heads as ``flash_attention``
+    hands them over: held against its plain version (on every head, or on
+    the ``slices`` (b, h) alone where S × S float32 logits of every head
+    would not fit), timed beside its bound, the plain version over every
+    head one after another, and SDPA."""
+    b, s, h, hd = q.shape
+    o = flash_ops.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    heads = slices or [(i, j) for i in range(b) for j in range(h)]
+    err = 0.0
+    for i, j in heads:
+        want = flash_attention_ref(q[i:i + 1, :, j], k[i:i + 1, :, j],
+                                   v[i:i + 1, :, j], True)
+        err = max(err, within(o[i:i + 1, :, j], want, FLASH_TOL,
+                              f"{what}: o at (b, h) = ({i}, {j})"))
+        del want
+    del o
+    iters = 3 if s > 8192 else 10
+
+    def plain():
+        for i in range(b):
+            for j in range(h):
+                flash_attention_ref(q[i:i + 1, :, j], k[i:i + 1, :, j],
+                                    v[i:i + 1, :, j], True)
+    row = {**flash_work(b * h, s, hd, "fwd", True), "max_abs_err": err,
+           "ms": cuda_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, True),
+                         iters, warmup=1),
+           "plain_ms": cuda_ms(plain, 1, warmup=0),
+           "library_ms": sdpa_fwd_ms(q, k, v, iters),
+           "S": s, "input_shape": list(q.shape), "causal": True,
+           "checked_heads": len(heads)}
+    log(f"flash fwd at {what} ({tuple(q.shape)}, tiled route): max |diff| "
+        f"{err:.3e} on {len(heads)} (b, h); {row['ms']:.3f} ms (plain "
+        f"{row['plain_ms']:.3f}, SDPA {row['library_ms']:.3f}); bound "
+        f"{row['bound_ms']:.3f} ms by {row['bound_by']}: "
+        f"{row['bound_ms'] / row['ms']:.1%} of it")
+    return row
+
+
+def sdpa_fwd_ms(q, k, v, iters: int) -> float:
+    """``F.scaled_dot_product_attention``'s causal forward on (B, H, S, hd)
+    views of the same inputs. Timed only; the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    return cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), iters, warmup=1)
+
+
+def phase_lm_flash(dev) -> dict:
+    """The flash forward at internlm2-1.8b's prefill shapes (16 heads of
+    128): S = 4,096, every head against the plain version, and S = 32,768,
+    two (b, h) slices against it."""
+    cfg = get_arch(LM_ARCH).make_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    last = (0, cfg.n_heads - 1)
+    for s, slices in ((LM_FLASH_S, None), (LM_PREFILL, [(0, 0), last])):
+        q, k, v = (torch.randn((1, s, cfg.n_heads, cfg.head_dim),
+                               generator=gen, device=dev) for _ in range(3))
+        out[f"lm_prefill_{s // 1024}k"] = {"fwd": lm_flash_row(
+            q, k, v, f"internlm2 prefill S={s}", slices)}
+        del q, k, v
+    return out
+
+
+def _plain_kv_write(cache, scale, vals, lens):
+    return kv_cache_write_ref(cache, scale, vals,
+                              as_lengths(lens, cache.shape[0], cache.device))
+
+
+def _plain_decode_attention(q, k, v, k_scale=None, v_scale=None, *,
+                            q_offset, kv_valid_len, causal=True):
+    b = q.shape[0]
+    return decode_attention_ref(q, k, v, k_scale, v_scale,
+                                as_lengths(q_offset, b, q.device),
+                                as_lengths(kv_valid_len, b, q.device), causal)
+
+
+def _plain_long_attention(q, k, v, *, n_kv_heads=None, causal=True):
+    """The long-sequence route's plain version: ``chunked_gqa_attention``
+    by blocks of ``LM_PLAIN_CHUNK`` (the whole (S × S) logits of a 32k
+    prompt would not fit)."""
+    s = q.shape[1]
+    chunk = LM_PLAIN_CHUNK if s % LM_PLAIN_CHUNK == 0 else s
+    return chunked_gqa_attention(q, k, v, n_kv_heads=k.shape[2],
+                                 causal=causal, q_chunk=chunk, kv_chunk=chunk)
+
+
+def _twin_decode_attention(q, k, v, k_scale=None, v_scale=None, *,
+                           q_offset, kv_valid_len, causal=True):
+    """The plain decode attention with its probabilities kept in float32 (v
+    widened first): a second plain route, one rounding fewer, whose gap to
+    the first is the bf16 model's own spread."""
+    if k.dtype == torch.int8:
+        k = dequantize_symmetric(k, k_scale, q.dtype)
+        v = dequantize_symmetric(v, v_scale, q.dtype)
+    b = q.shape[0]
+    return grouped_attention(q, k, v.to(torch.float32), causal=causal,
+                             q_offset=as_lengths(q_offset, b, q.device),
+                             kv_valid_len=as_lengths(kv_valid_len, b,
+                                                     q.device))
+
+
+def with_plain_lm(fn, twin: bool = False):
+    """``fn()`` with the LM's kernels through their plain versions: the
+    cache write, decode attention (``_twin_decode_attention`` with
+    ``twin``), the long-sequence attention (chunked), the packed lookup and
+    the MoE combine. Its launches are not counted."""
+    swaps = [(transformer_module, "kv_cache_write", _plain_kv_write),
+             (transformer_module, "decode_attention",
+              _twin_decode_attention if twin else _plain_decode_attention),
+             (transformer_module, "flash_attention", _plain_long_attention),
+             (compressors, "packed_lookup", _plain_lookup),
+             (moe_module, "scatter_sum", segment_sum_ref)]
+    old = [getattr(module, name) for module, name, _ in swaps]
+    before = counts()
+    for module, name, fn_ in swaps:
+        setattr(module, name, fn_)
+    try:
+        return fn()
+    finally:
+        for (module, name, _), fn_ in zip(swaps, old):
+            setattr(module, name, fn_)
+        for name, n in before.items():
+            COUNTERS[name].launches = n
+
+
+def logit_gap(got, want) -> float:
+    """The largest |got - want| of a row over that row's largest |want|."""
+    g, w = got.float().reshape(-1, got.shape[-1]), \
+        want.float().reshape(-1, want.shape[-1])
+    return float(((g - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def check_logits(got, want, what: str, twin=None) -> dict:
+    """The kernel route's logits against the plain route's: each row within
+    ``LM_LOGIT_TOL`` of its largest |plain logit|, or within twice the gap
+    of the plain route's twin (``_twin_decode_attention``, one rounding
+    fewer, on the same step) where that is larger — the bf16 model's own
+    spread, which 24 layers of random weights amplify; and the greedy token
+    the same wherever the plain route's top-2 margin exceeds the
+    tolerance."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    check(bool(torch.isfinite(g).all()), f"{what}: logits not finite")
+    gap = logit_gap(g, w)
+    floor = None if twin is None else logit_gap(twin, w)
+    tol = LM_LOGIT_TOL if floor is None else max(LM_LOGIT_TOL, 2 * floor)
+    check(gap <= tol, f"{what}: logits {gap:.3e} of the row's largest apart, "
+          f"more than {tol:.3e} (the twin's gap {floor})")
+    scale = w.abs().amax(-1)
+    top2 = w.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol * scale
+    same = g.argmax(-1) == w.argmax(-1)
+    check(bool(same[decided].all()),
+          f"{what}: a greedy token differs where the margin decides it")
+    return {"gap": gap, "twin_gap": floor, "tolerance": tol,
+            "rows": int(g.shape[0]), "decided": int(decided.sum()),
+            "same_token": int(same.sum())}
+
+
+def plain_and_twin(run, mirror):
+    """``run(mirror)`` through the plain route, then through its twin on the
+    same caches where the plain step grew no int8 scale (it wrote only the
+    new position, which the twin writes again): → (plain logits, twin
+    logits or None)."""
+    scales = {k: mirror[k].clone() for k in ("k_scale", "v_scale")
+              if k in mirror}
+    want = with_plain_lm(lambda: run(mirror))[0]
+    if any(not torch.equal(x, mirror[k]) for k, x in scales.items()):
+        return want, None
+    return want, with_plain_lm(lambda: run(mirror), twin=True)[0]
+
+
+def lm_model(arch: str, dev, n_layers: int | None = None):
+    """``arch``'s full-width config (its first ``n_layers`` where given)
+    initialised from the seed on the card, its token table packed:
+    ``Packed.init`` — the MPE search layer over ``TokenStream``'s expected
+    Zipf frequencies, Eq. 11 widths from a random γ, ``build_packed_table``
+    — all on the card."""
+    cfg = get_arch(arch).make_config()
+    if n_layers is not None:
+        cfg = cfg._replace(n_layers=n_layers)
+    cfg = cfg._replace(compressor="packed")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    freqs = TokenStream(cfg.vocab, 1, 1).expected_frequencies()
+    t0 = time.perf_counter()
+    params, buffers = LM.init(gen, cfg, freqs=freqs)
+    torch.cuda.synchronize()
+    meta = buffers["embedding"]["meta"]
+    table = params["embedding"]
+    wpr = [words_per_row(meta["d"], b) if b else 0 for b in meta["bits"]]
+    n_params = sum(x.numel() for x in leaves(params["layers"])) \
+        + params["lm_head"].numel() + params["ln_f"]["scale"].numel()
+    table_bytes = sum(x.numel() * x.element_size() for x in leaves(table))
+    log(f"{arch} ({cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params} parameters outside "
+        f"the token table; packed table widths {meta['bits']}, words a row "
+        f"{wpr}, {table_bytes} bytes")
+    return cfg, params, buffers
+
+
+def param_bytes(params) -> int:
+    """Bytes a forward reads of the weights outside the token table."""
+    return sum(x.numel() * x.element_size()
+               for x in leaves({k: v for k, v in params.items()
+                                if k != "embedding"}))
+
+
+def step_bound_ms(params, cfg, valid_keys: int, rows: int) -> float:
+    """The least time a decode step could take: every weight read once
+    (the token table's rows are a few kilobytes) and each row's valid int8
+    keys and values read once, with their scales, over 3.35 TB/s."""
+    kv = valid_keys * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+    scales = 2 * cfg.n_layers * rows * cfg.n_kv_heads * 4
+    return (param_bytes(params) + kv + scales) / HBM_BYTES_PER_S * 1e3
+
+
+def decode_attention_bytes(q, k, valid: torch.Tensor, quant: bool) -> int:
+    """Bytes decode attention must move: each row's valid keys and values
+    read once (with the scales), the queries read and the output written."""
+    b, t, hkv, hd = k.shape
+    keys = int(torch.clamp(valid, max=t).sum()) if valid.ndim else \
+        b * min(int(valid), t)
+    per_key = 2 * hkv * hd * k.element_size()
+    return (keys * per_key + 2 * q.numel() * q.element_size()
+            + (2 * b * hkv * 4 if quant else 0))
+
+
+def time_decode_kernels(params, cfg, caches, lens, what: str) -> dict:
+    """Layer 0's ``decode_attention`` and ``kv_cache_write`` (the keys'
+    write) at one decode step's shapes on these caches and lengths (the
+    write's values small, so no scale grows), CUDA-event ms beside their
+    byte bounds and their plain versions."""
+    dev = caches["k"].device
+    b, t = caches["k"].shape[1:3]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    vals = (1e-3 * torch.randn((b, 1, cfg.n_kv_heads, cfg.head_dim),
+                               generator=gen, device=dev)).to(torch.bfloat16)
+    k, v = caches["k"][0], caches["v"][0]
+    ks, vs = caches["k_scale"][0], caches["v_scale"][0]
+    off = torch.clamp(lens, max=t - 1)
+    valid = off + 1
+    got = da_ops.decode_attention(q, k, v, ks, vs, q_offset=off,
+                                  kv_valid_len=valid)
+    want = decode_attention_ref(q, k, v, ks, vs, off, valid)
+    err = decode_attention_error(got, q, k, v, ks, vs, off, valid, want,
+                                 f"decode_attention at {what}")
+    del got, want
+    traced = uncounted(lambda: trace(lambda: da_ops.decode_attention(
+        q, k, v, ks, vs, q_offset=off, kv_valid_len=valid), 5))
+    passes = {p: sum(ms for name, ms in traced["by_name"].items()
+                     if f"{p}_kernel" in name)
+              for p in ("scores", "sums", "values", "combine")}
+    att_bytes = decode_attention_bytes(q, k, valid, True)
+    att = {"bytes": att_bytes, "bound_ms": att_bytes / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err,
+           "ms": uncounted(lambda: cuda_ms(lambda: da_ops.decode_attention(
+               q, k, v, ks, vs, q_offset=off, kv_valid_len=valid), 20)),
+           "plain_ms": cuda_ms(lambda: decode_attention_ref(
+               q, k, v, ks, vs, off, valid), 5, warmup=1),
+           "library_ms": None, "shape": [b, t, cfg.n_kv_heads, cfg.head_dim],
+           "query_heads": cfg.n_heads, "valid_keys": int(valid.sum()),
+           "passes_ms": passes}
+    kc, sc = k.clone(), ks.clone()
+    kr, sr = k.clone(), ks.clone()
+    kvw_ops.kv_cache_write(kc, sc, vals, off)
+    kv_cache_write_ref(kr, sr, vals, off)
+    check(torch.equal(kc, kr) and torch.equal(sc, sr),
+          f"kv_cache_write at {what}: not bit-identical to its plain version")
+    del kr, sr
+    write_bytes = (vals.numel() * vals.element_size() + vals.numel()
+                   + 2 * ks.numel() * 4 + 4 * b)
+    write = {"bytes": write_bytes,
+             "bound_ms": write_bytes / HBM_BYTES_PER_S * 1e3,
+             "max_abs_err": 0.0,
+             "ms": uncounted(lambda: cuda_ms(lambda: kvw_ops.kv_cache_write(
+                 kc, sc, vals, off), 50)),
+             "plain_ms": cuda_ms(lambda: kv_cache_write_ref(kc, sc, vals, off),
+                                 5, warmup=1),
+             "library_ms": None, "shape": list(kc.shape)}
+    del kc, sc
+    for name, r in (("decode_attention", att), ("kv_cache_write", write)):
+        log(f"{name} at {what}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}); "
+            f"bound {r['bound_ms']:.4f} ms for {r['bytes']} bytes: "
+            f"{r['bound_ms'] / r['ms']:.1%} of it"
+            + (f"; traced passes {passes}" if name == "decode_attention"
+               else ""))
+    return {"decode_attention": att, "kv_cache_write": write}
+
+
+def request_prompts(cfg):
+    """``LM_REQUESTS`` prompts from ``TokenStream`` (lengths uniform in
+    ``LM_PROMPT``), their ``max_new`` (uniform in ``LM_NEW``) and a deadline
+    on every third."""
+    rng = np.random.default_rng(SEED)
+    rows = TokenStream(cfg.vocab, LM_REQUESTS, LM_PROMPT[1],
+                       seed=SEED).batch_at(0)["tokens"]
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    max_new = rng.integers(LM_NEW[0], LM_NEW[1] + 1, LM_REQUESTS)
+    return [(rows[i, :lengths[i]], int(max_new[i]),
+             LM_DEADLINE_MS if i % 3 == 0 else None)
+            for i in range(LM_REQUESTS)]
+
+
+def serve_requests(engine, requests) -> tuple:
+    """Every request through ``submit_decode``, drained → (tokens of each,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    tickets = [engine.submit_decode(p, m, deadline_ms=dl)
+               for p, m, dl in requests]
+    check(all(t is not None for t in tickets), "a decode request was shed")
+    engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = [engine.poll(t) for t in tickets]
+    return out, wall
+
+
+def phase_lm_slotted(dev, model) -> dict:
+    """The continuous-batching lane at internlm2-1.8b's full width: the
+    slotted cell (8 slots × 32,768, int8 caches) captured as a CUDA graph,
+    24 requests served through ``submit_decode`` twice — first with every
+    ``LM_CHECK_EVERY``-th step held against the plain route on a copy of
+    the caches from before it, then with the counts at 0 (the same tokens
+    again) — then the step timed and traced at full context."""
+    cfg, params, buffers = model
+    engine = Engine(device=dev)
+    t0 = time.perf_counter()
+    reg = engine.register(lm_decode_slotted_cell(
+        cfg, params, buffers, batch=LM_SLOTS, max_len=LM_MAX_LEN,
+        arch=LM_ARCH))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    session = engine.scheduler.sessions[LM_ARCH]
+    caches = session.caches
+    check(caches is reg.cell.inputs[2], "the session's caches are not the "
+          "graph's")
+    check(not bool(caches["k"].any()) and not bool(caches["v"].any())
+          and bool((caches["k_scale"] == 0.05).all()),
+          "the graph's caches were not reset to fresh ones")
+    want_captured = {"mpe_lookup": 1, "kv_cache_write": 2 * cfg.n_layers,
+                     "decode_attention": cfg.n_layers}
+    check(reg.cell.captured == want_captured,
+          f"the slotted cell captured {reg.cell.captured}, not "
+          f"{want_captured}")
+    requests = request_prompts(cfg)
+    mirror = {k: torch.empty_like(x) for k, x in caches.items()}
+    real = engine._timed_call
+    checks, steps = [], [0]
+
+    def checked(reg_, tokens, lens, cache):
+        n = steps[0]
+        steps[0] += 1
+        if n % LM_CHECK_EVERY:
+            return real(reg_, tokens, lens, cache)
+        for k, x in cache.items():
+            mirror[k].copy_(x)
+        tok, ln = tokens.clone(), lens.clone()
+        out, ms = real(reg_, tokens, lens, cache)
+        want, twin = plain_and_twin(lambda c: LM.decode_step_slotted(
+            params, buffers, tok, ln, c, cfg), mirror)
+        checks.append(check_logits(out[0], want, f"slotted step {n}", twin))
+        return out, ms
+
+    engine._timed_call = checked
+    first, _ = serve_requests(engine, requests)
+    engine._timed_call = real
+    del mirror
+    torch.cuda.empty_cache()
+    reset_counts()
+    reg.cell.replays = 0
+    steps_before = session.steps
+    engine.stats = LatencyStats()
+    engine.rstats = RequestStats()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, wall = serve_requests(engine, requests)
+    launches = {**counts(), **reg.cell.launches}
+    replays = reg.cell.replays
+    for name, per in want_captured.items():
+        check(launches[name] == replays * per,
+              f"slotted lane: {name} launched {launches[name]} times, not "
+              f"{replays} replays × {per}")
+    for got, want, (_, m, _) in zip(tokens, first, requests):
+        check(got is not None and len(got) == m
+              and bool((got >= 0).all() and (got < cfg.vocab).all()),
+              "a request did not complete with its tokens")
+        check(np.array_equal(got, want), "the second run's tokens differ "
+              "from the first's")
+    summary = engine.summary()[reg.celldef.name]
+    req = engine.request_summary()["decode"]
+    peak = torch.cuda.max_memory_reserved()
+    # the step at full context: every slot holding 32,768 keys
+    stage = reg.cell.stage(np.zeros((LM_SLOTS, 1), np.int32),
+                           np.full((LM_SLOTS,), LM_MAX_LEN - 1, np.int32))
+    full_ms = cuda_ms(lambda: reg.cell.compiled(stage[0], stage[1], caches),
+                      LM_TIMED_STEPS)
+    traced = trace(lambda: reg.cell.compiled(stage[0], stage[1], caches), 5)
+    bound = step_bound_ms(params, cfg, LM_SLOTS * LM_MAX_LEN, LM_SLOTS)
+    kernels = time_decode_kernels(params, cfg, caches, stage[1],
+                                  "decode_32k (8 x 32,768)")
+    out = {"capture_s": capture_s, "requests": LM_REQUESTS,
+           "steps": session.steps - steps_before, "replays": replays,
+           "wall_s": wall, "step_p50_ms": summary["p50_ms"],
+           "step_p99_ms": summary["p99_ms"],
+           "occupancy": summary.get("occupancy"),
+           "request_p50_ms": req["latency"]["p50_ms"],
+           "tokens_per_s": sum(len(t) for t in tokens) / wall,
+           "full_context_step_ms": full_ms, "full_context_bound_ms": bound,
+           "busy_ms": traced["busy_ms"], "idle_share": traced["idle_share"],
+           "top": traced["top"], "peak_reserved_bytes": peak,
+           "pool_bytes": engine.cache.pool_bytes(), "checks": checks,
+           "launches": launches,
+           "kernels": kernels}
+    log(f"slotted lane: {LM_REQUESTS} requests in {wall:.2f} s over "
+        f"{out['steps']} steps ({replays} replays), step p50 "
+        f"{out['step_p50_ms']:.3f} ms, request p50 "
+        f"{out['request_p50_ms']:.1f} ms, {out['tokens_per_s']:.1f} tokens/s; "
+        f"{len(checks)} steps held against the plain route, worst logit gap "
+        f"{max(c['gap'] for c in checks):.3e} (the plain route against its "
+        f"twin: {twin_gaps(checks)}); at full context "
+        f"{full_ms:.3f} ms a step (bound {bound:.3f} ms: "
+        f"{bound / full_ms:.1%}), device busy {traced['busy_ms']:.3f} of "
+        f"{traced['wall_ms']:.3f} ms; peak reserved {peak / 1e9:.2f} GB; "
+        f"top kernels {traced['top']}")
+    del engine, reg, session, caches, stage
+    return out
+
+
+def twin_gaps(checks) -> str:
+    gaps = [c["twin_gap"] for c in checks if c["twin_gap"] is not None]
+    return (f"{len(gaps)} steps, {min(gaps):.3e}–{max(gaps):.3e}" if gaps
+            else "not measured: every checked step grew a scale")
+
+
+def decode_steps(engine, params, buffers, cfg, first_tok, caches,
+                 n_steps: int, what: str) -> dict:
+    """``n_steps`` of ``Engine.decode`` from ``caches`` (the greedy token
+    fed back), each held against the plain route's ``LM.decode_step`` (and
+    its twin) on a copy of the caches from before it."""
+    reg = next(iter(engine._decode.values()))
+    static = reg.cell.inputs[1]
+    tok = first_tok
+    checks, outs = [], None
+    for step in range(n_steps):
+        mirror = {k: x.clone() for k, x in caches.items()}
+        logits, outs = engine.decode(tok, caches)
+        tok_t = torch.from_numpy(tok).to(caches["k"].device)
+        want, twin = plain_and_twin(lambda c: LM.decode_step(
+            params, buffers, tok_t, c, cfg), mirror)
+        checks.append(check_logits(
+            torch.from_numpy(logits), want.cpu(), f"{what} decode step {step}",
+            None if twin is None else twin.cpu()))
+        del mirror
+        check(all(outs[k] is static[k] for k in static if k != "len"),
+              "the caches Engine.decode returned are not the cell's own")
+        caches = outs
+        tok = logits.argmax(-1)[:, None].astype(np.int32)
+    return {"checks": checks, "caches": caches, "last_token": tok}
+
+
+def phase_lm_prefill(dev, model, arch: str = LM_ARCH,
+                     n_prompt: int | None = None,
+                     n_steps: int | None = None) -> dict:
+    """``LM.prefill`` of one prompt of ``n_prompt`` tokens into an int8
+    cache, against the plain route (the long-sequence attention chunked);
+    then ``n_steps`` of ``Engine.decode`` on ``lm_decode_cell`` (batch 1),
+    the first from the prefill's caches (copied into the cell's), the rest
+    from the caches it returned (the cell's own, copied no more), each held
+    against the plain route; launches counted with the counts at 0."""
+    cfg, params, buffers = model
+    n_prompt = LM_PREFILL if n_prompt is None else n_prompt
+    n_steps = LM_DECODE_STEPS if n_steps is None else n_steps
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 1, n_prompt, seed=SEED)
+                            .batch_at(1)["tokens"]).to(dev)
+    max_len = n_prompt + n_steps
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = LM.prefill(params, buffers, toks, cfg, max_len,
+                                torch.int8)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = {"mpe_lookup": 1, "flash_attention_fwd": cfg.n_layers,
+                     "kv_cache_write": 2 * cfg.n_layers,
+                     "decode_attention": 0,
+                     "segment_sum": cfg.n_layers if cfg.moe else 0}
+    for name, n in want_launches.items():
+        check(prefill_launches[name] == n, f"{arch} prefill: {name} launched "
+              f"{prefill_launches[name]} times, not {n}")
+    t0 = time.perf_counter()
+    want, want_caches = with_plain_lm(lambda: LM.prefill(
+        params, buffers, toks, cfg, max_len, torch.int8))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    prefill_check = check_logits(logits, want, f"{arch} prefill")
+    # layer 0 reads the same inputs in both routes: its cache is the same
+    check(torch.equal(caches["k"][0], want_caches["k"][0])
+          and torch.equal(caches["k_scale"][0], want_caches["k_scale"][0])
+          and torch.equal(caches["v"][0], want_caches["v"][0]),
+          f"{arch} prefill: layer 0's int8 cache differs from the plain "
+          f"route's")
+    del want_caches, want
+    lookup = time_lookup(params["embedding"], buffers["embedding"]["meta"],
+                         toks.reshape(-1), f"{arch} prefill ({n_prompt} "
+                         f"tokens, d={cfg.d_model})", plain=True)
+    engine = Engine(device=dev)
+    reg = engine.register(lm_decode_cell(cfg, params, buffers, batch=1,
+                                         max_len=max_len, arch=arch))
+    want_captured = {"mpe_lookup": 1, "kv_cache_write": 2 * cfg.n_layers,
+                     "decode_attention": cfg.n_layers,
+                     **({"segment_sum": cfg.n_layers} if cfg.moe else {})}
+    check(reg.cell.captured == want_captured,
+          f"{arch} decode cell captured {reg.cell.captured}")
+    reset_counts()
+    reg.cell.replays = 0
+    first = logits.float().argmax(-1)[:, None].cpu().numpy().astype(np.int32)
+    run = decode_steps(engine, params, buffers, cfg, first, caches, n_steps,
+                       arch)
+    launches = {**counts(), **reg.cell.launches}
+    check(reg.cell.replays == n_steps, "a decode step did not replay")
+    summary = engine.summary()[reg.celldef.name]
+    caches, tok = run["caches"], run["last_token"]
+    traced = trace(lambda: engine.decode(tok, caches), 3)
+    step_bound = step_bound_ms(params, cfg, max_len, 1)
+    out = {"prompt": n_prompt, "prefill_s": prefill_s, "plain_s": plain_s,
+           "prefill_peak_bytes": peak, "prefill_check": prefill_check,
+           "prefill_launches": prefill_launches,
+           "decode_checks": run["checks"], "decode_launches": launches,
+           "step_p50_ms": summary["p50_ms"], "step_bound_ms": step_bound,
+           "cache_len": int(run["caches"]["len"]), "lookup": lookup,
+           "busy_ms": traced["busy_ms"],
+           "wall_ms": traced["wall_ms"], "top": traced["top"]}
+    log(f"{arch} prefill of {n_prompt} tokens: {prefill_s:.2f} s (plain "
+        f"route {plain_s:.2f} s), logit gap {prefill_check['gap']:.3e}, "
+        f"peak {peak / 1e9:.2f} GB; {n_steps} decode steps p50 "
+        f"{out['step_p50_ms']:.3f} ms (bound {step_bound:.3f} ms), worst "
+        f"gap {max(c['gap'] for c in run['checks']):.3e} (the plain route "
+        f"against its twin: {twin_gaps(run['checks'])}); a traced step busy "
+        f"{traced['busy_ms']:.3f} of {traced['wall_ms']:.3f} ms, top "
+        f"{traced['top']}")
+    del engine, reg, caches, run
+    return out
+
+
+def phase_lm_long(dev, model) -> dict:
+    """long_500k: the decode cell at one sequence of 524,288, its int8
+    cache filled from the seed in place (codes ~ N(0, 127/4) rounded and
+    clipped, as a real prefix's spread over its absmax; each layer's and
+    head's scales 1.5 times those a ``LONG_PROBE``-token prefill
+    calibrates, so that the model's new keys fit the grid as they would a
+    real prefix's; length 524,284; no prefill of that length), one step
+    held against the plain route on a copy, then ``LONG_STEPS`` steps
+    timed, and layer 0's kernels timed."""
+    cfg, params, buffers = model
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 1, LONG_PROBE, seed=SEED)
+                            .batch_at(2)["tokens"]).to(dev)
+    _, probe = LM.prefill(params, buffers, toks, cfg, LONG_PROBE, torch.int8)
+    engine = Engine(device=dev)
+    reg = engine.register(lm_decode_cell(cfg, params, buffers, batch=1,
+                                         max_len=LONG_LEN, arch=LM_ARCH))
+    caches = reg.cell.inputs[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name in ("k", "v"):
+        codes = caches[name].view(-1)
+        for i in range(0, codes.numel(), LONG_FILL_CHUNK):
+            part = codes[i:i + LONG_FILL_CHUNK]
+            part.copy_(torch.clamp(torch.round(
+                torch.randn(part.shape, generator=gen, device=dev)
+                * LONG_CODE_STD), -127, 127))
+        caches[f"{name}_scale"].copy_(LONG_SCALE_MARGIN
+                                      * probe[f"{name}_scale"])
+    del probe
+    caches["len"].fill_(LONG_LEN - LONG_STEPS)
+    tok = np.asarray([[7]], np.int32)
+    run = decode_steps(engine, params, buffers, cfg, tok, caches, 1,
+                       "long_500k")
+    torch.cuda.empty_cache()
+    reset_counts()
+    reg.cell.replays = 0
+    engine.stats = LatencyStats()
+    caches = run["caches"]
+    caches["len"] = caches["len"].clone()
+    caches["len"].fill_(LONG_LEN - LONG_STEPS)
+    tok = run["last_token"]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LONG_STEPS):
+        logits, caches = engine.decode(tok, caches)
+        tok = logits.argmax(-1)[:, None].astype(np.int32)
+    check(bool(np.isfinite(logits).all()), "long_500k: logits not finite")
+    launches = {**counts(), **reg.cell.launches}
+    summary = engine.summary()[reg.celldef.name]
+    bound = step_bound_ms(params, cfg, LONG_LEN, 1)
+    lens = torch.full((1,), LONG_LEN - 1, dtype=torch.int32, device=dev)
+    traced = trace(lambda: engine.decode(tok, caches), 2)
+    kernels = time_decode_kernels(params, cfg, reg.cell.inputs[1], lens,
+                                  "long_500k (1 x 524,288)")
+    out = {"check": run["checks"][0], "step_p50_ms": summary["p50_ms"],
+           "step_mean_ms": summary["mean_ms"],
+           "step_bound_ms": bound, "busy_ms": traced["busy_ms"],
+           "idle_share": traced["idle_share"], "top": traced["top"],
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "launches": launches, "kernels": kernels}
+    log(f"long_500k: {LONG_STEPS} steps p50 {out['step_p50_ms']:.3f} ms "
+        f"(bound {bound:.3f} ms: {bound / out['step_p50_ms']:.1%}), busy "
+        f"{traced['busy_ms']:.3f} of {traced['wall_ms']:.3f} ms, logit gap "
+        f"{out['check']['gap']:.3e}")
+    del engine, reg, caches, run
+    return out
+
+
+def lm_records(grid, slotted, long) -> list:
+    """The two decode kernels' records: ms, plain ms and bound at
+    decode_32k's full context (8 × 32,768), long_500k's beside."""
+    out = []
+    for name, source in (("kv_cache_write", KVW_SOURCE),
+                         ("decode_attention", DECODE_ATT_SOURCE)):
+        r = slotted["kernels"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": ("no TPU kernel: the reference's jnp cache write "
+                         "(src/repro/models/lm/transformer.py:196-245)"
+                         if name == "kv_cache_write" else
+                         "no TPU kernel: the reference's jnp gqa_attention "
+                         "over its dequantized cache "
+                         "(src/repro/nn/attention.py:82)"),
+            "launches": slotted["launches"][name],
+            "max_abs_err": max(grid[name], r["max_abs_err"],
+                               long["kernels"][name]["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shapes": {"decode_32k": r, "long_500k": long["kernels"][name]},
+            "grid_cases": grid["cases"][name]})
+    return out
+
+
+def phase_moe(dev) -> dict:
+    """deepseek-moe-16b at full width, 2 of its 28 layers: a prefill of
+    4,096 tokens and 8 decode steps, as ``phase_lm_prefill``; the MoE
+    combine runs on the segment-sum kernel, once a layer."""
+    model = lm_model(MOE_ARCH, dev, n_layers=MOE_LAYERS)
+    out = phase_lm_prefill(dev, model, arch=MOE_ARCH, n_prompt=MOE_PREFILL,
+                           n_steps=MOE_STEPS)
+    del model
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4594,11 +5456,31 @@ def main() -> int:
                     "gin": {shape: {k: v for k, v in run.items()
                                     if k != "step_inputs"}
                             for shape, run in gin.items()}}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_grid = phase_lm_grid(dev)
+    flash_times.update(phase_lm_flash(dev))
+    lm = lm_model(LM_ARCH, dev)
+    slotted = phase_lm_slotted(dev, lm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill = phase_lm_prefill(dev, lm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = phase_lm_long(dev, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(dev)
+    log(json.dumps({"lm_slotted": slotted, "lm_prefill": prefill,
+                    "lm_long_500k": long, "moe": moe}))
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
                              **bst_serve.pop("lookup"),
                              **wide_deep.pop("lookup"),
-                             **two_tower["served"].pop("lookup")})
+                             **two_tower["served"].pop("lookup"),
+                             "internlm2 prefill": prefill["lookup"],
+                             "deepseek-moe prefill": moe["lookup"]})
     extra = [*table3["recorded"],
              ("gin molecule", gin["molecule"]["step_inputs"]),
              ("gin cora", gin["full_graph_sm"]["step_inputs"]),
@@ -4615,7 +5497,8 @@ def main() -> int:
                            reduced["schedule"]),
                bag_record(bag_grid_errs, bag), tiered["record"],
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
-                              flash_times, bst_errs)]
+                              flash_times, bst_errs),
+               *lm_records(lm_grid, slotted, long)]
     by_path = {"dlrm serve": main_launches,
                "dlrm lifecycle": lifecycle["launches"],
                "dlrm tiered": tiered["launches"],
@@ -4633,7 +5516,13 @@ def main() -> int:
                "two-tower serve": two_tower["served"]["launches"],
                "gin molecule train": gin["molecule"]["launches"],
                "gin cora train": gin["full_graph_sm"]["launches"],
-               "gin products train": gin["ogb_products"]["launches"]}
+               "gin products train": gin["ogb_products"]["launches"],
+               "lm slotted": slotted["launches"],
+               "lm prefill": prefill["prefill_launches"],
+               "lm decode": prefill["decode_launches"],
+               "lm long_500k": long["launches"],
+               "moe prefill": moe["prefill_launches"],
+               "moe decode": moe["decode_launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

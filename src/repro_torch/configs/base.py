@@ -10,7 +10,7 @@ from typing import Callable, NamedTuple
 
 class ArchSpec(NamedTuple):
     arch_id: str
-    family: str                    # recsys | gnn
+    family: str                    # lm | gnn | recsys
     make_config: Callable          # (reduced: bool[, backbone | shape]) -> config
     shapes: tuple
     citation: str = ""
@@ -25,14 +25,32 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
     return spec
 
 
-def get_arch(arch_id: str) -> ArchSpec:
+def _register_all():
     import repro_torch.configs.bst  # noqa: F401  (registers)
+    import repro_torch.configs.deepseek_moe_16b  # noqa: F401
     import repro_torch.configs.dlrm_criteo  # noqa: F401
     import repro_torch.configs.gin_tu  # noqa: F401
+    import repro_torch.configs.grok_1_314b  # noqa: F401
+    import repro_torch.configs.internlm2_1_8b  # noqa: F401
+    import repro_torch.configs.qwen3_32b  # noqa: F401
     import repro_torch.configs.sasrec  # noqa: F401
+    import repro_torch.configs.starcoder2_7b  # noqa: F401
     import repro_torch.configs.two_tower_retrieval  # noqa: F401
     import repro_torch.configs.wide_deep  # noqa: F401
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    _register_all()
     return _REGISTRY[arch_id]
+
+
+def ALL_ARCHS():
+    _register_all()
+    return sorted(_REGISTRY)
+
+
+# the LM cells of the reference's configs/base.py
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 # the graph cells of the reference's configs/base.py, each with its own

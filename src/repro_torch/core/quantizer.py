@@ -42,6 +42,35 @@ def dequantize_codes(codes: torch.Tensor, alpha, beta) -> torch.Tensor:
     return torch.addcmul(beta, codes.to(torch.float32), alpha)
 
 
+# symmetric int8 helpers (KV caches, expert weights), in the reference's op
+# order: its int8 KV-cache attention and MoE expert products read them so
+
+INT8_MAX = 127
+
+
+def dequantize_symmetric(q: torch.Tensor, scale: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Symmetric (zero-offset) dequant: ``q * scale`` in ``dtype``, both
+    factors cast *before* the multiply, as the reference casts them."""
+    return q.to(dtype) * scale.to(dtype)
+
+
+def quantize_symmetric(vals: torch.Tensor, scale: torch.Tensor,
+                       dtype=torch.int8) -> torch.Tensor:
+    """Symmetric quant onto the int8 grid: ``round(vals / scale)`` (half to
+    even) clipped to ±127. The division stays a division: jitted XLA keeps
+    it one where the divisor is a tensor."""
+    return torch.clamp(torch.round(vals / scale), -INT8_MAX,
+                       INT8_MAX).to(dtype)
+
+
+def requantize_int8(codes: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+    """Re-project stored int8 codes onto a coarser grid: ``round(codes *
+    ratio)`` clipped to ±127, ``ratio = old_scale / new_scale`` ≤ 1."""
+    return torch.clamp(torch.round(codes.to(torch.float32) * ratio),
+                       -INT8_MAX, INT8_MAX).to(torch.int8)
+
+
 def init_alpha(std: float, b: int) -> float:
     """LSQ-style step-size init: alpha ≈ 2·E|θ| / sqrt(P_b) with θ~N(0,std)."""
     if b < 1:

@@ -13,7 +13,9 @@ vector and ``wide_bias``; GIN's 0-d learnable ε) and buffers (the field
 ``ctx_offsets`` vector; the two-tower's ``user_offsets`` and
 ``item_offsets``) and its state (the BatchNorm statistics of the MLPs, the
 two towers' each under its own key; SASRec has none, and GIN, which has
-none, passes ``{}``). A GIN on dense features has no table, and its
+none, passes ``{}``). An LM (no state either) carries its stacked layers
+leaf for leaf: bf16 weights keep their bits, and int8 expert weights come
+as their {"q", "scale"} pairs. A GIN on dense features has no table, and its
 buffers no ``embedding``. ``to_torch`` carries any other tree, such as an
 Adam state ({"step", "mu", "nu"}). A packed table's uint32 words pass
 through ``.view(np.int32)``, so the port holds the same bits. Both
@@ -31,7 +33,9 @@ from repro_torch.device import resolve_device
 
 def to_torch(tree, device):
     """Nested dicts/lists/tuples of numpy arrays -> the same of tensors on
-    ``device``; uint32 arrays become int32 tensors with the same bits."""
+    ``device``; uint32 arrays become int32 tensors with the same bits, and
+    bfloat16 arrays (numpy holds them as ``ml_dtypes.bfloat16``)
+    ``torch.bfloat16`` ones with the same bits."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -39,6 +43,9 @@ def to_torch(tree, device):
     arr = np.asarray(tree)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
+    if arr.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: its 16 bits
+        return torch.tensor(arr.view(np.int16),
+                            device=device).view(torch.bfloat16)
     return torch.tensor(arr, device=device)
 
 

@@ -7,10 +7,12 @@ take) and ``ops.py`` (the wrapper, which launches the kernel built from
 launches; ``counts()`` reads them all.
 """
 from repro_torch.kernels.adam.ops import adam_step_
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.embedding_bag.ops import (embedding_bag_fwd,
                                                    embedding_bag_kernel)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_stats)
+from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
 from repro_torch.kernels.mpe_lookup.ops import packed_lookup
 from repro_torch.kernels.mpe_qat.ops import (mixed_expectation_bwd,
                                              mixed_expectation_fwd)
@@ -26,7 +28,9 @@ COUNTERS = {"mpe_lookup": packed_lookup,
             "embedding_bag_fwd": embedding_bag_fwd,
             "segment_sum": segment_sum,
             "adam_step_": adam_step_,
-            "tiered_cold": cold_fill}
+            "tiered_cold": cold_fill,
+            "kv_cache_write": kv_cache_write,
+            "decode_attention": decode_attention}
 
 
 def counts() -> dict:

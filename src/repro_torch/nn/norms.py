@@ -1,4 +1,4 @@
-"""LayerNorm and BatchNorm over the last axis, written out by hand.
+"""LayerNorm, BatchNorm and RMSNorm over the last axis, written out by hand.
 
 LayerNorm is the reference's: mean, biased variance,
 ``(x − mean) / sqrt(var + 1e-5)·scale + bias`` (not ``F.layer_norm``, whose
@@ -58,3 +58,24 @@ class BatchNorm:
             new_state = state
         y = (x - mean) / torch.sqrt(var + EPS) * params["scale"] + params["bias"]
         return y, new_state
+
+
+class RMSNorm:
+    """``x·(1/sqrt(mean(x²) + 1e-6))·scale`` with the statistics in float32,
+    cast back to ``x``'s dtype (the LLaMA/Qwen convention). Jitted XLA
+    sums the squares in its own order and takes ``1/sqrt`` as its
+    reciprocal square root, so the two packages agree within a float32
+    ulp or two, not bit for bit."""
+
+    EPS = 1e-6
+
+    @staticmethod
+    def init(dim: int, dtype=torch.float32, device=None):
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+    @staticmethod
+    def apply(params, x):
+        x32 = x.to(torch.float32)
+        ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * (1.0 / torch.sqrt(ms + RMSNorm.EPS))
+        return (y * params["scale"]).to(x.dtype)

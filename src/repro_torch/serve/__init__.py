@@ -14,11 +14,13 @@ path, composable bottom-up.
   ``scheduler`` — Scheduler: drains the queue into coalesced cell
                   dispatches (with an optional max-wait window) and
                   isolates dispatch faults to the requests of the failed
-                  chunk.
+                  chunk; ``DecodeSession`` runs continuous-batching LM
+                  decode over a slot-pooled persistent KV cache.
   ``clock``     — ManualClock / TickClock: injectable time sources for
                   deterministic lifecycle tests and open-loop replay.
   ``engine``    — Engine: ``submit``/``poll``/``drain`` lifecycle with
-                  ``score`` as a synchronous wrapper; Figure-5 per-cell
+                  ``score`` / ``retrieve`` / ``decode`` as synchronous
+                  wrappers and ``submit_decode`` for generation; Figure-5 per-cell
                   latency split and per-request queue / assembly / compute
                   breakdown.
   ``repack``    — RepackPlanner / TableSwapper / PressureAdapter:
@@ -28,13 +30,16 @@ path, composable bottom-up.
 The tiered lane serves from ``repro_torch.cache.TieredTableStore``
 (``Engine.register_tiered_model``/``score_tiered``/``attach_tier_policy``);
 the retrieve lane serves two-tower retrieval (``two_tower_retrieval_cell``,
-``Engine.retrieve``). Decode comes with the LM (ROADMAP Queue 1 item 5.4),
-the mesh with item 6 and ``ServeCellDef.abstract_signature`` with item 7.
+``Engine.retrieve``); the decode lanes serve the LM (``lm_decode_cell``,
+``lm_decode_slotted_cell``, ``Engine.decode``/``submit_decode``). The mesh
+comes with ROADMAP Queue 1 item 6 and ``ServeCellDef.abstract_signature``
+with item 7.
 """
 from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
 from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,
                                      device_signature)
 from repro_torch.serve.cells import (ServeCellDef, baseline_score_cell,
+                                     lm_decode_cell, lm_decode_slotted_cell,
                                      packed_lookup_cell, packed_score_cell,
                                      packed_score_step, tiered_score_cell,
                                      two_tower_retrieval_cell)
@@ -46,17 +51,17 @@ from repro_torch.serve.repack import (PressureAdapter, RepackPlan,
                                       RepackPlanner, TableSwapper,
                                       headroom_capacities,
                                       subtable_capacities)
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import DecodeSession, Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
 
 __all__ = [
     "CellCache", "CellKey", "CompiledCell", "device_signature",
     "Chunk", "Span", "RequestBatcher", "LatencyStats", "RequestStats",
     "AdmissionQueue", "Request", "TenantQuota", "RequestFailedError",
-    "ManualClock", "TickClock", "Scheduler",
+    "ManualClock", "TickClock", "Scheduler", "DecodeSession",
     "ServeCellDef", "baseline_score_cell", "packed_score_cell",
     "packed_score_step", "packed_lookup_cell", "tiered_score_cell",
-    "two_tower_retrieval_cell",
+    "two_tower_retrieval_cell", "lm_decode_cell", "lm_decode_slotted_cell",
     "Engine", "RepackPlan", "RepackPlanner", "TableSwapper",
     "PressureAdapter",
     "headroom_capacities", "subtable_capacities",

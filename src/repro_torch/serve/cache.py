@@ -69,8 +69,30 @@ def bound_signature(bound) -> str:
 
 
 def _leading(request_specs) -> tuple:
-    """The leading dim of each request input."""
-    return tuple(shape[0] for shape, _ in request_specs)
+    """The leading dim of each request input (None for a tree of inputs,
+    such as a decode cell's KV caches, which is never staged)."""
+    return tuple(None if isinstance(spec, dict) else spec[0][0]
+                 for spec in request_specs)
+
+
+def _zeros(spec, device):
+    """A zeroed static input of ``spec``: a ``(shape, dtype)`` pair, or a
+    dict of them (a tree of inputs)."""
+    if isinstance(spec, dict):
+        return {k: _zeros(v, device) for k, v in spec.items()}
+    shape, dtype = spec
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _copy_into(static, value):
+    """Copy a request input into the graph's static input, leaf by leaf,
+    skipping a leaf that already is the static tensor (a decode cell's
+    caches, written in place by the last replay)."""
+    if isinstance(static, dict):
+        for k, x in static.items():
+            _copy_into(x, value[k])
+    elif value is not static:
+        static.copy_(value)
 
 
 class CellKey(NamedTuple):
@@ -162,15 +184,14 @@ class CompiledCell:
         return self._inputs
 
     def compiled(self, *request):
-        if any(not torch.is_tensor(r) for r in request):
+        if any(isinstance(r, np.ndarray) for r in request):
             request = self.stage(*request)
         self.replays += 1
         if self._graph is None:
             with torch.inference_mode():
                 return self._step(*request)
         for x, r in zip(self._inputs, request):
-            if r is not x:
-                x.copy_(r)
+            _copy_into(x, r)
         self._graph.replay()
         return self._output
 
@@ -252,7 +273,8 @@ class CellCache:
 
         ``build_fn() -> (step_fn, bound, request_specs, meta)`` is only
         invoked on a miss: ``step_fn(*bound, *request)`` on the cache's
-        device, ``request_specs`` the requests' ``(shape, dtype)``."""
+        device, ``request_specs`` the requests' ``(shape, dtype)`` (or a
+        dict of them for a tree of inputs)."""
         if key in self._cells:
             self.hits += 1
             return self._cells[key]
@@ -274,8 +296,7 @@ class CellCache:
     def _capture(self, key, step, request_specs, meta, t0) -> CompiledCell:
         dev = self.device
         with torch.cuda.device(dev):
-            inputs = tuple(torch.zeros(shape, dtype=dtype, device=dev)
-                           for shape, dtype in request_specs)
+            inputs = tuple(_zeros(spec, dev) for spec in request_specs)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()

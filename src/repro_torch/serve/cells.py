@@ -6,12 +6,17 @@ batch shape, so the same builder serves a 3-field test table on the CPU and
 the Criteo-scale table on the card.
 
 A ``ServeCellDef`` separates *bound* inputs (params/state/buffers — moved to
-the engine's device once, at registration) from *request* inputs (ids —
-fresh every call); ``repro_torch.serve.cache.CellCache`` turns the pair into
-one executable: a CUDA graph captured once on the card, the eager step on
-the CPU. The reference's partition specs have no counterpart on one device.
+the engine's device once, at registration) from *request* inputs (ids,
+tokens, KV caches — fresh every call); ``repro_torch.serve.cache.CellCache``
+turns the pair into one executable: a CUDA graph captured once on the card,
+the eager step on the CPU. The reference's partition specs have no
+counterpart on one device.
 
-LM decode cells are not ported yet (ROADMAP Queue 1 item 5.4).
+The LM decode cells take their KV caches as a request input, a dict of
+tensors: in the graph those are static inputs that each replay writes in
+place (the caches a step returns are the cell's own), and
+``make_request_state(device=)`` builds fresh ones with the model's own
+``LM.make_kv_caches``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch.cache.tiers import cold_buffer_words, tiered_hot_lookup_fn
 from repro_torch.core.inference import packed_lookup_fn
 from repro_torch.kernels.tiered_cold.ops import cold_fill
+from repro_torch.models.lm import LM
 
 
 class ServeCellDef(NamedTuple):
@@ -33,13 +39,16 @@ class ServeCellDef(NamedTuple):
     cache."""
     arch: str              # architecture identity (cache-key component)
     shape: str             # shape name, e.g. "serve_p99"
-    kind: str              # score | lookup | tiered_score | retrieve
+    kind: str              # score | lookup | tiered_score | retrieve |
+                           # decode | decode_slotted
     batch: int             # leading-dim capacity of the executable
     step_fn: Callable      # step_fn(*bound, *request) -> outputs
     bound: tuple           # trees fixed at registration (params, state, ...)
-    request_specs: tuple   # ((shape, dtype), ...) for the per-request inputs
+    request_specs: tuple   # ((shape, dtype) or a dict of them, ...) for the
+                           # per-request inputs
     meta: dict
     static: Any = None     # config baked into step_fn closures (cfg, top_k…)
+    make_request_state: Callable | None = None  # fresh KV caches (device=)
 
     @property
     def name(self) -> str:
@@ -195,4 +204,80 @@ def two_tower_retrieval_cell(model, cfg, params, state, buffers, *,
                        ((n_cands,), torch.bool)),
         meta={"kind": "retrieve", "n_cands": n_cands, "top_k": top_k},
         static=cfg,
+    )
+
+
+def _cache_specs(cfg, batch: int, max_len: int, kv_dtype) -> dict:
+    """``(shape, dtype)`` of each KV-cache tensor ``LM.make_kv_caches``
+    makes, read from a cache built on the meta device (no memory)."""
+    caches = LM.make_kv_caches(cfg, batch, max_len, kv_dtype, device="meta")
+    return {k: (tuple(v.shape), v.dtype) for k, v in caches.items()}
+
+
+def lm_decode_slotted_cell(cfg, params, buffers, *, batch: int, max_len: int,
+                           kv_int8: bool = True, arch: str,
+                           shape: str = "decode_cb") -> ServeCellDef:
+    """Continuous-batching decode: per-slot cache lengths.
+
+    The batch dim is a pool of ``batch`` KV-cache *slots*; each slot holds
+    one request's sequence at its own length. Request inputs are
+    ``(tokens (B, 1), lens (B,) int32, caches)`` where ``lens`` is the
+    scheduler-owned per-slot valid length (a recycled slot rejoins at 0,
+    which re-seeds its int8 scale on the first write) and ``caches`` omits
+    the shared ``"len"`` of the classic decode cell. Requests join and
+    leave the running batch between steps without a new capture — the
+    scheduler's ``DecodeSession`` owns the slot free-list."""
+    kv_dtype = torch.int8 if kv_int8 else torch.bfloat16
+
+    def decode_step(p, bufs, tokens, lens, caches):
+        return LM.decode_step_slotted(p, bufs, tokens, lens, caches, cfg)
+
+    def make_caches(device=None):
+        caches = LM.make_kv_caches(cfg, batch, max_len, kv_dtype,
+                                   device=device)
+        caches.pop("len")
+        return caches
+
+    specs = _cache_specs(cfg, batch, max_len, kv_dtype)
+    specs.pop("len")
+    return ServeCellDef(
+        arch=arch, shape=shape, kind="decode_slotted", batch=batch,
+        step_fn=decode_step,
+        bound=(params, buffers),
+        request_specs=(((batch, 1), torch.int32), ((batch,), torch.int32),
+                       specs),
+        meta={"kind": "decode_slotted", "batch": batch, "max_len": max_len,
+              "kv_int8": kv_int8},
+        static=cfg,
+        make_request_state=make_caches,
+    )
+
+
+def lm_decode_cell(cfg, params, buffers, *, batch: int, max_len: int,
+                   kv_int8: bool = True, arch: str,
+                   shape: str = "decode") -> ServeCellDef:
+    """One-token decode against a persistent KV cache: ``(tokens (B, 1),
+    caches) -> (logits (B, V), caches)``.
+
+    The int8 cache with running-absmax scales is the default — the
+    paper-aligned halving of the decode-dominant KV traffic; pass
+    ``kv_int8=False`` for the bf16 cache."""
+    kv_dtype = torch.int8 if kv_int8 else torch.bfloat16
+
+    def decode_step(p, bufs, tokens, caches):
+        return LM.decode_step(p, bufs, tokens, caches, cfg)
+
+    def make_caches(device=None):
+        return LM.make_kv_caches(cfg, batch, max_len, kv_dtype, device=device)
+
+    return ServeCellDef(
+        arch=arch, shape=shape, kind="decode", batch=batch,
+        step_fn=decode_step,
+        bound=(params, buffers),
+        request_specs=(((batch, 1), torch.int32),
+                       _cache_specs(cfg, batch, max_len, kv_dtype)),
+        meta={"kind": "decode", "batch": batch, "max_len": max_len,
+              "kv_int8": kv_int8},
+        static=cfg,
+        make_request_state=make_caches,
     )

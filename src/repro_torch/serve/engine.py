@@ -32,8 +32,17 @@ The retrieve lane serves two-tower retrieval: one user against a
 candidate corpus of any size, chunked onto the registered cell's capacity
 (``two_tower_retrieval_cell``) and the per-chunk top-ks merged.
 
-Not ported yet, each raising where it is asked for: decode (ROADMAP Queue 1
-item 5.4, the LM), the mesh (item 6).
+The decode lanes serve the LM: ``decode`` steps a classic decode cell
+(``lm_decode_cell``) against caches the caller threads through, and
+``submit_decode`` rides the scheduler's continuous-batching lane
+(``lm_decode_slotted_cell``), whose sequences join and leave a persistent
+slot-pooled KV cache between steps. On the card a decode cell's caches are
+static inputs of its graph, written in place by every replay: the caches
+``decode`` returns are the cell's own, which the next call reads without a
+copy (it copies only caches that are not).
+
+Not ported yet, raising where it is asked for: the mesh (ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -55,9 +64,6 @@ from repro_torch.serve.queue import (DONE, FAILED, SHED, AdmissionQueue,
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
 from repro_torch.train.tree import tree_map
-
-NOT_PORTED = {"decode": "ROADMAP Queue 1 item 5.4 (the LM)"}
-
 
 class RegisteredCell(NamedTuple):
     """A cell after registration: its definition, the warm executable, the
@@ -129,11 +135,6 @@ def _write_in_place(dst: dict, src: dict):
             v.copy_(src[k])
 
 
-def not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with "
-                              f"{NOT_PORTED[what]}")
-
-
 class Engine:
     """Front-end over the cell cache + request batcher, on one device (the
     CUDA card unless ``device`` names another, or the device of a shared
@@ -170,6 +171,7 @@ class Engine:
         self._tiered: dict[str, TieredCell] = {}        # bucket name -> cell
         self._tiered_batcher = RequestBatcher()
         self._retrieve: dict[str, RegisteredCell] = {}  # arch -> cell
+        self._decode: dict[str, RegisteredCell] = {}    # arch -> cell
         self._pending_swaps: list[tuple] = []           # (arch, table, meta)
         self.swaps_applied = 0
         # traffic-adaptive tiering (repro_torch.cache.policy): one policy
@@ -204,16 +206,25 @@ class Engine:
                  lookup_cell: ServeCellDef | None = None) -> RegisteredCell:
         """Build (or warm-hit) a cell and route it by kind. Score cells also
         register their capacity as a batcher bucket under their shape name;
-        retrieve cells serve ``retrieve`` for their arch."""
-        if celldef.kind in ("decode", "decode_slotted"):
-            not_ported("decode")
-        if celldef.kind not in ("score", "retrieve"):
+        retrieve cells serve ``retrieve`` for their arch, decode cells
+        ``decode``, and a slotted decode cell opens the arch's
+        continuous-batching session. A decode cell's graph caches, which
+        the capture's warm-up calls wrote, are reset to fresh caches."""
+        if celldef.kind not in ("score", "retrieve", "decode",
+                                "decode_slotted"):
             raise ValueError(f"unroutable cell kind {celldef.kind!r}")
         reg = self._compile(celldef)
         if lookup_cell is not None:
             reg = reg._replace(lookup=self._compile(lookup_cell))
+        if celldef.kind.startswith("decode") and reg.cell.inputs:
+            _write_in_place(reg.cell.inputs[-1],
+                            celldef.make_request_state(device=self.device))
         if celldef.kind == "retrieve":
             self._retrieve[celldef.arch] = reg
+        elif celldef.kind == "decode":
+            self._decode[celldef.arch] = reg
+        elif celldef.kind == "decode_slotted":
+            self.scheduler.add_session(celldef.arch, reg)
         else:
             self._score[celldef.shape] = reg
             self._score_batcher.register(celldef.shape, celldef.batch)
@@ -499,12 +510,35 @@ class Engine:
         self._requests[req.ticket] = req
         return req.ticket
 
-    def submit_decode(self, *args, **kwargs):
-        not_ported("decode")
+    def submit_decode(self, prompt, max_new: int, *, arch: str | None = None,
+                      deadline_ms: float | None = None,
+                      now: float | None = None, tenant: str = "default",
+                      priority: int = 0) -> int | None:
+        """Admit an LM generation request (prompt replay + ``max_new`` greedy
+        tokens) into the continuous-batching decode lane -> ticket, or None
+        when shed. Requires a registered ``lm_decode_slotted_cell``; the
+        sequence joins the running decode batch when a KV-cache slot frees
+        up, without a new capture or a restart of the batch."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        session = self.scheduler._pick_session(arch)
+        if prompt.shape[0] + int(max_new) > session.max_len:
+            raise ValueError(
+                f"sequence of {prompt.shape[0]}+{int(max_new)} tokens exceeds "
+                f"the cell's max_len={session.max_len}")
+        req = self.queue.submit(
+            "decode", (prompt, int(max_new), arch), 1,
+            now=self._clock() if now is None else now,
+            deadline_ms=deadline_ms, tenant=tenant, priority=priority)
+        if req is None:
+            self.rstats.record_shed("decode", tenant=tenant)
+            return None
+        self._requests[req.ticket] = req
+        return req.ticket
 
     def poll(self, ticket: int):
-        """The completed (n,) logits for ``ticket``, or None while the
-        request is still queued/in flight. Raises ``RuntimeError`` on a shed
+        """The completed result for ``ticket`` — scored requests return the
+        (n,) logits, decode requests the generated tokens — or None while
+        the request is still queued/in flight. Raises ``RuntimeError`` on a shed
         ticket and ``RequestFailedError`` on a ticket whose dispatch raised.
 
         A finished ticket (done, shed or failed) is consumed by its poll;
@@ -639,8 +673,30 @@ class Engine:
                 f"pass arch=")
         return next(iter(table.values()))
 
-    def decode(self, *args, **kwargs):
-        not_ported("decode")
+    def decode(self, tokens, caches=None, *, arch: str | None = None):
+        """One decode step for a (b, 1) token batch, b ≤ the cell's capacity.
+        ``caches=None`` starts fresh KV caches (int8 + running-absmax scales
+        when the cell was registered with ``kv_int8``, the default). Returns
+        (logits (b, V) as float32 numpy, new_caches) — feed ``new_caches``
+        back in. On the card they are the cell's own caches, written in
+        place: the caches passed in are copied into them unless they are
+        them already, and the next replay writes over them."""
+        reg = self._pick(self._decode, arch, "decode")
+        tokens = np.asarray(tokens, np.int32)
+        b = tokens.shape[0]
+        toks = reg.cell.stage(tokens)[0]
+        if caches is None:
+            caches = self.fresh_caches(arch=reg.celldef.arch)
+        (logits, new_caches), total_ms = self._timed_call(reg, toks, caches)
+        self.stats.record(reg.celldef.name, total_ms)
+        return logits[:b].to(torch.float32).cpu().numpy(), new_caches
+
+    def fresh_caches(self, *, arch: str | None = None):
+        """Fresh KV caches for a decode cell on the engine's device — built
+        by the model's own cache constructor (bound at cell build time, so
+        layout and scale seeding stay the model's)."""
+        reg = self._pick(self._decode, arch, "decode")
+        return reg.celldef.make_request_state(device=self.device)
 
     # -- introspection ------------------------------------------------------
 
@@ -652,6 +708,8 @@ class Engine:
         regs = list(self._score.values())
         regs += [tc.reg for tc in self._tiered.values()]
         regs += list(self._retrieve.values())
+        regs += list(self._decode.values())
+        regs += [session.reg for session in self.scheduler.sessions.values()]
         for reg in regs:
             for r in (reg, reg.lookup):
                 if r is not None:

@@ -8,7 +8,9 @@ cells captured as CUDA graphs: replays against the eager step, the kernel
 a replay runs, in-place table swaps, steady memory, a capture that fails;
 the tiered cells' replays against their eager steps and the monolithic
 cells, and tier moves, writebacks and refreshes that keep every bound
-tensor where it was.
+tensor where it was; the LM's ``kv_cache_write`` (bit for bit) and
+``decode_attention`` kernels against their plain versions over a grid, in
+a graph at any length, and its decode cells against the CPU engine.
 
 Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_device``
 fixture skips them elsewhere. The file imports no JAX, so it runs on a
@@ -1310,3 +1312,205 @@ def test_gin_molecule_steps_launch_the_counted_kernels(cuda_device):
                for h in trainer.history)
     assert all(float(layer["eps"]) != 0.0
                for layer in trainer.params["layers"])
+
+
+# -- the LM's decode kernels -----------------------------------------------
+
+LM_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+DECODE_B = (1, 3, 8)
+DECODE_T = (1, 63, 64, 65, 4096, 8193)
+DECODE_GROUPS = ((1, 1), (2, 1), (8, 1), (4, 2), (16, 2))   # (Hq, Hkv)
+
+
+def _lengths(rng, b, t, s):
+    """Mixed lengths: fresh (0), at the end (T - s), past it (T), between."""
+    picks = [0, t - s, t, max(t - s - 1, 0), int(rng.integers(0, t - s + 1))]
+    return np.asarray([picks[i % len(picks)] for i in range(b)], np.int32)
+
+
+def _cache_case(rng, b, t, h, hd, s, dtype, q_dtype, dev):
+    """A cache of ``dtype`` holding random content, its scales, new values
+    (some rows louder than their scale, so it grows) and mixed lengths."""
+    if dtype == torch.int8:
+        cache = torch.from_numpy(rng.integers(-127, 128, (b, t, h, hd),
+                                              dtype=np.int8))
+        scale = torch.from_numpy(rng.uniform(0.01, 0.05, (b, 1, h, 1))
+                                 .astype(np.float32))
+    else:
+        cache = torch.from_numpy(rng.normal(0, 1, (b, t, h, hd))
+                                 .astype(np.float32)).to(dtype)
+        scale = None
+    loud = rng.choice([0.1, 4.0], (b, 1, h, 1))
+    vals = torch.from_numpy((rng.normal(0, 1, (b, s, h, hd)) * loud)
+                            .astype(np.float32)).to(q_dtype)
+    lens = torch.from_numpy(_lengths(rng, b, t, s))
+    return (cache.to(dev), None if scale is None else scale.to(dev),
+            vals.to(dev), lens.to(dev))
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+def test_kv_cache_write_matches_plain_bit_for_bit(cuda_device, rng, kind, hd):
+    from repro_torch.kernels.kv_cache_write import ops as kvw_ops
+    from repro_torch.kernels.kv_cache_write.ref import kv_cache_write_ref
+    dtype = LM_DTYPES[kind]
+    cases = 0
+    for b in DECODE_B:
+        for t in DECODE_T:
+            for h in (1, 2, 8):
+                for s in sorted({1, min(3, t), t}):
+                    for q_dtype in (torch.bfloat16, torch.float32):
+                        cache, scale, vals, lens = _cache_case(
+                            rng, b, t, h, hd, s, dtype, q_dtype, cuda_device)
+                        for shared in (False, True):
+                            ln = lens[:1].reshape(()) if shared else lens
+                            c1, c2 = cache.clone(), cache.clone()
+                            s1 = None if scale is None else scale.clone()
+                            s2 = None if scale is None else scale.clone()
+                            n = kvw_ops.kv_cache_write.launches
+                            kvw_ops.kv_cache_write(c1, s1, vals, ln)
+                            assert kvw_ops.kv_cache_write.launches == n + 1
+                            kv_cache_write_ref(c2, s2, vals, ln)
+                            torch.cuda.synchronize()
+                            assert torch.equal(c1, c2), (b, t, h, s, shared)
+                            if scale is not None:
+                                assert torch.equal(s1, s2), (b, t, h, s)
+                            cases += 1
+    assert cases > 100
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), at least that of 2^-126."""
+    e = torch.floor(torch.log2(torch.clamp_min(x.abs(), 2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def bf16_attention_tolerance(q, k, v, ks, vs, off, valid, want):
+    """The bf16 contract: one bf16 ulp of the output, plus one bf16 step of
+    each probability (2^-8 relative) weighted by |v|. Both versions round
+    float32 probabilities to bf16; their float32 sums, taken in other
+    orders, move a probability across a rounding boundary now and then."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    weight = decode_attention_ref(q, k, v.abs(), ks, vs, off, valid).float()
+    return _bf16_ulp(want.abs()) + 2.0 ** -8 * weight
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("kind,q_kind", [("int8", "bf16"), ("int8", "f32"),
+                                         ("bf16", "bf16"), ("f32", "f32")])
+def test_decode_attention_matches_plain(cuda_device, rng, kind, q_kind, hd):
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dtype, q_dtype = LM_DTYPES[kind], LM_DTYPES[q_kind]
+    worst = 0.0
+    for b in DECODE_B:
+        for t in DECODE_T:
+            for hq, hkv in DECODE_GROUPS:
+                for s in sorted({1, min(4, t)}):
+                    k, ks, _, lens = _cache_case(rng, b, t, hkv, hd, s, dtype,
+                                                 q_dtype, cuda_device)
+                    v, vs, _, _ = _cache_case(rng, b, t, hkv, hd, s, dtype,
+                                              q_dtype, cuda_device)
+                    q = torch.from_numpy(rng.normal(0, 1, (b, s, hq, hd))
+                                         .astype(np.float32)).to(
+                                             cuda_device, q_dtype)
+                    off = torch.clamp(lens, max=t - s)
+                    valid = off + s
+                    n = da_ops.decode_attention.launches
+                    got = da_ops.decode_attention(q, k, v, ks, vs, q_offset=off,
+                                                  kv_valid_len=valid)
+                    assert da_ops.decode_attention.launches == n + 1
+                    want = decode_attention_ref(q, k, v, ks, vs, off, valid)
+                    torch.cuda.synchronize()
+                    assert got.dtype == q_dtype and got.shape == q.shape
+                    g, w = got.float(), want.float()
+                    if q_dtype == torch.float32:     # float32 throughout
+                        torch.testing.assert_close(g, w, rtol=3e-5, atol=3e-5)
+                    else:
+                        tol = bf16_attention_tolerance(
+                            q, k, v, ks, vs, off, valid, w)
+                        bad = (g - w).abs() > tol
+                        assert not bad.any(), (b, t, hq, hkv, s,
+                                               float((g - w).abs().max()))
+                    worst = max(worst, float((g - w).abs().max()))
+    assert np.isfinite(worst)
+
+
+def test_decode_kernels_replay_in_a_graph_at_any_length(cuda_device, rng):
+    """Lengths are read on the device: one captured write-and-attend serves
+    every length, as the eager calls do."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
+    b, t, hq, hkv, hd = 3, 1000, 8, 2, 128
+    cache, scale, vals, _ = _cache_case(rng, b, t, hkv, hd, 1, torch.int8,
+                                        torch.bfloat16, cuda_device)
+    q = torch.randn((b, 1, hq, hd), device=cuda_device).to(torch.bfloat16)
+    lens = torch.zeros((b,), dtype=torch.int32, device=cuda_device)
+
+    def step(c, sc):
+        kv_cache_write(c, sc, vals, lens)
+        return decode_attention(q, c, c, sc, sc, q_offset=lens,
+                                kv_valid_len=lens + 1)
+
+    gc_, gs = cache.clone(), scale.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(gc_.clone(), gs.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(gc_, gs)
+    ec, es = cache.clone(), scale.clone()
+    gc_.copy_(cache)
+    gs.copy_(scale)
+    for n in (0, 5, 999, 1000, 17):
+        lens.fill_(n)
+        graph.replay()
+        want = step(ec, es)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(gc_, ec), n
+        assert torch.equal(gs, es)
+
+
+def test_decode_cells_replay_in_place_and_match_the_cpu_engine(cuda_device,
+                                                               rng):
+    """The LM's decode cells on the card: the slotted lane generates the CPU
+    engine's tokens; the classic cell's caches are its graph's static
+    inputs, returned by ``Engine.decode`` and read back without a copy."""
+    from repro_torch.configs.internlm2_1_8b import make_config as lm_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import lm_decode_cell, lm_decode_slotted_cell
+    cfg = lm_config(reduced=True)
+    params, buffers = LM.init(torch.Generator().manual_seed(0), cfg)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(2, 9, 7)]
+    tokens = {}
+    for dev in ("cpu", cuda_device):
+        engine = Engine(device=dev)
+        p, b = tree_map(lambda x: x.to(dev), (params, buffers))
+        engine.register(lm_decode_slotted_cell(cfg, p, b, batch=3,
+                                               max_len=32, arch="lm"))
+        tickets = [engine.submit_decode(x, 4) for x in prompts]
+        engine.drain()
+        tokens[str(dev)] = [engine.poll(t) for t in tickets]
+    for a, c in zip(tokens["cpu"], tokens[str(cuda_device)]):
+        np.testing.assert_array_equal(a, c)
+
+    engine = Engine(device=cuda_device)
+    p, b = tree_map(lambda x: x.to(cuda_device), (params, buffers))
+    reg = engine.register(lm_decode_cell(cfg, p, b, batch=2, max_len=16,
+                                         arch="lm"))
+    static = reg.cell.inputs[1]
+    assert reg.cell.captured == {"kv_cache_write": 2 * cfg.n_layers,
+                                 "decode_attention": cfg.n_layers}
+    assert not static["k"].any() and int(static["len"]) == 0
+    caches = engine.fresh_caches()
+    toks = np.asarray([[3], [5]], np.int32)
+    logits, out = engine.decode(toks, caches)
+    assert all(out[k] is static[k] for k in static if k != "len")
+    assert not caches["k"].any()          # the caller's copy is not written
+    logits2, out2 = engine.decode(toks, out)
+    assert all(out2[k] is static[k] for k in static if k != "len")
+    assert int(out2["len"]) == 2 and logits.shape == (2, cfg.vocab)
+    assert reg.cell.replays == 2

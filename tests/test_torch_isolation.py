@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
-nor the examples' twins ``examples/*_torch.py``) imports JAX or the JAX
-package, and the chip smoke run refuses to report without a CUDA card or
+"""The port stands alone: no module of ``repro_torch`` (the LM's too),
+nor ``chip_smoke.py``, nor the examples' twins ``examples/*_torch.py``,
+imports JAX or the JAX package, and the chip smoke run refuses to report without a CUDA card or
 outside the repository."""
 import os
 import re
@@ -69,8 +69,19 @@ MODEL_PATH = ("nn.module", "models.two_tower", "configs.two_tower_retrieval",
               "data.criteo")
 
 
+# the LM's serving path: its layers, model, tokens, configs and the two
+# decode kernels
+LM_PATH = ("nn.rope", "nn.chunked", "nn.moe", "models.lm.transformer",
+           "data.tokens", "configs.internlm2_1_8b", "configs.qwen3_32b",
+           "configs.starcoder2_7b", "configs.deepseek_moe_16b",
+           "configs.grok_1_314b", "kernels.kv_cache_write.ops",
+           "kernels.kv_cache_write.ref", "kernels.decode_attention.ops",
+           "kernels.decode_attention.ref")
+
+
 def test_training_path_modules_are_in_the_port():
-    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH:
+    for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
+                 + LM_PATH):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -81,9 +92,10 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
     assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH) \
-        + len(TIERED_PATH) + len(MODEL_PATH)
+        + len(TIERED_PATH) + len(MODEL_PATH) + len(LM_PATH)
     assert leaked == "[]"
-    for name in TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH:
+    for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
+                 + LM_PATH):
         assert f"'repro_torch.{name}'" in names, name
 
 

@@ -297,12 +297,15 @@ def test_window_holds_then_releases(model):
 
 
 def test_unported_lanes_raise_naming_their_item(model):
-    port, _ = engines(model)
+    port, ref = engines(model)
     ids = request_ids(model, 1, 4)
     with pytest.raises(ValueError, match="unroutable"):
         port.submit(ids, kind="retrieve")
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        port.submit_decode(ids)
+    # the decode lane is ported: with no slotted decode cell registered it
+    # raises as the reference's engine does
+    for engine in (port, ref):
+        with pytest.raises(ValueError, match="no continuous-batching decode"):
+            engine.submit_decode(ids[0], 2)
     # the retrieve lane is ported: with no retrieval cell registered it
     # raises as the reference's engine does
     with pytest.raises(ValueError, match="no retrieval cell registered"):

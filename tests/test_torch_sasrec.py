@@ -199,21 +199,44 @@ def test_mha_matches_reference(n_heads, n_kv, causal, rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
 
 
-def test_mha_options_of_the_lm_slice_raise():
-    gen = torch.Generator().manual_seed(0)
-    params = MHA.init(gen, 8, 2)
-    assert all(set(p) == {"kernel"} for p in params.values())
-    x = torch.zeros(1, 4, 8)
-    kw = dict(n_heads=2, n_kv_heads=2, head_dim=4)
-    for extra in ({}, {"rope_theta": None, "kv_cache": {}},
-                  {"rope_theta": None, "attn_mask": torch.ones(1, 4, 4)},
-                  {"rope_theta": None, "positions": torch.arange(4)}):
-        with pytest.raises(NotImplementedError, match="LM slice"):
-            MHA.apply(params, x, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        MHA.init(gen, 8, 2, qk_norm=True)
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        MHA.apply({**params, "q_norm": {}}, x, **kw, rope_theta=None)
+def test_mha_options_of_the_lm_slice_raise(rng):
+    """The options the LM slice brought no longer raise: qk-norm, RoPE at
+    given positions, a KV cache written at its length and an extra mask
+    each match the reference's ``MHA``."""
+    d, nh, nkv, hd = 16, 4, 2, 4
+    params = np_tree(JMHA.init(jax.random.PRNGKey(5), d, nh, nkv, head_dim=hd,
+                               qk_norm=True))
+    mine = MHA.init(torch.Generator().manual_seed(0), d, nh, nkv, hd,
+                    qk_norm=True)
+    assert sorted(mine) == sorted(params)
+    assert all(tuple(mine[k]["scale"].shape) == (hd,)
+               for k in ("q_norm", "k_norm"))
+    tparams = to_torch(params, "cpu")
+    x = rng.normal(0, 1, (2, 5, d)).astype(np.float32)
+    kw = dict(n_heads=nh, n_kv_heads=nkv, head_dim=hd)
+    pos = np.arange(3, 8, dtype=np.int32)[None]
+    mask = rng.random((2, 5, 5)) < 0.7
+    mask[:, :, 0] = True
+    for extra in ({}, {"positions": pos}, {"attn_mask": mask}):
+        want, _ = JMHA.apply(params, x, **kw, **extra)
+        got, cache = MHA.apply(tparams, torch.from_numpy(x), **kw,
+                               **{k: torch.from_numpy(v)
+                                  for k, v in extra.items()})
+        assert cache is None
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+    jcache = {"k": jnp.zeros((2, 9, nkv, hd)), "v": jnp.zeros((2, 9, nkv, hd)),
+              "len": jnp.asarray(0, jnp.int32)}
+    tcache = {"k": torch.zeros((2, 9, nkv, hd)),
+              "v": torch.zeros((2, 9, nkv, hd)),
+              "len": torch.tensor(0, dtype=torch.int32)}
+    for chunk in (x[:, :3], x[:, 3:4], x[:, 4:]):
+        want, jcache = JMHA.apply(params, chunk, **kw, kv_cache=jcache)
+        got, tcache = MHA.apply(tparams, torch.from_numpy(chunk), **kw,
+                                kv_cache=tcache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+        assert int(tcache["len"]) == int(jcache["len"])
+    np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
+                               **ATTN_TOL)
 
 
 @pytest.mark.parametrize("compressor", ["mpe_search", "plain"])
