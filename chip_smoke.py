@@ -346,6 +346,43 @@ Phases, each of which raises (and so exits non-zero) on failure:
 26. deepseek-moe-16b at full width, 2 of its 28 layers: phase 25's prefill
    (4,096 tokens) and 8 decode steps; the MoE combine on the segment-sum
    kernel, once a layer, in the graph too.
+27. the LM's training kernels at their new shapes: ``mpe_qat`` forward and
+   backward over d {257, 512, 1,000, 2,048, 6,144} (rows wider than 256
+   take a block a row) × rows {1, 255, 256, 4,097, 32,768} × the widths
+   (0..6) and (6,), as in phase 3; the Adam pass on bf16 leaves (float32
+   moments) of 1, 7, 4,099 and 2^26 + 5 elements and a 4,099 × 8 matrix
+   with weight decay, a constant rate and a schedule's, the flag true and
+   false: bit for bit the plain chain's.
+28. internlm2-1.8b's ``train_4k`` at full width and depth (24 layers, bf16
+   layers and head, float32 token table), 8 sequences of 4,096 (of the
+   cell's 256; memory), ``LM.loss_fn`` with the chunked cross-entropy
+   (chunks of 512) and per-layer remat, ``adam(1e-3)``: the first loss
+   against the same forward on the plain kernels (within 1e-3) and within
+   1.0 of ln V; four ``Trainer`` steps on batches made once, each
+   launching the flash forward with statistics 48 times (a layer's forward
+   and its recompute), the backward 24, the segment sum once (the token
+   table's gather) and the Adam pass once a leaf; every loss finite, no
+   step skipped, the reserved peak under 70 GB. One more step's segment-sum
+   and Adam arguments held against their plain versions and timed (Adam on
+   the largest bf16 leaf and on the float32 table); one more with the
+   flash arguments kept: the last layer's recomputed forward bit-identical
+   to its first run, the forward with statistics and the backward at
+   (8, 4,096, 16, 128) against their plain versions on three (b, h)
+   slices, twice bit-identical, timed beside the bound, the plain version
+   over every head and SDPA's forward and forward plus backward; the
+   chunked cross-entropy against the whole logit matrix on one sequence;
+   every leaf updated in place, every moment float32; one traced step.
+29. the vocabulary search: the same model with ``mpe_search`` on its token
+   table (``MPEConfig(lam=1e-5, embed_std=0.02)``, ``TokenStream``'s
+   frequencies, 723 groups), λ times the regulariser in the loss, four
+   steps (``mpe_qat`` forward and backward once each, two gathers); one
+   more step's ``mpe_qat`` at (32,768, 2,048), segment-sum and Adam
+   arguments held against their plain versions and timed; Eq. 11's average
+   bits and the frequent and rare quartiles' bits.
+30. deepseek-moe-16b, 2 of its 28 layers at full width, 2 × 4,096 tokens:
+   two ``Trainer`` steps with the aux loss, the dispatch's and the
+   combine's gathers' backward on the segment-sum kernel; one traced step
+   that runs the segment-sum kernels and no library scatter-add.
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, the segment sum and the Adam pass, which
@@ -356,13 +393,15 @@ and ``decode_attention``; ``launches_by_path`` has the lifecycle's,
 20–21 ``two-tower train``, ``two-tower serve``, ``gin molecule train``,
 ``gin cora train`` and ``gin products train``, and since phases 24–26
 ``lm slotted``, ``lm prefill``, ``lm decode``, ``lm long_500k``, ``moe
-prefill`` and ``moe decode``); the last line is
+prefill`` and ``moe decode``, and since phases 28–30 ``lm train``, ``lm
+vocab search`` and ``moe train``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -441,7 +480,8 @@ from repro_torch.models.two_tower import (TwoTower,  # noqa: E402
 from repro_torch.models.wide_deep import WideDeep  # noqa: E402
 from repro_torch.nn import attention as attention_module  # noqa: E402
 from repro_torch.nn import moe as moe_module  # noqa: E402
-from repro_torch.nn.chunked import chunked_gqa_attention  # noqa: E402
+from repro_torch.nn.chunked import (chunked_gqa_attention,  # noqa: E402
+                                   chunked_softmax_xent)
 from repro_torch.serve.cache import CellCache  # noqa: E402
 from repro_torch.serve.cells import (lm_decode_cell,  # noqa: E402
                                      lm_decode_slotted_cell,
@@ -2587,14 +2627,34 @@ def check_adam(calls, what: str, timed: bool = True) -> dict:
                       f"differs from the plain chain (flag {bool(flag)}, "
                       f"{'one launch after ' if k else ''}the step's launch)")
                 del want
-    p, g, m, v, scale, ok, bc1, bc2, hyper, _ = max(
-        calls, key=lambda c: c[0].numel())
-    nbytes = p.numel() * (2 * 4 + 4 + 2 * 2 * m.element_size())
-    row = {"leaves": len(calls), "elements": p.numel(), "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0.0}
+    largest = max(calls, key=lambda c: c[0].numel())
     if not timed:
         log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the "
             f"plain chain, a skipped one bit-unchanged")
+        return {"leaves": len(calls), **adam_leaf_row(largest, None)}
+    base = adam_leaf_row(largest, what)
+    row = {"leaves": len(calls), **base}
+    dtypes = {c[0].dtype for c in calls}
+    if len(dtypes) > 1:   # the largest leaf of each type (bf16 layers, the table)
+        row["largest_by_dtype"] = {
+            str(dt): base if dt == largest[0].dtype else adam_leaf_row(
+                max((c for c in calls if c[0].dtype == dt),
+                    key=lambda c: c[0].numel()), what)
+            for dt in dtypes}
+    log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the plain "
+        f"chain, a skipped one bit-unchanged")
+    return row
+
+
+def adam_leaf_row(call, what: str | None) -> dict:
+    """One recorded Adam pass's leaf: its bytes (p, m, v read and written,
+    g read once) and byte bound and, where ``what`` is given, the pass timed
+    on copies beside the plain chain and ``torch._fused_adamw_``."""
+    p, g, m, v, scale, ok, bc1, bc2, hyper, _ = call
+    nbytes = p.numel() * (3 * p.element_size() + 4 * m.element_size())
+    row = {"elements": p.numel(), "dtype": str(p.dtype), "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_err": 0.0}
+    if what is None:
         return row
     p, m, v = (x.clone() for x in (p, m, v))
     row.update(uncounted(lambda: {
@@ -2603,11 +2663,11 @@ def check_adam(calls, what: str, timed: bool = True) -> dict:
         "plain_ms": cuda_ms(lambda: adam_step_ref_(p, g, m, v, scale, ok, bc1,
                                                    bc2, **hyper), 3, warmup=1),
         "library_ms": fused_adamw_ms(p, g, m, v, hyper)}))
-    log(f"{what}: Adam pass on {len(calls)} leaves bit-identical to the plain "
-        f"chain, a skipped one bit-unchanged; the {tuple(p.shape)} leaf "
+    log(f"{what}: the {tuple(p.shape)} {p.dtype} leaf's Adam pass "
         f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
         f"torch._fused_adamw_ {row['library_ms']} ms; bound "
         f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / row['ms']:.1%} of it)")
+    del p, m, v
     return row
 
 
@@ -5390,6 +5450,607 @@ def phase_moe(dev) -> dict:
     return out
 
 
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 4096   # train_4k's 256 sequences cut to 8
+LM_TRAIN_STEPS = 4
+LM_TRAIN_BATCHES = 2            # made once, reused in turn
+LM_PEAK_LIMIT_GB = 70.0         # a train_4k step's reserved peak must stay under it
+LM_FIRST_LOSS_RTOL = 1e-4       # the first loss against the plain kernels' step
+# each token's cross-entropy at init, the training forward's kernel against
+# the plain route: within the larger of this and LM_XENT_TWIN_FACTOR times
+# the plain route's gap to its float64 twin (the model's own spread)
+LM_XENT_TOKEN_TOL = 0.05
+LM_XENT_TWIN_FACTOR = 2.0
+LM_LOSS_NEAR = 1.0              # |first loss - ln V|: random logits of std
+#                                 0.02·√2048 ≈ 0.9 add about σ²/2 ≈ 0.4 to ln V
+LM_FLASH_SLICES = ((0, 0), (3, 7), (7, 15))   # (b, h) held against the plain version
+XENT_TOL = dict(rtol=1e-5, atol=1e-6)        # the chunked loss against the whole one
+XENT_GRAD_SHARE = 1e-2          # its bf16 gradients, of the largest |value|
+VOCAB_STEPS = 4
+VOCAB_LAM = 1e-5                # examples/lm_vocab_mpe.py's MPEConfig
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 2
+WIDE_QAT_D = (257, 512, 1000, 2048, 6144)    # up to grok-1-314b's d_model
+WIDE_QAT_T = (1, 255, 256, 4097, 32768)
+WIDE_QAT_BITS = ((0, 1, 2, 3, 4, 5, 6), (6,))  # the paper's widths; one width
+ADAM_BF16_SIZES = (1, 7, 4099, (1 << 26) + 5)
+
+
+def library_scatter_adds(by_name: dict) -> dict:
+    """The traced kernels of ``by_name`` that are a library scatter-add
+    (``segment_sum``'s ``is_library_scatter_add``)."""
+    return {n: ms for n, ms in by_name.items()
+            if seg_ops.is_library_scatter_add(n)}
+
+
+def phase_lm_train_grid(dev) -> dict:
+    """The training path's kernels at their new shapes against their plain
+    versions: ``mpe_qat`` over d {257, 512, 1,000, 2,048, 6,144} × rows
+    {1, 255, 256, 4,097, 32,768} × the paper's widths and one width alone
+    (``check_qat``: out and drows bit-identical, the sums at rtol 1e-4 /
+    atol 1e-6, the backward twice bit-identical); the Adam pass on bf16
+    leaves (float32 moments) of 1, 7, 4,099 and 2^26 + 5 elements and a
+    4,099 × 8 matrix with weight decay, a constant rate and a schedule's,
+    the flag true and false: bit for bit the plain chain's."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fwd_err = bwd_err = 0.0
+    cases = 0
+    for d in WIDE_QAT_D:
+        for t in WIDE_QAT_T:
+            for bits in WIDE_QAT_BITS:
+                f, b = check_qat(*qat_inputs(gen, t, d, bits, dev), bits,
+                                 f"mpe_qat wide rows bits={bits} d={d} "
+                                 f"rows={t}")
+                fwd_err, bwd_err = max(fwd_err, f), max(bwd_err, b)
+                cases += 1
+    log(f"mpe_qat wide-row grid: {cases} cases, out and drows bit-identical "
+        f"to the plain version, backward repeatable; max |diff| of the sums "
+        f"{bwd_err:.3e}")
+    scale = torch.full((), 0.37, device=dev)
+    bc1 = torch.full((), 0.1, device=dev)
+    bc2 = torch.full((), 0.001, device=dev)
+    n_adam = 0
+    for shape, wd in [((n,), 0.0) for n in ADAM_BF16_SIZES] + [((4099, 8), 0.1)]:
+        p = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = (3e-2 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        m = 1e-3 * torch.randn(shape, generator=gen, device=dev)
+        v = 1e-4 * torch.rand(shape, generator=gen, device=dev)
+        for lr in (1e-3, torch.full((), 7.25e-4, device=dev)):
+            hyper = dict(lr=lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+            for ok in (True, False):
+                flag = torch.full((), ok, device=dev)
+                got = [x.clone() for x in (p, m, v)]
+                want = [x.clone() for x in (p, m, v)]
+                uncounted(lambda got=got, g=g, flag=flag, hyper=hyper:
+                          adam_ops.adam_step_(got[0], g, got[1], got[2], scale,
+                                              flag, bc1, bc2, **hyper))
+                adam_step_ref_(want[0], g, want[1], want[2], scale, flag, bc1,
+                               bc2, **hyper)
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"Adam pass on a bf16 {shape} leaf (lr {lr}, wd {wd}, "
+                      f"flag {ok}) differs from the plain chain")
+                # a taken step moves the moments (a bf16 leaf may round
+                # back to its value); a skipped one leaves every bit
+                check(torch.equal(got[1], m) != ok and (ok or all(
+                    torch.equal(x, x0) for x, x0 in zip(got, (p, m, v)))),
+                      f"Adam pass on a bf16 {shape} leaf: flag {ok} wrote "
+                      f"{'nothing' if ok else 'something'}")
+                n_adam += 1
+                del got, want
+        del p, g, m, v
+    torch.cuda.synchronize()
+    log(f"Adam pass on bf16 leaves: {n_adam} cases bit-identical to the plain "
+        f"chain, a skipped pass bit-unchanged")
+    return {"qat_cases": cases, "qat_fwd_err": fwd_err,
+            "qat_bwd_err": bwd_err, "adam_bf16_cases": n_adam}
+
+
+def lm_train_batches(cfg, n: int, batch: int, dev) -> list:
+    """``n`` TokenStream batches of ``batch`` × ``LM_TRAIN_SEQ`` on the card,
+    made once (steps past the other phases' streams)."""
+    stream = TokenStream(cfg.vocab, batch, LM_TRAIN_SEQ, seed=SEED)
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(100 + s).items()} for s in range(n)]
+
+
+def lm_model_and_loss(cfg, dev, lam: float = 0.0, freqs=None):
+    """``cfg`` initialised from the seed on the card and its ``Trainer``
+    (``adam(1e-3)``, clip 10, the NaN guard): ``LM.loss_fn`` (the chunked
+    cross-entropy, aux weight 0.01), plus λ times the vocabulary search's
+    regulariser where ``lam`` is set (``examples/lm_vocab_mpe.py``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, buffers = LM.init(gen, cfg, freqs=freqs)
+    mpe = as_mpe_config(cfg.comp_cfg) if lam else None
+
+    def loss_fn(p, bu, st, batch, *, step=None):
+        loss, ce = LM.loss_fn(p, bu, batch, cfg, train=True, step=step)
+        if mpe is not None:
+            loss = loss + lam * MPESearchEmbedding.reg_loss(
+                p["embedding"], bu["embedding"], mpe)
+        return loss, (st, ce)
+    return params, buffers, loss_fn
+
+
+def lm_train_steps(trainer, batches, n_steps: int, per_step: dict,
+                   what: str) -> dict:
+    """``n_steps`` of ``trainer`` on ``batches`` in turn with the counts at 0:
+    each step's launches held to ``per_step``, every loss finite, no step
+    skipped; host ms a step (to a synchronize), the reserved peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, step_ms = [], []
+    t_all = time.perf_counter()
+    for step in range(n_steps):
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(trainer.train_step(batches[step % len(batches)], step))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        check(all(launched[k] == v for k, v in per_step.items()),
+              f"{what} step {step} launched {launched}, not {per_step}")
+    total_s = time.perf_counter() - t_all
+    launches = counts()
+    losses = [float(o["loss"]) for o in outs]
+    check(all(np.isfinite(x) for x in losses),
+          f"{what}: a loss was not finite: {losses}")
+    check(not any(bool(o["skipped"]) for o in outs), f"{what}: a step was "
+          f"skipped")
+    out = {"losses": losses, "step_ms": step_ms, "launches": launches,
+           "per_step": per_step, "total_s": total_s,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "grad_norms": [float(o["grad_norm"]) for o in outs]}
+    log(f"{what}: {n_steps} steps, ms {[round(x, 1) for x in step_ms]}, "
+        f"losses {[round(x, 5) for x in losses]}, peak reserved "
+        f"{out['peak_reserved_bytes'] / 1e9:.2f} GB (allocated "
+        f"{out['peak_allocated_bytes'] / 1e9:.2f} GB); launches {launches}")
+    return out
+
+
+def recorded_flash(trainer, batch, step: int, n_layers: int) -> dict:
+    """One more step with the flash wrappers keeping the arguments and
+    outputs of a few calls: the forward with statistics of layer 0 and of
+    the last layer (its first run and its recompute in the backward, the
+    next call) and the first backward (the last layer's). Its launches are
+    a comparison's and are not counted."""
+    keep = {"flash_attention_fwd_stats": (0, n_layers - 1, n_layers),
+            "flash_attention_bwd": (0,)}
+    seen = {name: {} for name in keep}
+    before = counts()
+
+    def recorder(name):
+        real, calls = COUNTERS[name], [0]
+
+        def call(*args):
+            out = real(*args)
+            if calls[0] in keep[name]:
+                seen[name][calls[0]] = (
+                    tuple(a.detach() if torch.is_tensor(a) else a
+                          for a in args), out)
+            calls[0] += 1
+            return out
+        call.launches = 0
+        return call
+    for name in keep:
+        setattr(flash_ops, name, recorder(name))
+    try:
+        trainer.train_step(batch, step)
+        torch.cuda.synchronize()
+    finally:
+        for name in keep:
+            setattr(flash_ops, name, COUNTERS[name])
+        for name, n in before.items():
+            COUNTERS[name].launches = n
+    return seen
+
+
+def lm_flash_train_rows(seen: dict, n_layers: int, what: str) -> dict:
+    """The flash forward with statistics and the backward on a step's own
+    arguments at (8, 4,096, 16, 128), causal (``recorded_flash``): the
+    kernels on the whole batch held against their plain versions on the
+    (b, h) slices of ``LM_FLASH_SLICES`` (o and lse within 3e-5, dq, dk, dv
+    within 2e-4; the backward twice bit-identical); the last layer's
+    recomputed forward bit-identical to its first run (inputs, o and lse),
+    so the backward is repeatable under remat; then each timed beside its
+    bound, its plain version over every head (one sequence at a time) and
+    SDPA's forward and forward plus backward on (B, H, S, hd) views."""
+    (q, k, v, _), (o1, lse1) = seen["flash_attention_fwd_stats"][n_layers - 1]
+    (q2, k2, v2, _), (o2, lse2) = seen["flash_attention_fwd_stats"][n_layers]
+    recompute_same = (torch.equal(q, q2) and torch.equal(k, k2)
+                      and torch.equal(v, v2) and torch.equal(o1, o2)
+                      and torch.equal(lse1, lse2))
+    check(recompute_same, f"{what}: the last layer's recomputed flash "
+          f"forward differs from its first run")
+    del q2, k2, v2, o2, lse2, o1, lse1
+    (q, k, v, causal), _ = seen["flash_attention_fwd_stats"][0]
+    (bq, bk, bv, bo, blse, bdo, _), _ = seen["flash_attention_bwd"][0]
+    b, s, h, hd = q.shape
+    rows = {}
+    o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, True)
+    grads = flash_ops.flash_attention_bwd(bq, bk, bv, bo, blse, bdo, True)
+    again = flash_ops.flash_attention_bwd(bq, bk, bv, bo, blse, bdo, True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{what}: two flash backward runs gave different bits")
+    del again
+    f_err = b_err = 0.0
+    for i, j in LM_FLASH_SLICES:
+        sl = [x[i:i + 1, :, j] for x in (q, k, v, o, bq, bk, bv, bo, bdo)]
+        want_o, want_lse = fwd_stats_ref(*sl[:3], True)
+        f_err = max(f_err, within(sl[3], want_o, FLASH_TOL,
+                                  f"{what}: o at (b, h) = ({i}, {j})"),
+                    within(lse[i:i + 1, j], want_lse, FLASH_TOL,
+                           f"{what}: lse at (b, h) = ({i}, {j})"))
+        want = bwd_ref(*sl[4:8], blse[i:i + 1, j], sl[8], True)
+        for name, x, w in zip(("dq", "dk", "dv"), grads, want):
+            b_err = max(b_err, within(x[i:i + 1, :, j], w, FLASH_BWD_TOL,
+                                      f"{what}: {name} at (b, h) = ({i}, {j})"))
+        del want_o, want_lse, want, sl
+    del grads, o, lse
+
+    def plain_fwd():
+        for i in range(b):
+            fwd_stats_ref(*(heads_flat(x[i:i + 1]) for x in (q, k, v)), True)
+
+    def plain_bwd():
+        for i in range(b):
+            bwd_ref(*(heads_flat(x[i:i + 1]) for x in (bq, bk, bv, bo)),
+                    blse[i], heads_flat(bdo[i:i + 1]), True)
+    lib = uncounted(lambda: sdpa_ms(bq, bk, bv, bdo, 3, True))
+    for kind, err, fn, plain in (
+            ("fwd_stats", f_err,
+             lambda: flash_ops.flash_attention_fwd_stats(q, k, v, True),
+             plain_fwd),
+            ("bwd", b_err,
+             lambda: flash_ops.flash_attention_bwd(bq, bk, bv, bo, blse, bdo,
+                                                   True),
+             plain_bwd)):
+        row = {**flash_work(b * h, s, hd, kind, True), "max_abs_err": err,
+               "ms": uncounted(lambda fn=fn: cuda_ms(fn, 5, warmup=1)),
+               "plain_ms": cuda_ms(plain, 1, warmup=0),
+               "library_ms": lib["fwd"] if kind == "fwd_stats" else lib["fwd_bwd"],
+               "sdpa_fwd_ms": lib["fwd"], "sdpa_fwd_bwd_ms": lib["fwd_bwd"],
+               "S": s, "input_shape": list(q.shape), "causal": True,
+               "checked_heads": len(LM_FLASH_SLICES)}
+        rows[kind] = row
+        log(f"flash {kind} at {what} ({tuple(q.shape)}, causal, tiled "
+            f"route): max |diff| {err:.3e} on {len(LM_FLASH_SLICES)} (b, h); "
+            f"{row['ms']:.3f} ms a call (plain {row['plain_ms']:.3f} ms; "
+            f"SDPA forward {lib['fwd']:.3f}, forward + backward "
+            f"{lib['fwd_bwd']:.3f} ms); bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']}: {row['bound_ms'] / row['ms']:.1%} of it")
+    rows["recompute_bit_identical"] = recompute_same
+    return rows
+
+
+def _stats_attention(q, k, v, *, n_kv_heads=None, causal=True):
+    """``flash_attention``'s training route outside autograd: the flash
+    forward with statistics (kv heads repeated as the wrapper repeats
+    them), its o."""
+    hq = q.shape[2]
+    k, v = (x.repeat_interleave(hq // x.shape[2], dim=2).contiguous()
+            for x in (k, v))
+    return flash_ops.flash_attention_fwd_stats(q.contiguous(), k, v,
+                                               causal)[0]
+
+
+def _twin_long_attention(q, k, v, *, n_kv_heads=None, causal=True):
+    """Attention computed whole in float64 and rounded once to q's type: a
+    second plain route with no float32 rounding inside, whose gap to
+    ``_plain_long_attention`` is the model's own spread."""
+    hq, s = q.shape[2], q.shape[1]
+    q64, k64, v64 = (x.double().transpose(1, 2) for x in (q, k, v))
+    k64, v64 = (x.repeat_interleave(hq // x.shape[1], dim=1)
+                for x in (k64, v64))
+    logits = (q64 @ k64.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits.masked_fill_(~keep, -math.inf)
+    out = torch.softmax(logits, dim=-1) @ v64
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _zero_attention(q, k, v, *, n_kv_heads=None, causal=True):
+    """A wrong attention kernel: zeros."""
+    return torch.zeros_like(q)
+
+
+def token_xent(params, buffers, batch, cfg, attention) -> torch.Tensor:
+    """Each token's cross-entropy (B, S) at ``params``, with the trunk's
+    attention ``attention``: one sequence at a time, its (S, V) logits in
+    the model's type, the log-softmax in float32 (as the chunked loss
+    takes it)."""
+    old = transformer_module.flash_attention
+    transformer_module.flash_attention = attention
+    try:
+        rows = []
+        for b in range(batch["tokens"].shape[0]):
+            x, _ = LM.hidden_states(params, buffers, batch["tokens"][b:b + 1],
+                                    cfg)
+            logits = (x[0] @ params["lm_head"]).to(torch.float32)
+            label = batch["labels"][b].long()[:, None]
+            rows.append(torch.logsumexp(logits, -1)
+                        - logits.gather(-1, label)[:, 0])
+            del x, logits
+        return torch.stack(rows)
+    finally:
+        transformer_module.flash_attention = old
+
+
+def check_token_xent(params, buffers, batch, cfg) -> dict:
+    """Each token's cross-entropy at init through the training forward's
+    kernel (``_stats_attention``) against the plain route's
+    (``_plain_long_attention``) on the same batch: the largest |difference|
+    within ``LM_XENT_TOKEN_TOL`` or ``LM_XENT_TWIN_FACTOR`` times the plain
+    route's gap to its float64 twin, whichever is larger; a route whose
+    attention returns zeros (a wrong kernel) outside it. The mean loss
+    cannot tell these apart: at init it is about ln V + σ²/2 whatever the
+    trunk computes."""
+    with torch.no_grad():
+        ce = {name: uncounted(lambda: token_xent(params, buffers, batch, cfg,
+                                                 attention))
+              for name, attention in (("kernel", _stats_attention),
+                                      ("plain", _plain_long_attention),
+                                      ("twin", _twin_long_attention),
+                                      ("zero", _zero_attention))}
+    check(all(bool(torch.isfinite(x).all()) for x in ce.values()),
+          "train_4k: a token's cross-entropy is not finite")
+    gaps = {name: float((ce[name] - ce["plain"]).abs().max())
+            for name in ("kernel", "twin", "zero")}
+    mean_gaps = {name: float((ce[name] - ce["plain"]).abs().mean())
+                 for name in ("kernel", "twin", "zero")}
+    tol = max(LM_XENT_TOKEN_TOL, LM_XENT_TWIN_FACTOR * gaps["twin"])
+    log(f"train_4k: each token's cross-entropy at init against the plain "
+        f"route's, largest |diff| (mean): kernel {gaps['kernel']:.4e} "
+        f"({mean_gaps['kernel']:.4e}), float64 twin {gaps['twin']:.4e} "
+        f"({mean_gaps['twin']:.4e}), zero attention {gaps['zero']:.4e} "
+        f"({mean_gaps['zero']:.4e}); tolerance {tol:.4e}")
+    check(gaps["kernel"] <= tol, f"train_4k: a token's cross-entropy "
+          f"{gaps['kernel']:.4e} from the plain route's, more than {tol:.4e}")
+    check(gaps["zero"] > tol, f"train_4k: attention of zeros gives tokens' "
+          f"cross-entropies within {tol:.4e} of the plain route's: the check "
+          f"would not see a wrong kernel")
+    return {"max_gap": gaps, "mean_gap": mean_gaps, "tolerance": tol,
+            "tokens": int(ce["plain"].numel())}
+
+
+def check_chunked_xent(params, buffers, tokens, labels, cfg) -> dict:
+    """The chunked cross-entropy (``nn/chunked.py``, chunks of
+    ``cfg.ce_chunk``) against the whole (S, V) logit matrix on one
+    sequence's hidden states: the loss within ``XENT_TOL``, its gradients in
+    the hidden states and the head within ``XENT_GRAD_SHARE`` of their
+    largest |value| (bf16 products rounded in other places)."""
+    with torch.no_grad():
+        x, _ = LM.hidden_states(params, buffers, tokens[:1], cfg)
+    head = params["lm_head"].detach()
+    runs = []
+    for chunked in (True, False):
+        xs, w = (t.clone().requires_grad_(True) for t in (x, head))
+        with torch.enable_grad():
+            if chunked:
+                loss = chunked_softmax_xent(xs, w, labels[:1],
+                                            chunk=cfg.ce_chunk)
+            else:
+                logits = (xs @ w).to(torch.float32)
+                loss = torch.nn.functional.cross_entropy(
+                    logits.reshape(-1, logits.shape[-1]),
+                    labels[:1].reshape(-1).long())
+            loss.backward()
+        runs.append((loss.detach(), xs.grad.float(), w.grad.float()))
+        del xs, w
+    (got, gx, gw), (want, wx, ww) = runs
+    err = within(got, want, XENT_TOL, "chunked cross-entropy: loss")
+    gaps = {name: max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+            for name, a, b in (("dx", gx, wx), ("dlm_head", gw, ww))}
+    check(all(gap <= XENT_GRAD_SHARE for gap in gaps.values()),
+          f"chunked cross-entropy: gradients {gaps} of their largest apart")
+    log(f"chunked cross-entropy on one sequence ({tokens.shape[1]} tokens, "
+        f"chunks of {cfg.ce_chunk}): {float(got):.6f} against the whole "
+        f"logit matrix's {float(want):.6f} (|diff| {err:.3e}); gradients "
+        f"{gaps} of their largest apart")
+    return {"loss": float(got), "whole_loss": float(want),
+            "max_abs_err": err, "grad_gaps": gaps}
+
+
+def lm_per_step(cfg, trainer, gathers: int, qat: int = 0) -> dict:
+    """A training step's launches: the flash forward with statistics twice
+    a layer (remat: the forward and its recompute), the backward once, the
+    plain forward never; the segment sum once a gather (and, in an MoE,
+    the combine's scatter twice and its two gathers' backward once a
+    layer); ``mpe_qat`` ``qat`` times each way; Adam once a leaf."""
+    moe = 4 * cfg.n_layers if cfg.moe is not None else 0
+    return {"flash_attention_fwd_stats": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers, "flash_attention_fwd": 0,
+            "segment_sum": gathers + moe, "mixed_expectation_fwd": qat,
+            "mixed_expectation_bwd": qat,
+            "adam_step_": len(leaves(trainer.params)), "mpe_lookup": 0,
+            "kv_cache_write": 0, "decode_attention": 0}
+
+
+def traced_train_step(trainer, batch, step: int, what: str) -> dict:
+    traced = trace(lambda: trainer.train_step(batch, step), 1)
+    view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share", "top")}
+    view["flash_ms"] = {kind: flash_kernel_ms(traced["by_name"], kind)
+                        for kind in ("fwd", "bwd")}
+    view["kernel_ms"] = step_kernel_ms(traced["by_name"])
+    view["library_scatter_adds"] = library_scatter_adds(traced["by_name"])
+    gemm = sum(ms for n, ms in traced["by_name"].items()
+               if any(k in n.lower() for k in ("gemm", "cutlass", "xmma",
+                                               "nvjet")))
+    view["matmul_ms"] = gemm
+    check(all(ms > 0 for ms in view["flash_ms"].values()),
+          f"traced {what} step: flash kernels missing from the trace "
+          f"({view['flash_ms']})")
+    log(f"traced {what} step: wall {traced['wall_ms']:.1f} ms, device busy "
+        f"{traced['busy_ms']:.1f} ms (idle share {traced['idle_share']:.3f}); "
+        f"flash {view['flash_ms']}; matrix products {gemm:.1f} ms; "
+        f"{view['kernel_ms']}; library scatter-adds "
+        f"{view['library_scatter_adds']}; top "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in traced["top"]))
+    return view
+
+
+def phase_lm_train(dev) -> dict:
+    """internlm2-1.8b's ``train_4k`` at full width (24 layers, d 2,048,
+    16 / 8 heads of 128, d_ff 8,192, vocab 92,544, bf16 layers and head,
+    float32 token table) and depth, 8 sequences of 4,096 (of the cell's
+    256): each token's cross-entropy at init against the plain route's
+    (``check_token_xent``); the first loss against the same forward on the
+    plain kernels (``with_plain_lm``) and ln V; four ``Trainer`` steps with their
+    launches; one more step with its segment-sum and Adam arguments
+    recorded (``check_step_inputs``) and one with its flash arguments
+    (``recorded_flash``), each kernel held against its plain version and
+    timed; the chunked cross-entropy against the whole logit matrix; every
+    leaf still where it was; one traced step; the reserved peak under
+    ``LM_PEAK_LIMIT_GB``."""
+    cfg = get_arch(LM_ARCH).make_config()
+    params, buffers, loss_fn = lm_model_and_loss(cfg, dev)
+    batches = lm_train_batches(cfg, LM_TRAIN_BATCHES, LM_TRAIN_BATCH, dev)
+    n_params = sum(x.numel() for x in leaves(params))
+    with torch.no_grad():
+        plain_loss = float(with_plain_lm(
+            lambda: loss_fn(params, buffers, {}, batches[0], step=None))[0])
+    torch.cuda.empty_cache()
+    token_gaps = check_token_xent(params, buffers, batches[0], cfg)
+    torch.cuda.empty_cache()
+    trainer = Trainer(loss_fn, params, buffers, {}, adam(1e-3))
+    del params
+    ptrs = [x.data_ptr() for x in leaves([trainer.params, trainer.carry["opt"]])]
+    per_step = lm_per_step(cfg, trainer, gathers=1)
+    run = lm_train_steps(trainer, batches, LM_TRAIN_STEPS, per_step,
+                         "internlm2-1.8b train_4k")
+    first = run["losses"][0]
+    gap = abs(first - plain_loss) / abs(plain_loss)
+    check(gap <= LM_FIRST_LOSS_RTOL, f"train_4k: first loss {first} against "
+          f"the plain kernels' {plain_loss}: {gap:.3e} apart")
+    check(abs(first - math.log(cfg.vocab)) <= LM_LOSS_NEAR,
+          f"train_4k: first loss {first} not near ln V = "
+          f"{math.log(cfg.vocab):.4f}")
+    peak_gb = run["peak_reserved_bytes"] / 1e9
+    check(peak_gb < LM_PEAK_LIMIT_GB, f"train_4k: reserved peak {peak_gb:.2f}"
+          f" GB, not under {LM_PEAK_LIMIT_GB}")
+    log(f"train_4k: {n_params} parameters, first loss {first:.6f} (plain "
+        f"kernels {plain_loss:.6f}, {gap:.3e} apart; ln V "
+        f"{math.log(cfg.vocab):.4f})")
+    step = LM_TRAIN_STEPS
+    inputs = check_step_inputs(trainer, batches[0], step, "internlm2 train_4k")
+    seen = recorded_flash(trainer, batches[1], step + 1, cfg.n_layers)
+    flash = lm_flash_train_rows(seen, cfg.n_layers,
+                                "internlm2 train_4k (8, 4,096, 16, 128)")
+    del seen
+    xent = check_chunked_xent(trainer.params, buffers, batches[0]["tokens"],
+                              batches[0]["labels"], cfg)
+    check([x.data_ptr() for x in leaves([trainer.params,
+                                         trainer.carry["opt"]])] == ptrs,
+          "train_4k: a parameter or moment leaf moved: not updated in place")
+    check(all(m.dtype == torch.float32
+              for m in leaves(trainer.carry["opt"]["mu"])),
+          "train_4k: a moment is not float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    traced = traced_train_step(trainer, batches[0], step + 2, "train_4k")
+    traced["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    check(traced["peak_reserved_bytes"] / 1e9 < LM_PEAK_LIMIT_GB,
+          f"train_4k traced step: reserved peak "
+          f"{traced['peak_reserved_bytes'] / 1e9:.2f} GB")
+    out = {**run, "plain_first_loss": plain_loss, "first_loss_gap": gap,
+           "token_xent": token_gaps, "params": n_params, "tokens_per_step": LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+           "step_inputs": inputs, "flash": flash, "xent": xent,
+           "traced_step": traced}
+    del trainer, buffers, batches
+    return out
+
+
+def phase_lm_vocab_search(dev) -> dict:
+    """internlm2-1.8b at full width and depth under ``mpe_search`` on the
+    token table, set up as ``examples/lm_vocab_mpe.py`` sets it up
+    (``MPEConfig(lam=1e-5, embed_std=0.02)``, ``TokenStream``'s expected
+    frequencies: 723 groups of 128), λ times the regulariser in the loss:
+    four ``Trainer`` steps at 8 × 4,096 with their launches; one more
+    step's ``mpe_qat`` (32,768 × 2,048), segment-sum and Adam arguments
+    held against their plain versions and timed (``check_step_inputs``);
+    Eq. 11's widths: the table's average bits and those of the frequent
+    and the rare quartile of groups."""
+    mpe = MPEConfig(lam=VOCAB_LAM, embed_std=0.02)
+    cfg = get_arch(LM_ARCH).make_config()._replace(
+        compressor="mpe_search", comp_cfg=mpe._asdict(), embed_std=0.02)
+    freqs = TokenStream(cfg.vocab, 1, 1).expected_frequencies()
+    params, buffers, loss_fn = lm_model_and_loss(cfg, dev, lam=VOCAB_LAM, freqs=freqs)
+    groups = int(params["embedding"]["gamma"].shape[0])
+    batches = lm_train_batches(cfg, LM_TRAIN_BATCHES, LM_TRAIN_BATCH, dev)
+    trainer = Trainer(loss_fn, params, buffers, {}, adam(1e-3))
+    del params
+    per_step = lm_per_step(cfg, trainer, gathers=2, qat=1)
+    run = lm_train_steps(trainer, batches, VOCAB_STEPS, per_step,
+                         "internlm2-1.8b vocabulary search")
+    inputs = check_step_inputs(trainer, batches[0], VOCAB_STEPS,
+                               "internlm2 vocab search")
+    gb = sample_group_bits(trainer.params["embedding"], mpe)
+    fb = feature_bits(gb, buffers["embedding"]["group_of_feature"])
+    widths = np.asarray(mpe.bits)[gb.cpu().numpy()]
+    quarter = len(widths) // 4
+    out = {**run, "groups": groups, "step_inputs": inputs,
+           "average_bits": average_bits(fb, mpe),
+           "frequent_quartile_bits": float(widths[:quarter].mean()),
+           "rare_quartile_bits": float(widths[-quarter:].mean())}
+    log(f"vocabulary search: {groups} groups; vocab-table avg bits "
+        f"{out['average_bits']:.4f} (ratio {out['average_bits'] / 32:.6f}); "
+        f"frequent-quartile groups {out['frequent_quartile_bits']:.4f} bits, "
+        f"rare-quartile {out['rare_quartile_bits']:.4f}")
+    del trainer, buffers, batches
+    return out
+
+
+def phase_moe_train(dev) -> dict:
+    """deepseek-moe-16b at full width, 2 of its 28 layers, 2 × 4,096
+    tokens: two ``Trainer`` steps with the aux loss (weight 0.01), each
+    launching the segment sum for the combine's scatter (twice a layer under
+    remat) and the dispatch's and the combine's gathers' backward; one more
+    step with its segment-sum and Adam arguments recorded and each held
+    against its plain version and timed (``check_step_inputs``: the sums of
+    E·cap rows into T tokens and of T·k rows into E·cap slots, the 3-D bf16
+    expert leaves); one traced step that runs the segment-sum kernels and no
+    library scatter-add."""
+    cfg = get_arch(MOE_ARCH).make_config()._replace(n_layers=MOE_LAYERS)
+    params, buffers, loss_fn = lm_model_and_loss(cfg, dev)
+    batches = lm_train_batches(cfg, 1, MOE_TRAIN_BATCH, dev)
+    trainer = Trainer(loss_fn, params, buffers, {}, adam(1e-3))
+    del params
+    per_step = lm_per_step(cfg, trainer, gathers=1)
+    run = lm_train_steps(trainer, batches, MOE_TRAIN_STEPS, per_step,
+                         "deepseek-moe-16b train (2 layers)")
+    inputs = check_step_inputs(trainer, batches[0], MOE_TRAIN_STEPS,
+                               "deepseek-moe train")
+    traced = traced_train_step(trainer, batches[0], MOE_TRAIN_STEPS + 1,
+                               "deepseek-moe-16b train")
+    check(traced["kernel_ms"]["segment_sum"] > 0,
+          "moe train: no segment-sum kernel in the traced step")
+    check(not traced["library_scatter_adds"],
+          f"moe train: library scatter-adds in the traced step: "
+          f"{traced['library_scatter_adds']}")
+    del trainer, buffers, batches
+    return {**run, "step_inputs": inputs, "traced_step": traced}
+
+
+def lm_train_records(records: list, train: dict, grid: dict) -> None:
+    """The training path's numbers into the kernels' records: ``mpe_qat``'s
+    wide-row grid into its error; the flash forward with statistics and
+    the backward at ``train_4k``'s shape under ``lm train_4k``."""
+    by_name = {r["name"]: r for r in records}
+    for k, err in (("fwd", grid["qat_fwd_err"]), ("bwd", grid["qat_bwd_err"])):
+        rec = by_name[f"mixed_expectation_{k}"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["wide_grid_cases"] = grid["qat_cases"]
+    for name, kind in (("flash_attention_fwd_stats", "fwd_stats"),
+                       ("flash_attention_bwd", "bwd")):
+        rec, row = by_name[name], train["flash"][kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], row["max_abs_err"])
+        rec["shapes"]["lm train_4k"] = row
+    by_name["adam_step_"]["bf16_grid_cases"] = grid["adam_bf16_cases"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -5474,6 +6135,18 @@ def main() -> int:
     moe = phase_moe(dev)
     log(json.dumps({"lm_slotted": slotted, "lm_prefill": prefill,
                     "lm_long_500k": long, "moe": moe}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train_grid = phase_lm_train_grid(dev)
+    lm_train = phase_lm_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vocab = phase_lm_vocab_search(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train(dev)
+    log(json.dumps({"lm_train_grid": lm_train_grid, "lm_train": lm_train,
+                    "lm_vocab_search": vocab, "moe_train": moe_train}))
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
                              **bst_serve.pop("lookup"),
@@ -5484,7 +6157,10 @@ def main() -> int:
     extra = [*table3["recorded"],
              ("gin molecule", gin["molecule"]["step_inputs"]),
              ("gin cora", gin["full_graph_sm"]["step_inputs"]),
-             ("two-tower", two_tower["step_inputs"])]
+             ("two-tower", two_tower["step_inputs"]),
+             ("internlm2 train_4k", lm_train["step_inputs"]),
+             ("internlm2 vocab search", vocab["step_inputs"]),
+             ("deepseek-moe train", moe_train["step_inputs"])]
     records = [kernel, *qat_records(qat_grid_errs, train, step,
                                     sasrec_train["step_inputs"],
                                     bst_train["step_inputs"], extra),
@@ -5499,6 +6175,7 @@ def main() -> int:
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs),
                *lm_records(lm_grid, slotted, long)]
+    lm_train_records(records, lm_train, lm_train_grid)
     by_path = {"dlrm serve": main_launches,
                "dlrm lifecycle": lifecycle["launches"],
                "dlrm tiered": tiered["launches"],
@@ -5522,7 +6199,10 @@ def main() -> int:
                "lm decode": prefill["decode_launches"],
                "lm long_500k": long["launches"],
                "moe prefill": moe["prefill_launches"],
-               "moe decode": moe["decode_launches"]}
+               "moe decode": moe["decode_launches"],
+               "lm train": lm_train["launches"],
+               "lm vocab search": vocab["launches"],
+               "moe train": moe_train["launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

@@ -18,7 +18,7 @@
 // run at a fraction of the float32 rate (scripts/qat_variants.py takes it
 // apart: the same kernel summing in float32 runs in 78% of the time).
 //
-// Layout (both kernels): a row of d elements belongs to L = ceil(d / E)
+// Layout (both kernels, rows of d <= 256): a row of d elements belongs to L = ceil(d / E)
 // lanes of one warp, E consecutive elements each, and a warp holds
 // R = 32 / L rows at a time (d = 50: 5 lanes x 10 elements, 6 rows; d = 16:
 // 4 x 4, 8 rows; d = 32: 8 x 4, 4 rows). A lane's dimensions are the same
@@ -38,6 +38,15 @@
 // interleave them; a launch bound of kMinBlocks blocks an SM holds the
 // backward to 96 registers, for 20 warps an SM (the variants: 4 blocks
 // ran 22% slower, 6 or 8 slower again from spills).
+//
+// Rows wider than 256 (the LM's token table: d = 2,048 on internlm2-1.8b,
+// up to 6,144 on grok-1-314b; any d up to kMaxWideD = 16,384, whose
+// float64 dbeta sums take 128 KB of shared memory) take a second layout, a
+// block of 256 threads a row (mpe_qat_fwd_wide_kernel,
+// mpe_qat_bwd_wide_kernel, below), which carries the three sums across a
+// row's column tiles: dprobs over the whole row, dbeta per column over
+// the block's rows, dalpha over both. The TPU kernel takes any d in its
+// (256, d) block.
 //
 // Arithmetic. v = (e - beta) / alpha_i is the IEEE quotient, formed as
 // q = (e - beta) * r_i with r_i = RN(1 / alpha_i), then one Markstein
@@ -80,8 +89,11 @@ namespace {
 
 constexpr int kMaxWidths = 16;
 constexpr int kMaxBits = 24;          // codes stay exact in float32
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;            // the widest row of the warp layout
+constexpr int kMaxWideD = 16384;      // the widest row of the block layout
 constexpr int kThreads = 128;         // 4 warps a block, both kernels
+constexpr int kWideThreads = 256;     // a block a row: rows wider than kMaxD
+constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocksPerSm = 2048 / kThreads;
 constexpr int kReduceThreads = 256;
@@ -402,9 +414,183 @@ mpe_qat_reduce_kernel(const double* __restrict__ partials, int n_parts,
   if (tid == 0) out[c] = static_cast<float>(scratch[0]);
 }
 
+// Rows wider than kMaxD: a block of kWideThreads owns one row at a time
+// (persistent blocks walking the rows at a fixed stride), thread t its
+// columns t * V + c * kWideThreads * V (+ 0 .. V - 1) for c = 0, 1, ...,
+// so a column always belongs to the same thread of every block. The row's
+// probabilities are read once a row by each thread (one broadcast load),
+// alpha and its reciprocal stay in registers. Each element's arithmetic
+// is the warp layout's, step for step: out and drows are bit-identical to
+// the plain version at any width.
+template <int V, int MW>
+__global__ void __launch_bounds__(kWideThreads)
+mpe_qat_fwd_wide_kernel(const float* __restrict__ rows,
+                        const float* __restrict__ probs,
+                        const float* __restrict__ alpha,
+                        const float* __restrict__ beta,
+                        const __grid_constant__ Widths w, long long n_rows,
+                        int d, float* __restrict__ out) {
+  float a[MW], r[MW];
+#pragma unroll
+  for (int k = 0; k < MW; ++k) {
+    a[k] = k < w.live ? __ldg(alpha + w.idx[k]) : 1.0f;
+    r[k] = __frcp_rn(a[k]);
+  }
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    float p[MW];
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+      p[k] = k < w.live ? __ldg(probs + row * w.m + w.idx[k]) : 0.0f;
+    }
+    const float* src = rows + row * d;
+    float* dst = out + row * d;
+    for (int c = threadIdx.x * V; c < d; c += kWideThreads * V) {
+      float e[V], b[V], o[V];
+      load_vec<V>(src + c, e);
+      load_vec<V>(beta + c, b);
+#pragma unroll
+      for (int x = 0; x < V; ++x) {
+        const float t = __fsub_rn(e[x], b[x]);
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < MW; ++k) {  // slots past w.live have p = 0
+          const Quant z = quantize(t, a[k], r[k], b[x], w, k);
+          acc = __fmaf_rn(p[k], z.q, acc);
+        }
+        o[x] = acc;
+      }
+      store_vec<V>(dst + c, o);
+    }
+  }
+}
+
+// Per-thread column slots of the block layout at width d.
+template <int V>
+__host__ __device__ __forceinline__ int wide_slots(int d) {
+  return (d + kWideThreads * V - 1) / (kWideThreads * V) * V;
+}
+
+// Shared memory (doubles): each thread's dbeta sums at its column slots,
+// [slot * kWideThreads + tid]; each warp's dprobs sums of the row at hand,
+// [warp * MW + k]; each thread's dalpha sums at the end, [k * kWideThreads
+// + tid]. The sums run as in the warp layout: dprobs of a row over each
+// thread's columns in order, then a shuffle tree within each warp and the
+// warps in order; dalpha per thread over its rows and columns, then per
+// block in thread order; dbeta per column over the block's rows. Column c
+// of this block's partial goes to partials[c * n_parts + blockIdx.x].
+template <int V, int MW>
+__global__ void __launch_bounds__(kWideThreads)
+mpe_qat_bwd_wide_kernel(const float* __restrict__ rows,
+                        const float* __restrict__ probs,
+                        const float* __restrict__ alpha,
+                        const float* __restrict__ beta,
+                        const float* __restrict__ g,
+                        const __grid_constant__ Widths w, long long n_rows,
+                        int d, float* __restrict__ drows,
+                        float* __restrict__ dprobs,
+                        double* __restrict__ partials, int n_parts) {
+  extern __shared__ double sums[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slots = wide_slots<V>(d);
+  double* acc_beta = sums;                                   // [slot][tid]
+  double* red = sums + slots * kWideThreads;                 // [warp][k]
+  double* acc_alpha_sm = red + kWideWarps * MW;              // [k][tid]
+  for (int sl = 0; sl < slots; ++sl) acc_beta[sl * kWideThreads + tid] = 0.0;
+  float a[MW], r[MW];
+  double acc_alpha[MW];
+#pragma unroll
+  for (int k = 0; k < MW; ++k) {
+    a[k] = k < w.live ? __ldg(alpha + w.idx[k]) : 1.0f;
+    r[k] = __frcp_rn(a[k]);
+    acc_alpha[k] = 0.0;
+  }
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    float p[MW];
+    double dp[MW];
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+      p[k] = k < w.live ? __ldg(probs + row * w.m + w.idx[k]) : 0.0f;
+      dp[k] = 0.0;
+    }
+    const long long base = row * d;
+    int sl = 0;
+    for (int c = tid * V; c < d; c += kWideThreads * V, sl += V) {
+      float e[V], gg[V], b[V], drow[V];
+      load_vec<V>(rows + base + c, e);
+      load_vec<V>(g + base + c, gg);
+      load_vec<V>(beta + c, b);
+#pragma unroll
+      for (int x = 0; x < V; ++x) {
+        const float gv = gg[x];
+        const float t = __fsub_rn(e[x], b[x]);
+        float dr = 0.0f;
+        double db = 0.0;
+#pragma unroll
+        for (int k = 0; k < MW; ++k) {
+          const float pi = p[k];
+          const Quant z = quantize(t, a[k], r[k], b[x], w, k);
+          const bool inside = z.v > w.lo[k] && z.v < w.hi[k];
+          dp[k] += static_cast<double>(__fmul_rn(gv, z.q));            // <g, Q>
+          dr = __fmaf_rn(pi, inside ? gv : 0.0f, dr);                  // Eq. 4
+          const float dq = inside || z.v != z.v ? __fsub_rn(z.code, z.v)
+                                                : z.code;
+          const float pg = __fmul_rn(pi, gv);
+          acc_alpha[k] += static_cast<double>(__fmul_rn(pg, dq));     // Eq. 5
+          db += static_cast<double>(inside ? 0.0f : pg);               // Eq. 6
+        }
+        drow[x] = dr;
+        acc_beta[(sl + x) * kWideThreads + tid] += db;
+      }
+      store_vec<V>(drows + base + c, drow);
+    }
+    // dprobs of this row: each warp by a fixed-order shuffle tree, then
+    // the warps in order
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        dp[k] += __shfl_down_sync(0xffffffffu, dp[k], off);
+      }
+      if (lane == 0) red[warp * MW + k] = dp[k];
+    }
+    __syncthreads();
+    if (tid < w.m) {
+      const int k = w.slot[tid];
+      double s = 0.0;
+      if (k >= 0) {
+        for (int wp = 0; wp < kWideWarps; ++wp) s += red[wp * MW + k];
+      }
+      dprobs[row * w.m + tid] = static_cast<float>(s);  // 0: a dropped width
+    }
+    __syncthreads();
+  }
+
+  // this block's partials
+#pragma unroll
+  for (int k = 0; k < MW; ++k) acc_alpha_sm[k * kWideThreads + tid] = acc_alpha[k];
+  __syncthreads();
+  for (int c = tid; c < w.m + d; c += kWideThreads) {
+    double s = 0.0;
+    if (c < w.m) {
+      const int k = w.slot[c];
+      if (k >= 0) {
+        for (int t = 0; t < kWideThreads; ++t) {
+          s += acc_alpha_sm[k * kWideThreads + t];
+        }
+      }
+    } else {
+      const int j = c - w.m;
+      const int round = j / (kWideThreads * V), rem = j - round * kWideThreads * V;
+      const int owner = rem / V, x = rem - owner * V;
+      s = acc_beta[(round * V + x) * kWideThreads + owner];
+    }
+    partials[static_cast<long long>(c) * n_parts + blockIdx.x] = s;
+  }
+}
+
 // Host-side checks shared by both entry points; fills `w`.
 int make_widths(const int* bits, int m, int d, Widths* w) {
-  if (m < 1 || m > kMaxWidths || d < 1 || d > kMaxD) return -1;
+  if (m < 1 || m > kMaxWidths || d < 1 || d > kMaxWideD) return -1;
   w->m = m;
   w->live = 0;
   for (int i = 0; i < kMaxWidths; ++i) {
@@ -425,20 +611,23 @@ int make_widths(const int* bits, int m, int d, Widths* w) {
   return 0;
 }
 
-// The kernels' instantiations: V floats a load, E elements a lane.
-enum Kind { kV4E4, kV4E8, kV2E10, kV1E8 };
+// The kernels' instantiations: V floats a load, E elements a lane (the
+// warp layout, d <= kMaxD), or the block layout's V (d > kMaxD).
+enum Kind { kV4E4, kV4E8, kV2E10, kV1E8, kWideV4, kWideV1 };
 
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The widest loads that d and every row pointer allow.
-Kind choose(int d, std::initializer_list<const void*> ptrs) {
+// The widest loads that d and every row pointer allow (and beta's, which
+// the block layout reads by the same vectors).
+Kind choose(int d, std::initializer_list<const void*> ptrs, const void* beta) {
   bool a16 = d % 4 == 0, a8 = d % 2 == 0;
   for (const void* p : ptrs) {
     a16 = a16 && aligned(p, 16);
     a8 = a8 && aligned(p, 8);
   }
+  if (d > kMaxD) return a16 && aligned(beta, 16) ? kWideV4 : kWideV1;
   if (a16) return d <= 128 ? kV4E4 : kV4E8;
   if (a8 && d <= 320) return kV2E10;
   return kV1E8;
@@ -454,7 +643,8 @@ int sm_count(int dev, cudaError_t* err) {
 // of it the card holds at once (SMs x blocks an SM holds). Both are found
 // once per (fn, device, smem) and kept: the attribute call and the
 // occupancy query cost more host time than a small launch.
-cudaError_t resident_blocks(const void* fn, size_t smem, long long* blocks) {
+cudaError_t resident_blocks(const void* fn, size_t smem, long long* blocks,
+                            int threads = kThreads) {
   struct Entry {
     const void* fn;
     int dev;
@@ -481,7 +671,7 @@ cudaError_t resident_blocks(const void* fn, size_t smem, long long* blocks) {
   const int sms = sm_count(dev, &err);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -538,8 +728,48 @@ cudaError_t launch_bwd(const Args& x, const Widths& w, long long n_rows, int d,
   return cudaGetLastError();
 }
 
+template <int V, int MW>
+cudaError_t launch_fwd_wide(const Args& x, const Widths& w, long long n_rows,
+                            int d, cudaStream_t st) {
+  auto kernel = mpe_qat_fwd_wide_kernel<V, MW>;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), 0,
+                                    &resident, kWideThreads);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(n_rows < resident ? n_rows : resident);
+  kernel<<<blocks, kWideThreads, 0, st>>>(x.rows, x.probs, x.alpha, x.beta, w, n_rows, d, x.out_or_drows);
+  return cudaGetLastError();
+}
+
+template <int V, int MW>
+size_t wide_bwd_smem(int d) {
+  return (static_cast<size_t>(wide_slots<V>(d)) * kWideThreads +
+          static_cast<size_t>(kWideWarps) * MW +
+          static_cast<size_t>(MW) * kWideThreads) * sizeof(double);
+}
+
+template <int V, int MW>
+cudaError_t launch_bwd_wide(const Args& x, const Widths& w, long long n_rows,
+                            int d, cudaStream_t st) {
+  auto kernel = mpe_qat_bwd_wide_kernel<V, MW>;
+  const size_t smem = wide_bwd_smem<V, MW>(d);
+  long long resident = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel),
+                                    smem, &resident, kWideThreads);
+  if (err != cudaSuccess) return err;
+  const long long blocks = n_rows < resident ? n_rows : resident;
+  if (blocks * (w.m + d) > x.capacity) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  kernel<<<grid, kWideThreads, smem, st>>>(x.rows, x.probs, x.alpha, x.beta, x.g, w, n_rows, d, x.out_or_drows, x.dprobs, x.partials, static_cast<int>(blocks));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mpe_qat_reduce_kernel<<<w.m + d, kReduceThreads, 0, st>>>(x.partials, static_cast<int>(blocks), x.sums);
+  return cudaGetLastError();
+}
+
 // Launches `Launch<V, E, MW>` at the kind and at 6 register slots of live
-// widths (the paper's 0..6 bits) or 16.
+// widths (the paper's 0..6 bits) or 16; the block layout's kinds through
+// `Launch<V, 0, MW>::wide`.
 template <template <int, int, int> class Launch>
 cudaError_t dispatch(Kind kind, const Args& x, const Widths& w,
                      long long n_rows, int d, cudaStream_t st) {
@@ -554,6 +784,12 @@ cudaError_t dispatch(Kind kind, const Args& x, const Widths& w,
     case kV2E10:
       return small ? Launch<2, 10, 6>::run(x, w, n_rows, d, st)
                    : Launch<2, 10, 16>::run(x, w, n_rows, d, st);
+    case kWideV4:
+      return small ? Launch<4, 0, 6>::wide(x, w, n_rows, d, st)
+                   : Launch<4, 0, 16>::wide(x, w, n_rows, d, st);
+    case kWideV1:
+      return small ? Launch<1, 0, 6>::wide(x, w, n_rows, d, st)
+                   : Launch<1, 0, 16>::wide(x, w, n_rows, d, st);
     default:
       return small ? Launch<1, 8, 6>::run(x, w, n_rows, d, st)
                    : Launch<1, 8, 16>::run(x, w, n_rows, d, st);
@@ -566,6 +802,10 @@ struct Fwd {
                          cudaStream_t st) {
     return launch_fwd<V, E, MW>(x, w, n, d, st);
   }
+  static cudaError_t wide(const Args& x, const Widths& w, long long n, int d,
+                          cudaStream_t st) {
+    return launch_fwd_wide<V, MW>(x, w, n, d, st);
+  }
 };
 
 template <int V, int E, int MW>
@@ -573,6 +813,10 @@ struct Bwd {
   static cudaError_t run(const Args& x, const Widths& w, long long n, int d,
                          cudaStream_t st) {
     return launch_bwd<V, E, MW>(x, w, n, d, st);
+  }
+  static cudaError_t wide(const Args& x, const Widths& w, long long n, int d,
+                          cudaStream_t st) {
+    return launch_bwd_wide<V, MW>(x, w, n, d, st);
   }
 };
 
@@ -582,13 +826,14 @@ struct Bwd {
 // n_rows rows of width d: at least the blocks the card holds at once (0
 // when d is out of range or the device cannot be read).
 extern "C" long long mpe_qat_bwd_partial_rows(long long n_rows, int d) {
-  if (d < 1 || d > kMaxD || n_rows < 0) return 0;
+  if (d < 1 || d > kMaxWideD || n_rows < 0) return 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return 0;
   const int sms = sm_count(dev, &err);
   if (err != cudaSuccess) return 0;
-  return static_cast<long long>(sms) * kMaxBlocksPerSm;
+  return static_cast<long long>(sms) *
+         (d > kMaxD ? 2048 / kWideThreads : kMaxBlocksPerSm);
 }
 
 // Forward on `stream`; returns cudaGetLastError() (0 = ok). Device pointers:
@@ -606,7 +851,7 @@ extern "C" int mpe_qat_fwd(const void* rows, const void* probs,
   const Args x{static_cast<const float*>(rows), static_cast<const float*>(probs),
                static_cast<const float*>(alpha), static_cast<const float*>(beta),
                nullptr, static_cast<float*>(out), nullptr, nullptr, nullptr, 0};
-  return static_cast<int>(dispatch<Fwd>(choose(d, {rows, out}), x, w, n_rows,
+  return static_cast<int>(dispatch<Fwd>(choose(d, {rows, out}, beta), x, w, n_rows,
                                         d, static_cast<cudaStream_t>(stream)));
 }
 
@@ -630,7 +875,7 @@ extern "C" int mpe_qat_bwd(const void* rows, const void* probs,
                static_cast<float*>(dprobs), static_cast<float*>(sums),
                static_cast<double*>(partials),
                mpe_qat_bwd_partial_rows(n_rows, d) * (m + d)};
-  return static_cast<int>(dispatch<Bwd>(choose(d, {rows, g, drows}), x, w,
+  return static_cast<int>(dispatch<Bwd>(choose(d, {rows, g, drows}, beta), x, w,
                                         n_rows, d,
                                         static_cast<cudaStream_t>(stream)));
 }

@@ -8,6 +8,10 @@ constants go to the pass as the float32 values torch computes with (a
 Python float times a float32 tensor is taken in float32). ``lr`` is a
 Python float, or a schedule's value: a 0-d float32 tensor on the leaf's
 device, which the pass reads there (no step waits for the host).
+
+A leaf and its gradient are float32 (moments float32 or bfloat16), or
+bfloat16 with float32 moments, the reference's dtypes for a bfloat16 leaf
+from its first update on (``ref.py`` says how such a step rounds).
 """
 from __future__ import annotations
 
@@ -17,17 +21,17 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels.adam.ref import adam_step_ref_
+from repro_torch.kernels.adam.ref import adam_step_ref_, decay_factor
 from repro_torch.kernels.build import load_library
 
-MOMENT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the pass's codes, leaf and moments
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = load_library("adam").adam_step
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [p, p, p, p, ll, i, p, p, p, p, p, f, f, f, f, f, f, f,
+    fn.argtypes = [p, p, p, p, ll, i, i, p, p, p, p, p, f, f, f, f, f, f, f,
                    f, i, p]
     fn.restype = i
     return fn
@@ -39,14 +43,20 @@ def _f32(x: float) -> float:
 
 
 def _check(p, g, m, v, scale, ok, bc1, bc2, lr):
-    """Raise on what the pass does not take: a float32 leaf p, its float32
-    gradient g and moments m, v of one shape and moment type (float32 or
-    bfloat16), all contiguous, and float32 0-d scale, bc1, bc2 (and lr, if
-    it is a tensor) and a bool 0-d ok, all on p's device."""
-    if m.dtype not in MOMENT_TYPES or v.dtype != m.dtype:
+    """Raise on what the pass does not take: a leaf p and its gradient g
+    both float32 with moments m, v both float32 or both bfloat16, or both
+    bfloat16 with float32 moments; all of one shape and contiguous; float32
+    0-d scale, bc1, bc2 (and lr, if it is a tensor) and a bool 0-d ok, all
+    on p's device."""
+    if p.dtype not in TYPES:
+        raise TypeError(f"p must be float32 or bfloat16, got {p.dtype}")
+    if m.dtype not in TYPES or v.dtype != m.dtype:
         raise TypeError(f"moments must both be float32 or bfloat16, got "
                         f"{m.dtype} and {v.dtype}")
-    named = {"p": (p, torch.float32), "g": (g, torch.float32),
+    if p.dtype == torch.bfloat16 and m.dtype != torch.float32:
+        raise TypeError(f"a bfloat16 leaf takes float32 moments, got "
+                        f"{m.dtype}")
+    named = {"p": (p, p.dtype), "g": (g, p.dtype),
              "m": (m, m.dtype), "v": (v, m.dtype)}
     for what, (x, dtype) in named.items():
         if x.device != p.device:
@@ -86,11 +96,11 @@ def adam_step_(p, g, m, v, scale, ok, bc1, bc2, *, lr, b1, b2, eps,
         lr_ptr, neg_lr, lr_wd = lr.data_ptr(), 0.0, 0.0
     else:
         lr_ptr, neg_lr = None, f32(-lr)
-        lr_wd = f32(lr * weight_decay) if decay else 0.0
+        lr_wd = decay_factor(lr, weight_decay, p.dtype) if decay else 0.0
     with torch.cuda.device(p.device):
         err = _kernel()(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
-            MOMENT_TYPES[m.dtype], scale.data_ptr(), ok.data_ptr(),
+            TYPES[p.dtype], TYPES[m.dtype], scale.data_ptr(), ok.data_ptr(),
             bc1.data_ptr(), bc2.data_ptr(), lr_ptr, neg_lr, f32(b1),
             f32(1 - b1), f32(b2), f32(1 - b2), f32(eps), lr_wd,
             f32(weight_decay), int(decay),

@@ -22,7 +22,7 @@ from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
 
 MAX_WIDTHS = 16   # kMaxWidths in csrc/mpe_qat.cu
 MAX_BITS = 24     # kMaxBits
-MAX_D = 256       # kMaxD: a row's lanes fit one warp
+MAX_D = 16384     # kMaxWideD: rows wider than 256 take a block each
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,8 +3,10 @@
 (``ref.py``) for tensors on the CPU; and ``gather``, a row gather whose
 backward it is.
 
-``gather(table, ids)`` is ``F.embedding(ids, table)`` in its forward. Its
-backward sums the (T, w) cotangent into the dense (N, w) table gradient:
+``gather(table, ids)`` is ``F.embedding(ids, table)`` in its forward, in
+the table's own type. Its backward sums the (T, w) cotangent, taken to
+float32, into the dense (N, w) table gradient, rounded once to the table's
+type:
 on the card it sorts the ids stably (``torch.sort``; the kernel is the
 sum), zeroes the gradient and launches the kernel, which sums every
 segment in float64 in a fixed order, a long one cut over many workers,
@@ -24,7 +26,9 @@ wider than 256 columns in column tiles, which changes no sum.
 
 On CUDA tensors it launches the kernel or raises; there is no fallback.
 ``segment_sum.launches`` counts launches (one is the chunk kernel and its
-combine), and only those.
+combine), and only those. ``LIBRARY_SCATTER_ADDS`` names the library's
+kernels that these sums replace, as a trace names them
+(``is_library_scatter_add``).
 """
 from __future__ import annotations
 
@@ -39,6 +43,22 @@ from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
 TILE_W = 256         # kMaxW in csrc/segment_sum.cu: the widest column tile
 MAX_N = 2 ** 31 - 1  # the kernel's ids are int32
+# the library's scatter-adds by their kernels' names in a trace: the dense
+# embedding backward (aten::embedding_dense_backward, and its feature
+# kernel), index_add_, index_put_ with accumulate; a scatter_add is a
+# scatter_gather_elementwise kernel with ReduceAdd
+LIBRARY_SCATTER_ADDS = ("sum_and_scatter", "compute_grad_weight",
+                        "krn_partial", "compute_num_of_partial_segments",
+                        "segment_offsets_kernel", "embedding_backward",
+                        "embedding_dense", "indexFuncLargeIndex",
+                        "indexFuncSmallIndex", "index_put_with_sort")
+
+
+def is_library_scatter_add(kernel_name: str) -> bool:
+    """Whether a traced kernel is one of the library's scatter-adds."""
+    return (any(k in kernel_name for k in LIBRARY_SCATTER_ADDS)
+            or ("scatter_gather_elementwise" in kernel_name
+                and "ReduceAdd" in kernel_name))
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,18 +173,20 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
-        ctx.n = table.shape[0]
+        ctx.n, ctx.dtype = table.shape[0], table.dtype
         return F.embedding(ids, table)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return segment_sum(g.contiguous(), ids, ctx.n), None
+        return segment_sum(g.to(torch.float32).contiguous(), ids,
+                           ctx.n).to(ctx.dtype), None
 
 
 def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for 1-D ids (T,) -> (T, w), differentiable in the
-    table: its gradient is ``segment_sum`` of the cotangent."""
+    table: its gradient is ``segment_sum`` of the cotangent in float32,
+    rounded once to the table's type (bf16 rows gather as they are)."""
     return _Gather.apply(table, ids)
 
 

@@ -36,7 +36,17 @@ reference returns new arrays: the caches passed in are the caches returned.
 reference leaves the first three without effect, and the port reads all
 four and leaves them so (the flash kernel computes in float32, as the
 reference's chunked route does without ``attn_block_bf16``, which is every
-config). ``remat`` matters to the training path only.
+config). ``remat`` matters to the training path only: where it is set,
+no caches are passed and grad is enabled, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward keeps only each
+layer's input and recomputes the layer, as the reference's
+``jax.checkpoint`` on its scan body does.
+
+Training: ``loss_fn`` is the reference's next-token cross-entropy plus
+``aux_weight`` times the MoE's load-balance loss, through the whole logit
+matrix, or with ``cfg.ce_chunk`` set through ``hidden_states`` and
+``nn/chunked.py::chunked_softmax_xent``, which never holds more than one
+chunk's (B, chunk, V) logits.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import get_compressor
 from repro_torch.core.quantizer import dequantize_symmetric
@@ -52,6 +63,7 @@ from repro_torch.kernels.flash_attention.ops import BLOCK, flash_attention
 from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
 from repro_torch.nn import init as initializers
 from repro_torch.nn.attention import MHA
+from repro_torch.nn.chunked import chunked_softmax_xent
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.moe import MoE, MoEConfig
 from repro_torch.nn.norms import RMSNorm
@@ -226,9 +238,10 @@ class LM:
         return cache, scale
 
     @staticmethod
-    def _forward(params, buffers, tokens, cfg: LMConfig, *, positions=None,
-                 kv_caches=None, train: bool = False, step=None,
-                 last_only: bool = False):
+    def _trunk(params, buffers, tokens, cfg: LMConfig, *, positions=None,
+               kv_caches=None, train: bool = False, step=None):
+        """The token lookup and the layers: (x (B, S, d) before the final
+        norm, the summed aux loss, the caches or None)."""
         comp = get_compressor(cfg.compressor)
         x = comp.lookup(params["embedding"], buffers["embedding"], tokens,
                         _comp_cfg(cfg), train=train, step=step).to(_dt(cfg))
@@ -248,10 +261,17 @@ class LM:
                  and int(cache_len) == 0)
         quant = kv_caches is not None and "k_scale" in kv_caches
         aux = torch.zeros((), dtype=torch.float32, device=dev)
+        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
+
+        def layer(h, lp):
+            return LM._layer_apply(cfg, h, lp, positions=positions)[:2]
+
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
-            if kv_caches is None:
-                x, a, *_ = LM._layer_apply(cfg, x, lp, positions=positions)
+            if remat:
+                x, a = checkpoint(layer, x, lp, use_reentrant=False)
+            elif kv_caches is None:
+                x, a = layer(x, lp)
             else:
                 x, a, *_ = LM._layer_apply(
                     cfg, x, lp, positions=positions,
@@ -261,12 +281,22 @@ class LM:
                     cache_v_scale=kv_caches["v_scale"][i] if quant else None,
                     empty_cache=empty)
             aux = aux + a
-        if last_only:
-            x = x[:, -1:]
-        logits = RMSNorm.apply(params["ln_f"], x) @ params["lm_head"]
         new_caches = None
         if kv_caches is not None:
             new_caches = dict(kv_caches, len=cache_len + s)
+        return x, aux, new_caches
+
+    @staticmethod
+    def _forward(params, buffers, tokens, cfg: LMConfig, *, positions=None,
+                 kv_caches=None, train: bool = False, step=None,
+                 last_only: bool = False):
+        x, aux, new_caches = LM._trunk(params, buffers, tokens, cfg,
+                                       positions=positions,
+                                       kv_caches=kv_caches, train=train,
+                                       step=step)
+        if last_only:
+            x = x[:, -1:]
+        logits = RMSNorm.apply(params["ln_f"], x) @ params["lm_head"]
         return logits, aux, new_caches
 
     @staticmethod
@@ -275,6 +305,35 @@ class LM:
         """tokens: (B, S) -> (logits (B,S,V), aux_loss, new_kv_caches)."""
         return LM._forward(params, buffers, tokens, cfg, positions=positions,
                            kv_caches=kv_caches, train=train, step=step)
+
+    @staticmethod
+    def hidden_states(params, buffers, tokens, cfg: LMConfig, *,
+                      train: bool = False, step=None):
+        """Final-layer hidden states after the final norm, (B, S, d), and
+        the aux loss: the big-vocabulary cross-entropy's input."""
+        x, aux, _ = LM._trunk(params, buffers, tokens, cfg, train=train,
+                              step=step)
+        return RMSNorm.apply(params["ln_f"], x), aux
+
+    @staticmethod
+    def loss_fn(params, buffers, batch, cfg: LMConfig, *,
+                aux_weight: float = 0.01, train: bool = True, step=None):
+        """batch: {"tokens": (B, S), "labels": (B, S)} -> (loss, ce): the
+        mean next-token cross-entropy plus ``aux_weight`` times the aux
+        loss. As the reference returns it, ``ce`` is the mean (a 0-d
+        tensor) with ``cfg.ce_chunk`` set, else each token's (B, S, 1)."""
+        labels = batch["labels"]
+        if cfg.ce_chunk:
+            x, aux = LM.hidden_states(params, buffers, batch["tokens"], cfg,
+                                      train=train, step=step)
+            ce = chunked_softmax_xent(x, params["lm_head"], labels,
+                                      chunk=cfg.ce_chunk)
+            return ce + aux_weight * aux, ce
+        logits, aux, _ = LM.apply(params, buffers, batch["tokens"], cfg,
+                                  train=train, step=step)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ce = -torch.gather(logp, -1, labels[..., None].long())
+        return torch.mean(ce) + aux_weight * aux, ce
 
     @staticmethod
     def make_kv_caches(cfg: LMConfig, batch: int, max_len: int,

@@ -7,8 +7,12 @@ chunks for each Q chunk, so the materialized score block is
 In the port it is the plain version of the long-sequence route, which runs
 on ``kernels/flash_attention``'s tiled kernel: what the kernel is held
 against at lengths where the whole (S × T) score matrix does not fit.
-The reference's ``chunked_softmax_xent`` comes with the LM's training
-path.
+
+``chunked_softmax_xent`` is the reference's cross-entropy over sequence
+chunks for big-vocabulary LM heads: one ``torch.autograd.Function`` that
+keeps no (B, chunk, V) block from one chunk to the next. Its backward
+recomputes each chunk's logits and adds its share to dx and d``lm_head``,
+as the reference's ``jax.checkpoint`` on the chunk body does.
 """
 from __future__ import annotations
 
@@ -83,3 +87,63 @@ def chunked_gqa_attention(q, k, v, *, n_kv_heads: int, causal: bool,
         outs.append(out.permute(0, 3, 1, 2, 4))            # (b, qc, kv, g, hd)
     out = torch.stack(outs, dim=1).reshape(b, s, hq, hd)
     return out.to(q.dtype)
+
+
+class _ChunkedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lm_head, labels, chunk):
+        b, s, d = x.shape
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, s, chunk):
+            xc = x[:, lo:lo + chunk].reshape(-1, d)
+            logits = xc @ lm_head
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            del logits
+            lc = labels[:, lo:lo + chunk].reshape(-1, 1).long()
+            tot = tot - logp.gather(-1, lc).sum()
+            del logp
+        ctx.save_for_backward(x, lm_head, labels)
+        ctx.chunk = chunk
+        return tot / (b * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lm_head, labels = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, s, d = x.shape
+        gt = g.to(torch.float32) / (b * s)        # each token's ce cotangent
+        dx = torch.empty_like(x)
+        dw = torch.zeros(lm_head.shape, dtype=torch.float32,
+                         device=lm_head.device)
+        for lo in range(0, s, chunk):
+            xc = x[:, lo:lo + chunk].reshape(-1, d)
+            lc = labels[:, lo:lo + chunk].reshape(-1)
+            logits = xc @ lm_head
+            # d/dlogits of -logp[label]: softmax - onehot, in float32, then
+            # the cast's backward to the logits' type
+            dl = torch.softmax(logits.to(torch.float32), dim=-1)
+            del logits
+            rows = torch.arange(dl.shape[0], device=dl.device)
+            dl[rows, lc] -= 1.0
+            dl = dl.mul_(gt).to(lm_head.dtype)
+            dx[:, lo:lo + chunk] = (dl @ lm_head.T).reshape(b, -1, d)
+            dw += (xc.T @ dl).to(torch.float32)
+            del dl
+        return dx, dw.to(lm_head.dtype), None, None
+
+
+def chunked_softmax_xent(x, lm_head, labels, *,
+                         chunk: int = 512) -> torch.Tensor:
+    """x (B, S, d) final hidden states, lm_head (d, V), labels (B, S) ->
+    the mean cross-entropy, a 0-d float32 tensor.
+
+    The sequence is taken ``chunk`` positions at a time (``min(chunk, S)``,
+    which must divide S): logits ``xc @ lm_head`` in the model's type, the
+    log-softmax in float32. The backward recomputes each chunk's logits;
+    d``lm_head`` is summed over the chunks in float32 and rounded to its
+    type once (the reference's scan carries it in that type)."""
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide S = {s}")
+    return _ChunkedXent.apply(x, lm_head, labels, chunk)

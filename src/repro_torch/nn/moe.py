@@ -6,9 +6,14 @@ their top-k experts; a (T·k, E) cumulative sum gives each (token, choice)
 its slot in its expert's capacity buffer; dispatch is a gather, and the
 combine — the reference's ``jax.ops.segment_sum`` of the gate-weighted
 expert outputs back to their tokens — is ``kernels/segment_sum``'s
-``scatter_sum`` (the CUDA kernel on the card). The capacity, the top-k
-choices, ``pos_in_expert``, ``keep`` and ``slot`` are the reference's
-integers exactly; choices past an expert's capacity are dropped. Supports
+``scatter_sum`` (the CUDA kernel on the card). Both gathers, the dispatch
+``xt[dispatch]`` and the combine's ``ye[slot]``, are
+``kernels/segment_sum``'s ``gather`` on the rows as they are, so their
+backward is the segment-sum kernel too (in float32, rounded once to the
+rows' type): no library scatter-add runs in a training step. The
+capacity, the top-k choices, ``pos_in_expert``, ``keep`` and ``slot`` are
+the reference's integers exactly; choices past an expert's capacity are
+dropped. Supports
 DeepSeekMoE's always-on shared experts and int8 expert weights
 ({"q", "scale"}, per-expert scales, dequantized on use).
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantizer import dequantize_symmetric
-from repro_torch.kernels.segment_sum.ops import scatter_sum
+from repro_torch.kernels.segment_sum.ops import gather, scatter_sum
 from repro_torch.nn import init as initializers
 
 
@@ -129,7 +134,7 @@ class MoE:
         slot_used.index_fill_(0, target, True)
         dispatch, slot_used = dispatch[:e * cap], slot_used[:e * cap]
 
-        xe = xt[dispatch].reshape(e, cap, d)                         # (E, C, d)
+        xe = gather(xt, dispatch).reshape(e, cap, d)                 # (E, C, d)
         xe = xe * slot_used.reshape(e, cap, 1).to(xe.dtype)
         w = params["experts"]
 
@@ -143,7 +148,7 @@ class MoE:
         ye = torch.bmm(h, _mat(w["w_down"])).reshape(e * cap, d)
 
         # combine: each kept choice back to its token, gate-weighted
-        gathered = ye[torch.clamp(slot, 0, e * cap - 1).long()]    # (T·k, d)
+        gathered = gather(ye, slot.clamp(0, e * cap - 1).long())    # (T·k, d)
         wts = (r["topw"].reshape(t * k) * keep.to(torch.float32))[:, None]
         out = scatter_sum((gathered * wts).to(torch.float32),
                           token_of_choice, t)

@@ -49,7 +49,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     Decoupled weight decay (AdamW-style), skipped for 1-D leaves (biases,
     norm scales). ``moment_dtype`` (e.g. ``torch.bfloat16``) stores mu/nu in
-    a reduced type; the update math stays float32. The step is an int32
+    a reduced type; the update math stays float32. Without it a bfloat16
+    leaf keeps float32 moments, the reference's type for them after its
+    first update. The step is an int32
     tensor on the parameters' device and the bias corrections ``1 − b^step``
     are computed from it in float32, as the reference computes them; so is
     a schedule's value, which the pass reads from device memory.
@@ -57,8 +59,14 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
     def _stored(x):
-        return x.to(moment_dtype) if (moment_dtype is not None
-                                      and x.is_floating_point()) else x
+        if not x.is_floating_point():
+            return x
+        if moment_dtype is not None:
+            return x.to(moment_dtype)
+        # a bfloat16 leaf's moments are float32 from the reference's first
+        # update on (its float32 sums are stored as they are); zeros are
+        # the same in either type
+        return x.to(torch.float32) if x.dtype == torch.bfloat16 else x
 
     def init(params):
         device = leaves(params)[0].device

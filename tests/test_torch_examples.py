@@ -70,3 +70,14 @@ def test_gnn_molecule_twin(capsys):
     assert all(math.isfinite(h["loss"]) for h in tr.history)
     assert 0.0 <= bits <= 6.0
     assert "atom-table avg bits" in capsys.readouterr().out
+
+
+def test_lm_vocab_mpe_twin(capsys):
+    tr, bits = load("lm_vocab_mpe_torch").main(
+        ["--steps", "3", "--device", "cpu"])
+    assert len(tr.history) == 3
+    assert all(math.isfinite(h["loss"]) and not h["skipped"]
+               for h in tr.history)
+    assert 0.0 <= bits <= 6.0
+    out = capsys.readouterr().out
+    assert "vocab-table avg bits" in out and "rare-quartile" in out

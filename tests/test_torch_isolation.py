@@ -123,7 +123,7 @@ def test_the_examples_have_their_twins():
     names = {p.name for p in TWINS}
     assert names == {"quickstart_torch.py", "serve_packed_torch.py",
                      "train_ctr_end_to_end_torch.py",
-                     "gnn_molecule_mpe_torch.py"}
+                     "gnn_molecule_mpe_torch.py", "lm_vocab_mpe_torch.py"}
 
 
 @pytest.mark.parametrize("twin", [p.name for p in TWINS])

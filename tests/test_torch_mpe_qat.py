@@ -113,6 +113,28 @@ def test_plain_version_matches_reference_pallas_interpret(bits, onehot, rng):
     assert (got[1].numpy()[:, 0] == 0).all()      # the b = 0 column
 
 
+@pytest.mark.parametrize("bits", [(0, 1, 2, 3, 4, 5, 6), (0, 3), (5,)],
+                         ids=str)
+@pytest.mark.parametrize("d", [257, 2048])
+def test_plain_version_matches_reference_pallas_interpret_wide_rows(d, bits,
+                                                                    rng):
+    """Rows wider than a warp's 256 lanes (the LM's token table is 2,048
+    wide), which the CUDA kernels take in a block a row: the plain version
+    the kernels are held against, with float32 and float64 sums, within
+    the contract of the reference's Pallas kernel in interpret mode."""
+    rows, probs, alpha, beta, g = _inputs(rng, 260, d, bits)
+    want_out = np.asarray(j_fwd(rows, probs, alpha, beta, bits=bits))
+    want = [np.asarray(x) for x in j_bwd(rows, probs, alpha, beta, g,
+                                         bits=bits)]
+    got_out = mixed_expectation_fwd_ref(*_t(rows, probs, alpha, beta), bits)
+    np.testing.assert_allclose(got_out.numpy(), want_out, **FWD)
+    for sums in (torch.float32, torch.float64):
+        got = mixed_expectation_bwd_ref(*_t(rows, probs, alpha, beta, g),
+                                        bits, sum_dtype=sums)
+        for x, w in zip(got, want):
+            np.testing.assert_allclose(x.numpy(), w, **RED)
+
+
 @pytest.mark.parametrize("bits", BITS_GRID, ids=str)
 def test_plain_version_summing_in_float64_matches_reference(bits, rng):
     """The sums as the CUDA kernel takes them, in float64 and rounded once:
@@ -191,9 +213,12 @@ def test_wrapper_checks_what_the_kernels_take(rng):
         ops._check_inputs(rows, probs.t().contiguous().t(), alpha, beta, bits)
     with pytest.raises(ValueError, match="widths"):
         ops._check_inputs(rows, probs, alpha, beta, (0, 2, 25))
-    with pytest.raises(ValueError, match="d=300"):
-        ops._check_inputs(torch.zeros(10, 300), probs, alpha,
-                          torch.zeros(300), bits)
+    with pytest.raises(ValueError, match="d=16385"):
+        ops._check_inputs(torch.zeros(10, 16385), probs, alpha,
+                          torch.zeros(16385), bits)
+    # rows of any width up to it: the LM's token tables (2,048; 6,144)
+    ops._check_inputs(torch.zeros(10, 2048), probs, alpha, torch.zeros(2048),
+                      bits)
     with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
         ops.mixed_expectation_fwd(rows.to("meta"), probs.to("meta"),
                                   alpha.to("meta"), beta.to("meta"), bits)

@@ -9,6 +9,8 @@
   rounds once), atol 1e-6 times the largest entry;
 - ``segment_sum`` on the CPU is ``F.embedding``'s dense backward in float64,
   rounded once, and launches nothing; a row with no id gets 0;
+- ``gather`` of bf16 rows: the rows as they are, and the gradient the
+  segment sum of the cotangent taken to float32, rounded once to bf16;
 - the bag form (``bag_weights``, the embedding bag's backward) on the CPU
   sums the float32 products ``g[b] * w[b, j]`` in float64, rounded once;
 - the wrapper's checks.
@@ -81,6 +83,21 @@ def test_gather_gradient_matches_reference_vjp(what, rng):
     np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
     assert (leaf.grad.numpy()[counts == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gather_of_narrow_rows_sums_in_float32(dtype, rng):
+    n, t, w = 300, 5000, 24
+    ids = torch.from_numpy(zipf_ids(rng, t, n, 0.3)).long()
+    table = torch.from_numpy(rng.normal(0, 1, (n, w)).astype(np.float32)
+                             ).to(dtype).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(0, 1, (t, w)).astype(np.float32)).to(dtype)
+    got = ops.gather(table, ids)
+    assert got.dtype == dtype and torch.equal(got, table.detach()[ids])
+    got.backward(g)
+    want = segment_sum_ref(g.float(), ids, n).to(dtype)
+    assert table.grad.dtype == dtype
+    assert torch.equal(table.grad, want)
 
 
 @pytest.mark.parametrize("w", [1, 7, 16, 50])
