@@ -162,7 +162,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    segment of c rows: two float64 sums in any order, each rounded once)
    on the rows the ids touch, every other row 0, twice bit-identical,
    timed beside it, the library's float32 dense backward it replaces and
-   the bound; what
+   the bound, and taken apart (the sort and the zeroed gradient timed
+   alone, the chunk and combine kernels traced, the scratch bytes); what
    the step's Adam pass left, and one more launch with the flag negated (a
    skipped pass: bit-unchanged), against the plain chain on host copies of
    the state from before the step, bit for bit, by slices of rows; timed
@@ -301,7 +302,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1,048,576 × 1,433 and at ``ogb_products``' shape (61,859,140 × 100):
    bit-identical to its plain version (taken by column tiles), twice
    bit-identical, timed beside the byte bound, the plain version and
-   ``index_add_`` (timed only).
+   ``index_add_`` (timed only), and taken apart as in 11; the traced
+   ``ogb_products`` step's combine pass (``segment_combine_kernel``) apart.
 
 22. the LM's kernels against their plain versions: ``kv_cache_write``
    over B {1, 3, 8} × T {1, 63, 64, 65, 4,096, 8,193} × H {1, 8} × hd {16, 64,
@@ -332,7 +334,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    exceeds that); again with the counts at 0
    (the same tokens; launches = replays × captured); the step at full
    context (8 × 32,768) timed and traced beside its bound, and layer 0's
-   two kernels timed there beside theirs and their plain versions.
+   two kernels timed there beside theirs and their plain versions, and at
+   the requests' short contexts (each slot a prompt and 16 tokens);
+   ``decode_attention`` also over layer 0's cache dequantized to bf16 (the
+   bf16 contract), timed beside SDPA with a boolean key mask and
+   ``enable_gqa`` (timed only, never on the port's path).
 25. ``LM.prefill`` of 32,768 tokens into an int8 cache (flash over the
    dequantized cache, one lookup, 48 writes) against the plain route (the
    long attention chunked by 4,096), layer 0's cache bit-identical to the
@@ -645,7 +651,8 @@ def cold_ms(fn, reps: int) -> float:
 def trace(fn, reps: int, attempts: int = 3) -> dict:
     """``fn`` run ``reps`` times under the profiler: per-run wall time, the
     device's busy time (the union of kernel and copy intervals) and device
-    time by kernel name, all in ms per run. A profile that recorded no
+    time by kernel name, all in ms per run, and each name's launches in
+    the window (``launches_by_name``). A profile that recorded no
     device activity at all (the profiler now and then returns none for a
     short window) is taken again, ``attempts`` times in all."""
     from torch.profiler import ProfilerActivity, profile
@@ -667,15 +674,17 @@ def trace(fn, reps: int, attempts: int = 3) -> dict:
             f"of {attempts})")
     check(len(spans) > 0, "the profiler recorded no device activity")
     busy_us, by_name, reach = 0.0, {}, float("-inf")
+    launches = {}
     for start, end, name in spans:
         busy_us += max(end - max(start, reach), 0.0)
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3 / reps
+        launches[name] = launches.get(name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / reps,
             "idle_share": 1.0 - busy_us / 1e3 / reps / wall_ms,
             "top": [(name[:60], ms) for name, ms in top],
-            "by_name": by_name}
+            "by_name": by_name, "launches_by_name": launches}
 
 
 def within(got: torch.Tensor, want: torch.Tensor, tol: dict,
@@ -2514,6 +2523,31 @@ def segment_sum_bound(grad, ids, n, want) -> torch.Tensor:
     return bound.mul_(2.0 ** -52).add_(want.abs().double(), alpha=SEG_RTOL)
 
 
+def segment_sum_split(grad, ids, n, reps: int = 3) -> dict:
+    """The segment sum's wrapper taken apart at one call's shape: the stable
+    sort and the zeroed gradient timed alone with CUDA events, the chunk and
+    combine kernels' device ms a launch from ``reps`` traced calls (the
+    mean over the launches the trace holds: it now and then misses a
+    window's first kernel), and the scratch bytes the kernel takes beside
+    its output."""
+    w = grad.shape[1]
+    traced = uncounted(lambda: trace(
+        lambda: seg_ops.segment_sum(grad, ids, n), reps))
+
+    def per_launch(kernel: str) -> float:
+        names = [k for k in traced["by_name"] if kernel in k]
+        count = sum(traced["launches_by_name"][k] for k in names)
+        total = sum(traced["by_name"][k] for k in names) * reps
+        return total / count if count else 0.0
+    return {"sort_ms": cuda_ms(lambda: torch.sort(ids.to(torch.int32),
+                                                  stable=True), 3, warmup=1),
+            "zeros_ms": cuda_ms(lambda: torch.zeros((n, w), device=grad.device),
+                                3, warmup=1),
+            "chunk_ms": per_launch("segment_chunk_kernel"),
+            "combine_ms": per_launch("segment_combine_kernel"),
+            "scratch_bytes": seg_ops.scratch_bytes(grad.shape[0], w)}
+
+
 def check_segment_sums(calls, what: str) -> list:
     """Each recorded gather backward (grad, ids, n): the kernel against its
     plain version on the ids renumbered over the rows they touch (the same
@@ -2524,7 +2558,8 @@ def check_segment_sums(calls, what: str) -> list:
     touches 0; twice bit-identical; then timed (its wrapper: the sort, the
     zeroed gradient and the kernels) beside the plain version, the
     library's dense backward in float32 (the call it replaces on the path)
-    and the byte bound (the gradient rows, the ids, the dense output)."""
+    and the byte bound (the gradient rows, the ids, the dense output), and
+    taken apart (``segment_sum_split``)."""
     out = []
     for grad, ids, n in calls:
         t, w = grad.shape
@@ -2564,10 +2599,11 @@ def check_segment_sums(calls, what: str) -> list:
             "library_ms": cuda_ms(
                 lambda: torch.ops.aten.embedding_dense_backward(
                     grad, ids, n, -1, False), 3, warmup=1)}))
+        row["split"] = segment_sum_split(grad, ids, n)
         log(f"{label}, hot segment {hot} rows: {row['ms']:.4f} ms a call "
             f"(plain {row['plain_ms']:.4f} ms; library dense backward "
             f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
-            f"{row['bound_ms'] / row['ms']:.1%} of it)")
+            f"{row['bound_ms'] / row['ms']:.1%} of it); split {row['split']}")
         out.append(row)
     return out
 
@@ -2696,8 +2732,9 @@ def check_step_inputs(trainer, batch, step: int, what: str) -> dict:
 
 
 def step_kernel_ms(by_name: dict) -> dict:
-    """Traced device ms of a step's ``mpe_qat``, segment-sum, sort, Adam
-    and library dense-embedding-backward kernels."""
+    """Traced device ms of a step's ``mpe_qat``, segment-sum (and of that
+    its combine pass), sort, Adam and library dense-embedding-backward
+    kernels."""
     def total(*keys):
         return sum(ms for name, ms in by_name.items()
                    if any(k in name for k in keys))
@@ -2705,6 +2742,7 @@ def step_kernel_ms(by_name: dict) -> dict:
             "mpe_qat_bwd": total("mpe_qat_bwd_kernel", "mpe_qat_reduce_kernel"),
             "segment_sum": total("segment_chunk_kernel",
                                  "segment_combine_kernel"),
+            "segment_sum_combine": total("segment_combine_kernel"),
             "sort": total("RadixSort", "radix_sort"),
             "adam": total("adam_kernel"),
             "library_segment_sums": total(*LIBRARY_SEGMENT_KERNELS)}
@@ -4537,11 +4575,12 @@ def scatter_record(x, seg, n: int, what: str, plain_cols: int) -> dict:
         "plain_ms": cuda_ms(plain, 1, warmup=0),
         "library_ms": cuda_ms(lambda: torch.zeros(
             (n, w), device=x.device).index_add_(0, seg, x), 3, warmup=1)}))
+    row["split"] = segment_sum_split(x, seg, n)
     log(f"{label}: bit-identical to the plain version, twice; hot segment "
         f"{hot} rows; {row['ms']:.4f} ms a call, the sort included (plain "
         f"{row['plain_ms']:.4f} ms by {plain_cols} columns; index_add_ "
         f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms, "
-        f"{row['bound_ms'] / row['ms']:.1%} of it)")
+        f"{row['bound_ms'] / row['ms']:.1%} of it); split {row['split']}")
     return row
 
 
@@ -5027,11 +5066,29 @@ def decode_attention_bytes(q, k, valid: torch.Tensor, quant: bool) -> int:
             + (2 * b * hkv * 4 if quant else 0))
 
 
-def time_decode_kernels(params, cfg, caches, lens, what: str) -> dict:
+def sdpa_masked_ms(q, k, v, valid, iters: int) -> float:
+    """``F.scaled_dot_product_attention`` over a bf16 cache with a boolean
+    key mask (the valid lengths) and ``enable_gqa``, on (B, H, S, hd)
+    views: one library call for decode attention's function (timed only,
+    never on the port's path; it takes no int8 cache)."""
+    t = k.shape[1]
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < valid[:, None])[:, None, None, :]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True),
+                   iters)
+
+
+def time_decode_kernels(params, cfg, caches, lens, what: str,
+                        bf16_cache: bool = False) -> dict:
     """Layer 0's ``decode_attention`` and ``kv_cache_write`` (the keys'
     write) at one decode step's shapes on these caches and lengths (the
     write's values small, so no scale grows), CUDA-event ms beside their
-    byte bounds and their plain versions."""
+    byte bounds and their plain versions; with ``bf16_cache`` also
+    ``decode_attention`` over layer 0's cache dequantized to bf16, held
+    against its plain version (the bf16 contract) and timed beside
+    ``sdpa_masked_ms`` on the same inputs."""
     dev = caches["k"].device
     b, t = caches["k"].shape[1:3]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5082,13 +5139,39 @@ def time_decode_kernels(params, cfg, caches, lens, what: str) -> dict:
                                  5, warmup=1),
              "library_ms": None, "shape": list(kc.shape)}
     del kc, sc
-    for name, r in (("decode_attention", att), ("kv_cache_write", write)):
-        log(f"{name} at {what}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}); "
-            f"bound {r['bound_ms']:.4f} ms for {r['bytes']} bytes: "
+    out = {"decode_attention": att, "kv_cache_write": write}
+    if bf16_cache:
+        kb, vb = (dequantize_symmetric(x, s_, torch.bfloat16)
+                  for x, s_ in ((k, ks), (v, vs)))
+        got = da_ops.decode_attention(q, kb, vb, q_offset=off,
+                                      kv_valid_len=valid)
+        want = decode_attention_ref(q, kb, vb, None, None, off, valid)
+        err = decode_attention_error(got, q, kb, vb, None, None, off, valid,
+                                     want, f"decode_attention at {what}, "
+                                           f"bf16 cache")
+        del got, want
+        nbytes = decode_attention_bytes(q, kb, valid, False)
+        out["decode_attention_bf16"] = {
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err,
+            "ms": uncounted(lambda: cuda_ms(lambda: da_ops.decode_attention(
+                q, kb, vb, q_offset=off, kv_valid_len=valid), 20)),
+            "plain_ms": cuda_ms(lambda: decode_attention_ref(
+                q, kb, vb, None, None, off, valid), 5, warmup=1),
+            "library_ms": sdpa_masked_ms(q, kb, vb, valid, 20),
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "attn_mask=key mask, enable_gqa=True)",
+            "shape": list(kb.shape), "query_heads": cfg.n_heads,
+            "valid_keys": int(valid.sum())}
+        del kb, vb
+    for name, r in out.items():
+        log(f"{name} at {what}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
+            + (f"; SDPA {r['library_ms']:.4f}" if r.get("library_ms") else "")
+            + f"); bound {r['bound_ms']:.4f} ms for {r['bytes']} bytes: "
             f"{r['bound_ms'] / r['ms']:.1%} of it"
             + (f"; traced passes {passes}" if name == "decode_attention"
                else ""))
-    return {"decode_attention": att, "kv_cache_write": write}
+    return out
 
 
 def request_prompts(cfg):
@@ -5200,7 +5283,12 @@ def phase_lm_slotted(dev, model) -> dict:
     traced = trace(lambda: reg.cell.compiled(stage[0], stage[1], caches), 5)
     bound = step_bound_ms(params, cfg, LM_SLOTS * LM_MAX_LEN, LM_SLOTS)
     kernels = time_decode_kernels(params, cfg, caches, stage[1],
-                                  "decode_32k (8 x 32,768)")
+                                  "decode_32k (8 x 32,768)", bf16_cache=True)
+    # a step at the requests' contexts: each slot a prompt and some tokens
+    short = torch.tensor([len(p) + 16 for p, _, _ in requests[:LM_SLOTS]],
+                         dtype=torch.int32, device=dev)
+    kernels_short = time_decode_kernels(params, cfg, caches, short,
+                                        "slotted short contexts")
     out = {"capture_s": capture_s, "requests": LM_REQUESTS,
            "steps": session.steps - steps_before, "replays": replays,
            "wall_s": wall, "step_p50_ms": summary["p50_ms"],
@@ -5213,7 +5301,7 @@ def phase_lm_slotted(dev, model) -> dict:
            "top": traced["top"], "peak_reserved_bytes": peak,
            "pool_bytes": engine.cache.pool_bytes(), "checks": checks,
            "launches": launches,
-           "kernels": kernels}
+           "kernels": kernels, "kernels_short": kernels_short}
     log(f"slotted lane: {LM_REQUESTS} requests in {wall:.2f} s over "
         f"{out['steps']} steps ({replays} replays), step p50 "
         f"{out['step_p50_ms']:.3f} ms, request p50 "
@@ -5416,11 +5504,18 @@ def phase_lm_long(dev, model) -> dict:
 
 def lm_records(grid, slotted, long) -> list:
     """The two decode kernels' records: ms, plain ms and bound at
-    decode_32k's full context (8 × 32,768), long_500k's beside."""
+    decode_32k's full context (8 × 32,768), long_500k's and the slotted
+    lane's short contexts beside; ``decode_attention``'s over a bf16 cache
+    with SDPA's time as its library call."""
     out = []
     for name, source in (("kv_cache_write", KVW_SOURCE),
                          ("decode_attention", DECODE_ATT_SOURCE)):
         r = slotted["kernels"][name]
+        shapes = {"decode_32k": r, "long_500k": long["kernels"][name],
+                  "slotted short contexts": slotted["kernels_short"][name]}
+        if name == "decode_attention":
+            shapes["decode_32k bf16 cache"] = \
+                slotted["kernels"]["decode_attention_bf16"]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": ("no TPU kernel: the reference's jnp cache write "
@@ -5430,11 +5525,11 @@ def lm_records(grid, slotted, long) -> list:
                          "over its dequantized cache "
                          "(src/repro/nn/attention.py:82)"),
             "launches": slotted["launches"][name],
-            "max_abs_err": max(grid[name], r["max_abs_err"],
-                               long["kernels"][name]["max_abs_err"]),
+            "max_abs_err": max(grid[name], *(x["max_abs_err"]
+                                             for x in shapes.values())),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
-            "shapes": {"decode_32k": r, "long_500k": long["kernels"][name]},
+            "shapes": shapes,
             "grid_cases": grid["cases"][name]})
     return out
 

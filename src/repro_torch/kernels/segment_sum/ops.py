@@ -22,13 +22,15 @@ version sums the same products.
 ``scatter_sum(x, seg, n)`` is the segment sum as a forward: GIN's message
 passing and graph pooling (the reference's ``jax.ops.segment_sum``), whose
 backward is the gather ``g[seg]``. Rows of any width: the kernel sums rows
-wider than 256 columns in column tiles, which changes no sum.
+wider than 256 columns in column tiles of one launch, which changes no
+sum.
 
 On CUDA tensors it launches the kernel or raises; there is no fallback.
 ``segment_sum.launches`` counts launches (one is the chunk kernel and its
-combine), and only those. ``LIBRARY_SCATTER_ADDS`` names the library's
-kernels that these sums replace, as a trace names them
-(``is_library_scatter_add``).
+combine), and only those. ``scratch_bytes(t, w)`` is the scratch a call
+over ``t`` rows of ``w`` columns allocates beside its output.
+``LIBRARY_SCATTER_ADDS`` names the library's kernels that these sums
+replace, as a trace names them (``is_library_scatter_add``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
-TILE_W = 256         # kMaxW in csrc/segment_sum.cu: the widest column tile
 MAX_N = 2 ** 31 - 1  # the kernel's ids are int32
 # the library's scatter-adds by their kernels' names in a trace: the dense
 # embedding backward (aten::embedding_dense_backward, and its feature
@@ -65,13 +66,20 @@ def is_library_scatter_add(kernel_name: str) -> bool:
 def _library():
     lib = load_library("segment_sum")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.segment_sum.argtypes = [p, p, p, ll, i, p, p, p, p]
+    lib.segment_sum.argtypes = [p, p, p, ll, i, p, p, p]
     lib.segment_sum.restype = i
-    lib.segment_sum_bag.argtypes = [p, p, i, p, p, ll, i, p, p, p, p]
+    lib.segment_sum_bag.argtypes = [p, p, i, p, p, ll, i, p, p, p]
     lib.segment_sum_bag.restype = i
-    lib.segment_sum_chunks.argtypes = [ll]
-    lib.segment_sum_chunks.restype = ll
+    lib.segment_sum_scratch.argtypes = [ll, i]
+    lib.segment_sum_scratch.restype = ll
     return lib
+
+
+def scratch_bytes(t: int, w: int) -> int:
+    """Bytes of scratch the kernel takes for ``t`` sorted rows of ``w``
+    columns: the long segments' float64 parts (one row of ``w`` a chunk of
+    64 positions), the combine's work list and its tickets."""
+    return _library().segment_sum_scratch(t, w)
 
 
 def _check(grad, ids, n, t=None):
@@ -142,24 +150,22 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
         return out
     sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
     lib = _library()
-    chunks = lib.segment_sum_chunks(t)
-    scratch = torch.empty((2 * min(w, TILE_W) * chunks,), dtype=torch.float64,
-                          device=grad.device)
-    flags = torch.empty((chunks,), dtype=torch.uint8, device=grad.device)
+    # float64 elements: the parts come first in it, 8-byte aligned
+    scratch = torch.empty((-(-lib.segment_sum_scratch(t, w) // 8),),
+                          dtype=torch.float64, device=grad.device)
     dev = grad.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bag_weights is None:
             err = lib.segment_sum(
                 grad.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(), t,
-                w, out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-                stream)
+                w, out.data_ptr(), scratch.data_ptr(), stream)
         else:
             weights = bag_weights.contiguous()
             err = lib.segment_sum_bag(
                 grad.data_ptr(), weights.data_ptr(), weights.shape[1],
                 sorted_ids.data_ptr(), order.data_ptr(), t, w, out.data_ptr(),
-                scratch.data_ptr(), flags.data_ptr(), stream)
+                scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     segment_sum.launches += 1

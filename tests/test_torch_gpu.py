@@ -8,9 +8,12 @@ cells captured as CUDA graphs: replays against the eager step, the kernel
 a replay runs, in-place table swaps, steady memory, a capture that fails;
 the tiered cells' replays against their eager steps and the monolithic
 cells, and tier moves, writebacks and refreshes that keep every bound
-tensor where it was; the LM's ``kv_cache_write`` (bit for bit) and
-``decode_attention`` kernels against their plain versions over a grid, in
-a graph at any length, and its decode cells against the CPU engine; the
+tensor where it was; the segment sum where hot segments meet wide rows,
+over a million chunks and in the bag form; the LM's ``kv_cache_write``
+(bit for bit) and ``decode_attention`` kernels against their plain
+versions over a grid, at the attention kernel's chunk edges and long
+contexts, in a graph at any length, and its decode cells against the CPU
+engine; the
 LM's training path: ``mpe_qat`` on rows wider than 256 (the token table's
 2,048), the Adam pass on bf16 leaves, a reduced LM's Trainer step against
 the same step on the CPU, and an MoE training step that runs no library
@@ -694,27 +697,83 @@ def test_bst_apply_and_training_launch_the_counted_kernels(cuda_device, rng):
                for h in trainer.history)
 
 
-@pytest.mark.parametrize("w", [1, 7, 32, 50])
+def _hot_segment_case(rng, case):
+    """(grad rows, ids, n, bag weights or None, the hot segments' least
+    rows) of a ``test_segment_sum_kernel_matches_plain_on_a_hot_segment``
+    case."""
+    if case in ("1", "7", "32", "50"):
+        # 1.5 M ids, 1.1 M of them in one segment (a Zipf-hot group or
+        # item), the rest Zipf-spread over 200,000 rows
+        t, n = 1_500_000, 200_000
+        ids = (rng.zipf(1.2, t) % n).astype(np.int64)
+        ids[rng.random(t) < 0.75] = 4321
+        return t, int(case), ids, n, None, 1_000_000
+    if case.startswith("dispatch"):
+        # the MoE dispatch's backward: 61,440 slots into 8,192 tokens, every
+        # unused slot's id 0 (one hot segment of > 50,000 rows)
+        t, n = 61_440, 8_192
+        ids = np.zeros(t, np.int64)
+        used = rng.random(t) < 0.15
+        ids[used] = rng.integers(1, n, int(used.sum()))
+        return t, int(case.split()[1]), ids, n, None, 50_000
+    if case == "combine 2048":
+        # the combine gather's backward: 49,152 choices into 61,440 slots,
+        # the dropped ones on each of 64 experts' last slot
+        e, cap, t = 64, 960, 49_152
+        expert = rng.integers(0, e, t)
+        keep = rng.random(t) < 0.25
+        ids = np.where(keep, expert * cap + rng.integers(0, cap - 1, t),
+                       expert * cap + cap - 1).astype(np.int64)
+        return t, 2048, ids, e * cap, None, 400
+    if case == "million chunks":
+        # 64 M ids (over a million chunks of 64) in short segments, three
+        # long ones among them: few chunks hold a long segment's start
+        t, n = 64_000_123, 4_000_000
+        ids = rng.integers(0, n, t)
+        for hot, share in ((17, 0.002), (n // 2, 0.0005), (n - 1, 0.001)):
+            ids[rng.random(t) < share] = hot
+        return t, 1, ids, n, None, 30_000
+    # the bag form at width 256: 4,096 bags of 20, a third of the slots on
+    # one row
+    b, l, n = 4096, 20, 5000
+    ids = rng.integers(0, n, (b, l))
+    ids[rng.random((b, l)) < 0.33] = 77
+    weights = ((rng.random((b, l)) < 0.8) * rng.uniform(0.5, 1.5, (b, l)))
+    return b, 256, ids, n, weights.astype(np.float32), 20_000
+
+
+@pytest.mark.parametrize("case", ["1", "7", "32", "50", "dispatch 256",
+                                  "dispatch 1433", "dispatch 2048",
+                                  "combine 2048", "million chunks",
+                                  "bag 256"])
 def test_segment_sum_kernel_matches_plain_on_a_hot_segment(cuda_device, rng,
-                                                            w):
-    """The gather's backward on 1.5 M ids, 1.1 M of them in one segment
-    (a Zipf-hot group or item) and the rest Zipf-spread over 200,000 rows:
-    within rtol 1e-6 / atol 1e-6 of the plain version (both sum in float64
-    and round once, in other orders), twice bit-identical, one launch."""
-    t, n = 1_500_000, 200_000
-    ids = (rng.zipf(1.2, t) % n).astype(np.int64)
-    ids[rng.random(t) < 0.75] = 4321
+                                                            case):
+    """The gather's backward where hot segments meet the kernel's edges:
+    a 1.1 M-row segment at narrow widths; the MoE dispatch's > 50,000-row
+    segment at widths 256, 1,433 (five 256-column tiles and one of 153) and
+    2,048; the combine gather's 64 hot slots at 2,048; over a million
+    chunks of short segments with three long ones; the bag form at 256.
+    Within rtol 1e-6 / atol 1e-6 of the plain version (both sum in float64
+    and round once, in other orders), twice bit-identical, every untouched
+    row 0, one launch a call."""
+    rows, w, ids, n, weights, hot = _hot_segment_case(rng, case)
     ids = torch.from_numpy(ids).to(cuda_device)
-    grad = torch.randn((t, w), device=cuda_device)
+    grad = torch.randn((rows, w), device=cuda_device)
+    bag = (None if weights is None
+           else torch.from_numpy(weights).to(cuda_device))
     before = seg_ops.segment_sum.launches
-    got = seg_ops.segment_sum(grad, ids, n)
-    again = seg_ops.segment_sum(grad, ids, n)
+    got = seg_ops.segment_sum(grad, ids, n, bag_weights=bag)
+    again = seg_ops.segment_sum(grad, ids, n, bag_weights=bag)
     torch.cuda.synchronize()
     assert seg_ops.segment_sum.launches == before + 2
-    assert int((ids == 4321).sum()) > 1_000_000
-    want = segment_sum_ref(grad, ids, n)
+    assert int(torch.bincount(ids.reshape(-1)).max()) >= hot
+    if bag is not None:
+        grad = (grad[:, None, :] * bag[..., None]).reshape(-1, w)
+    want = segment_sum_ref(grad, ids.reshape(-1), n)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert torch.equal(got, again)
+    untouched = torch.bincount(ids.reshape(-1), minlength=n) == 0
+    assert not got[untouched].any()
 
 
 def test_segment_sum_kernel_on_two_segments(cuda_device, rng):
@@ -1405,12 +1464,33 @@ def bf16_attention_tolerance(q, k, v, ks, vs, off, valid, want):
     return _bf16_ulp(want.abs()) + 2.0 ** -8 * weight
 
 
+def _check_decode_attention(q, k, v, ks, vs, off, valid) -> float:
+    """``decode_attention`` against its plain version under the contract
+    (float32 queries 3e-5; bf16 ones ``bf16_attention_tolerance``), one
+    launch a call; returns the largest |difference|."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    n = da_ops.decode_attention.launches
+    got = da_ops.decode_attention(q, k, v, ks, vs, q_offset=off,
+                                  kv_valid_len=valid)
+    assert da_ops.decode_attention.launches == n + 1
+    want = decode_attention_ref(q, k, v, ks, vs, off, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    g, w = got.float(), want.float()
+    if q.dtype == torch.float32:     # float32 throughout
+        torch.testing.assert_close(g, w, rtol=3e-5, atol=3e-5)
+    else:
+        tol = bf16_attention_tolerance(q, k, v, ks, vs, off, valid, w)
+        bad = (g - w).abs() > tol
+        assert not bad.any(), float((g - w).abs().max())
+    return float((g - w).abs().max())
+
+
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("kind,q_kind", [("int8", "bf16"), ("int8", "f32"),
                                          ("bf16", "bf16"), ("f32", "f32")])
 def test_decode_attention_matches_plain(cuda_device, rng, kind, q_kind, hd):
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     dtype, q_dtype = LM_DTYPES[kind], LM_DTYPES[q_kind]
     worst = 0.0
     for b in DECODE_B:
@@ -1425,25 +1505,46 @@ def test_decode_attention_matches_plain(cuda_device, rng, kind, q_kind, hd):
                                          .astype(np.float32)).to(
                                              cuda_device, q_dtype)
                     off = torch.clamp(lens, max=t - s)
-                    valid = off + s
-                    n = da_ops.decode_attention.launches
-                    got = da_ops.decode_attention(q, k, v, ks, vs, q_offset=off,
-                                                  kv_valid_len=valid)
-                    assert da_ops.decode_attention.launches == n + 1
-                    want = decode_attention_ref(q, k, v, ks, vs, off, valid)
-                    torch.cuda.synchronize()
-                    assert got.dtype == q_dtype and got.shape == q.shape
-                    g, w = got.float(), want.float()
-                    if q_dtype == torch.float32:     # float32 throughout
-                        torch.testing.assert_close(g, w, rtol=3e-5, atol=3e-5)
-                    else:
-                        tol = bf16_attention_tolerance(
-                            q, k, v, ks, vs, off, valid, w)
-                        bad = (g - w).abs() > tol
-                        assert not bad.any(), (b, t, hq, hkv, s,
-                                               float((g - w).abs().max()))
-                    worst = max(worst, float((g - w).abs().max()))
+                    try:
+                        worst = max(worst, _check_decode_attention(
+                            q, k, v, ks, vs, off, off + s))
+                    except AssertionError as e:
+                        raise AssertionError((b, t, hq, hkv, s)) from e
     assert np.isfinite(worst)
+
+
+@pytest.mark.parametrize("case", ["edges int8", "edges bf16", "long int8",
+                                  "long bf16", "slotted mix"])
+def test_decode_attention_at_chunk_edges_and_long_contexts(cuda_device, rng,
+                                                           case):
+    """The kernel's chunk edges and contexts the grid does not reach, at
+    internlm2's heads (16 query, 8 kv heads of 128, group 2, bf16 queries):
+    each row's length 1, chunk - 1, chunk, chunk + 1 and T in one call;
+    131,072 keys (the long lane's 64 chunks) over int8 and bf16 caches; the
+    slotted lane's mix of short and long rows in one call (8 × 32,768)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    chunk = da_ops._library().decode_attention_chunk()
+    kind = case.split()[-1] if case != "slotted mix" else "int8"
+    dtype = LM_DTYPES[kind]
+    if case.startswith("edges"):
+        t = 3 * chunk + 5
+        lens = [1, chunk - 1, chunk, chunk + 1, t]
+    elif case.startswith("long"):
+        t = 131_072
+        lens = [t, t - 1 - int(rng.integers(0, chunk))]
+    else:
+        t = 32_768
+        lens = [int(x) for x in rng.integers(16, 161, 6)] + [t, t - 3]
+    b = len(lens)
+    k, ks, _, _ = _cache_case(rng, b, t, 8, 128, 1, dtype, torch.bfloat16,
+                              cuda_device)
+    v, vs, _, _ = _cache_case(rng, b, t, 8, 128, 1, dtype, torch.bfloat16,
+                              cuda_device)
+    q = torch.from_numpy(rng.normal(0, 1, (b, 1, 16, 128))
+                         .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    assert np.isfinite(_check_decode_attention(q, k, v, ks, vs, valid - 1,
+                                               valid))
 
 
 def test_decode_kernels_replay_in_a_graph_at_any_length(cuda_device, rng):

@@ -13,6 +13,10 @@
   segment sum of the cotangent taken to float32, rounded once to bf16;
 - the bag form (``bag_weights``, the embedding bag's backward) on the CPU
   sums the float32 products ``g[b] * w[b, j]`` in float64, rounded once;
+- ``gather``'s gradient at the MoE's width (2,048) where the card kernel
+  meets its hot segments: a 3,000-row segment, and the combine gather's
+  clamped slots (every dropped choice on its expert's last slot), against
+  ``jax.vjp`` with the tolerance above;
 - the wrapper's checks.
 
 The CUDA kernel is held against the plain version on the card in
@@ -79,6 +83,42 @@ def test_gather_gradient_matches_reference_vjp(what, rng):
     counts = np.bincount(index, minlength=table.shape[0])
     assert counts.max() >= 0.45 * t                     # the hot segment
     assert (counts == 0).any()                          # and rows with none
+    want = np.asarray(want)
+    np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    assert (leaf.grad.numpy()[counts == 0] == 0).all()
+
+
+@pytest.mark.parametrize("what", ["hot", "clamped"])
+def test_wide_gather_gradient_matches_reference_vjp(what, rng):
+    w = 2048
+    if what == "hot":
+        # 6,000 rows, 3,000 of them on one id: a hot segment of wide rows
+        n, t = 500, 6000
+        index = rng.integers(0, n, t)
+        index[rng.permutation(t)[:3000]] = 123
+    else:
+        # the MoE combine's gather: 8 experts of 100 slots, 6,000 choices;
+        # the kept ones on slots of their own, the dropped ones clamped onto
+        # their expert's last slot
+        e, cap, t = 8, 100, 6000
+        n = e * cap
+        expert = rng.integers(0, e, t)
+        kept = np.zeros(t, bool)
+        kept[rng.permutation(t)[:(cap - 1) * e]] = True
+        index = expert * cap + cap - 1
+        index[kept] = rng.permutation(np.arange(n).reshape(e, cap)[:, :cap - 1]
+                                      .reshape(-1))
+    index = index.astype(np.int32)
+    table = rng.normal(0, 1, (n, w)).astype(np.float32)
+    g = rng.normal(0, 1, (t, w)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: x[jnp.asarray(index)], jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(table).requires_grad_(True)
+    ops.gather(leaf, torch.from_numpy(index).long()).backward(
+        torch.from_numpy(g))
+    counts = np.bincount(index, minlength=n)
+    assert counts.max() >= (3000 if what == "hot" else 400)
     want = np.asarray(want)
     np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
