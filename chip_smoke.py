@@ -33,7 +33,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reference's contract), both run twice bit-identical. The tiered cache's
    cold fill against its plain version over b ∈ 1..8 × d ∈ {8, 16, 50,
    64} × cold counts {0, 1, 255, 4,096} (a buffer with a junk tail):
-   bit-identical, and the rows equal to the monolithic lookup's.
+   bit-identical, and the rows equal to the monolithic lookup's; then
+   several live widths a buffer (DLRM's {0..6} and 16 buckets) × d {16,
+   50, 64}, with empty buckets between full ones, totals that end in the
+   middle of a tile and one entry alone, bit-identical; bad buffers (a
+   negative count, entries of the zero width, more entries than the
+   output, more words than the buffer) write nothing; a (0..6)-width table
+   behind a store, its lookups equal to the monolithic table's.
 4. serve path: the full-width ``dlrm-criteo`` config (dnn, 39 fields,
    34,223,104 features, d=16, MLP 1024-512-256, widths {0..6}) initialised
    from a seed on the card, sampled and exported to the packed table there,
@@ -90,7 +96,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    split beside the monolithic cell's p50 on the same ids; the hit and
    miss counts and ``bytes_moved`` equal to a numpy recount of the tier
    bits. At the bulk chunk: the H2D copy, host routing and the kernel
-   timed beside its byte bound and its plain version. Then ``launch.serve
+   timed beside its byte bound and its plain version; the 512-row cell's
+   fill on its own buffer timed eager and in a CUDA-graph replay. Then
+   ``launch.serve
    --hot-frac 0.1 --cache-policy decay --writeback 4 --shift-at 4`` at
    full width (no capture mid-stream, promotions > 0, each plan and
    observation timed); a ``PressureAdapter`` swap through ``refresh`` on
@@ -309,7 +317,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    over B {1, 3, 8} × T {1, 63, 64, 65, 4,096, 8,193} × H {1, 8} × hd {16, 64,
    128} × s {1, T} × int8 (bf16 and float32 values), bf16 and float32
    caches, at mixed lengths (0, T − s, T, between) and one shared length:
-   bit-identical, cache and scales; ``decode_attention`` over the same B,
+   bit-identical, cache and scales, in ``kernels_a_call`` launches (one
+   at s · hd ≤ 4,096, two past it into an int8 cache); a layer's keys and
+   values in one ``kv_cache_write_kv`` call over T {4,097, 8,193, 32,768}
+   × s {1, 3, 64}, lengths that span several pieces of the re-projection
+   (and past T − s), growing scales, per-row and shared lengths; one such
+   write captured in a CUDA graph and replayed twice, louder the second
+   time: bit-identical each time; ``decode_attention`` over the same B,
    T, hd × (Hq, Hkv) {(1, 1), (2, 1), (8, 1), (16, 8)} × s {1, 4} × int8
    (bf16 and float32 queries), bf16 and float32 caches: within 3e-5 with
    float32 queries, else one bf16 ulp plus one bf16 step of each
@@ -323,7 +337,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    d_ff 8,192, vocab 92,544, bf16), its token table packed on the card
    (``Packed.init`` over ``TokenStream``'s Zipf frequencies). The slotted
    lane: ``lm_decode_slotted_cell`` (8 slots × 32,768, int8 cache) captured
-   as a CUDA graph (one lookup, 48 cache writes, 24 decode attentions), its
+   as a CUDA graph (one lookup, 24 cache writes — a layer's keys and
+   values in one launch — and 24 decode attentions), its
    caches the graph's static inputs reset to fresh ones after the capture's
    warm-ups; 24 requests from ``TokenStream`` (prompts of 16–128 tokens,
    16–32 new, a deadline on every third) through ``submit_decode``, every
@@ -334,21 +349,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    exceeds that); again with the counts at 0
    (the same tokens; launches = replays × captured); the step at full
    context (8 × 32,768) timed and traced beside its bound, and layer 0's
-   two kernels timed there beside theirs and their plain versions, and at
-   the requests' short contexts (each slot a prompt and 16 tokens);
+   two kernels timed there beside theirs and their plain versions (the
+   write eager and in a CUDA graph, also with values that grow every
+   scale), and at the requests' short contexts (each slot a prompt and 16
+   tokens);
    ``decode_attention`` also over layer 0's cache dequantized to bf16 (the
    bf16 contract), timed beside SDPA with a boolean key mask and
    ``enable_gqa`` (timed only, never on the port's path).
 25. ``LM.prefill`` of 32,768 tokens into an int8 cache (flash over the
-   dequantized cache, one lookup, 48 writes) against the plain route (the
-   long attention chunked by 4,096), layer 0's cache bit-identical to the
-   plain route's; the lookup at those ids timed; 8 ``Engine.decode`` steps
+   dequantized cache, one lookup, 48 write kernels: a layer's scales, then
+   its codes) against the plain route (the long attention chunked by
+   4,096), layer 0's cache bit-identical to the plain route's; the lookup
+   at those ids and one layer's write into empty caches timed (eager and
+   in a graph); 8 ``Engine.decode`` steps
    on ``lm_decode_cell``, the first copying the prefill's caches into the
    cell's, the rest reading the cell's own (the caches returned alias the
    graph's), each held against the plain route. long_500k: the decode cell
    at 1 × 524,288, its cache filled from the seed in place (codes
    ~ N(0, 127/4), scales 1.5 times a 256-token prefill's), one step against
-   the plain route, 4 timed, traced and layer 0's kernels timed.
+   the plain route, 4 timed, traced and layer 0's kernels timed (the write
+   also where every scale grows).
 26. deepseek-moe-16b at full width, 2 of its 28 layers: phase 25's prefill
    (4,096 tokens) and 8 decode steps; the MoE combine on the segment-sum
    kernel, once a layer, in the graph too.
@@ -627,6 +647,28 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def capture_graph(fn):
+    """``fn`` called once on a side stream (so that what it allocates at
+    first use is made outside the capture), then captured in a CUDA graph;
+    returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of a replay of ``fn`` captured by
+    ``capture_graph``, replayed back to back: without the host's launches,
+    as the serving cells run it."""
+    return cuda_ms(capture_graph(fn), iters)
 
 
 def cold_ms(fn, reps: int) -> float:
@@ -1343,10 +1385,123 @@ def cold_case(rng, b: int, d: int, n_cold: int, dev, extra: int = 0):
     return table, meta, store, ids, buf
 
 
+def staged_cold(rng, bits, counts, d: int, n_out: int, dev, extra: int = 0):
+    """A staged buffer in the kernel's layout holding ``counts`` entries of
+    each width of ``bits`` at distinct rows of an (n_out, d) output (rows
+    ascending in each bucket, as ``prefetch_cold`` stages them), random
+    packed words, then ``extra`` junk words."""
+    k = sum(counts)
+    rows = rng.permutation(n_out)[:k]
+    parts, start = [], 0
+    for c in counts:
+        parts.append(np.sort(rows[start:start + c]))
+        start += c
+    n_words = sum(c * words_per_row(d, b) for c, b in zip(counts, bits) if b)
+    buf = rng.integers(-2**31, 2**31 - 1, len(bits) + k + n_words + extra,
+                       dtype=np.int64).astype(np.int32)
+    buf[:len(bits)] = counts
+    if k:
+        buf[len(bits):len(bits) + k] = np.concatenate(parts)
+    return torch.from_numpy(buf).to(dev)
+
+
+COLD_BUCKET_SETS = ((0, 1, 2, 3, 4, 5, 6), tuple(range(16)))
+
+
+def cold_bucket_counts(rng, bits, tile: int) -> list:
+    """Count patterns over ``bits``: every live width full; empty buckets
+    between full ones; a total that ends in the middle of a tile; one entry
+    in the last bucket."""
+    live = [i for i, b in enumerate(bits) if b]
+    full = [0] * len(bits)
+    for i in live:
+        full[i] = int(rng.integers(1, 300))
+    gaps = [c if j % 2 else 0 for j, c in enumerate(full)]
+    mid = [0] * len(bits)
+    for j, i in enumerate(live):
+        mid[i] = tile * (j % 3) + (tile // 2 + 1 if j == len(live) - 1 else 0)
+    last = [0] * len(bits)
+    last[live[-1]] = 1
+    return [full, gaps, mid, last]
+
+
+def cold_grid_buckets(rng, dev) -> int:
+    """Several live widths in one buffer: DLRM's {0..6} and 16 buckets (up
+    to 15 bits) × d ∈ {16, 50, 64} × ``cold_bucket_counts``, bit for bit
+    against the plain version; a bad buffer (a negative count, entries of
+    the zero width, more entries than the output, more words than the
+    buffer) writes nothing; a (0..6)-width table behind a store, its
+    lookups at counts around a tile equal to the monolithic table's."""
+    n = 0
+    for bits in COLD_BUCKET_SETS:
+        meta_bits = tuple(bits)
+        for d in (16, 50, 64):
+            tile = 256 // min((d + 3) // 4, 256)
+            alpha = torch.from_numpy(rng.uniform(5e-4, 2e-3, len(bits))
+                                     .astype(np.float32)).to(dev)
+            beta = torch.from_numpy(rng.normal(0, 1e-4, d)
+                                    .astype(np.float32)).to(dev)
+            meta = {"bits": meta_bits, "d": d}
+            for counts in cold_bucket_counts(rng, bits, tile):
+                n_out = sum(counts) + 9
+                buf = staged_cold(rng, bits, counts, d, n_out, dev, extra=333)
+                out = torch.full((n_out, d), 3.0, device=dev)
+                want = cold_fill_ref(out.clone(), buf, bits, d, alpha, beta)
+                cold_ops.cold_fill(out, buf, meta, alpha, beta)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want), f"cold grid {len(bits)} "
+                      f"buckets d={d} counts {counts}: kernel vs plain")
+                n += 1
+            live = [i for i, b in enumerate(bits) if b]
+            good = [0] * len(bits)
+            good[live[-1]] = 40
+            bad = [([-1 if i == live[0] else c for i, c in enumerate(good)],
+                    100), ([50 if i == 0 else c for i, c in enumerate(good)],
+                           100), (good, 30)]
+            for counts, n_out in bad:
+                buf = staged_cold(rng, bits, [max(c, 0) for c in counts], d,
+                                  100, dev)
+                buf[:len(bits)] = torch.tensor(counts, dtype=torch.int32)
+                out = torch.full((n_out, d), 3.0, device=dev)
+                cold_ops.cold_fill(out, buf, meta, alpha, beta)
+                torch.cuda.synchronize()
+                check(bool((out == 3.0).all()), f"cold grid: a bad buffer "
+                      f"(counts {counts}, {n_out} rows) wrote")
+                n += 1
+            cut = staged_cold(rng, bits, good, d, 100, dev)[:len(bits) + 80]
+            out = torch.full((100, d), 3.0, device=dev)
+            cold_ops.cold_fill(out, cut, meta, alpha, beta)
+            torch.cuda.synchronize()
+            check(bool((out == 3.0).all()), "cold grid: a buffer short of its "
+                  "words wrote")
+            n += 1
+    for d in (16, 50):
+        emb = torch.from_numpy(rng.normal(0, 3e-3, (3000, d)).astype(np.float32))
+        widx = torch.from_numpy(rng.integers(0, 7, 3000).astype(np.int32))
+        alpha = torch.from_numpy(rng.uniform(5e-4, 2e-3, 7).astype(np.float32))
+        beta = torch.from_numpy(rng.normal(0, 1e-4, d).astype(np.float32))
+        table, meta = build_packed_table(emb.to(dev), widx.to(dev),
+                                         alpha.to(dev), beta.to(dev),
+                                         MPEConfig(bits=COLD_BUCKET_SETS[0]))
+        store = TieredTableStore(table, meta, rng.random(3000), 0.0,
+                                 device=dev)
+        cold = np.nonzero(~store._is_hot_np)[0]
+        for n_cold in (1, 18, 19, 20, 63, 64, 65, 1000):
+            ids = rng.choice(cold, n_cold).astype(np.int32)
+            got = store.lookup(ids)
+            want = packed_lookup_ref(table, meta,
+                                     torch.from_numpy(ids).to(dev))
+            check(torch.equal(got, want), f"cold grid: DLRM widths d={d}, "
+                  f"{n_cold} cold ids: the store's lookup vs the table's")
+            n += 1
+    return n
+
+
 def phase_cold_grid(dev) -> float:
     """The cold-fill kernel against its plain version over b ∈ 1..8 ×
     d ∈ {8, 16, 50, 64} × cold counts {0, 1, 255, capacity}: bit for bit,
-    and the filled rows equal to the monolithic lookup's."""
+    and the filled rows equal to the monolithic lookup's; then
+    ``cold_grid_buckets``' several live widths a buffer and bad buffers."""
     rng = np.random.default_rng(SEED)
     for b in range(1, 9):
         for d in (8, 16, 50, 64):
@@ -1365,8 +1520,11 @@ def phase_cold_grid(dev) -> float:
                     table, meta, torch.from_numpy(ids).to(dev))
                 check(torch.equal(out[:n_cold], lookup),
                       f"cold grid b={b} d={d} cold={n_cold}: vs the lookup")
-    log(f"cold-fill grid: 128 cases bit-identical to the plain version and "
-        f"to the monolithic lookup")
+    n = cold_grid_buckets(rng, dev)
+    log(f"cold-fill grid: 128 single-width cases bit-identical to the plain "
+        f"version and to the monolithic lookup; {n} cases over several "
+        f"widths (DLRM's 7 buckets and 16), bad buffers and a DLRM-width "
+        f"store as required")
     return 0.0
 
 
@@ -1678,6 +1836,38 @@ def phase_tiered(main, dev) -> dict:
             "route_and_gather_ms": route_ms}
         log(f"tiered_bulk at hot {hf}: "
             + json.dumps(shapes[f"dlrm tiered_bulk at hot {hf}"]))
+
+    # the 512-row cell's fill on its own buffer, eager and in a graph replay
+    for hf in TIERED_BULK:
+        tc = engines[hf]._tiered["tiered_p99"]
+        f = fills[(hf, "tiered_p99")]
+        used, k = f["used"], f["k"]
+        cold = torch.zeros_like(tc.reg.cell.inputs[1])
+        cold[:used].copy_(f["buffer"])
+        out = torch.zeros((tc.reg.celldef.batch * len(offs), meta["d"]),
+                          device=dev)
+        alpha, beta = stores[hf].hot["alpha"], stores[hf].hot["beta"]
+        want = cold_fill_ref(out.clone(), cold, meta["bits"], meta["d"],
+                             alpha, beta)
+
+        def kernel(out=out, cold=cold, alpha=alpha, beta=beta):
+            cold_ops.cold_fill(out, cold, meta, alpha, beta)
+        uncounted(kernel)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"tiered_p99 fill at {hf}: kernel vs "
+              f"plain")
+        nbytes = cold_bytes(used, k, meta["d"])
+        shapes[f"dlrm tiered_p99 at hot {hf}"] = {
+            "cold_rows": k, "used_words": used,
+            "buffer_words": cold.numel(), "bytes": nbytes,
+            "ms": uncounted(lambda: cuda_ms(kernel, 50)),
+            "graph_ms": uncounted(lambda: graph_ms(kernel, 50)),
+            "plain_ms": cuda_ms(lambda: cold_fill_ref(
+                out, cold, meta["bits"], meta["d"], alpha, beta), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        log(f"tiered_p99 fill at hot {hf}: "
+            + json.dumps(shapes[f"dlrm tiered_p99 at hot {hf}"]))
+        del cold, out, want
     del fills
 
     # the launcher: decay policy, writebacks, a popularity shift
@@ -4773,14 +4963,100 @@ def lm_cache_case(gen, b, t, h, hd, s, kind, q_dtype, dev):
     return cache, scale, vals, lens
 
 
+KV_PIECE_T = (4097, 8193, 32768)   # past one piece of the re-projection
+KV_PIECE_S = (1, 3, 64)            # the decode route, and past it at hd 128
+
+
+def piece_lengths(t: int, s: int, dev) -> torch.Tensor:
+    """Eight rows' lengths across the re-projection's pieces: fresh, one
+    piece and more, several, half of T, T - s, past T - s, T."""
+    return torch.tensor([0, 1500, 4100, t // 2 + 7, t - s, min(t - s + 3, t),
+                         t, 2049], dtype=torch.int32, device=dev)
+
+
+def kv_pair_grid(gen, dev) -> int:
+    """A layer's keys and values in one ``kv_cache_write_kv`` call over
+    caches longer than one piece (T ``KV_PIECE_T`` × s ``KV_PIECE_S``, 8
+    rows at ``piece_lengths``, 2 heads of 128; int8 with bf16 and float32
+    values, and bf16), per-row and shared lengths, loud rows growing their
+    scales: bit for bit the plain version on keys, then values, in
+    ``kernels_a_call`` launches. Then one write captured in a CUDA graph
+    and replayed twice, louder the second time (every grown scale grows
+    again), at s 1 and 64: bit for bit both times."""
+    n = 0
+    h, hd = 2, 128
+    for t in KV_PIECE_T:
+        for s in KV_PIECE_S:
+            for kind, q_dtype in (("int8", torch.bfloat16),
+                                  ("int8", torch.float32),
+                                  ("bf16", torch.bfloat16)):
+                k = lm_cache_case(gen, 8, t, h, hd, s, kind, q_dtype, dev)
+                v = lm_cache_case(gen, 8, t, h, hd, s, kind, q_dtype, dev)
+                lens = piece_lengths(t, s, dev)
+                for ln in (lens, lens[3:4].reshape(())):
+                    got = [None if x is None else x.clone()
+                           for x in (k[0], k[1], v[0], v[1])]
+                    want = [None if x is None else x.clone() for x in got]
+                    before = kvw_ops.kv_cache_write.launches
+                    kvw_ops.kv_cache_write_kv(got[0], got[1], k[2], got[2],
+                                              got[3], v[2], ln)
+                    kernels = kvw_ops.kv_cache_write.launches - before
+                    kv_cache_write_ref(want[0], want[1], k[2], ln)
+                    kv_cache_write_ref(want[2], want[3], v[2], ln)
+                    what = f"kv_cache_write_kv T={t} s={s} {kind} {q_dtype}"
+                    check(kernels == kvw_ops.kernels_a_call(
+                        s, hd, CACHE_DTYPES[kind]), f"{what}: {kernels} "
+                        f"launches")
+                    check(all(g is None or torch.equal(g, w)
+                              for g, w in zip(got, want)),
+                          f"{what}: not bit-identical")
+                    if kind == "int8":
+                        check(bool((got[1] > k[1]).any()),
+                              f"{what}: no scale grew")
+                    n += 1
+                del k, v
+    t, h = 8193, 8
+    for s in (1, 64):
+        k = lm_cache_case(gen, 8, t, h, hd, s, "int8", torch.bfloat16, dev)
+        v = lm_cache_case(gen, 8, t, h, hd, s, "int8", torch.bfloat16, dev)
+        lens = piece_lengths(t, s, dev)
+        kx, vx = k[2].clone(), v[2].clone()
+        caches = [x.clone() for x in (k[0], k[1], v[0], v[1])]
+
+        def write():
+            kvw_ops.kv_cache_write_kv(caches[0], caches[1], kx, caches[2],
+                                      caches[3], vx, lens)
+        replay = capture_graph(write)
+        for x, y in zip(caches, (k[0], k[1], v[0], v[1])):
+            x.copy_(y)
+        eager = [x.clone() for x in caches]
+        for loud in (4.0, 16.0):
+            kx.copy_((k[2].float() * loud).to(kx.dtype))
+            vx.copy_((v[2].float() * loud).to(vx.dtype))
+            before = caches[1].clone()
+            replay()
+            kv_cache_write_ref(eager[0], eager[1], kx, lens)
+            kv_cache_write_ref(eager[2], eager[3], vx, lens)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(caches, eager)),
+                  f"kv_cache_write_kv in a CUDA graph, s={s}, replay at "
+                  f"{loud}x: not bit-identical")
+            check(bool((caches[1] > before).any()),
+                  f"kv_cache_write_kv in a CUDA graph, s={s}: no scale grew")
+            n += 1
+        del replay, k, v, caches, eager
+    return n
+
+
 def phase_lm_grid(dev) -> dict:
     """``kv_cache_write`` and ``decode_attention`` against their plain
     versions: B {1, 3, 8} × T {1, 63, 64, 65, 4096} × mixed lengths × hd
     {16, 64, 128}; the write over H {1, 2, 8} × s {1, T} × int8, bf16 and
     float32 caches (values bf16 or float32), bit for bit, a shared length
-    too; attention over (Hq, Hkv) {(1, 1), (2, 1), (8, 1), (16, 8)} × s
-    {1, 4} × int8 (bf16 and float32 queries), bf16 and float32 caches,
-    under ``decode_attention_error``'s contract."""
+    too, then ``kv_pair_grid``'s keys and values in one call over several
+    pieces and twice in a graph; attention over (Hq, Hkv) {(1, 1), (2, 1),
+    (8, 1), (16, 8)} × s {1, 4} × int8 (bf16 and float32 queries), bf16 and
+    float32 caches, under ``decode_attention_error``'s contract."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_write = n_att = 0
     worst = {"kv_cache_write": 0.0, "decode_attention": 0.0}
@@ -4796,7 +5072,13 @@ def phase_lm_grid(dev) -> dict:
                                 c1, c2 = cache.clone(), cache.clone()
                                 s1, s2 = ((None, None) if scale is None
                                           else (scale.clone(), scale.clone()))
+                                before = kvw_ops.kv_cache_write.launches
                                 kvw_ops.kv_cache_write(c1, s1, vals, ln)
+                                check(kvw_ops.kv_cache_write.launches - before
+                                      == kvw_ops.kernels_a_call(
+                                          s, hd, cache.dtype),
+                                      f"kv_cache_write s={s} hd={hd}: "
+                                      f"launches")
                                 kv_cache_write_ref(c2, s2, vals, ln)
                                 check(torch.equal(c1, c2) and (
                                     s1 is None or torch.equal(s1, s2)),
@@ -4825,10 +5107,14 @@ def phase_lm_grid(dev) -> dict:
                                     f"({hq}, {hkv}) hd={hd} s={s} {kind} "
                                     f"q {q_dtype}"))
                             n_att += 1
+    n_pair = kv_pair_grid(gen, dev)
+    n_write += n_pair
     torch.cuda.synchronize()
     log(f"LM kernel grid: kv_cache_write {n_write} cases bit-identical to "
-        f"its plain version; decode_attention {n_att} cases within the "
-        f"contract, max |diff| {worst['decode_attention']:.3e}")
+        f"its plain version ({n_pair} of them keys and values in one call, "
+        f"over several pieces and replayed in a graph); decode_attention "
+        f"{n_att} cases within the contract, max |diff| "
+        f"{worst['decode_attention']:.3e}")
     return {**worst, "cases": {"kv_cache_write": n_write,
                                "decode_attention": n_att}}
 
@@ -4899,9 +5185,10 @@ def phase_lm_flash(dev) -> dict:
     return out
 
 
-def _plain_kv_write(cache, scale, vals, lens):
-    return kv_cache_write_ref(cache, scale, vals,
-                              as_lengths(lens, cache.shape[0], cache.device))
+def _plain_kv_write_kv(k_cache, k_scale, k, v_cache, v_scale, v, lens):
+    lens = as_lengths(lens, k_cache.shape[0], k_cache.device)
+    return (kv_cache_write_ref(k_cache, k_scale, k, lens),
+            kv_cache_write_ref(v_cache, v_scale, v, lens))
 
 
 def _plain_decode_attention(q, k, v, k_scale=None, v_scale=None, *,
@@ -4942,7 +5229,7 @@ def with_plain_lm(fn, twin: bool = False):
     cache write, decode attention (``_twin_decode_attention`` with
     ``twin``), the long-sequence attention (chunked), the packed lookup and
     the MoE combine. Its launches are not counted."""
-    swaps = [(transformer_module, "kv_cache_write", _plain_kv_write),
+    swaps = [(transformer_module, "kv_cache_write_kv", _plain_kv_write_kv),
              (transformer_module, "decode_attention",
               _twin_decode_attention if twin else _plain_decode_attention),
              (transformer_module, "flash_attention", _plain_long_attention),
@@ -5080,12 +5367,87 @@ def sdpa_masked_ms(q, k, v, valid, iters: int) -> float:
                    iters)
 
 
+def kv_write_bytes(vals, lens, t: int, grows: bool) -> int:
+    """Bytes a write of ``vals`` (B, s, H, hd) into one int8 cache must
+    move: the values read and their codes written once, the scales read
+    and written, the lengths; where the scale grows also the stored prefix
+    [0, start) of each row read and written once."""
+    b, s, h, hd = vals.shape
+    starts = torch.clamp(lens.to(torch.int64).reshape(-1).expand(b), 0, t - s)
+    prefix = int(starts.sum()) if grows else 0
+    return (vals.numel() * (vals.element_size() + 1) + 8 * b * h
+            + 2 * prefix * h * hd + 4 * lens.numel())
+
+
+def time_layer_write(k, ks, kx, v, vs, vx, lens, what: str) -> dict:
+    """One layer's ``kv_cache_write_kv`` (keys and values in one call) on
+    copies of these int8 caches and scales: held against the plain version
+    (keys, then values) bit for bit, its kernels counted, then timed eager
+    and replayed in a CUDA graph, the scales restored before each call
+    (the restore timed alone) where the write changes them, beside the
+    byte bound (``kv_write_bytes``; a changed scale at a length 0 moves
+    no prefix) and the plain version."""
+    t = k.shape[1]
+    caches = [k.clone(), ks.clone(), v.clone(), vs.clone()]
+    plain = [x.clone() for x in caches]
+    saved = [ks.clone(), vs.clone()]
+    before = kvw_ops.kv_cache_write.launches
+    kvw_ops.kv_cache_write_kv(caches[0], caches[1], kx, caches[2], caches[3],
+                              vx, lens)
+    kernels = kvw_ops.kv_cache_write.launches - before
+    kv_cache_write_ref(plain[0], plain[1], kx, lens)
+    kv_cache_write_ref(plain[2], plain[3], vx, lens)
+    check(all(torch.equal(a, b) for a, b in zip(caches, plain)),
+          f"kv_cache_write_kv at {what}: not bit-identical to its plain "
+          f"version")
+    check(kernels == kvw_ops.kernels_a_call(kx.shape[1], kx.shape[3],
+                                            torch.int8),
+          f"kv_cache_write_kv at {what}: {kernels} launches")
+    changed = not (torch.equal(caches[1], saved[0])
+                   and torch.equal(caches[3], saved[1]))
+    del plain
+
+    def restore():
+        caches[1].copy_(saved[0])
+        caches[3].copy_(saved[1])
+
+    def call():
+        if changed:
+            restore()
+        kvw_ops.kv_cache_write_kv(caches[0], caches[1], kx, caches[2],
+                                  caches[3], vx, lens)
+
+    def plain_call():
+        kv_cache_write_ref(caches[0], caches[1], kx, lens)
+        kv_cache_write_ref(caches[2], caches[3], vx, lens)
+    nbytes = 2 * kv_write_bytes(kx, lens, t, changed)
+    row = {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": 0.0, "kernels_a_layer": kernels,
+           "scales_changed": changed,
+           "ms": uncounted(lambda: cuda_ms(call, 50)),
+           "graph_ms": uncounted(lambda: graph_ms(call, 50)),
+           "plain_ms": cuda_ms(plain_call, 3, warmup=1),
+           "library_ms": None, "shape": list(k.shape),
+           "new_positions": kx.shape[1]}
+    if changed:
+        row["restore_ms"] = cuda_ms(restore, 50)
+    del caches
+    log(f"kv_cache_write_kv at {what}: {row['ms']:.4f} ms eager, "
+        f"{row['graph_ms']:.4f} in a graph (plain {row['plain_ms']:.4f}); "
+        f"{kernels} kernel(s); bound {row['bound_ms']:.4f} ms for {nbytes} "
+        f"bytes" + (f"; the scales' restore {row['restore_ms']:.4f} ms "
+                    f"of each call" if changed else ""))
+    return row
+
+
 def time_decode_kernels(params, cfg, caches, lens, what: str,
-                        bf16_cache: bool = False) -> dict:
-    """Layer 0's ``decode_attention`` and ``kv_cache_write`` (the keys'
-    write) at one decode step's shapes on these caches and lengths (the
-    write's values small, so no scale grows), CUDA-event ms beside their
-    byte bounds and their plain versions; with ``bf16_cache`` also
+                        bf16_cache: bool = False, grow: bool = False) -> dict:
+    """Layer 0's ``decode_attention`` and ``kv_cache_write_kv`` (its keys
+    and values in one call) at one decode step's shapes on these caches
+    and lengths (the write's values small, so no scale grows; with
+    ``grow`` also loud ones that grow every scale: ``time_layer_write``),
+    CUDA-event ms beside their byte bounds and their plain versions; with
+    ``bf16_cache`` also
     ``decode_attention`` over layer 0's cache dequantized to bf16, held
     against its plain version (the bf16 contract) and timed beside
     ``sdpa_masked_ms`` on the same inputs."""
@@ -5121,24 +5483,14 @@ def time_decode_kernels(params, cfg, caches, lens, what: str,
            "library_ms": None, "shape": [b, t, cfg.n_kv_heads, cfg.head_dim],
            "query_heads": cfg.n_heads, "valid_keys": int(valid.sum()),
            "passes_ms": passes}
-    kc, sc = k.clone(), ks.clone()
-    kr, sr = k.clone(), ks.clone()
-    kvw_ops.kv_cache_write(kc, sc, vals, off)
-    kv_cache_write_ref(kr, sr, vals, off)
-    check(torch.equal(kc, kr) and torch.equal(sc, sr),
-          f"kv_cache_write at {what}: not bit-identical to its plain version")
-    del kr, sr
-    write_bytes = (vals.numel() * vals.element_size() + vals.numel()
-                   + 2 * ks.numel() * 4 + 4 * b)
-    write = {"bytes": write_bytes,
-             "bound_ms": write_bytes / HBM_BYTES_PER_S * 1e3,
-             "max_abs_err": 0.0,
-             "ms": uncounted(lambda: cuda_ms(lambda: kvw_ops.kv_cache_write(
-                 kc, sc, vals, off), 50)),
-             "plain_ms": cuda_ms(lambda: kv_cache_write_ref(kc, sc, vals, off),
-                                 5, warmup=1),
-             "library_ms": None, "shape": list(kc.shape)}
-    del kc, sc
+    vals_v = (1e-3 * torch.randn(vals.shape, generator=gen, device=dev)
+              ).to(torch.bfloat16)
+    write = time_layer_write(k, ks, vals, v, vs, vals_v, off, what)
+    if grow:
+        loud = [(40.0 * torch.randn(vals.shape, generator=gen, device=dev))
+                .to(torch.bfloat16) for _ in range(2)]
+        write["scale_grows"] = time_layer_write(
+            k, ks, loud[0], v, vs, loud[1], off, f"{what}, every scale grows")
     out = {"decode_attention": att, "kv_cache_write": write}
     if bf16_cache:
         kb, vb = (dequantize_symmetric(x, s_, torch.bfloat16)
@@ -5224,7 +5576,7 @@ def phase_lm_slotted(dev, model) -> dict:
     check(not bool(caches["k"].any()) and not bool(caches["v"].any())
           and bool((caches["k_scale"] == 0.05).all()),
           "the graph's caches were not reset to fresh ones")
-    want_captured = {"mpe_lookup": 1, "kv_cache_write": 2 * cfg.n_layers,
+    want_captured = {"mpe_lookup": 1, "kv_cache_write": cfg.n_layers,
                      "decode_attention": cfg.n_layers}
     check(reg.cell.captured == want_captured,
           f"the slotted cell captured {reg.cell.captured}, not "
@@ -5283,7 +5635,8 @@ def phase_lm_slotted(dev, model) -> dict:
     traced = trace(lambda: reg.cell.compiled(stage[0], stage[1], caches), 5)
     bound = step_bound_ms(params, cfg, LM_SLOTS * LM_MAX_LEN, LM_SLOTS)
     kernels = time_decode_kernels(params, cfg, caches, stage[1],
-                                  "decode_32k (8 x 32,768)", bf16_cache=True)
+                                  "decode_32k (8 x 32,768)", bf16_cache=True,
+                                  grow=True)
     # a step at the requests' contexts: each slot a prompt and some tokens
     short = torch.tensor([len(p) + 16 for p, _, _ in requests[:LM_SLOTS]],
                          dtype=torch.int32, device=dev)
@@ -5375,7 +5728,8 @@ def phase_lm_prefill(dev, model, arch: str = LM_ARCH,
     prefill_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     want_launches = {"mpe_lookup": 1, "flash_attention_fwd": cfg.n_layers,
-                     "kv_cache_write": 2 * cfg.n_layers,
+                     "kv_cache_write": cfg.n_layers * kvw_ops.kernels_a_call(
+                         n_prompt, cfg.head_dim, torch.int8),
                      "decode_attention": 0,
                      "segment_sum": cfg.n_layers if cfg.moe else 0}
     for name, n in want_launches.items():
@@ -5397,10 +5751,22 @@ def phase_lm_prefill(dev, model, arch: str = LM_ARCH,
     lookup = time_lookup(params["embedding"], buffers["embedding"]["meta"],
                          toks.reshape(-1), f"{arch} prefill ({n_prompt} "
                          f"tokens, d={cfg.d_model})", plain=True)
+    # one layer's prefill write alone: keys and values into empty caches
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kv_shape = (1, n_prompt, cfg.n_kv_heads, cfg.head_dim)
+    kx, vx = (torch.randn(kv_shape, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    empty = torch.zeros((1, max_len, cfg.n_kv_heads, cfg.head_dim),
+                        dtype=torch.int8, device=dev)
+    fresh = torch.full((1, 1, cfg.n_kv_heads, 1), 0.05, device=dev)
+    write = time_layer_write(empty, fresh, kx, empty, fresh, vx,
+                             torch.zeros((), dtype=torch.int32, device=dev),
+                             f"{arch} prefill ({n_prompt} into {max_len})")
+    del kx, vx, empty
     engine = Engine(device=dev)
     reg = engine.register(lm_decode_cell(cfg, params, buffers, batch=1,
                                          max_len=max_len, arch=arch))
-    want_captured = {"mpe_lookup": 1, "kv_cache_write": 2 * cfg.n_layers,
+    want_captured = {"mpe_lookup": 1, "kv_cache_write": cfg.n_layers,
                      "decode_attention": cfg.n_layers,
                      **({"segment_sum": cfg.n_layers} if cfg.moe else {})}
     check(reg.cell.captured == want_captured,
@@ -5422,7 +5788,7 @@ def phase_lm_prefill(dev, model, arch: str = LM_ARCH,
            "decode_checks": run["checks"], "decode_launches": launches,
            "step_p50_ms": summary["p50_ms"], "step_bound_ms": step_bound,
            "cache_len": int(run["caches"]["len"]), "lookup": lookup,
-           "busy_ms": traced["busy_ms"],
+           "write": write, "busy_ms": traced["busy_ms"],
            "wall_ms": traced["wall_ms"], "top": traced["top"]}
     log(f"{arch} prefill of {n_prompt} tokens: {prefill_s:.2f} s (plain "
         f"route {plain_s:.2f} s), logit gap {prefill_check['gap']:.3e}, "
@@ -5487,7 +5853,7 @@ def phase_lm_long(dev, model) -> dict:
     lens = torch.full((1,), LONG_LEN - 1, dtype=torch.int32, device=dev)
     traced = trace(lambda: engine.decode(tok, caches), 2)
     kernels = time_decode_kernels(params, cfg, reg.cell.inputs[1], lens,
-                                  "long_500k (1 x 524,288)")
+                                  "long_500k (1 x 524,288)", grow=True)
     out = {"check": run["checks"][0], "step_p50_ms": summary["p50_ms"],
            "step_mean_ms": summary["mean_ms"],
            "step_bound_ms": bound, "busy_ms": traced["busy_ms"],
@@ -5502,11 +5868,13 @@ def phase_lm_long(dev, model) -> dict:
     return out
 
 
-def lm_records(grid, slotted, long) -> list:
+def lm_records(grid, slotted, long, prefill, moe) -> list:
     """The two decode kernels' records: ms, plain ms and bound at
     decode_32k's full context (8 × 32,768), long_500k's and the slotted
-    lane's short contexts beside; ``decode_attention``'s over a bf16 cache
-    with SDPA's time as its library call."""
+    lane's short contexts beside; ``kv_cache_write``'s (a layer's keys and
+    values) also where every scale grows at both full contexts and at the
+    prefills of internlm2 and deepseek-moe; ``decode_attention``'s over a
+    bf16 cache with SDPA's time as its library call."""
     out = []
     for name, source in (("kv_cache_write", KVW_SOURCE),
                          ("decode_attention", DECODE_ATT_SOURCE)):
@@ -5516,6 +5884,12 @@ def lm_records(grid, slotted, long) -> list:
         if name == "decode_attention":
             shapes["decode_32k bf16 cache"] = \
                 slotted["kernels"]["decode_attention_bf16"]
+        else:
+            shapes["decode_32k, every scale grows"] = r.pop("scale_grows")
+            shapes["long_500k, every scale grows"] = \
+                long["kernels"][name].pop("scale_grows")
+            shapes[f"internlm2 prefill {prefill['prompt']}"] = prefill["write"]
+            shapes[f"deepseek-moe prefill {moe['prompt']}"] = moe["write"]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": ("no TPU kernel: the reference's jnp cache write "
@@ -6269,7 +6643,7 @@ def main() -> int:
                bag_record(bag_grid_errs, bag), tiered["record"],
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs),
-               *lm_records(lm_grid, slotted, long)]
+               *lm_records(lm_grid, slotted, long, prefill, moe)]
     lm_train_records(records, lm_train, lm_train_grid)
     by_path = {"dlrm serve": main_launches,
                "dlrm lifecycle": lifecycle["launches"],

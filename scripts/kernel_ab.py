@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's ``segment_sum`` and ``decode_attention`` wrappers at the
-paths' shapes on one CUDA card, taken apart into their pieces, and, with
-``--parent-src``, beside another checkout's wrappers in the same process.
+"""Time the port's ``segment_sum``, ``decode_attention``, ``kv_cache_write``
+and ``tiered_cold`` wrappers at the paths' shapes on one CUDA card, taken
+apart into their pieces, and, with ``--parent-src``, beside another
+checkout's wrappers in the same process.
 
-    python3 scripts/kernel_ab.py [--parent-src DIR] [--only segment_sum|decode_attention] [--json OUT]
+    python3 scripts/kernel_ab.py [--parent-src DIR] [--only KERNEL ...] [--json OUT]
+
+``KERNEL`` is one of ``segment_sum``, ``decode_attention``,
+``kv_cache_write`` and ``tiered_cold``; ``--only`` may be given more than
+once.
 
 ``DIR`` is another checkout's ``src`` (``git archive HEAD src | tar -x -C
 build/parent``): its ``kernels/build.py`` builds its own ``csrc`` into its
@@ -28,6 +33,28 @@ and ``enable_gqa`` (timed only); each pass's traced device time, and one
 call captured in a CUDA graph and replayed (the decode cells' route); the
 two sides' outputs must be equal.
 
+``kv_cache_write``: one layer's keys and values written into int8 caches
+(random codes, scales in [0.01, 0.05], bf16 values) at internlm2's kv
+heads (8 of 128): one token at decode_32k's full context (8 × 32,768),
+at long_500k (1 × 524,288) and at the slotted lane's short contexts; one
+token whose values grow every scale at both full contexts (the scales
+restored before each call, the restore timed alone beside it); the
+prefill of 32,768 positions into an empty cache of 32,776, and
+deepseek-moe's 4,096 into 4,104 at 16 kv heads. A side whose wrapper
+module has ``kv_cache_write_kv`` writes a layer in one call, another in
+two (keys, then values). Eager, replayed in a CUDA graph (one call a
+graph, and ten), and each call's kernels traced; both sides' caches and
+scales equal to the plain version's bit for bit.
+
+``tiered_cold``: staged buffers made from a seed to the shapes of DLRM's
+tiered cells (d 16, widths {0..6}, 39 fields; rows at each width drawn so
+that a row averages ~2.35 packed words, as the tiered runs' buffers do):
+the bulk chunk (262,144 rows) at hot 0 (9,991,317 cold entries) and at
+hot 0.1 (208,006), and the 512-row cell's fill at hot 0.1 (406) and 0
+(19,514) in a buffer sized for every id cold; eager, replayed in a CUDA
+graph (one call a graph, and ten) and traced; both sides' outputs equal
+to the plain version's bit for bit.
+
 Prints one JSON object (also to ``--json``), with the card's name and
 power limit.
 """
@@ -47,14 +74,22 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT))
 import chip_smoke as cs  # noqa: E402
+from repro_torch.cache.tiers import cold_buffer_words  # noqa: E402
+from repro_torch.core.packing import words_per_row  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.kv_cache_write import ops as kvw_ops  # noqa: E402
+from repro_torch.kernels.kv_cache_write.ref import (  # noqa: E402
+    kv_cache_write_ref)
 from repro_torch.kernels.segment_sum import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.tiered_cold import ops as cold_ops  # noqa: E402
+from repro_torch.kernels.tiered_cold.ref import cold_fill_ref  # noqa: E402
 
 SEED = 0
+KERNELS = ("segment_sum", "decode_attention", "kv_cache_write", "tiered_cold")
 
 
 def load_parent(src: Path) -> dict:
-    """The other checkout's two wrapper modules, bound to its own build."""
+    """The other checkout's wrapper modules, bound to its own build."""
     def load(name, path):
         spec = importlib.util.spec_from_file_location(name, path)
         module = importlib.util.module_from_spec(spec)
@@ -66,10 +101,8 @@ def load_parent(src: Path) -> dict:
     saved = sys.modules["repro_torch.kernels.build"]
     sys.modules["repro_torch.kernels.build"] = build
     try:
-        return {"segment_sum": load("parent_seg_ops",
-                                    kernels / "segment_sum" / "ops.py"),
-                "decode_attention": load("parent_da_ops", kernels
-                                         / "decode_attention" / "ops.py")}
+        return {name: load(f"parent_{name}_ops", kernels / name / "ops.py")
+                for name in KERNELS}
     finally:
         sys.modules["repro_torch.kernels.build"] = saved
 
@@ -203,20 +236,6 @@ DA_KEYS = {p: (f"{p}_kernel",) for p in ("scores", "sums", "values",
                                           "combine")}
 
 
-def graph_ms(fn, iters: int) -> float:
-    """``fn`` captured once in a CUDA graph and replayed back to back: its
-    device time without the host's launches, as the decode cells run it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cs.cuda_ms(graph.replay, iters)
-
-
 def decode_case(gen, b, t, lens, dtype, dev):
     hkv, hq, hd = 8, 16, 128
     q = torch.randn((b, 1, hq, hd), generator=gen, device=dev).to(
@@ -267,7 +286,7 @@ def decode_attention_ab(sides: dict, dev) -> list:
             if side not in outs:
                 outs[side] = call()
                 row[f"{side}_passes"] = traced(call, DA_KEYS)
-                row[f"{side}_graph_ms"] = graph_ms(call, 20)
+                row[f"{side}_graph_ms"] = cs.graph_ms(call, 20)
         if "parent" in outs:
             row["max_abs_diff"] = float((outs["parent"].float()
                                          - outs["change"].float()).abs().max())
@@ -280,10 +299,178 @@ def decode_attention_ab(sides: dict, dev) -> list:
     return rows
 
 
+def layer_write(mod, k_cache, k_scale, k, v_cache, v_scale, v, lens):
+    """One layer's keys and values through ``mod``: one call where the
+    module has the two-cache entry, else two."""
+    if hasattr(mod, "kv_cache_write_kv"):
+        mod.kv_cache_write_kv(k_cache, k_scale, k, v_cache, v_scale, v, lens)
+    else:
+        mod.kv_cache_write(k_cache, k_scale, k, lens)
+        mod.kv_cache_write(v_cache, v_scale, v, lens)
+
+
+def kv_shapes(rng):
+    """(name, B, T, s, H, lens, louder): internlm2's 8 kv heads of 128
+    unless named; ``louder`` values grow every scale."""
+    full = lambda b, t: [t - 1] * b  # noqa: E731
+    return [("decode_32k one token", 8, 32768, 1, 8, full(8, 32768), False),
+            ("long_500k one token", 1, 524288, 1, 8, full(1, 524288), False),
+            ("slotted short contexts", 8, 32768, 1, 8,
+             rng.integers(16, 161, 8).tolist(), False),
+            ("decode_32k one token, every scale grows", 8, 32768, 1, 8,
+             full(8, 32768), True),
+            ("long_500k one token, every scale grows", 1, 524288, 1, 8,
+             full(1, 524288), True),
+            ("prefill 32,768 into an empty cache", 1, 32776, 32768, 8, [0],
+             False),
+            ("deepseek-moe prefill 4,096 (16 kv heads)", 1, 4104, 4096, 16,
+             [0], False)]
+
+
+def kv_cache_write_ab(sides: dict, dev) -> list:
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    hd = 128
+    rows = []
+    for name, b, t, s, h, lens, grows in kv_shapes(rng):
+        caches = [torch.randint(-127, 128, (b, t, h, hd), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2)]
+        scales = [0.01 + 0.04 * torch.rand((b, 1, h, 1), generator=gen,
+                                           device=dev) for _ in range(2)]
+        amp = 40.0 if grows else 1e-3
+        vals = [(amp * torch.randn((b, s, h, hd), generator=gen, device=dev))
+                .to(torch.bfloat16) for _ in range(2)]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        nbytes = 2 * cs.kv_write_bytes(vals[0], ln, t, grows)
+        row = {"shape": name, "B": b, "T": t, "s": s, "H": h, "hd": hd,
+               "bytes": nbytes,
+               "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
+        want = [c.clone() for c in caches], [x.clone() for x in scales]
+        for i in range(2):
+            kv_cache_write_ref(want[0][i], want[1][i], vals[i], ln)
+        work = [c.clone() for c in caches], [x.clone() for x in scales]
+        saved = [x.clone() for x in scales]
+
+        def restore():
+            for x, y in zip(work[1], saved):
+                x.copy_(y)
+        order = ["parent", "change", "change", "parent"] if len(sides) > 1 \
+            else ["change"]
+        seen = set()
+        for side in order:
+            mod = sides[side]
+
+            def call():
+                if grows:
+                    restore()
+                layer_write(mod, work[0][0], work[1][0], vals[0], work[0][1],
+                            work[1][1], vals[1], ln)
+            if side not in seen:
+                seen.add(side)
+                for i in range(2):
+                    work[0][i].copy_(caches[i])
+                    work[1][i].copy_(scales[i])
+                n = mod.kv_cache_write.launches
+                layer_write(mod, work[0][0], work[1][0], vals[0], work[0][1],
+                            work[1][1], vals[1], ln)
+                torch.cuda.synchronize()
+                row[f"{side}_kernels_a_layer"] = mod.kv_cache_write.launches - n
+                row[f"{side}_equal_plain"] = all(
+                    torch.equal(work[0][i], want[0][i])
+                    and torch.equal(work[1][i], want[1][i]) for i in range(2))
+                row[f"{side}_graph_ms"] = cs.graph_ms(call, 20)
+                row[f"{side}_graph_x10_ms"] = cs.graph_ms(
+                    lambda: [call() for _ in range(10)], 10) / 10
+                row[f"{side}_device_ms"] = traced(
+                    call, {"kernels": ("kv_",)})["kernels"]
+            row.setdefault(f"{side}_ms", []).append(cs.cuda_ms(call, 20))
+        if grows:
+            row["restore_ms"] = cs.cuda_ms(restore, 20)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del caches, scales, vals, want, work, saved
+        torch.cuda.empty_cache()
+    return rows
+
+
+COLD_BITS = (0, 1, 2, 3, 4, 5, 6)
+COLD_WIDTH_P = (0.05, 0.10, 0.15, 0.20, 0.25, 0.25)   # widths 1..6
+
+
+def cold_case(rng, n_slots: int, k: int, d: int, words: int, dev):
+    """A staged buffer of ``words`` int32 words (the layout of
+    ``csrc/tiered_cold.cu``) holding ``k`` cold entries at distinct rows of
+    an (n_slots, d) output: widths drawn by ``COLD_WIDTH_P``, rows
+    ascending in each width's bucket, random packed words; the tail junk."""
+    pos = np.sort(rng.choice(n_slots, k, replace=False))
+    width = rng.choice(np.arange(1, len(COLD_BITS)), k, p=COLD_WIDTH_P)
+    order = np.argsort(width, kind="stable")
+    counts = [0] + [int((width == i).sum()) for i in range(1, len(COLD_BITS))]
+    n_words = sum(c * words_per_row(d, b) for c, b in zip(counts, COLD_BITS)
+                  if b)
+    used = len(COLD_BITS) + k + n_words
+    buf = rng.integers(-2**31, 2**31 - 1, max(words, used), dtype=np.int64)
+    buf = buf.astype(np.int32)
+    buf[:len(COLD_BITS)] = counts
+    buf[len(COLD_BITS):len(COLD_BITS) + k] = pos[order]
+    return torch.from_numpy(buf).to(dev), used
+
+
+def tiered_cold_ab(sides: dict, dev) -> list:
+    rng = np.random.default_rng(SEED)
+    d = 16
+    meta = {"bits": COLD_BITS, "d": d}
+    bulk, p99 = 262_144 * 39, 512 * 39
+    cases = [("tiered_bulk at hot 0", bulk, 9_991_317, False),
+             ("tiered_bulk at hot 0.1", bulk, 208_006, False),
+             ("tiered_p99 (512 rows) at hot 0.1", p99, 406, True),
+             ("tiered_p99 (512 rows) at hot 0", p99, 19_514, True)]
+    alpha = torch.from_numpy(rng.uniform(5e-4, 2e-3, len(COLD_BITS))
+                             .astype(np.float32)).to(dev)
+    beta = torch.from_numpy(rng.normal(0, 1e-4, d).astype(np.float32)).to(dev)
+    rows = []
+    for name, n_slots, k, cell in cases:
+        words = cold_buffer_words(n_slots, meta) if cell else 0
+        buf, used = cold_case(rng, n_slots, k, d, words, dev)
+        out = torch.zeros((n_slots, d), device=dev)
+        want = cold_fill_ref(out.clone(), buf, COLD_BITS, d, alpha, beta)
+        nbytes = cs.cold_bytes(used, k, d)
+        row = {"shape": name, "slots": n_slots, "cold_entries": k,
+               "used_words": used, "buffer_words": buf.numel(),
+               "bytes": nbytes, "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
+        order = ["parent", "change", "change", "parent"] if len(sides) > 1 \
+            else ["change"]
+        for side in order:
+            mod = sides[side]
+
+            def call():
+                mod.cold_fill(out, buf, meta, alpha, beta)
+            if f"{side}_equal_plain" not in row:
+                out.zero_()
+                call()
+                torch.cuda.synchronize()
+                row[f"{side}_equal_plain"] = bool(torch.equal(out, want))
+                row[f"{side}_graph_ms"] = cs.graph_ms(call, 50)
+                row[f"{side}_graph_x10_ms"] = cs.graph_ms(
+                    lambda: [call() for _ in range(10)], 10) / 10
+                row[f"{side}_device_ms"] = traced(
+                    call, {"kernel": ("tiered_cold",)})["kernel"]
+            row.setdefault(f"{side}_ms", []).append(
+                cs.cuda_ms(call, 50 if cell else 20))
+        row["plain_ms"] = cs.cuda_ms(
+            lambda: cold_fill_ref(out, buf, COLD_BITS, d, alpha, beta), 3)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del buf, out, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-src", type=Path)
-    ap.add_argument("--only", choices=("segment_sum", "decode_attention"))
+    ap.add_argument("--only", choices=KERNELS, action="append")
     ap.add_argument("--json", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -297,8 +484,10 @@ def main() -> int:
     parent = load_parent(args.parent_src) if args.parent_src else {}
     out = {"card": smi, "parent_src": str(args.parent_src)}
     for kernel, fn, mod in (("segment_sum", segment_sum_ab, seg_ops),
-                            ("decode_attention", decode_attention_ab, da_ops)):
-        if args.only in (None, kernel):
+                            ("decode_attention", decode_attention_ab, da_ops),
+                            ("kv_cache_write", kv_cache_write_ab, kvw_ops),
+                            ("tiered_cold", tiered_cold_ab, cold_ops)):
+        if args.only is None or kernel in args.only:
             sides = {"change": mod}
             if kernel in parent:
                 sides["parent"] = parent[kernel]

@@ -1,11 +1,15 @@
-"""Public wrapper of the KV-cache write: the CUDA kernel of
+"""Public wrappers of the KV-cache write: the CUDA kernels of
 ``csrc/kv_cache_write.cu`` for tensors on the card, the plain version
 (``ref.py``) for tensors on the CPU.
 
-On CUDA tensors it launches the kernel or raises; there is no fallback.
-``kv_cache_write.launches`` counts kernel launches, and only those. The
-lengths are read on the device, so one launch (or one CUDA-graph replay of
-it) serves any lengths: nothing waits on the host.
+``kv_cache_write`` writes one cache, ``kv_cache_write_kv`` a layer's keys
+and values in one call: one kernel launch at decode (``s * hd <=
+SMALL_WORK``), two over the positions of a longer write into int8 caches
+(the scales, then the codes), one into float caches. On CUDA tensors they
+launch or raise; there is no fallback. ``kv_cache_write.launches`` counts
+kernel launches of both, and only those. The lengths are read on the
+device, so one launch (or one CUDA-graph replay of it) serves any lengths:
+nothing waits on the host.
 """
 from __future__ import annotations
 
@@ -20,15 +24,38 @@ from repro_torch.kernels.kv_cache_write.ref import kv_cache_write_ref
 
 VAL_TYPES = {torch.bfloat16: 1, torch.float32: 2}
 CACHE_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+SMALL_WORK = 4096   # kSmallWork in csrc/kv_cache_write.cu: s * hd at decode
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = load_library("kv_cache_write").kv_cache_write
+    lib = load_library("kv_cache_write")
+    if lib.kv_cache_write_small_work() != SMALL_WORK:
+        raise RuntimeError("csrc/kv_cache_write.cu's kSmallWork and "
+                           "SMALL_WORK differ")
+    fn = lib.kv_cache_write
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, i, p, p, i, i, i, i, i, i, p]
+    fn.argtypes = [i, p, p, i, p, p, i, p, p, p, i, p, i, i, i, i, i, p]
     fn.restype = i
     return fn
+
+
+def kernels_a_call(s: int, hd: int, cache_dtype) -> int:
+    """Kernel launches one write of ``s`` positions makes on the card,
+    for one cache or for keys and values together."""
+    return 2 if cache_dtype == torch.int8 and s * hd > SMALL_WORK else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(device_index: int, slots: int) -> torch.Tensor:
+    """The int8 route's scratch (tickets, maxima, kept scales; ``slots``
+    int32 each), one per card and size, zero when made and left zero by
+    every launch."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("kv_cache_write: call it once before a CUDA-graph "
+                           "capture, which cannot zero its scratch")
+    return torch.zeros((3 * slots,), dtype=torch.int32,
+                       device=torch.device("cuda", device_index))
 
 
 def as_lengths(lens, b: int, device) -> torch.Tensor:
@@ -78,29 +105,57 @@ def kv_cache_write(cache: torch.Tensor, scale: torch.Tensor | None,
     bfloat16 or float32) at each row's length (``lens``: one shared length
     or (B,)); an int8 cache also keeps its running-absmax ``scale``
     (B, 1, H, 1) in place. Returns ``cache``."""
-    _check(cache, scale, vals)
+    return _write(((cache, scale, vals),), lens)[0]
+
+
+def kv_cache_write_kv(k_cache: torch.Tensor, k_scale: torch.Tensor | None,
+                      k: torch.Tensor, v_cache: torch.Tensor,
+                      v_scale: torch.Tensor | None, v: torch.Tensor, lens):
+    """A layer's keys and values, as ``kv_cache_write`` writes each, in one
+    call (one launch at decode): the plain version writes the keys, then
+    the values. The caches share shape and type, the values too. Returns
+    (k_cache, v_cache)."""
+    if (k_cache.shape != v_cache.shape or k_cache.dtype != v_cache.dtype
+            or k.shape != v.shape or k.dtype != v.dtype):
+        raise ValueError(f"keys and values differ: caches "
+                         f"{tuple(k_cache.shape)} {k_cache.dtype} and "
+                         f"{tuple(v_cache.shape)} {v_cache.dtype}, values "
+                         f"{tuple(k.shape)} {k.dtype} and {tuple(v.shape)} "
+                         f"{v.dtype}")
+    return _write(((k_cache, k_scale, k), (v_cache, v_scale, v)), lens)
+
+
+def _write(writes, lens) -> tuple:
+    for cache, scale, vals in writes:
+        _check(cache, scale, vals)
+    cache = writes[0][0]
     b, t, h, hd = cache.shape
     lens = as_lengths(lens, b, cache.device)
     if cache.device.type == "cpu":
-        return kv_cache_write_ref(cache, scale, vals, lens)
+        return tuple(kv_cache_write_ref(c, sc, x, lens) for c, sc, x in writes)
     if cache.device.type != "cuda":
         raise ValueError(f"kv_cache_write runs on CUDA or the CPU, not on "
                          f"{cache.device}")
-    for what, x in (("cache", cache), ("scale", scale)):
-        if x is not None and not x.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
-    vals = vals.contiguous()
+    for c, sc, _ in writes:
+        for what, x in (("cache", c), ("scale", sc)):
+            if x is not None and not x.is_contiguous():
+                raise ValueError(f"{what} must be contiguous")
+    s = writes[0][2].shape[1]
+    pair = [(c, sc, x.contiguous()) for c, sc, x in writes]
+    (c0, s0, x0), (c1, s1, x1) = pair + [(None, None, None)] * (2 - len(pair))
     dev = cache.device
     with on_card(dev):
-        err = _kernel()(vals.data_ptr(), VAL_TYPES[vals.dtype],
-                        cache.data_ptr(), CACHE_TYPES[cache.dtype],
-                        None if scale is None else scale.data_ptr(),
-                        lens.data_ptr(), int(lens.ndim == 1), b,
-                        vals.shape[1], t, h, hd, raw_stream(dev))
+        scratch = (_scratch(dev.index, len(writes) * b * h)
+                   if cache.dtype == torch.int8 else None)
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        err = _kernel()(len(writes), ptr(x0), ptr(x1), VAL_TYPES[x0.dtype],
+                        ptr(c0), ptr(c1), CACHE_TYPES[c0.dtype], ptr(s0),
+                        ptr(s1), lens.data_ptr(), int(lens.ndim == 1),
+                        ptr(scratch), b, s, t, h, hd, raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"kv_cache_write launch failed: CUDA error {err}")
-    kv_cache_write.launches += 1
-    return cache
+    kv_cache_write.launches += kernels_a_call(s, hd, cache.dtype)
+    return tuple(c for c, _, _ in writes)
 
 
 kv_cache_write.launches = 0

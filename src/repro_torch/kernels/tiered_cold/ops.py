@@ -6,7 +6,8 @@ On CUDA tensors it launches the kernel or raises; there is no fallback.
 ``cold_fill.launches`` counts kernel launches, and only those. The kernel
 reads the entry counts from the staged buffer on the device, so one launch
 (or one CUDA-graph replay of it) serves any number of cold ids up to the
-buffer's capacity.
+buffer's capacity; a buffer whose counts do not fit it (negative, more
+entries than the capacity, more words than the buffer) writes nothing.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def _kernel():
                            "differ in size")
     fn = lib.tiered_cold
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, ll, p, ll, p]
+    fn.argtypes = [p, p, ll, ll, p, ll, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -104,7 +105,7 @@ def cold_fill(out: torch.Tensor, buf: torch.Tensor, meta, alpha: torch.Tensor,
     n_out = flat.shape[0]
     dev = out.device
     with on_card(dev):
-        err = _kernel()(ctypes.addressof(c), buf.data_ptr(),
+        err = _kernel()(ctypes.addressof(c), buf.data_ptr(), buf.numel(),
                         capacity(buf, n_out, len(bits)), flat.data_ptr(),
                         n_out, raw_stream(dev))
     if err != 0:

@@ -16,7 +16,8 @@ Attention: without a cache, causal attention over the sequence runs on
 ``kernels/flash_attention`` (the tiled kernel at S > 64) in float32, the
 sequence right-padded to the kernel's blocks of 128 (exact under the
 causal mask). With caches, each layer's new keys and values go into its
-cache in place (``kernels/kv_cache_write``, which keeps the int8 cache's
+caches in place, both in one call (``kernels/kv_cache_write``'s
+``kv_cache_write_kv``, one launch at decode, which keeps the int8 caches'
 running-absmax scales without a host sync), and
 
   - a prefill into an empty cache (one shared length 0, S > 1) attends
@@ -60,7 +61,8 @@ from repro_torch.core.api import get_compressor
 from repro_torch.core.quantizer import dequantize_symmetric
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import BLOCK, flash_attention
-from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
+from repro_torch.kernels.kv_cache_write.ops import (kv_cache_write,
+                                                    kv_cache_write_kv)
 from repro_torch.nn import init as initializers
 from repro_torch.nn.attention import MHA
 from repro_torch.nn.chunked import chunked_softmax_xent
@@ -195,8 +197,8 @@ class LM:
         k = apply_rope(k, positions, cfg.rope_theta)
 
         if cache_k is not None:
-            kv_cache_write(cache_k, cache_k_scale, k, cache_len)
-            kv_cache_write(cache_v, cache_v_scale, v, cache_len)
+            kv_cache_write_kv(cache_k, cache_k_scale, k, cache_v,
+                              cache_v_scale, v, cache_len)
             if empty_cache and s > 1:
                 k_att, v_att = cache_k[:, :s], cache_v[:, :s]
                 if cache_k.dtype == torch.int8:

@@ -6,8 +6,8 @@ positions (``rope_theta=None`` disables RoPE).
 
 Attention over a whole sequence runs through ``kernels/flash_attention``;
 attention over a KV cache through ``kernels/decode_attention``, after the
-new keys and values are written into the cache in place by
-``kernels/kv_cache_write`` (the CUDA kernels on the card). An extra
+new keys and values are written into the cache in place, both in one
+call, by ``kernels/kv_cache_write`` (the CUDA kernels on the card). An extra
 ``attn_mask`` takes the reference's plain ``gqa_attention``.
 
 Decode: ``kv_cache`` is a dict {"k": (B, S_max, n_kv, hd), "v": ..., "len":
@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import grouped_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
+from repro_torch.kernels.kv_cache_write.ops import kv_cache_write_kv
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.norms import RMSNorm
 from repro_torch.nn.rope import apply_rope
@@ -80,8 +80,8 @@ class MHA:
                                     causal=causal, attn_mask=attn_mask)
             new_cache = None
         else:
-            ck = kv_cache_write(kv_cache["k"], None, k, offset)
-            cv = kv_cache_write(kv_cache["v"], None, v, offset)
+            ck, cv = kv_cache_write_kv(kv_cache["k"], None, k, kv_cache["v"],
+                                       None, v, offset)
             new_cache = {"k": ck, "v": cv, "len": offset + s}
             if attn_mask is None:
                 out = decode_attention(q, ck, cv, q_offset=offset,

@@ -1160,6 +1160,113 @@ def _store_table(store):
             "alpha": store.hot["alpha"], "beta": store.hot["beta"]}
 
 
+def _staged_cold(rng, bits, counts, d, n_out, device, extra=0):
+    """A staged buffer in the kernel's layout holding ``counts`` entries of
+    each width of ``bits`` at distinct rows of an (n_out, d) output (rows
+    ascending in each bucket, as ``prefetch_cold`` stages them), random
+    packed words, then ``extra`` junk words."""
+    from repro_torch.core.packing import words_per_row
+    k = sum(counts)
+    rows = rng.permutation(n_out)[:k]
+    parts, start = [], 0
+    for c in counts:
+        parts.append(np.sort(rows[start:start + c]))
+        start += c
+    n_words = sum(c * words_per_row(d, b) for c, b in zip(counts, bits) if b)
+    buf = rng.integers(-2**31, 2**31 - 1, len(bits) + k + n_words + extra,
+                       dtype=np.int64).astype(np.int32)
+    buf[:len(bits)] = counts
+    if k:
+        buf[len(bits):len(bits) + k] = np.concatenate(parts)
+    return torch.from_numpy(buf).to(device)
+
+
+def _cold_counts(rng, bits, tile):
+    """Count patterns: every live width full; empty buckets between full
+    ones; a total that ends in the middle of a tile; one entry in the last
+    bucket."""
+    live = [i for i, b in enumerate(bits) if b]
+    full = [0] * len(bits)
+    for i in live:
+        full[i] = int(rng.integers(1, 300))
+    gaps = [c if j % 2 else 0 for j, c in enumerate(full)]
+    mid = [0] * len(bits)
+    for j, i in enumerate(live):
+        mid[i] = tile * (j % 3) + (tile // 2 + 1 if j == len(live) - 1 else 0)
+    last = [0] * len(bits)
+    last[live[-1]] = 1
+    return [full, gaps, mid, last]
+
+
+@pytest.mark.parametrize("d", [16, 50, 64])
+@pytest.mark.parametrize("bits", [(0, 1, 2, 3, 4, 5, 6), tuple(range(16))],
+                         ids=["dlrm_widths", "16_buckets"])
+def test_cold_fill_kernel_over_many_buckets(cuda_device, rng, bits, d):
+    """Several live widths in one buffer (DLRM's {0..6}, and 16 buckets up
+    to 15 bits), empty buckets between full ones, totals that end mid-tile,
+    one entry alone: bit for bit the plain version, one launch a call; a
+    bad buffer (a negative count, more entries than the output, more words
+    than the buffer, entries of the zero width) writes nothing."""
+    tile = 256 // min((d + 3) // 4, 256)
+    alpha = torch.from_numpy(rng.uniform(5e-4, 2e-3, len(bits))
+                             .astype(np.float32)).to(cuda_device)
+    beta = torch.from_numpy(rng.normal(0, 1e-4, d).astype(np.float32)
+                            ).to(cuda_device)
+    meta = {"bits": bits, "d": d}
+    for counts in _cold_counts(rng, bits, tile):
+        n_out = sum(counts) + 9
+        buf = _staged_cold(rng, bits, counts, d, n_out, cuda_device,
+                           extra=333)
+        out = torch.full((n_out, d), 3.0, device=cuda_device)
+        want = cold_fill_ref(out.clone(), buf, bits, d, alpha, beta)
+        before = cold_ops.cold_fill.launches
+        cold_ops.cold_fill(out, buf, meta, alpha, beta)
+        torch.cuda.synchronize()
+        assert cold_ops.cold_fill.launches == before + 1
+        assert torch.equal(out, want), counts
+    live = [i for i, b in enumerate(bits) if b]
+    good = [0] * len(bits)
+    good[live[-1]] = 40
+    bad_counts = ([-1 if i == live[0] else c for i, c in enumerate(good)],
+                  [50 if i == 0 else c for i, c in enumerate(good)])
+    for counts in bad_counts:
+        buf = _staged_cold(rng, bits, [max(c, 0) for c in counts], d, 100,
+                           cuda_device)
+        buf[:len(bits)] = torch.tensor(counts, dtype=torch.int32)
+        out = torch.full((100, d), 3.0, device=cuda_device)
+        cold_ops.cold_fill(out, buf, meta, alpha, beta)
+        torch.cuda.synchronize()
+        assert bool((out == 3.0).all()), counts
+    # more entries than the output holds; more words than the buffer
+    buf = _staged_cold(rng, bits, good, d, 100, cuda_device)
+    out = torch.full((30, d), 3.0, device=cuda_device)
+    cold_ops.cold_fill(out, buf, meta, alpha, beta)
+    cut = buf[:len(bits) + 2 * 40]
+    out2 = torch.full((100, d), 3.0, device=cuda_device)
+    cold_ops.cold_fill(out2, cut, meta, alpha, beta)
+    torch.cuda.synchronize()
+    assert bool((out == 3.0).all()) and bool((out2 == 3.0).all())
+
+
+@pytest.mark.parametrize("d", [16, 50])
+def test_cold_fill_kernel_at_dlrm_widths_matches_the_lookup(cuda_device, rng,
+                                                            d):
+    """A (0..6)-width table behind a store that keeps nothing hot but the
+    zero width: its lookups (the hot lookup's zeros, then the cold fill)
+    equal the monolithic table's at counts around a tile."""
+    table, meta = _table(rng, (0, 1, 2, 3, 4, 5, 6), 3000, d, cuda_device)
+    store = TieredTableStore(table, meta, rng.random(3000), 0.0,
+                             device=cuda_device)
+    cold = np.nonzero(~store._is_hot_np)[0]
+    whole = _store_table(store)
+    for n in (1, 18, 19, 20, 63, 64, 65, 1000):
+        ids = rng.choice(cold, n).astype(np.int32)
+        got = store.lookup(ids)
+        want = packed_lookup_ref(whole, meta,
+                                 torch.from_numpy(ids).to(cuda_device))
+        assert torch.equal(got, want), (d, n)
+
+
 def test_cold_fill_kernel_rejects_what_it_does_not_take(cuda_device, rng):
     store, meta, _, buf = _cold_case(rng, 4, 16, 10, cuda_device)
     out = torch.zeros((10, 16), device=cuda_device)
@@ -1438,7 +1545,8 @@ def test_kv_cache_write_matches_plain_bit_for_bit(cuda_device, rng, kind, hd):
                             s2 = None if scale is None else scale.clone()
                             n = kvw_ops.kv_cache_write.launches
                             kvw_ops.kv_cache_write(c1, s1, vals, ln)
-                            assert kvw_ops.kv_cache_write.launches == n + 1
+                            assert (kvw_ops.kv_cache_write.launches == n
+                                    + kvw_ops.kernels_a_call(s, hd, dtype))
                             kv_cache_write_ref(c2, s2, vals, ln)
                             torch.cuda.synchronize()
                             assert torch.equal(c1, c2), (b, t, h, s, shared)
@@ -1446,6 +1554,100 @@ def test_kv_cache_write_matches_plain_bit_for_bit(cuda_device, rng, kind, hd):
                                 assert torch.equal(s1, s2), (b, t, h, s)
                             cases += 1
     assert cases > 100
+
+
+KV_PIECE_T = (4097, 8193, 32768)
+
+
+def _piece_lengths(t, s):
+    """Eight rows' lengths across the re-projection's pieces: fresh, one
+    piece and more, several, half of T, T - s, past T - s, T."""
+    return np.asarray([0, 1500, 4100, t // 2 + 7, t - s, min(t - s + 3, t),
+                       t, 2049], np.int32)
+
+
+def _kv_pair_case(rng, t, h, hd, s, dtype, q_dtype, dev):
+    """Keys and values of one layer (``_cache_case`` each) at lengths
+    ``_piece_lengths``: the int8 scales of the loud rows grow while their
+    lengths span several pieces."""
+    kc, ks, kx, _ = _cache_case(rng, 8, t, h, hd, s, dtype, q_dtype, dev)
+    vc, vs, vx, _ = _cache_case(rng, 8, t, h, hd, s, dtype, q_dtype, dev)
+    lens = torch.from_numpy(_piece_lengths(t, s)).to(dev)
+    return (kc, ks, kx), (vc, vs, vx), lens
+
+
+@pytest.mark.parametrize("s", [1, 3, 64])
+@pytest.mark.parametrize("t", KV_PIECE_T)
+def test_kv_cache_write_kv_over_several_pieces(cuda_device, rng, t, s):
+    """Keys and values in one call over caches longer than one piece of the
+    re-projection, growing scales, lengths past T - s, per-row and shared
+    lengths: bit for bit the plain version applied to keys, then values,
+    in ``kernels_a_call`` launches (the decode route at s * hd <= 4,096, the
+    prefill route past it)."""
+    from repro_torch.kernels.kv_cache_write import ops as kvw_ops
+    from repro_torch.kernels.kv_cache_write.ref import kv_cache_write_ref
+    h, hd = 2, 128
+    for kind, q_dtype in (("int8", torch.bfloat16), ("int8", torch.float32),
+                          ("bf16", torch.bfloat16)):
+        dtype = LM_DTYPES[kind]
+        k, v, lens = _kv_pair_case(rng, t, h, hd, s, dtype, q_dtype,
+                                   cuda_device)
+        for ln in (lens, lens[3:4].reshape(())):
+            got = [x.clone() if x is not None else None
+                   for x in (k[0], k[1], v[0], v[1])]
+            want = [x.clone() if x is not None else None for x in got]
+            n = kvw_ops.kv_cache_write.launches
+            kvw_ops.kv_cache_write_kv(got[0], got[1], k[2], got[2], got[3],
+                                      v[2], ln)
+            assert (kvw_ops.kv_cache_write.launches
+                    == n + kvw_ops.kernels_a_call(s, hd, dtype))
+            kv_cache_write_ref(want[0], want[1], k[2], ln)
+            kv_cache_write_ref(want[2], want[3], v[2], ln)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g is None or torch.equal(g, w), (kind, t, s, ln.ndim)
+            if dtype == torch.int8:
+                assert bool((got[1] > k[1]).any()), "no scale grew"
+
+
+@pytest.mark.parametrize("s", [1, 64])
+def test_kv_cache_write_kv_replays_twice_in_a_graph(cuda_device, rng, s):
+    """One captured write of a layer's keys and values replayed twice, the
+    second time with louder values, so every live block's scale grows
+    again: bit for bit the plain version both times (the tickets are put
+    back after each launch)."""
+    from repro_torch.kernels.kv_cache_write import ops as kvw_ops
+    from repro_torch.kernels.kv_cache_write.ref import kv_cache_write_ref
+    t, h, hd = 8193, 8, 128
+    k, v, lens = _kv_pair_case(rng, t, h, hd, s, torch.int8, torch.bfloat16,
+                               cuda_device)
+    kx, vx = k[2].clone(), v[2].clone()
+    graph_t = [x.clone() for x in (k[0], k[1], v[0], v[1])]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm = [x.clone() for x in graph_t]
+        kvw_ops.kv_cache_write_kv(warm[0], warm[1], kx, warm[2], warm[3], vx,
+                                  lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kvw_ops.kv_cache_write_kv(graph_t[0], graph_t[1], kx, graph_t[2],
+                                  graph_t[3], vx, lens)
+    for x, y in zip(graph_t, (k[0], k[1], v[0], v[1])):
+        x.copy_(y)
+    eager = [x.clone() for x in graph_t]
+    for loud in (4.0, 16.0):
+        kx.copy_((k[2].float() * loud).to(kx.dtype))
+        vx.copy_((v[2].float() * loud).to(vx.dtype))
+        before = graph_t[1].clone()
+        graph.replay()
+        kv_cache_write_ref(eager[0], eager[1], kx, lens)
+        kv_cache_write_ref(eager[2], eager[3], vx, lens)
+        torch.cuda.synchronize()
+        for g, w in zip(graph_t, eager):
+            assert torch.equal(g, w), loud
+        assert bool((graph_t[1] > before).any()), loud
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1613,7 +1815,7 @@ def test_decode_cells_replay_in_place_and_match_the_cpu_engine(cuda_device,
     reg = engine.register(lm_decode_cell(cfg, p, b, batch=2, max_len=16,
                                          arch="lm"))
     static = reg.cell.inputs[1]
-    assert reg.cell.captured == {"kv_cache_write": 2 * cfg.n_layers,
+    assert reg.cell.captured == {"kv_cache_write": cfg.n_layers,
                                  "decode_attention": cfg.n_layers}
     assert not static["k"].any() and int(static["len"]) == 0
     caches = engine.fresh_caches()
