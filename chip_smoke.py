@@ -123,6 +123,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``lsq_quantize`` composition (``out`` at rtol 1e-5 / atol 1e-7, ``drows``
    likewise against autograd's own order, reductions at rtol 1e-4 /
    atol 1e-6), and the backward twice.
+8b. mesh: the distribution layer (``repro_torch.dist``) on one card. (a)
+   ``init_distributed`` from the environment the smoke sets for itself
+   (an NCCL group of one rank on a free local port), a ``--mesh 1,1``
+   engine with sharded-lookup cells over phase 7's trained table: a few
+   ``serve_p99`` and ``serve_bulk`` requests bit-identical to the engine
+   without a mesh; two ``Trainer(mesh=...)`` steps at full width whose
+   losses equal those without a mesh; the group destroyed. (b) The local
+   bodies of the 1×4 and 2×2 row splits at full width, every shard in
+   turn, merged by what the all_reduce, all_to_alls and all_gather
+   compute: the sharded lookups themselves on a ``dist.shard.LocalMesh``
+   (every line of the wrappers but the collectives), the lookup (psum;
+   a2a at capacities none, a tight one that spills, and 1) over a 512-row
+   and a 262,144-row request and the tiered hot lookup bit-identical to
+   the single-device kernels; ``mpe_qat`` on row blocks and flash on
+   (batch, head) blocks bit-identical; the bag's partials (rows N(0, 1))
+   within the float32 summation bound of each bag, 2·γ_20·Σ|row| — a
+   reassociated sum passes, a sum missing one shard's partials does not. (c)
+   One rank's 262,144-row psum body beside the single-device lookup
+   (one rank's work, no collective), printed on the line before the
+   card's. The counts are set to 0 before (a) and read after (b): the
+   ``mesh`` path of ``launches_by_path``.
 9. ``mpe_qat`` times at ``train_batch`` with CUDA events, beside their plain
    versions and the byte bound; one traced search step (its batch made on
    the host included) for the device's idle share and costliest kernels,
@@ -419,8 +440,9 @@ and ``decode_attention``; ``launches_by_path`` has the lifecycle's,
 20–21 ``two-tower train``, ``two-tower serve``, ``gin molecule train``,
 ``gin cora train`` and ``gin products train``, and since phases 24–26
 ``lm slotted``, ``lm prefill``, ``lm decode``, ``lm long_500k``, ``moe
-prefill`` and ``moe decode``, and since phases 28–30 ``lm train``, ``lm
-vocab search`` and ``moe train``); the last line is
+prefill`` and ``moe decode``, since phases 28–30 ``lm train``, ``lm
+vocab search`` and ``moe train``, and since phase 8b ``mesh``); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -690,13 +712,16 @@ def cold_ms(fn, reps: int) -> float:
     return total / reps
 
 
-def trace(fn, reps: int, attempts: int = 3) -> dict:
+def trace(fn, reps: int, attempts: int = 3, expect: str | None = None
+          ) -> dict:
     """``fn`` run ``reps`` times under the profiler: per-run wall time, the
     device's busy time (the union of kernel and copy intervals) and device
     time by kernel name, all in ms per run, and each name's launches in
     the window (``launches_by_name``). A profile that recorded no
     device activity at all (the profiler now and then returns none for a
-    short window) is taken again, ``attempts`` times in all."""
+    short window), or none of a kernel whose name holds ``expect`` (which
+    the caller has counted launching), is taken again, ``attempts`` times
+    in all."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
@@ -710,10 +735,12 @@ def trace(fn, reps: int, attempts: int = 3) -> dict:
         spans = sorted((e.time_range.start, e.time_range.end, e.name)
                        for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA)
-        if spans:
+        if spans and (expect is None
+                      or any(expect in name for _, _, name in spans)):
             break
-        log(f"the profiler recorded no device activity (attempt {attempt} "
-            f"of {attempts})")
+        log(f"the profiler recorded no device activity"
+            f"{'' if not spans else ' of ' + repr(expect)} (attempt "
+            f"{attempt} of {attempts})")
     check(len(spans) > 0, "the profiler recorded no device activity")
     busy_us, by_name, reach = 0.0, {}, float("-inf")
     launches = {}
@@ -2174,6 +2201,346 @@ def qat_bytes(t, d, m) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+MESH_SPLITS = ((1, 4), (2, 2))   # (dp, mp): the row splits held on one card
+MESH_REQUESTS = (512, 262_144)   # rows of a request the bodies answer
+MESH_SERVE_ROWS = (1, 300, 512, 20_000)
+MESH_TRAIN_ROWS = 4096
+MESH_TRAIN_STEPS = 2
+MESH_QAT_ROWS = TRAIN_ROWS * 39 + 1  # a search step's rows, odd: padded
+MESH_FLASH = (8, 256, 8, 2, 64)      # B, S, Hq, Hkv, hd
+MESH_BAG = (1_000_000, 32, 65_536, 20)   # rows, d, bags, slots
+MESH_HOT_FRAC = 0.1
+MESH_TIMED_ITERS = 20
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_lookup(table, meta, gids, dp: int, mp: int, comms: str, cap,
+                tiered: bool = False) -> torch.Tensor:
+    """What ``sharded_packed_lookup`` (or, ``tiered``, the tiered hot
+    lookup over a store's hot tier ``table``) returns on a dp×mp mesh, on
+    one card: the wrapper itself on a ``LocalMesh``, which runs each data
+    block's ids through every row shard's local body in turn and replaces
+    the all_reduce, all_to_alls and all_gathers by what they compute."""
+    from repro_torch.dist.shard import (LocalMesh, sharded_packed_lookup,
+                                        sharded_tiered_hot_lookup)
+    mesh = LocalMesh(dp, mp)
+    if tiered:
+        return sharded_tiered_hot_lookup(table, meta["bits"], meta["d"],
+                                         gids, mesh=mesh, lookup_comms=comms,
+                                         bucket_capacity=cap)
+    return sharded_packed_lookup(table, meta, gids, mesh=mesh,
+                                 lookup_comms=comms, bucket_capacity=cap)
+
+
+def sum_bound(abs_sum, n_terms: int):
+    """The float32 bound on the gap between two orders of one sum of
+    ``n_terms`` terms whose absolute values sum to ``abs_sum``: each order
+    is within γ_n·Σ|x| of the exact sum (γ_n = n·u / (1 - n·u), u = 2^-24,
+    the recursive-summation bound), so the two are within twice that."""
+    u = 2.0 ** -24
+    return 2 * n_terms * u / (1 - n_terms * u) * abs_sum
+
+
+def mesh_world_one(dev, cfg, res) -> dict:
+    """(a) An NCCL group of one rank, from the environment the smoke sets
+    for itself: a ``--mesh 1,1`` engine (sharded-lookup cells) beside an
+    engine without a mesh over the trained table, and two ``Trainer``
+    steps with and without the mesh at full width. Returns the mesh
+    engine (for its launch counts) and what was compared."""
+    import torch.distributed as dist
+    from repro_torch.dist.mesh import init_distributed, parse_mesh_flag
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(init_distributed(device=dev, timeout=120),
+              "init_distributed brought up no process group")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend and dist.get_world_size() == 1,
+              f"a {dist.get_backend()} group of {dist.get_world_size()} "
+              f"ranks, not {backend} at world size 1")
+        mesh = parse_mesh_flag("1,1")
+        check(mesh.device_mesh is not None and mesh.device_type == dev.type,
+              f"the 1x1 mesh holds no DeviceMesh on {dev}")
+        table, meta = res["packed_table"], res["packed_meta"]
+        params = {**res["final_params"], "embedding": table}
+        buffers = {"offsets": res["buffers"]["offsets"],
+                   "embedding": {"meta": meta}}
+        plain = build_engine(cfg, params, res["state"], buffers, device=dev)
+        meshed = build_engine(cfg, params, res["state"], buffers, device=dev,
+                              mesh=mesh, shard_lookup=True)
+        spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields),
+                       seed=SEED)
+        requests = [SyntheticCTR(spec._replace(batch_size=rows)).batch(
+            30_000 + i)["ids"] for i, rows in enumerate(MESH_SERVE_ROWS)]
+        want = [uncounted(lambda ids=ids: plain.score(ids, return_logits=True))
+                for ids in requests]
+        for reg in meshed.registered_cells().values():
+            reg.cell.replays = 0
+        got = [meshed.score(ids, return_logits=True) for ids in requests]
+        # a replay runs the kernels captured in its graph: counted by cell
+        engine_launches = meshed.cache.launches().get("mpe_lookup", 0)
+        check(engine_launches > 0, "the mesh engine launched no lookup")
+        for rows, g, w in zip(MESH_SERVE_ROWS, got, want):
+            check(g.shape == (rows,) and np.isfinite(g).all(),
+                  f"mesh 1x1: bad scores for a {rows}-row request")
+            check(np.array_equal(g, w), f"mesh 1x1: a {rows}-row request's "
+                  f"scores differ from the engine without a mesh")
+        del plain
+        # two steps with the mesh, then the same two without it
+        losses = {}
+        tspec = spec._replace(batch_size=MESH_TRAIN_ROWS)
+        ds = SyntheticCTR(tspec)
+        build = dlrm_builder(cfg, ds.expected_frequencies(), lam=LAM,
+                             device=dev)
+        for name, m in (("mesh", mesh), ("none", None)):
+            bundle = build(SEED, "mpe_search", MPEConfig(lam=LAM)._asdict())
+            trainer = Trainer(bundle["loss_fn"], bundle["params"],
+                              bundle["buffers"], bundle["state"],
+                              adam(1e-3), mesh=m)
+            run = (lambda t=trainer: t.run(ds.batch, MESH_TRAIN_STEPS,
+                                           log_every=0))
+            if m is None:
+                uncounted(run)
+            else:
+                run()
+            losses[name] = [h["loss"] for h in trainer.history]
+            del trainer, bundle
+            gc.collect()
+        check(losses["mesh"] == losses["none"],
+              f"mesh 1x1 trainer losses {losses['mesh']} differ from "
+              f"{losses['none']}")
+        check(all(np.isfinite(x) for x in losses["mesh"]),
+              "a mesh 1x1 loss was not finite")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"mesh (a): {backend} at world size 1, --mesh 1,1: "
+        f"{len(requests)} requests bit-identical to the engine without a "
+        f"mesh, {MESH_TRAIN_STEPS} trainer steps with losses "
+        f"{losses['mesh']} equal to those without")
+    return {"engine": meshed, "engine_launches": engine_launches,
+            "losses": losses["mesh"]}
+
+
+def mesh_bodies(dev, cfg, res) -> dict:
+    """(b) The local bodies at full width on the card, every shard of the
+    1×4 and 2×2 row splits in turn, merged by what the collectives
+    compute, against the single-device kernels: the lookup (psum; a2a at
+    capacities none, a tight one that spills, and 1) and the tiered hot
+    lookup bit-identical, ``mpe_qat`` on row blocks and flash on (batch,
+    head) blocks bit-identical, the bag's partials within the float32
+    summation bound of each bag (``sum_bound``), which a sum missing one
+    shard's partials must break."""
+    from repro_torch.dist.shard import (bag_grad_local, bag_partial,
+                                        local_row_block)
+    table, meta = res["packed_table"], res["packed_meta"]
+    offsets = res["buffers"]["offsets"]
+    spec = CTRSpec(field_vocabs=tuple(f.vocab for f in cfg.fields), seed=SEED)
+    gids = {rows: request_gids(spec, {"offsets": offsets}, rows, 31_000, dev)
+            .reshape(-1).contiguous() for rows in MESH_REQUESTS}
+    cases = 0
+    spills = {}
+    for rows, ids in gids.items():
+        want = uncounted(lambda: mpe_lookup_ops.packed_lookup(table, meta, ids))
+        for dp, mp in MESH_SPLITS:
+            slice_len = -(-(ids.numel() // dp) // mp)
+            tight = max(1, slice_len // (2 * mp))
+            for comms, cap in (("psum", None), ("a2a", None), ("a2a", tight),
+                               ("a2a", 1)):
+                got = mesh_lookup(table, meta, ids, dp, mp, comms, cap)
+                check(torch.equal(got, want),
+                      f"mesh {dp}x{mp} {comms} cap {cap}: the {rows}-row "
+                      f"lookup differs from the single-device kernel's")
+                cases += 1
+            from repro_torch.dist.shard import lookup_route_stats
+            stats = lookup_route_stats(table, meta, ids[:ids.numel() // dp],
+                                       n_shards=mp, bucket_capacity=tight)
+            spills[f"{rows} rows {dp}x{mp} cap {tight}"] = stats["spilled"]
+            check(stats["spilled"] > 0, f"capacity {tight} spilled nothing")
+    torch.cuda.synchronize()
+    # the tiered hot body over a store of the trained table
+    freqs = SyntheticCTR(spec).expected_frequencies()
+    store = TieredTableStore(table, meta, freqs, MESH_HOT_FRAC, device=dev)
+    hot_ids = gids[MESH_REQUESTS[0]]
+    want = uncounted(lambda: tiered_hot_lookup(store.hot, meta["bits"],
+                                               meta["d"], hot_ids))
+    for dp, mp in MESH_SPLITS:
+        for comms, cap in (("psum", None), ("a2a", None), ("a2a", 1)):
+            got = mesh_lookup(store.hot, meta, hot_ids, dp, mp, comms, cap,
+                              tiered=True)
+            check(torch.equal(got, want), f"mesh {dp}x{mp} {comms}: the "
+                  f"tiered hot lookup differs from the single-device one")
+            cases += 1
+    del store
+    # mpe_qat on row blocks (rows over every axis: 4 blocks either split)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bits = tuple(MPEConfig().bits)
+    rows, probs, alpha, beta, g = qat_inputs(gen, MESH_QAT_ROWS, 16, bits, dev)
+    want_out = uncounted(lambda: qat_ops.mixed_expectation_fwd(
+        rows, probs, alpha, beta, bits))
+    want_b = uncounted(lambda: qat_ops.mixed_expectation_bwd(
+        rows, probs, alpha, beta, g, bits))
+    blocks = [[local_row_block(x, s, 4).contiguous() for x in (rows, probs, g)]
+              for s in range(4)]
+    out = torch.cat([qat_ops.mixed_expectation_fwd(r, p, alpha, beta, bits)
+                     for r, p, _ in blocks])[:MESH_QAT_ROWS]
+    grads = [qat_ops.mixed_expectation_bwd(r, p, alpha, beta, gb, bits)
+             for r, p, gb in blocks]
+    check(torch.equal(out, want_out), "mpe_qat on row blocks differs")
+    for i in (0, 1):
+        check(torch.equal(torch.cat([x[i] for x in grads])[:MESH_QAT_ROWS],
+                          want_b[i]), f"mpe_qat's backward {i} on row blocks "
+              f"differs")
+    qat_sum_err = max(max_abs(sum(x[i] for x in grads), want_b[i])
+                      for i in (2, 3))
+    cases += 1
+    del rows, probs, g, blocks, grads
+    # flash on (batch, head) blocks, GQA expanded before the split
+    b, s, hq, hkv, hd = MESH_FLASH
+    q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                   for h in (hq, hkv, hkv, hq))
+    k, v = (x.repeat_interleave(hq // hkv, dim=2).contiguous() for x in (k, v))
+    o, lse = uncounted(lambda: flash_ops.flash_attention_fwd_stats(q, k, v))
+    want_g = uncounted(lambda: flash_ops.flash_attention_bwd(q, k, v, o, lse,
+                                                             do))
+    for dp, mp in MESH_SPLITS:
+        bb, hh = b // dp, hq // mp
+        for i in range(dp):
+            for j in range(mp):
+                blk = [x[i * bb:(i + 1) * bb, :, j * hh:(j + 1) * hh]
+                       .contiguous() for x in (q, k, v, do)]
+                ob, lb = flash_ops.flash_attention_fwd_stats(*blk[:3])
+                gb = flash_ops.flash_attention_bwd(*blk[:3], ob, lb, blk[3])
+                sl = (slice(i * bb, (i + 1) * bb), slice(None),
+                      slice(j * hh, (j + 1) * hh))
+                check(torch.equal(ob, o[sl]) and torch.equal(
+                    lb, lse[i * bb:(i + 1) * bb, j * hh:(j + 1) * hh]),
+                      f"flash block ({i}, {j}) of {dp}x{mp} differs")
+                check(all(torch.equal(x, w[sl]) for x, w in zip(gb, want_g)),
+                      f"flash block ({i}, {j}) of {dp}x{mp}: gradients "
+                      f"differ")
+        cases += 1
+    del q, k, v, do, o, lse, want_g
+    # the bag's partials over row blocks, and its gradient's blocks
+    n, d, nb, nl = MESH_BAG
+    tab = torch.randn((n, d), generator=gen, device=dev)
+    ids = torch.randint(0, n, (nb, nl), generator=gen, device=dev,
+                        dtype=torch.int32)
+    mask = torch.rand((nb, nl), generator=gen, device=dev) < 0.8
+    gbag = torch.randn((nb, d), generator=gen, device=dev)
+    want = uncounted(lambda: bag_ops.embedding_bag_fwd(tab, ids, mask))
+    want_grad = uncounted(lambda: bag_ops.embedding_bag_bwd(gbag, ids, mask,
+                                                            n))
+    bound = sum_bound((tab.abs().double()[ids.long()]
+                       * mask[..., None]).sum(1), nl)
+    bag_err = bag_grad_err = bag_ratio = 0.0
+    wrong_ratio = float("inf")
+    for mp in (4, 2):
+        parts = [bag_partial(local_row_block(tab, sh, mp), ids, mask, sh)
+                 for sh in range(mp)]
+        got = sum(parts)
+        grad = torch.cat([bag_grad_local(gbag, ids, mask, sh, -(-n // mp))
+                          for sh in range(mp)])[:n]
+        bag_err = max(bag_err, max_abs(got, want))
+        bag_ratio = max(bag_ratio, float(((got - want).abs().double()
+                                          / bound).max()))
+        # a wrong merge: the sum without shard 0's partials
+        wrong_ratio = min(wrong_ratio, float(((got - parts[0] - want).abs()
+                                              .double() / bound).max()))
+        bag_grad_err = max(bag_grad_err, max_abs(grad, want_grad))
+        cases += 1
+    check(bag_ratio <= 1.0, f"the bag's partials sum {bag_err} off the bag, "
+          f"{bag_ratio:.3g} of its summation bound")
+    check(wrong_ratio > 1.0, f"a sum missing a shard's partials is within "
+          f"the bound ({wrong_ratio:.3g} of it): the check cannot see it")
+    check(bag_grad_err <= 1e-6, f"the bag gradient's blocks {bag_grad_err} "
+          f"off the gradient")
+    torch.cuda.synchronize()
+    log(f"mesh (b): {cases} local-body cases on {dev} at full width "
+        f"(1x4 and 2x2): lookups and the tiered hot lookup bit-identical at "
+        f"{MESH_REQUESTS} rows, spilled ids {spills}; mpe_qat and flash "
+        f"blocks bit-identical (dalpha/dbeta sums {qat_sum_err:.3g} off); "
+        f"bag partials {bag_err:.3g} off ({bag_ratio:.3g} of the summation "
+        f"bound; a shard's partials dropped: {wrong_ratio:.3g} of it), "
+        f"gradient blocks {bag_grad_err:.3g} off")
+    return {"cases": cases, "spilled": spills, "qat_sum_err": qat_sum_err,
+            "bag_err": bag_err, "bag_bound_ratio": bag_ratio,
+            "bag_wrong_ratio": wrong_ratio, "bag_grad_err": bag_grad_err,
+            "gids": gids}
+
+
+def phase_mesh(dev, train) -> dict:
+    """The distribution layer on one card: (a) an NCCL group of one rank
+    serving and training on ``--mesh 1,1``; (b) the local bodies of the
+    1×4 and 2×2 splits at full width; (c) one rank's 262,144-row psum body
+    timed beside the single-device lookup. The counts are set to 0 just
+    before (a) and read after (b): the ``mesh`` path of
+    ``launches_by_path``."""
+    from repro_torch.dist.shard import local_row_block, packed_lookup_local
+    cfg, res = train["cfg"], train["res"]
+    t0 = time.perf_counter()
+    reset_counts()
+    one = mesh_world_one(dev, cfg, res)
+    bodies = mesh_bodies(dev, cfg, res)
+    launches = counts()
+    launches["mpe_lookup"] += one["engine_launches"]   # the graphs' replays
+    for name in ("mpe_lookup", "mixed_expectation_fwd",
+                 "mixed_expectation_bwd", "segment_sum", "adam_step_",
+                 "flash_attention_fwd_stats", "flash_attention_bwd",
+                 "embedding_bag_fwd"):
+        check(launches[name] > 0, f"{name} was not launched on the mesh path")
+    # (c) one rank's work at 262,144 rows: shard 0 of 4, no collective
+    table, meta = res["packed_table"], res["packed_meta"]
+    ids = bodies["gids"][MESH_REQUESTS[-1]]
+    subs = {k: local_row_block(v, 0, 4) for k, v in table["subtables"].items()}
+    bits, d = tuple(meta["bits"]), int(meta["d"])
+
+    def body():
+        return packed_lookup_local(subs, table["local_idx"],
+                                   table["width_idx"], table["alpha"],
+                                   table["beta"], ids, bits=bits, d=d,
+                                   shard=0)
+    body_ms = uncounted(lambda: cuda_ms(body, MESH_TIMED_ITERS))
+    single_ms = uncounted(lambda: cuda_ms(
+        lambda: mpe_lookup_ops.packed_lookup(table, meta, ids),
+        MESH_TIMED_ITERS))
+    del one["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launches": launches, "losses": one["losses"],
+           "cases": bodies["cases"], "spilled": bodies["spilled"],
+           "bag_err": bodies["bag_err"],
+           "bag_bound_ratio": bodies["bag_bound_ratio"],
+           "bag_wrong_ratio": bodies["bag_wrong_ratio"],
+           "bag_grad_err": bodies["bag_grad_err"],
+           "qat_sum_err": bodies["qat_sum_err"],
+           "one_rank": {"label": "one rank's work, no collective",
+                        "rows": MESH_REQUESTS[-1], "ids": ids.numel(),
+                        "body": "psum body, shard 0 of 4",
+                        "body_ms": body_ms, "single_device_lookup_ms":
+                            single_ms},
+           "phase_s": time.perf_counter() - t0}
+    log(f"mesh: {out['phase_s']:.1f} s; launches {launches}; one rank's "
+        f"work, no collective: {body_ms:.4f} ms (psum body, shard 0 of 4, "
+        f"{ids.numel()} ids) beside the single-device lookup's "
+        f"{single_ms:.4f} ms")
+    return out
+
+
 def phase_step_inputs(dev, train) -> dict:
     """A search step's and a retrain step's own inputs at the full shape:
     the kernels against the plain version and the composition, the kernel
@@ -3076,7 +3443,8 @@ def serve_sasrec(params, buffers, cfg, rng, cdf, what: str,
                   f"{what}, serve_bulk encode: bad hidden states")
             del h
             ms = time_requests(lambda: SASRec.encode(params, buffers, ids, cfg), 3)
-            traced = trace(lambda: SASRec.encode(params, buffers, ids, cfg), 1)
+            traced = trace(lambda: SASRec.encode(params, buffers, ids, cfg), 1,
+                           expect=FLASH_FWD_NAME)
         flash_ms = flash_kernel_ms(traced["by_name"], "fwd")
         check(flash_ms > 0, f"{what}, serve_bulk encode: no flash forward in "
               f"the trace")
@@ -3371,6 +3739,9 @@ def phase_flash_times(dev) -> dict:
     return out
 
 
+FLASH_FWD_NAME = "(anonymous namespace)::flash_fwd_"
+
+
 def flash_kernel_ms(by_name: dict, kind: str) -> float:
     """Traced device ms of the port's flash kernels of ``kind`` ("fwd" or
     "bwd"), both routes: ``flash_fwd_kernel``, ``flash_fwd_tiled_kernel``
@@ -3566,7 +3937,7 @@ def serve_bst(params, buffers, state, cfg, rng, cdf, what: str,
                     "bst serve_bulk context": time_lookup(
                         *ctx, f"{what}, serve_bulk context")}
             if shape in ("serve_bulk", "retrieval_cand"):
-                traced = trace(request, 1)
+                traced = trace(request, 1, expect=FLASH_FWD_NAME)
                 cell.update({k: traced[k] for k in ("wall_ms", "busy_ms",
                                                     "idle_share", "top")})
                 cell["flash_ms"] = flash_kernel_ms(traced["by_name"], "fwd")
@@ -6552,6 +6923,7 @@ def main() -> int:
     torch.cuda.empty_cache()   # the cells' graph pool goes back
     train = phase_train_path(dev)
     step = phase_step_inputs(dev, train)
+    mesh = phase_mesh(dev, train)
     del train["res"]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "cfg"},
                     "traced_step": step["traced_step"],
@@ -6671,11 +7043,13 @@ def main() -> int:
                "moe decode": moe["decode_launches"],
                "lm train": lm_train["launches"],
                "lm vocab search": vocab["launches"],
-               "moe train": moe_train["launches"]}
+               "moe train": moe_train["launches"],
+               "mesh": mesh["launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"mesh": mesh["one_rank"], "card": smi}))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ with the full MPE pipeline, checkpoints and the packed export.
 Model: DNN backbone, 8 fields / 6.3 M features × d = 16 ≈ 101 M embedding
 parameters + the 1024-512-256 MLP (the paper's interaction net), on the
 card unless ``--device`` names another. The twin of
-``examples/train_ctr_end_to_end.py``; the reference's device mesh
-(``Trainer(mesh=)``) is not ported yet.
+``examples/train_ctr_end_to_end.py``. On a mesh of ranks (``repro_torch.dist``,
+under ``torch.distributed.run``) the same pipeline takes
+``run_mpe_pipeline(..., mesh=parse_mesh_flag("dp,mp"))``.
 """
 import argparse
 import tempfile

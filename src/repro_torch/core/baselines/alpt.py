@@ -44,15 +44,29 @@ class ALPT(BaseCompressor):
         return params, {}
 
     @staticmethod
-    def project_(emb, alpha, b, gen: torch.Generator) -> torch.Tensor:
+    def project_(emb, alpha, b, gen: torch.Generator, *,
+                 row_shard=(0, 1)) -> torch.Tensor:
         """In place, ``PROJECT_ROWS`` rows at a time: each chunk's uniforms
         are drawn from ``gen`` (on the table's device) and it is projected
         by ``_project_``, so the work holds a few copies of a chunk, never
-        of the table."""
-        for r in range(0, emb.shape[0], PROJECT_ROWS):
-            rows = emb[r:r + PROJECT_ROWS]
-            ALPT._project_(rows, alpha, b, torch.rand(
-                rows.shape, generator=gen, device=emb.device))
+        of the table.
+
+        ``row_shard=(index, count)``: ``emb`` is block ``index`` of
+        ``count`` equal row blocks of the table (a ``Trainer`` on a mesh
+        holds such a shard). The uniforms are still drawn for the whole
+        table, chunk by chunk as one device draws them, and each block
+        projects with its own rows' — so the shards together take the
+        whole table's projection, bit for bit."""
+        index, count = row_shard
+        rows_loc = emb.shape[0]
+        lo, n_rows = index * rows_loc, count * rows_loc
+        for r in range(0, n_rows, PROJECT_ROWS):
+            r1 = min(r + PROJECT_ROWS, n_rows)
+            u = torch.rand((r1 - r, *emb.shape[1:]), generator=gen,
+                           device=emb.device)
+            a, z = max(r, lo), min(r1, lo + rows_loc)
+            if a < z:
+                ALPT._project_(emb[a - lo:z - lo], alpha, b, u[a - r:z - r])
         return emb
 
     @staticmethod
@@ -80,10 +94,13 @@ class ALPT(BaseCompressor):
         return rows.reshape(*ids.shape, rows.shape[-1])  # else on the grid
 
     @staticmethod
-    def post_update(params, buffers, cfg, gen):
+    def post_update(params, buffers, cfg, gen, *, row_shard=(0, 1)):
+        """The projection after each step; ``row_shard`` as in
+        ``project_``."""
         del buffers
         b = (cfg or {}).get("bits", 8)
-        ALPT.project_(params["emb"], params["alpha"], int(b), gen)
+        ALPT.project_(params["emb"], params["alpha"], int(b), gen,
+                      row_shard=row_shard)
         return params
 
     @staticmethod

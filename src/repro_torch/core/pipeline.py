@@ -25,7 +25,9 @@ it starts, and the retrain trainer's optimizer state before the export
 
 With ``ckpt_dir`` each phase checkpoints under ``<ckpt_dir>/search`` and
 ``<ckpt_dir>/retrain`` and restores from there first; ``prefetch`` makes and
-stages the batches ahead of the steps (``Trainer.run(prefetch=...)``).
+stages the batches ahead of the steps (``Trainer.run(prefetch=...)``);
+``mesh`` runs both trainers on a mesh of ranks (``Trainer(mesh=...)``),
+every rank through the same pipeline to the same packed table.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
                      mpe_cfg: MPEConfig, optimizer, search_steps: int,
                      retrain_steps: int, retrain_mode: str = "mpe",
                      eval_fn: Callable | None = None, log_fn=print,
-                     ckpt_dir: str | None = None, prefetch=False) -> dict:
+                     ckpt_dir: str | None = None, prefetch=False,
+                     mesh=None) -> dict:
     if retrain_mode not in ("none", "lth", "mpe"):
         raise ValueError(retrain_mode)
     comp_cfg = mpe_cfg._asdict()
@@ -68,7 +71,7 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
     device = bundle["params"]["embedding"]["emb"].device
     init_snapshot = _snapshot(bundle["params"])
     trainer = Trainer(bundle["loss_fn"], bundle.pop("params"),
-                      bundle["buffers"], bundle["state"], optimizer,
+                      bundle["buffers"], bundle["state"], optimizer, mesh=mesh,
                       ckpt_dir=None if ckpt_dir is None else f"{ckpt_dir}/search")
     trainer.restore()
     log_fn(f"[mpe] search phase: {search_steps} steps")
@@ -118,7 +121,7 @@ def run_mpe_pipeline(build: Callable, data_fn: Callable, *, seed: int,
                                      "beta": searched_beta, "bits_idx": fbits})
     # rebuilt only for the loss_fn closure; our params/state are swapped in
     trainer2 = Trainer(rb["loss_fn"], retrain_params, retrain_buffers,
-                       _on(search_state, device), optimizer,
+                       _on(search_state, device), optimizer, mesh=mesh,
                        ckpt_dir=None if ckpt_dir is None else f"{ckpt_dir}/retrain")
     del rb
     t0 = time.perf_counter()

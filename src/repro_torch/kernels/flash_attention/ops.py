@@ -213,3 +213,17 @@ def flash_attention(q, k, v, *, n_kv_heads: int | None = None,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal)
     return flash_attention_fwd(q, k, v, causal)
+
+
+def flash_attention_kernel_sharded(q, k, v, *, n_kv_heads: int | None = None,
+                                   causal: bool = True, head_axes=("model",),
+                                   mesh=None) -> torch.Tensor:
+    """Flash attention on a mesh: batch over the data axes, heads over
+    ``head_axes`` — each (batch, head) pair on one rank, bit-exact against
+    the single-device kernels, forward and backward. ``flash_attention``
+    when no mesh of more than one rank is active (see
+    ``repro_torch.dist.shard``)."""
+    from repro_torch.dist.shard import sharded_flash_attention
+    return sharded_flash_attention(q, k, v, n_kv_heads=n_kv_heads,
+                                   causal=causal, head_axes=head_axes,
+                                   mesh=mesh)

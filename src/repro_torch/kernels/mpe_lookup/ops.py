@@ -209,3 +209,18 @@ def packed_lookup(table, meta, ids: torch.Tensor) -> torch.Tensor:
 
 
 packed_lookup.launches = 0
+
+
+def packed_lookup_kernel_sharded(table, meta, ids, *, rows_axes=("model",),
+                                 mesh=None, lookup_comms: str = "psum",
+                                 bucket_capacity: int | None = None):
+    """The lookup on a mesh: subtables row-sharded over ``rows_axes``, this
+    wrapper gathering each rank's owned rows, one ``all_reduce`` merging
+    them — or, with ``lookup_comms="a2a"``, the capacity-bucketed
+    all-to-all that ships packed words (bit-exact either way). Takes the
+    single-device lookup when no mesh of more than one rank is active (see
+    ``repro_torch.dist.shard``)."""
+    from repro_torch.dist.shard import sharded_packed_lookup
+    return sharded_packed_lookup(table, meta, ids, rows_axes=rows_axes,
+                                 mesh=mesh, lookup_comms=lookup_comms,
+                                 bucket_capacity=bucket_capacity)

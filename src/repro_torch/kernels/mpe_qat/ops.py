@@ -159,3 +159,13 @@ def mixed_expectation_kernel(rows, probs, alpha, beta, bits) -> torch.Tensor:
                                   probs.reshape(-1, probs.shape[-1]).contiguous(),
                                   alpha.contiguous(), beta.contiguous(), bits)
     return out.reshape(*lead, rows.shape[-1])
+
+
+def mixed_expectation_kernel_sharded(rows, probs, alpha, beta, bits, *,
+                                     mesh=None) -> torch.Tensor:
+    """Eq. 9 on a mesh: rows split over every axis, α/β replicated;
+    bit-exact forward. ``mixed_expectation_kernel`` when no mesh of more
+    than one rank is active (see ``repro_torch.dist.shard``)."""
+    from repro_torch.dist.shard import sharded_mixed_expectation
+    return sharded_mixed_expectation(rows, probs, alpha, beta, bits,
+                                     mesh=mesh)

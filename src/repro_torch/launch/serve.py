@@ -36,8 +36,19 @@ admission scores plan bounded promotion/demotion batches every
 ``--policy-every`` scheduling rounds, applied in place — no re-pack, no
 recapture. ``--drift``/``--shift-at`` make the request stream non-stationary
 (``DriftingCTR``), and ``--writeback N`` interleaves writebacks of the
-master embedding with live traffic. The reference's mesh flag raises,
-naming the ROADMAP item that brings it.
+master embedding with live traffic.
+
+``--mesh dp,mp`` (or ``pod,dp,mp``, or ``auto``) serves on a mesh of
+``repro_torch.dist``: start one process per rank with
+``torch.distributed.run``, which sets the environment
+``init_distributed`` reads (or name ``--coordinator``, ``--num-hosts`` and
+``--host-id``). Every rank serves the same requests; the packed and hot
+gathers run on the sharded lookups (subtables row-sharded over "model",
+requests over the other axes) and merge by ``--lookup-comms`` — ``psum``,
+or ``a2a`` with ``--bucket-capacity`` ids a bucket — so every rank's scores
+are the one-device scores, bit for bit. A sharded cell on a mesh of more
+than one rank runs eager, not as a CUDA graph. Rank 0 writes ``--json``
+and ``--scores``.
 
 Runs on the CUDA card unless ``--device`` names another:
 
@@ -45,6 +56,7 @@ Runs on the CUDA card unless ``--device`` names another:
     python -m repro_torch.launch.serve --qps 2000 --requests 200 --batch 300 --deadline-ms 20
     python -m repro_torch.launch.serve --reduced --device cpu --requests 20 --repack-budget 0.8 --repack-headroom 0.5
     python -m repro_torch.launch.serve --reduced --device cpu --qps 400 --requests 60 --batch 60 --hot-frac 0.2 --cache-policy decay --decay-halflife 16 --policy-every 2 --shift-at 20 --writeback 8
+    python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve --reduced --device cpu --mesh 2,2 --lookup-comms a2a --bucket-capacity 4
 """
 from __future__ import annotations
 
@@ -63,6 +75,8 @@ from repro_torch.core.mpe import MPEConfig, make_groups
 from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.data.synthetic import CTRSpec, DriftingCTR, SyntheticCTR
 from repro_torch.device import full_float32, resolve_device
+from repro_torch.dist.mesh import (init_distributed, parse_mesh_flag,
+                                   world_rank)
 from repro_torch.embeddings.table import FieldSpec, total_vocab
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.serve.engine import Engine
@@ -74,10 +88,6 @@ from repro_torch.train.optimizer import adam
 from repro_torch.zoo import dlrm_builder
 
 DEFAULT_VOCABS = (2000, 1000, 1500, 800)
-# the reference's flags whose modules are not ported yet
-NOT_PORTED_FLAGS = {
-    "mesh": "ROADMAP Queue 1 item 6 (distribution)",
-}
 
 
 def train_packed_dlrm(*, field_vocabs=DEFAULT_VOCABS, train_steps: int = 120,
@@ -115,6 +125,9 @@ def build_engine(cfg, params, state, buffers, *,
                  p99_rows: int = SERVE_ROWS["serve_p99"],
                  bulk_rows: int = SERVE_ROWS["serve_bulk"],
                  lookup_split: bool = True, store=None, device=None,
+                 mesh=None, shard_lookup: bool | None = None,
+                 lookup_comms: str = "psum",
+                 bucket_capacity: int | None = None,
                  queue_capacity: int = 1024, quotas=None,
                  shed_watermark: float = 1.0,
                  coalesce_window_ms: float = 0.0, clock=None) -> Engine:
@@ -123,20 +136,31 @@ def build_engine(cfg, params, state, buffers, *,
 
     With a ``repro_torch.cache.TieredTableStore`` in ``store``, the same
     shapes are also registered as tiered cells (``tiered_p99``/
-    ``tiered_bulk``) served through ``engine.score_tiered``. ``quotas`` /
+    ``tiered_bulk``) served through ``engine.score_tiered``. ``mesh`` is
+    the engine's (default: the host mesh); ``shard_lookup`` (default: on
+    exactly when the mesh has more than one rank) routes the packed and hot
+    gathers through the sharded lookups of ``repro_torch.dist.shard``, and
+    ``lookup_comms="a2a"`` switches them to the capacity-bucketed
+    all-to-all (``bucket_capacity`` ids a bucket, overflow spilling to an
+    integer all_reduce — bit-exact at any capacity). ``quotas`` /
     ``shed_watermark`` / ``coalesce_window_ms`` / ``clock`` pass through to
     the engine's multi-tenant admission and scheduling policy."""
-    engine = Engine(device=device, queue_capacity=queue_capacity,
+    engine = Engine(device=device, mesh=mesh, queue_capacity=queue_capacity,
                     quotas=quotas, shed_watermark=shed_watermark,
                     coalesce_window_ms=coalesce_window_ms, clock=clock)
+    if shard_lookup is None:
+        shard_lookup = engine.mesh.size > 1
+    sharding = {"shard_lookup": shard_lookup, "lookup_comms": lookup_comms,
+                "bucket_capacity": bucket_capacity}
     engine.register_packed_model(
         "dlrm", DLRM, cfg, params, state, buffers,
         shapes={"serve_p99": p99_rows, "serve_bulk": bulk_rows},
-        lookup_split=lookup_split)
+        lookup_split=lookup_split, **sharding)
     if store is not None:
         engine.register_tiered_model(
             "dlrm", DLRM, cfg, params, state, buffers, store,
-            shapes={"tiered_p99": p99_rows, "tiered_bulk": bulk_rows})
+            shapes={"tiered_p99": p99_rows, "tiered_bulk": bulk_rows},
+            **sharding)
     return engine
 
 
@@ -391,9 +415,33 @@ def main(argv=None):
     ap.add_argument("--shift-frac", type=float, default=0.3,
                     help="fraction of each field's vocabulary the "
                          "--shift-at popularity shift moves")
-    for flag in NOT_PORTED_FLAGS:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"not ported yet: {NOT_PORTED_FLAGS[flag]}")
+    ap.add_argument("--mesh", default=None,
+                    help="'dp,mp', 'pod,dp,mp' or 'auto': serve on a (data, "
+                         "model) — or (pod, data, model) — mesh of ranks "
+                         "(repro_torch.dist): requests split over the "
+                         "non-model axes, packed subtables row-sharded over "
+                         "model. Start the ranks with python -m "
+                         "torch.distributed.run --nproc-per-node N")
+    ap.add_argument("--lookup-comms", choices=("psum", "a2a"), default="psum",
+                    help="model-axis comms of the sharded lookup: 'psum' "
+                         "merges the dequantized partials, 'a2a' sends the "
+                         "ids to their owners and ships back only the "
+                         "packed words (capacity-bucketed; bit-exact "
+                         "either way)")
+    ap.add_argument("--bucket-capacity", type=int, default=None,
+                    help="a2a ids per destination shard per batch slice "
+                         "(default: the full slice, no overflow); overflow "
+                         "ids spill to an integer all_reduce")
+    ap.add_argument("--coordinator", default=None,
+                    help="multi-host: coordinator host:port of the process "
+                         "group (default: MASTER_ADDR:MASTER_PORT, as "
+                         "torch.distributed.run sets them)")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="multi-host: total process count (default: "
+                         "WORLD_SIZE)")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="multi-host: this process's index in [0, num-hosts) "
+                         "(default: RANK)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the open-loop "
                          "inter-arrival times")
@@ -401,15 +449,19 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--json", default=None,
                     help="write the latency summary to this path")
+    ap.add_argument("--scores", default=None,
+                    help="write each closed-loop request's scores (and the "
+                         "bulk job's) to this .npz path")
     args = ap.parse_args(argv)
-    for flag, item in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: it comes "
-                f"with {item}")
     if args.cache_policy is not None and args.hot_frac is None:
         ap.error("--cache-policy requires --hot-frac (a tiered store)")
     device = resolve_device(args.device)
+    init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                     device=device)
+    mesh = parse_mesh_flag(args.mesh)
+    if mesh is not None:
+        print(f"[serve] mesh: {mesh.shape} (rank {world_rank()}, "
+              f"lookup comms {args.lookup_comms})")
 
     cfg = get_arch(args.arch).make_config(reduced=args.reduced)
     res = None
@@ -451,7 +503,9 @@ def main(argv=None):
               f"hot={s['hot_bytes']}B (device) cold={s['cold_bytes']}B (host)")
     engine = build_engine(cfg, params, state, buffers,
                           p99_rows=args.p99_rows, bulk_rows=args.bulk_rows,
-                          store=store, device=device,
+                          store=store, device=device, mesh=mesh,
+                          lookup_comms=args.lookup_comms,
+                          bucket_capacity=args.bucket_capacity,
                           queue_capacity=args.queue_capacity,
                           coalesce_window_ms=args.coalesce_window_ms)
     print(f"[serve] registered cells: "
@@ -502,6 +556,7 @@ def main(argv=None):
 
     req_kind = "tiered" if args.cache_policy is not None else "score"
     open_loop = None
+    scores = {}
     if args.qps:
         warm_ids = req_ds.batch(9_999)["ids"]
         engine.score(warm_ids)                     # the dispatch path warm
@@ -520,9 +575,9 @@ def main(argv=None):
             ids = req_ds.batch(10_000 + step)["ids"]
             if on_submit is not None:
                 on_submit(step, ids)
-            engine.score(ids)
+            scores[f"request_{step}"] = engine.score(ids)
             if store is not None:
-                engine.score_tiered(ids)
+                scores[f"tiered_{step}"] = engine.score_tiered(ids)
     if repack_info is not None:
         c0, plan = repack_info
         if engine.compile_count != c0 or engine.swaps_applied != 1:
@@ -535,9 +590,9 @@ def main(argv=None):
     if args.bulk:
         bulk_ids = SyntheticCTR(spec._replace(batch_size=args.bulk)).batch(
             99_999)["ids"]
-        engine.score(bulk_ids)
+        scores["bulk"] = engine.score(bulk_ids)
         if store is not None:
-            engine.score_tiered(bulk_ids)
+            scores["tiered_bulk"] = engine.score_tiered(bulk_ids)
     skip = min(3, max(args.requests - 1, 0))  # drop the first, cold requests
     print(engine.stats.format_table(skip_warmup=skip))
     if open_loop is not None:
@@ -560,7 +615,10 @@ def main(argv=None):
         if args.writeback:
             print(f"[serve] writeback: writes={c['writebacks']} "
                   f"bytes={c['writeback_bytes']}")
-    if args.json:
+    lead = world_rank() == 0      # every rank computed the same
+    if args.scores and lead:
+        np.savez(args.scores, **scores)
+    if args.json and lead:
         with open(args.json, "w") as f:
             json.dump({"device": str(device), "storage_ratio": ratio,
                        "cells": engine.stats.summary(skip_warmup=skip),
@@ -569,6 +627,7 @@ def main(argv=None):
                                       if k != "tickets"}
                                      if open_loop is not None else None),
                        "counters": counters,
+                       "mesh": None if mesh is None else mesh.shape,
                        "tiers": (store.counters() if store is not None
                                  else None)}, f, indent=2)
     return engine

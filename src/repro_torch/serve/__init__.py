@@ -2,8 +2,9 @@
 path, composable bottom-up.
 
   ``cache``     — CellCache: capture-once memo of serving executables keyed
-                  by (arch, shape, device, bound tensors): a CUDA graph on
-                  the card, the eager step on the CPU.
+                  by (arch, shape, device, bound tensors, mesh signature):
+                  a CUDA graph on the card, the eager step on the CPU (and
+                  on the card for a sharded cell on a multi-rank mesh).
   ``batcher``   — RequestBatcher: buckets arbitrary request sizes onto the
                   registered cell shapes; ``pack`` coalesces many requests
                   into shared chunks whose ``Span``s scatter outputs back.
@@ -31,13 +32,20 @@ The tiered lane serves from ``repro_torch.cache.TieredTableStore``
 (``Engine.register_tiered_model``/``score_tiered``/``attach_tier_policy``);
 the retrieve lane serves two-tower retrieval (``two_tower_retrieval_cell``,
 ``Engine.retrieve``); the decode lanes serve the LM (``lm_decode_cell``,
-``lm_decode_slotted_cell``, ``Engine.decode``/``submit_decode``). The mesh
-comes with ROADMAP Queue 1 item 6 and ``ServeCellDef.abstract_signature``
-with item 7.
+``lm_decode_slotted_cell``, ``Engine.decode``/``submit_decode``).
+
+``Engine(mesh=)`` serves on a mesh of ``repro_torch.dist`` (default: the
+host mesh, 1×1 in one process): under ``torch.distributed.run`` every rank
+runs an engine over the same requests, the score and tiered cells'
+gathers go through the sharded lookups (``shard_lookup``, with
+``lookup_comms`` psum or a2a) and every rank gets the one-device scores,
+bit for bit. A sharded cell on a mesh of more than one rank runs eager,
+not as a CUDA graph. ``ServeCellDef.abstract_signature`` comes with
+ROADMAP Queue 1 item 7.
 """
 from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
 from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,
-                                     device_signature)
+                                     device_signature, mesh_signature)
 from repro_torch.serve.cells import (ServeCellDef, baseline_score_cell,
                                      lm_decode_cell, lm_decode_slotted_cell,
                                      packed_lookup_cell, packed_score_cell,
@@ -56,6 +64,7 @@ from repro_torch.serve.stats import LatencyStats, RequestStats
 
 __all__ = [
     "CellCache", "CellKey", "CompiledCell", "device_signature",
+    "mesh_signature",
     "Chunk", "Span", "RequestBatcher", "LatencyStats", "RequestStats",
     "AdmissionQueue", "Request", "TenantQuota", "RequestFailedError",
     "ManualClock", "TickClock", "Scheduler", "DecodeSession",

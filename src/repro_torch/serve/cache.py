@@ -11,7 +11,14 @@ tensor and replays the graph — one launch for the whole forward, no Python
 dispatch a kernel. On the CPU the executable is the eager step. A capture
 that fails raises: there is no eager fallback on the card.
 
-Keys are ``(arch, shape, device signature, bound tensors)``. A graph reads
+Keys are ``(arch, shape, device signature, bound tensors, mesh
+signature)`` — the same cell on another mesh is another executable. A
+cell runs under the cache's mesh (``repro_torch.dist.mesh.use_mesh``), which
+its sharded lookups read. On a mesh of more than one rank a cell whose step
+holds collectives (``meta["shard_lookup"]``) runs **eager** on the card and
+is not captured: NCCL inside a CUDA graph cannot be checked on a one-card
+machine. Every other cell, and every cell on a one-rank mesh (the host
+mesh of one process), is a graph. A graph reads
 its bound tensors (the packed table, the MLP) by address, so the same cell
 over other tensors is another executable; a table swap therefore writes
 the new table into the bound tensors in place (``Engine.request_swap``).
@@ -43,6 +50,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh import host_mesh, use_mesh
 from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.train.tree import leaves, tree_map
 
@@ -58,6 +66,12 @@ def device_signature(device) -> str:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return f"cuda:{index}:{torch.cuda.get_device_name(index)}"
+
+
+def mesh_signature(mesh) -> str:
+    """Stable identity of a mesh: shape, axis names, device type."""
+    shape = "x".join(str(s) for s in mesh.devices.shape)
+    return f"{shape}:{','.join(mesh.axis_names)}:{mesh.device_type}"
 
 
 def bound_signature(bound) -> str:
@@ -97,13 +111,14 @@ def _copy_into(static, value):
 
 class CellKey(NamedTuple):
     """Identity of one serving executable: the same (arch, shape) on another
-    device, with other static config baked into the shape string's
+    device or mesh, with other static config baked into the shape string's
     fingerprint, or over other bound tensors is another executable."""
     arch: str        # model/architecture identity, e.g. "dlrm"
     shape: str       # shape name + capacity + static-config digest,
                      # e.g. "serve_p99@512#3f9ab2c41d07"
     device_sig: str
     bound: str = ""  # bound_signature of the tensors the executable reads
+    mesh_sig: str = ""   # mesh_signature of the mesh it runs on
 
 
 class CompiledCell:
@@ -124,8 +139,9 @@ class CompiledCell:
 
     def __init__(self, key: CellKey, step: Callable, *, compile_s: float,
                  meta: dict, rows: tuple, graph=None, inputs: tuple = (),
-                 output=None, captured: dict | None = None):
+                 output=None, captured: dict | None = None, device=None):
         self.key = key
+        self.device = torch.device(device or "cpu")   # an eager cell's
         self.rows = rows              # the leading dim of each input
         self.compile_s = compile_s
         self.meta = dict(meta)
@@ -158,7 +174,7 @@ class CompiledCell:
     def stage(self, *request) -> tuple:
         if self._graph is None:
             return tuple(torch.from_numpy(np.ascontiguousarray(
-                RequestBatcher.pad(r, rows)[0]))
+                RequestBatcher.pad(r, rows)[0])).to(self.device)
                 for r, rows in zip(request, self.rows))
         if not self._staging:
             # pinned buffers for the inputs staged here (a tiered cell's
@@ -198,14 +214,16 @@ class CompiledCell:
 
 class CellCache:
     """Capture-once memo of serving executables, keyed by ``CellKey``, on
-    one device (the CUDA card unless the caller names another).
+    one device (the CUDA card unless the caller names another) and one mesh
+    (default: ``host_mesh()``, 1×1 in one process).
 
     ``get_or_compile`` builds on first use and returns the warm
     ``CompiledCell`` afterwards; ``compiles``/``hits`` back the
     zero-recompile assertion of the serving path."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else host_mesh()
         self._cells: dict[CellKey, CompiledCell] = {}
         self.compiles = 0
         self.hits = 0
@@ -216,7 +234,7 @@ class CellCache:
 
     def key(self, arch: str, shape: str, bound=()) -> CellKey:
         return CellKey(arch, shape, device_signature(self.device),
-                       bound_signature(bound))
+                       bound_signature(bound), mesh_signature(self.mesh))
 
     def __contains__(self, key: CellKey) -> bool:
         return key in self._cells
@@ -227,17 +245,23 @@ class CellCache:
     def lookup(self, key: CellKey) -> CompiledCell | None:
         return self._cells.get(key)
 
-    def bind(self, tree, holder):
+    def bind(self, tree, holder, *, rows_axes=None):
         """The cache's copy of ``tree`` on its device, which executables
         read and a table swap writes; ``holder`` (an engine) is recorded as
         registered over it. One copy per source tensors, taken at the first
         ``bind``: later binds of the same, unchanged tensors return it, so
-        their cells are hits."""
+        their cells are hits. With ``rows_axes`` (a packed table served
+        row-sharded on a mesh of more than one rank) the copy holds only
+        this rank's row blocks (``repro_torch.dist.shard.place_table_rows``),
+        cut once here."""
         src = [t for t in leaves(tree) if torch.is_tensor(t)]
-        sig = tuple((id(t), 0 if t.is_inference() else t._version)
-                    for t in src)
+        sig = (tuple((id(t), 0 if t.is_inference() else t._version)
+                     for t in src), rows_axes)
         hit = self._bound.get(sig)
         if hit is None or any(r() is not t for r, t in zip(hit[0], src)):
+            if rows_axes is not None:
+                from repro_torch.dist.shard import place_table_rows
+                tree = place_table_rows(tree, self.mesh, rows_axes)
             with torch.no_grad():
                 copy = tree_map(
                     lambda t: t.detach().to(self.device, copy=True)
@@ -279,19 +303,27 @@ class CellCache:
             self.hits += 1
             return self._cells[key]
         step_fn, bound, request_specs, meta = build_fn()
+        mesh = self.mesh
 
         def step(*request):
-            return step_fn(*bound, *request)
+            with use_mesh(mesh):
+                return step_fn(*bound, *request)
 
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self.eager(meta):
             cell = self._capture(key, step, request_specs, meta, t0)
         else:
             cell = CompiledCell(key, step, compile_s=0.0, meta=meta,
-                                rows=_leading(request_specs))
+                                rows=_leading(request_specs),
+                                device=self.device)
         self._cells[key] = cell
         self.compiles += 1
         return cell
+
+    def eager(self, meta: dict) -> bool:
+        """Whether a cell of ``meta`` runs eager on the card: one whose step
+        holds collectives, on a mesh of more than one rank."""
+        return self.mesh.size > 1 and bool(meta.get("shard_lookup"))
 
     def _capture(self, key, step, request_specs, meta, t0) -> CompiledCell:
         dev = self.device

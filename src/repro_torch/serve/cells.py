@@ -9,8 +9,16 @@ A ``ServeCellDef`` separates *bound* inputs (params/state/buffers — moved to
 the engine's device once, at registration) from *request* inputs (ids,
 tokens, KV caches — fresh every call); ``repro_torch.serve.cache.CellCache``
 turns the pair into one executable: a CUDA graph captured once on the card,
-the eager step on the CPU. The reference's partition specs have no
-counterpart on one device.
+the eager step on the CPU. The reference's partition specs are not carried:
+in eager SPMD a cell's placement is its wrappers' own
+(``repro_torch.dist.shard``, specs from ``repro_torch.dist.sharding``).
+
+On a mesh (``repro_torch.dist``), ``shard_lookup`` routes a score or tiered
+cell's gather through the sharded lookups of ``repro_torch.dist.shard``:
+subtables row-sharded over ``rows_axes``, the merge by ``lookup_comms``
+(``"psum"`` or the capacity-bucketed ``"a2a"``), bit-exact either way. Such
+a step holds collectives, so on a mesh of more than one rank its cell runs
+eager and is not captured (``serve.cache``).
 
 The LM decode cells take their KV caches as a request input, a dict of
 tensors: in the graph those are static inputs that each replay writes in
@@ -70,13 +78,44 @@ class ServeCellDef(NamedTuple):
         return hashlib.sha1(self.fingerprint_blob.encode()).hexdigest()[:12]
 
 
-def packed_score_step(model, cfg, *, top_k: int | None = None):
+def packed_score_step(model, cfg, *, top_k: int | None = None,
+                      shard_lookup: bool = False, rows_axes=("model",),
+                      lookup_comms: str = "psum",
+                      bucket_capacity: int | None = None,
+                      row_blocks: bool = False):
     """The packed-table scoring computation: eval-mode forward over a packed
     embedding config, optionally topped with a candidate ``top_k``
-    (``(values, indices)``). The reference's sharded lookup
-    (``shard_lookup``) comes with ROADMAP Queue 1 item 6."""
+    (``(values, indices)``).
+
+    ``shard_lookup`` routes the embedding gather through
+    ``repro_torch.dist.shard.sharded_packed_lookup`` on the mesh active when
+    the step runs (the ``CellCache`` runs it under the engine's mesh), with
+    subtables row-sharded over ``rows_axes``; ``lookup_comms`` picks the
+    merge — ``"psum"`` or ``"a2a"`` with ``bucket_capacity`` ids a bucket —
+    both bit-exact, so the scores match the unsharded cell either way. The
+    interaction net (``model.interact``) then runs on every rank over the
+    whole batch. On a one-rank mesh the lookup is the single-device one.
+    ``row_blocks``: the bound table holds this rank's row blocks
+    (``repro_torch.dist.shard.place_table_rows``), not the whole table."""
+    if not shard_lookup:
+        def serve_step(params, state, buffers, ids):
+            logits = model.apply(params, buffers, state, {"ids": ids}, cfg)[0]
+            if top_k is not None:
+                return tuple(torch.topk(logits, top_k))
+            return logits
+        return serve_step
+
+    from repro_torch.dist.shard import sharded_packed_lookup
+    meta = {k: cfg.comp_cfg[k] for k in ("bits", "d", "n")}
+
     def serve_step(params, state, buffers, ids):
-        logits = model.apply(params, buffers, state, {"ids": ids}, cfg)[0]
+        gids = ids + buffers["offsets"][None, :]
+        emb = sharded_packed_lookup(params["embedding"], meta, gids,
+                                    rows_axes=rows_axes,
+                                    lookup_comms=lookup_comms,
+                                    bucket_capacity=bucket_capacity,
+                                    row_blocks=row_blocks)
+        logits, _ = model.interact(params, state, emb, gids, cfg)
         if top_k is not None:
             return tuple(torch.topk(logits, top_k))
         return logits
@@ -84,18 +123,32 @@ def packed_score_step(model, cfg, *, top_k: int | None = None):
 
 
 def packed_score_cell(model, cfg, params, state, buffers, *, batch: int,
-                      arch: str, shape: str) -> ServeCellDef:
+                      arch: str, shape: str, rows_axes=("model",),
+                      shard_lookup: bool = False, lookup_comms: str = "psum",
+                      bucket_capacity: int | None = None,
+                      row_blocks: bool = False) -> ServeCellDef:
     """Batched CTR scoring from a packed table: ``ids (B, F) -> logits (B,)``.
 
     ``cfg`` must carry ``compressor="packed"`` with the table's comp_cfg;
-    ``params["embedding"]`` is the packed table."""
+    ``params["embedding"]`` is the packed table. ``shard_lookup`` takes the
+    sharded lookup and ``lookup_comms``/``bucket_capacity`` pick its merge
+    (see ``packed_score_step``, also for ``row_blocks``); all enter the
+    cell fingerprint, so a psum cell and an a2a cell never share an
+    executable."""
     n_fields = len(cfg.fields)
     return ServeCellDef(
         arch=arch, shape=shape, kind="score", batch=batch,
-        step_fn=packed_score_step(model, cfg),
+        step_fn=packed_score_step(model, cfg, shard_lookup=shard_lookup,
+                                  rows_axes=rows_axes,
+                                  lookup_comms=lookup_comms,
+                                  bucket_capacity=bucket_capacity,
+                                  row_blocks=row_blocks),
         bound=(params, state, buffers),
         request_specs=(((batch, n_fields), torch.int32),),
-        meta={"kind": "score", "batch": batch, "n_fields": n_fields},
+        meta={"kind": "score", "batch": batch, "n_fields": n_fields,
+              "shard_lookup": shard_lookup, "lookup_comms": lookup_comms,
+              "bucket_capacity": bucket_capacity, "rows_axes": rows_axes,
+              "row_blocks": row_blocks},
         static=cfg,
     )
 
@@ -105,18 +158,33 @@ def baseline_score_cell(model, cfg, params, state, buffers, *, batch: int,
     """Batched CTR scoring for a *baseline* compressor (plain, qr, pep,
     optfs, alpt, lsq — anything registered in ``core.compressors``):
     ``ids (B, F) -> logits (B,)``. The reference's differs from
-    ``packed_score_cell`` only in its partition specs, so on one device
-    the two are one cell."""
+    ``packed_score_cell`` only in its partition specs (the dense baseline
+    tables replicate), so here the two are one cell without the sharded
+    lookup."""
     return packed_score_cell(model, cfg, params, state, buffers, batch=batch,
                              arch=arch, shape=shape)
 
 
 def packed_lookup_cell(table, meta, offsets, *, batch: int, n_fields: int,
-                       arch: str, shape: str) -> ServeCellDef:
+                       arch: str, shape: str, rows_axes=("model",),
+                       shard_lookup: bool = False, lookup_comms: str = "psum",
+                       bucket_capacity: int | None = None,
+                       row_blocks: bool = False) -> ServeCellDef:
     """Lookup-only companion cell: the packed gather+unpack+dequant slice of a
     score cell, at the same padded shape. The engine times it per dispatch
-    to report the Figure-5 lookup-vs-compute split."""
+    to report the Figure-5 lookup-vs-compute split. ``shard_lookup`` and
+    the rest gather as the score cell's do (``packed_score_step``)."""
     lookup = packed_lookup_fn(meta)
+    if shard_lookup:
+        from repro_torch.dist.shard import sharded_packed_lookup
+        lmeta = {k: meta[k] for k in ("bits", "d")}
+
+        def lookup(tbl, gids):
+            return sharded_packed_lookup(tbl, lmeta, gids,
+                                         rows_axes=rows_axes,
+                                         lookup_comms=lookup_comms,
+                                         bucket_capacity=bucket_capacity,
+                                         row_blocks=row_blocks)
 
     def lookup_step(tbl, offs, ids):
         return lookup(tbl, ids + offs[None, :])
@@ -126,13 +194,18 @@ def packed_lookup_cell(table, meta, offsets, *, batch: int, n_fields: int,
         step_fn=lookup_step,
         bound=(table, offsets),
         request_specs=(((batch, n_fields), torch.int32),),
-        meta={"kind": "lookup", "batch": batch, "n_fields": n_fields},
+        meta={"kind": "lookup", "batch": batch, "n_fields": n_fields,
+              "shard_lookup": shard_lookup, "lookup_comms": lookup_comms,
+              "bucket_capacity": bucket_capacity, "rows_axes": rows_axes,
+              "row_blocks": row_blocks},
         static=(tuple(meta["bits"]), meta["d"], meta["n"]),
     )
 
 
 def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
-                      batch: int, arch: str, shape: str) -> ServeCellDef:
+                      batch: int, arch: str, shape: str, rows_axes=("model",),
+                      shard_lookup: bool = False, lookup_comms: str = "psum",
+                      bucket_capacity: int | None = None) -> ServeCellDef:
     """Batched CTR scoring from a **tiered** table: ``(ids (B, F), cold
     (words,)) -> logits (B,)``.
 
@@ -148,12 +221,24 @@ def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
     entry (the tiered store owns the table). The cell binds the store's
     own tensors, which its moves, writebacks and refreshes write in place;
     the cold buffer is sized for every id of the batch cold at the widest
-    width (``cold_buffer_words``). The reference's sharded hot lookup
-    (``shard_lookup``) comes with ROADMAP Queue 1 item 6."""
+    width (``cold_buffer_words``). ``shard_lookup`` routes the hot gather
+    through ``repro_torch.dist.shard.sharded_tiered_hot_lookup`` (hot
+    subtables row-sharded over ``rows_axes``, the merge by
+    ``lookup_comms``/``bucket_capacity``); the scores still match the
+    monolithic cell."""
     n_fields = len(cfg.fields)
     d = int(meta["d"])
     bits = tuple(int(b) for b in meta["bits"])
-    hot_lookup = tiered_hot_lookup_fn(bits, d)
+    if shard_lookup:
+        from repro_torch.dist.shard import sharded_tiered_hot_lookup
+
+        def hot_lookup(hot_tree, gids):
+            return sharded_tiered_hot_lookup(hot_tree, bits, d, gids,
+                                             rows_axes=rows_axes,
+                                             lookup_comms=lookup_comms,
+                                             bucket_capacity=bucket_capacity)
+    else:
+        hot_lookup = tiered_hot_lookup_fn(bits, d)
     fill_meta = {"bits": bits, "d": d}
 
     def tiered_step(p, st, bufs, hot_tree, ids, cold):
@@ -170,7 +255,9 @@ def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
         request_specs=(((batch, n_fields), torch.int32),
                        ((cold_buffer_words(batch * n_fields, meta),),
                         torch.int32)),
-        meta={"kind": "tiered_score", "batch": batch, "n_fields": n_fields},
+        meta={"kind": "tiered_score", "batch": batch, "n_fields": n_fields,
+              "shard_lookup": shard_lookup, "lookup_comms": lookup_comms,
+              "bucket_capacity": bucket_capacity},
         static=(cfg, bits, d),
     )
 
@@ -186,7 +273,8 @@ def two_tower_retrieval_cell(model, cfg, params, state, buffers, *,
     never enter the top-k of a real request. The towers read their
     BatchNorm running statistics (eval mode); ``cfg`` carries the
     ``packed`` compressor, so each tower is one packed lookup. The
-    reference's partition specs have no counterpart on one device."""
+    reference's partition specs (candidates over ``rows_axes``) are not
+    carried: on a mesh the cell runs whole on every rank."""
     fu, fi = len(cfg.user_fields), len(cfg.item_fields)
 
     def retrieve_step(p, st, bufs, user_ids, cand_ids, cand_mask):

@@ -41,8 +41,15 @@ static inputs of its graph, written in place by every replay: the caches
 ``decode`` returns are the cell's own, which the next call reads without a
 copy (it copies only caches that are not).
 
-Not ported yet, raising where it is asked for: the mesh (ROADMAP Queue 1
-item 6).
+One engine holds one mesh (``repro_torch.dist``; default ``host_mesh()``,
+1×1 in one process, where every cell is the CUDA graph above). Under a
+launcher such as ``torch.distributed.run`` every rank runs its own engine
+over the same requests (SPMD); ``shard_lookup`` cells gather through the
+sharded lookups of ``repro_torch.dist.shard``, row-sharded over
+``rows_axes`` and merged by ``lookup_comms`` (psum, or the
+capacity-bucketed all-to-all), and every rank returns the same scores,
+bit-identical to one device's. On a mesh of more than one rank such a cell
+holds collectives, so it runs eager and is not captured as a graph.
 """
 from __future__ import annotations
 
@@ -55,8 +62,10 @@ import torch
 
 from repro_torch.cache.tiers import ColdStaging
 from repro_torch.device import full_float32, resolve_device
+from repro_torch.dist.shard import place_table_rows
 from repro_torch.serve.batcher import RequestBatcher
-from repro_torch.serve.cache import CellCache, CompiledCell, bound_signature
+from repro_torch.serve.cache import (CellCache, CompiledCell, bound_signature,
+                                     mesh_signature)
 from repro_torch.serve.cells import (ServeCellDef, packed_lookup_cell,
                                      packed_score_cell, tiered_score_cell)
 from repro_torch.serve.queue import (DONE, FAILED, SHED, AdmissionQueue,
@@ -138,22 +147,28 @@ def _write_in_place(dst: dict, src: dict):
 class Engine:
     """Front-end over the cell cache + request batcher, on one device (the
     CUDA card unless ``device`` names another, or the device of a shared
-    ``cache``); cells from several models can coexist, keyed by their
-    ``arch`` identity."""
+    ``cache``) and one mesh (default: the host mesh — 1×1 in one process,
+    where every sharded lookup is the single-device one); cells from
+    several models can coexist, keyed by their ``arch`` identity."""
 
     def __init__(self, device=None, cache: CellCache | None = None,
-                 queue_capacity: int = 1024, *,
+                 queue_capacity: int = 1024, *, mesh=None,
                  quotas: dict[str, TenantQuota] | None = None,
                  shed_watermark: float = 1.0,
                  coalesce_window_ms: float = 0.0,
                  clock=None):
         if cache is None:
-            cache = CellCache(device)
+            cache = CellCache(device, mesh=mesh)
         elif device is not None and resolve_device(device).type \
                 != cache.device.type:
             raise ValueError(f"engine device {device} differs from its "
                              f"cache's {cache.device}")
+        elif mesh is not None and mesh_signature(mesh) \
+                != mesh_signature(cache.mesh):
+            raise ValueError(f"engine mesh {mesh} differs from its cache's "
+                             f"{cache.mesh}")
         self.cache = cache
+        self.mesh = cache.mesh
         self.device = cache.device
         full_float32(self.device)   # serving starts here
         # every timestamp in the lifecycle flows from this one callable —
@@ -232,31 +247,54 @@ class Engine:
 
     def register_packed_model(self, arch, model, cfg, params, state, buffers,
                               *, shapes: dict[str, int],
-                              lookup_split: bool = True):
+                              lookup_split: bool = True,
+                              rows_axes=("model",),
+                              shard_lookup: bool = False,
+                              lookup_comms: str = "psum",
+                              bucket_capacity: int | None = None):
         """Register one score cell per (shape name → row capacity) for a flat
         CTR model serving from a packed table, each with its lookup-split
         companion when ``lookup_split``. The model's tensors move to the
         engine's device once, here, and every cell reads those tensors; the
         packed table is the cache's own copy (``CellCache.bind``), which a
-        swap writes in place and the caller's table never sees."""
+        swap writes in place and the caller's table never sees.
+        ``shard_lookup`` takes the sharded lookup on the engine's mesh (the
+        single-device one on a one-rank mesh), subtables row-sharded over
+        ``rows_axes``; ``lookup_comms``/``bucket_capacity`` select its merge
+        and enter the cell fingerprint. On a mesh of more than one rank the
+        bound copy of the table holds only this rank's row blocks, padded
+        to the row shards once, here (``CellCache.bind``), and a swap
+        writes the new table's blocks into them."""
         state, buffers = (_on_device(t, self.device) for t in (state, buffers))
+        row_blocks = bool(shard_lookup) and self.mesh.size > 1
         params = dict(_on_device(params, self.device),
-                      embedding=self.cache.bind(params["embedding"], self))
+                      embedding=self.cache.bind(
+                          params["embedding"], self,
+                          rows_axes=tuple(rows_axes) if row_blocks else None))
         meta = {k: cfg.comp_cfg[k] for k in ("bits", "d", "n")}
         n_fields = len(cfg.fields)
+        sharding = dict(rows_axes=tuple(rows_axes), shard_lookup=shard_lookup,
+                        lookup_comms=lookup_comms,
+                        bucket_capacity=bucket_capacity,
+                        row_blocks=row_blocks)
         for shape, rows in shapes.items():
             cd = packed_score_cell(model, cfg, params, state, buffers,
-                                   batch=rows, arch=arch, shape=shape)
+                                   batch=rows, arch=arch, shape=shape,
+                                   **sharding)
             lc = None
             if lookup_split:
                 lc = packed_lookup_cell(params["embedding"], meta,
                                         buffers["offsets"], batch=rows,
                                         n_fields=n_fields, arch=arch,
-                                        shape=shape)
+                                        shape=shape, **sharding)
             self.register(cd, lookup_cell=lc)
 
     def register_tiered_model(self, arch, model, cfg, params, state, buffers,
-                              store, *, shapes: dict[str, int]):
+                              store, *, shapes: dict[str, int],
+                              rows_axes=("model",),
+                              shard_lookup: bool = False,
+                              lookup_comms: str = "psum",
+                              bucket_capacity: int | None = None):
         """Register one **tiered** score cell per (shape name → row capacity)
         serving from a ``repro_torch.cache.TieredTableStore``: the store's
         hot tier binds into the cell (the store's own tensors, on the
@@ -264,7 +302,10 @@ class Engine:
         ``score_tiered``).
 
         ``params`` may carry an ``"embedding"`` entry (the monolithic packed
-        table) — it is dropped; the store owns the table now."""
+        table) — it is dropped; the store owns the table now.
+        ``shard_lookup``/``rows_axes``/``lookup_comms``/``bucket_capacity``
+        route the hot gather as ``register_packed_model``'s do the packed
+        one."""
         if store.device.type != self.device.type:
             raise ValueError(f"the store's hot tier lies on {store.device}, "
                              f"the engine serves on {self.device}")
@@ -277,10 +318,13 @@ class Engine:
         for shape, rows in shapes.items():
             cd = tiered_score_cell(model, cfg, p, state, buffers, store.hot,
                                    store.meta, batch=rows, arch=arch,
-                                   shape=shape)
+                                   shape=shape, rows_axes=rows_axes,
+                                   shard_lookup=shard_lookup,
+                                   lookup_comms=lookup_comms,
+                                   bucket_capacity=bucket_capacity)
             reg = self._compile(cd)
             staging = None
-            if self.device.type == "cuda":
+            if reg.cell.inputs:   # a graph: its cold input is staged
                 staging = ColdStaging(cd.request_specs[1][0][0], self.device)
             self._tiered[shape] = TieredCell(reg, store, offsets, staging)
             self._tiered_batcher.register(shape, rows)
@@ -326,13 +370,20 @@ class Engine:
         if not regs and not tiered:
             raise ValueError(
                 f"table swap targets no registered cell (arch={arch!r})")
-        live = [reg.bound[0]["embedding"] for reg in regs]
-        live += [reg.lookup.bound[0] for reg in regs if reg.lookup is not None]
-        for old in live:
-            self._check_swap_layout(old, table, "packed-table")
+        live = [(reg.bound[0]["embedding"], reg.celldef.meta)
+                for reg in regs]
+        live += [(reg.lookup.bound[0], reg.lookup.celldef.meta)
+                 for reg in regs if reg.lookup is not None]
+        # a table bound as this rank's row blocks takes the new one's blocks
+        live = [(old, place_table_rows(table, self.mesh, meta["rows_axes"])
+                 if meta.get("row_blocks") else table)
+                for old, meta in live]
+        for old, new in live:
+            self._check_swap_layout(old, new, "packed-table")
         # the score cells and their lookup companions read one table
-        tables = list({t["width_idx"].data_ptr(): t for t in live}.values())
-        for old in tables:
+        tables = list({old["width_idx"].data_ptr(): (old, new)
+                       for old, new in live}.values())
+        for old, _ in tables:
             others = self._sharers(old)
             if others:
                 raise ValueError(
@@ -340,8 +391,8 @@ class Engine:
                     f"other engine(s) registered over the same packed table "
                     f"on this cache; register them over a table of their "
                     f"own")
-        for old in tables:
-            _write_in_place(old, table)
+        for old, new in tables:
+            _write_in_place(old, new)
         refreshed = set()
         for shape, tc in tiered.items():
             if id(tc.store) not in refreshed:    # one refresh per store

@@ -11,8 +11,20 @@ included, as they were; the BatchNorm state still takes its new value, as in
 the reference), checkpoints every ``ckpt_every`` steps (atomic, keep-k,
 async) and ``restore()`` on start, the compressor's post-update hook, int8
 gradient compression with error feedback (``grad_compression``), data keyed
-by step, and prefetch (``run(prefetch=...)``). The device mesh is not
-ported yet.
+by step, and prefetch (``run(prefetch=...)``).
+
+On a mesh of more than one rank (``Trainer(mesh=...)``, every rank running
+the same loop over the same batches, SPMD) the loss and gradient come from
+``repro_torch.dist.shard.sharded_value_and_grad``: each rank takes its
+block of the batch, the ``params["embedding"]`` leaves whose rows divide
+the ``table_rows_axes`` are held as this rank's row shards (the carry, the
+optimizer's moments and the checkpoints hold the shards; ``params`` gathers
+the whole tree), gathered in the forward, their gradients reduce-scattered
+back; every other leaf's gradient is averaged over the mesh. The clip's
+norm is the global one — the squared norms of the shards summed over the
+row axes once (``sharded_clip_scale``) — so every rank takes the same
+scale and the NaN guard's verdict agrees everywhere. Each rank checkpoints
+its own carry under ``ckpt_dir/rank<r>``.
 
 The parameters, the optimizer's state and the error-feedback residuals are
 updated in place, as the reference's jitted step updates its donated carry:
@@ -35,6 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.cache.prefetch import PrefetchPipeline
+from repro_torch.dist.shard import (active_mesh, gather_table_leaves,
+                                    shard_table_leaves, sharded_clip_scale,
+                                    sharded_value_and_grad, table_shard_flags)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.compression import make_error_feedback_transform
 from repro_torch.train.optimizer import clip_scale
@@ -61,10 +76,27 @@ class Trainer:
                  ckpt_dir: str | None = None, ckpt_every: int = 200,
                  ckpt_keep: int = 3, clip_norm: float = 10.0,
                  post_update: Callable | None = None,
-                 grad_compression: bool = False):
+                 grad_compression: bool = False, mesh=None,
+                 table_rows_axes=("model",)):
         self.loss_fn = loss_fn
         self.buffers = buffers
         self.optimizer = optimizer
+        # loss+grad: plain on one device; on a mesh of more than one rank
+        # the batch is data-parallel and the embedding rows are sharded
+        # over `table_rows_axes` (repro_torch.dist.shard)
+        self.mesh = active_mesh(mesh)
+        self.table_rows_axes = tuple(table_rows_axes)
+        self._flags = self._vag = None
+        if self.mesh is not None:
+            self._flags = table_shard_flags(params, self.mesh,
+                                            self.table_rows_axes)
+            params = shard_table_leaves(params, self.mesh,
+                                        self.table_rows_axes)
+            self._vag = sharded_value_and_grad(
+                loss_fn, self.mesh, rows_axes=self.table_rows_axes,
+                flags=self._flags)
+            if ckpt_dir is not None:
+                ckpt_dir = f"{ckpt_dir}/rank{self.mesh.rank}"
         self.ckpt_dir, self.ckpt_every, self.ckpt_keep = ckpt_dir, ckpt_every, ckpt_keep
         self.clip_norm = clip_norm
         self.post_update = post_update
@@ -82,16 +114,23 @@ class Trainer:
         {"loss", "metric", "grad_norm", "skipped"} as device tensors."""
         params, state, opt_state = (self.carry["params"], self.carry["state"],
                                     self.carry["opt"])
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        live = unflatten(params, flat)
         step_t = torch.full((), step, dtype=torch.int32, device=self.device)
-        with torch.enable_grad():
-            loss, (new_state, metric) = self.loss_fn(live, self.buffers, state,
-                                                     batch, step=step_t)
-            grads = list(torch.autograd.grad(loss, flat))
+        if self._vag is not None:
+            (loss, (new_state, metric)), grads = self._vag(
+                params, self.buffers, state, batch, step=step_t)
+            scale, gnorm = sharded_clip_scale(grads, self._flags, self.mesh,
+                                              self.table_rows_axes,
+                                              self.clip_norm)
+        else:
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+            live = unflatten(params, flat)
+            with torch.enable_grad():
+                loss, (new_state, metric) = self.loss_fn(
+                    live, self.buffers, state, batch, step=step_t)
+                grads = list(torch.autograd.grad(loss, flat))
+            del flat, live
+            scale, gnorm = clip_scale(grads, self.clip_norm)
         loss, metric = loss.detach(), metric.detach()
-        del flat, live
-        scale, gnorm = clip_scale(grads, self.clip_norm)
         # NaN guard: skip the whole update on a non-finite norm or loss
         ok = torch.isfinite(gnorm) & torch.isfinite(loss)
         if self.grad_compression:
@@ -202,7 +241,13 @@ class Trainer:
 
     @property
     def params(self):
-        return self.carry["params"]
+        """The trained tree: the carry's own tensors, or on a mesh the
+        whole tree, its row shards all-gathered (a collective: every rank
+        reads it)."""
+        if self.mesh is None:
+            return self.carry["params"]
+        return gather_table_leaves(self.carry["params"], self._flags,
+                                   self.mesh, self.table_rows_axes)
 
     @property
     def state(self):

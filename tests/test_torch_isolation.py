@@ -79,9 +79,14 @@ LM_PATH = ("nn.rope", "nn.chunked", "nn.moe", "models.lm.transformer",
            "kernels.decode_attention.ref")
 
 
+# the distribution layer: the mesh, the placement contract, the sharded
+# kernels and train step, the production mesh
+DIST_PATH = ("dist.mesh", "dist.sharding", "dist.shard", "launch.mesh")
+
+
 def test_training_path_modules_are_in_the_port():
     for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
-                 + LM_PATH):
+                 + LM_PATH + DIST_PATH):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -92,10 +97,10 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
     assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH) \
-        + len(TIERED_PATH) + len(MODEL_PATH) + len(LM_PATH)
+        + len(TIERED_PATH) + len(MODEL_PATH) + len(LM_PATH) + len(DIST_PATH)
     assert leaked == "[]"
     for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
-                 + LM_PATH):
+                 + LM_PATH + DIST_PATH):
         assert f"'repro_torch.{name}'" in names, name
 
 

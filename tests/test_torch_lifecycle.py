@@ -310,9 +310,9 @@ def test_unported_lanes_raise_naming_their_item(model):
     # raises as the reference's engine does
     with pytest.raises(ValueError, match="no retrieval cell registered"):
         port.retrieve(ids[:1], ids)
-    for flag, value in (("--mesh", "2,2"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            launch.main(["--reduced", "--device", "cpu", flag, value])
+    # the mesh is ported: one process cannot hold a 2x2 mesh of ranks
+    with pytest.raises(SystemExit, match="needs 4 ranks, 1 running"):
+        launch.main(["--reduced", "--device", "cpu", "--mesh", "2,2"])
 
 
 def test_serve_cli_open_loop_and_repack_on_cpu(tmp_path, capsys):
