@@ -430,6 +430,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    two ``Trainer`` steps with the aux loss, the dispatch's and the
    combine's gathers' backward on the segment-sum kernel; one traced step
    that runs the segment-sum kernels and no library scatter-add.
+31. the static contract checker (``repro_torch.analysis``): the tiny
+   standard corpus (packed DLRM score cells with their lookup companions,
+   tiered cells at hot 0.3, the ``lm-tiny`` decode and ``lm-cb`` slotted
+   decode cells) built on the card with the counts at 0 (its
+   ``staticcheck`` path), every cell walked op by op with the kernels as
+   opaque regions (each region's kernel launched on that path), and the
+   same corpus built and walked on the CPU: zero findings on both and in
+   the source lint, and the same kernel regions, cell by cell. Then the
+   dry run (``launch.dryrun.run_cell``) of ``dlrm-criteo/serve_p99`` and
+   ``internlm2-1.8b/decode_32k`` on the 16×16 mesh: one rank's step on
+   meta tensors, whose per-device FLOPs, bytes and collective bytes are
+   printed — static counts, not card times.
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, the segment sum and the Adam pass, which
@@ -441,8 +453,8 @@ and ``decode_attention``; ``launches_by_path`` has the lifecycle's,
 ``gin cora train`` and ``gin products train``, and since phases 24–26
 ``lm slotted``, ``lm prefill``, ``lm decode``, ``lm long_500k``, ``moe
 prefill`` and ``moe decode``, since phases 28–30 ``lm train``, ``lm
-vocab search`` and ``moe train``, and since phase 8b ``mesh``); the last
-line is
+vocab search`` and ``moe train``, since phase 8b ``mesh``, and since
+phase 31 ``staticcheck``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -6891,6 +6903,84 @@ def lm_train_records(records: list, train: dict, grid: dict) -> None:
     by_name["adam_step_"]["bf16_grid_cases"] = grid["adam_bf16_cases"]
 
 
+DRY_CELLS = (("dlrm-criteo", "serve_p99"), ("internlm2-1.8b", "decode_32k"))
+
+
+def phase_staticcheck(dev) -> dict:
+    """The checker over the tiny corpus on the card (the counts at 0 after
+    the corpus's build and just before the walks, read just after them:
+    the ``staticcheck`` path) and on the CPU: zero findings, the same
+    kernel regions cell by cell, each region's kernel launched on the
+    card at least once for each walk that showed the region; then the dry
+    run of ``DRY_CELLS`` on the 16×16 mesh (meta tensors: static
+    counts)."""
+    import repro_torch.analysis as A
+    from repro_torch.analysis.budgets import load_budgets
+    from repro_torch.analysis.corpus import build_corpus
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    budgets = load_budgets()
+    engine = build_corpus(device=dev)
+    build_s = time.perf_counter() - t0
+    # the corpus's build trains and captures (its warm-up calls launch
+    # every serving kernel): only the walks' launches are counted
+    reset_counts()
+    card = A.check_engine(engine, budgets=budgets)
+    launches = counts()
+    card_s = time.perf_counter() - t0 - build_s
+    del engine
+    cpu = A.check_engine(build_corpus(device="cpu"), budgets=budgets)
+    lint = A.lint_tree(ROOT)
+    for what, found in (("the card's corpus", card.findings),
+                        ("the CPU's corpus", cpu.findings),
+                        ("the source lint", lint)):
+        check(not found, f"staticcheck: {len(found)} finding(s) on {what}: "
+              + "; ".join(f.render() for f in found[:5]))
+    check(card.n_cells == cpu.n_cells == 8,
+          f"staticcheck: {card.n_cells} cells on the card, {cpu.n_cells} "
+          f"on the CPU, not 8")
+    check(card.regions == cpu.regions,
+          f"staticcheck: the card's kernel regions {card.regions} differ "
+          f"from the CPU's {cpu.regions}")
+    seen = sorted({r for names in card.regions.values() for r in names})
+    check(sorted(card.region_walks) == seen,
+          f"staticcheck: walks counted for {sorted(card.region_walks)}, "
+          f"regions {seen}")
+    for name in seen:
+        check(launches.get(name, 0) >= card.region_walks[name],
+              f"staticcheck: region {name} shown by "
+              f"{card.region_walks[name]} walks on the card, but its kernel "
+              f"launched {launches.get(name, 0)} times in them")
+    log(f"staticcheck: 0 findings over {card.n_cells} cells on the card "
+        f"({card_s:.1f} s of walks after the corpus's {build_s:.1f} s "
+        f"build) and on the CPU, 0 lint findings; kernel regions {seen}, "
+        f"the same on both; walks showing each "
+        f"{json.dumps(card.region_walks, sort_keys=True)}, launches in them "
+        f"{json.dumps({k: launches.get(k, 0) for k in seen}, sort_keys=True)}")
+    dry = {}
+    for arch, shape in DRY_CELLS:
+        res = run_cell(arch, shape, verbose=False)
+        coll = res["collectives_per_device"]
+        dry[res["cell"]] = {k: res[k] for k in (
+            "mesh", "flops_per_device", "hbm_bytes_per_device",
+            "kernel_flops_per_device", "kernel_bytes_per_device", "kernels",
+            "memory")}
+        dry[res["cell"]]["collective_bytes_per_device"] = coll["total_bytes"]
+        check(res["flops_per_device"] > 0 and res["kernels"],
+              f"dry run {res['cell']}: no work walked")
+        log(f"dryrun {res['cell']} on {res['mesh']} (meta tensors, static "
+            f"counts, not card times): flops/device "
+            f"{res['flops_per_device']:.6e}, bytes/device "
+            f"{res['hbm_bytes_per_device']:.6e}, collective bytes/device "
+            f"{coll['total_bytes']:.6e}, kernels {res['kernels']}, memory "
+            f"{res['memory']}")
+    out = {"launches": launches, "region_walks": card.region_walks,
+           "regions": card.regions, "build_s": build_s, "walks_s": card_s,
+           "phase_s": time.perf_counter() - t0, "dryrun": dry}
+    log(f"staticcheck phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -6988,6 +7078,11 @@ def main() -> int:
     moe_train = phase_moe_train(dev)
     log(json.dumps({"lm_train_grid": lm_train_grid, "lm_train": lm_train,
                     "lm_vocab_search": vocab, "moe_train": moe_train}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = phase_staticcheck(dev)
+    log(json.dumps({"staticcheck": {k: v for k, v in static.items()
+                                    if k != "launches"}}))
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
                              **bst_serve.pop("lookup"),
@@ -7044,7 +7139,8 @@ def main() -> int:
                "lm train": lm_train["launches"],
                "lm vocab search": vocab["launches"],
                "moe train": moe_train["launches"],
-               "mesh": mesh["launches"]}
+               "mesh": mesh["launches"],
+               "staticcheck": static["launches"]}
     for rec in records:
         rec["launches_by_path"] = {path: launches.get(rec["name"], 0)
                                    for path, launches in by_path.items()}

@@ -4,19 +4,25 @@ card, on DLRM's serving path, so that the host's drift between processes
 (which moves a sub-millisecond request by more than the lookup's share of
 it) falls on both sides alike.
 
-    python3 scripts/lookup_request_ab.py --parent-src DIR [--rounds N] [--json OUT]
+    python3 scripts/lookup_request_ab.py --parent-src DIR [--first parent|change]
+        [--rounds N] [--json OUT]
 
-The full-width ``dlrm-criteo`` table and engine are built once by this
-checkout (``chip_smoke.py``'s seed). The other checkout's lookup wrapper and
-its CUDA source (``DIR/repro_torch/kernels/mpe_lookup/ops.py`` and its
+The full-width ``dlrm-criteo`` table is built once by this checkout
+(``chip_smoke.py``'s seed). The other checkout's lookup wrapper and its CUDA
+source (``DIR/repro_torch/kernels/mpe_lookup/ops.py`` and its
 ``csrc/mpe_lookup.cu``, built into ``DIR``'s own ``build/``) are loaded
-beside this one's. Each round serves, once through each wrapper in turn (the
-first side alternating from round to round), 15 requests of 1, 300 and 512
-rows and one of 300,000 rows through ``Engine.score``, host clock to a
-synchronize, and times the wrapper alone at ``serve_p99``'s 19,968 ids (CUDA
-events over 200 back-to-back calls, bound by the host). Both sides' scores
+beside this one's, and each side gets its own engine, whose cells capture
+that side's wrapper in their CUDA graphs (a replay calls no wrapper); the
+side named by ``--first`` builds its engine first, so that runs with each
+order tell a side's difference from the build order's. Each
+round serves, once through each side's engine in turn (the first side
+alternating from round to round), 15 requests of 1, 300 and 512 rows and
+one of 300,000 rows through ``Engine.score``, host clock to a synchronize,
+and times the wrapper alone at ``serve_p99``'s 19,968 ids (CUDA events over
+200 back-to-back calls, bound by the host). Both sides' scores
 must be equal, and each side's launches are counted. Prints one JSON object:
-every time, each side's medians, and how many rounds each side won.
+the build order, every time, each side's medians and interquartile ranges,
+and how many rounds each side won.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ def load_other(src: Path):
     def load(name: str, path: Path):
         spec = importlib.util.spec_from_file_location(name, path)
         module = importlib.util.module_from_spec(spec)
+        # registered before it runs: a dataclass looks its module up there
+        sys.modules[name] = module
         spec.loader.exec_module(module)
         return module
     build = load("other_kernels_build",
@@ -67,6 +75,9 @@ def use(wrapper):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-src", type=Path, required=True)
+    ap.add_argument("--first", choices=("parent", "change"),
+                    default="parent", help="the side whose engine is built "
+                    "first")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--json", help="write the result here too")
     args = ap.parse_args()
@@ -84,7 +95,6 @@ def main() -> int:
     params, buffers, state, spec = cs.build_packed_dlrm(cfg, seed=cs.SEED,
                                                         device=dev)
     table, meta = params["embedding"], buffers["embedding"]["meta"]
-    engine = cs.build_engine(cfg, params, state, buffers, device=dev)
     small = [cs.SyntheticCTR(spec._replace(batch_size=rows)).batch(step)["ids"]
              for step, rows in enumerate(cs.REQUEST_ROWS * 5, start=10_000)]
     bulk = cs.SyntheticCTR(spec._replace(batch_size=cs.BULK_ROWS)).batch(
@@ -92,14 +102,18 @@ def main() -> int:
     p99_ids = cs.request_gids(spec, buffers, cs.SERVE_ROWS["serve_p99"], 5_000,
                               dev).reshape(-1).contiguous()
 
-    scores = {}
-    for name, wrapper in sides.items():  # warm both, and hold them equal
+    scores, engines = {}, {}
+    build_order = sorted(sides, key=lambda name: name != args.first)
+    for name in build_order:             # capture both, and hold them equal
+        wrapper = sides[name]
         use(wrapper)
-        before = wrapper.launches
-        scores[name] = [engine.score(ids, return_logits=True)
-                        for ids in small[:3] + [bulk]]
+        before = wrapper.launches        # the captures' warm-up calls
+        engines[name] = cs.build_engine(cfg, params, state, buffers,
+                                        device=dev)
         cs.check(wrapper.launches > before, f"{name}: no lookup launched")
-    for a, b in zip(*scores.values()):
+        scores[name] = [engines[name].score(ids, return_logits=True)
+                        for ids in small[:3] + [bulk]]
+    for a, b in zip(scores["parent"], scores["change"]):
         cs.check(np.array_equal(a, b), "the two sides' scores differ")
 
     times = {name: {"small_ms": [], "bulk_ms": [], "p99_call_ms": []}
@@ -109,7 +123,7 @@ def main() -> int:
         order = list(sides) if r % 2 == 0 else list(sides)[::-1]
         medians = {}
         for name in order:
-            use(sides[name])
+            engine = engines[name]
             row = times[name]
             ms = [cs.time_requests(lambda x=ids: engine.score(x), 1)[0]
                   for ids in small]
@@ -121,15 +135,19 @@ def main() -> int:
         wins[min(medians, key=medians.get)] += 1
         cs.log(f"round {r}: small-request medians {medians}")
     use(change_ops.packed_lookup)
-    result = {"card": smi, "rounds": args.rounds, "wins_small": wins,
+    result = {"card": smi, "build_order": build_order, "rounds": args.rounds,
+              "wins_small": wins,
               "median": {name: {k: float(np.median(v)) for k, v in row.items()}
                          for name, row in times.items()},
+              "iqr": {name: {k: [float(q) for q in np.percentile(v, [25, 75])]
+                             for k, v in row.items()}
+                      for name, row in times.items()},
               "times": times}
     text = json.dumps(result)
     if args.json:
         Path(args.json).write_text(text + "\n")
-    print(json.dumps({k: result[k] for k in ("card", "rounds", "wins_small",
-                                             "median")}))
+    print(json.dumps({k: result[k] for k in (
+        "card", "build_order", "rounds", "wins_small", "median", "iqr")}))
     return 0
 
 

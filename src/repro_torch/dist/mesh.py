@@ -18,6 +18,12 @@ mesh is 1×1 and every wrapper takes its single-device path.
 
 ``use_mesh`` pushes onto a stack local to the process; ``current_mesh``
 reads its top. Importing this module starts no process group.
+
+A process that started the default group ends it: ``launch_session`` wraps
+a launcher's run, ``end_distributed`` tears the group down (a barrier, then
+``destroy_process_group``) only where ``init_distributed`` started it. A
+rank that exits with its group alive can abort in the group's teardown at
+exit while a peer still holds its connections.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import datetime
 import itertools
 import os
 import socket
+import threading
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ import torch.distributed as dist
 
 _MESH_STACK: list["Mesh"] = []
 _TIMEOUT: datetime.timedelta | None = None   # the group's, for new groups
+_STARTED = None      # the default group init_distributed started, if any
 
 
 def world_size() -> int:
@@ -58,14 +66,16 @@ def init_distributed(coordinator: str | None = None,
     ``WORLD_SIZE``, ``RANK``). With no coordinator and at most one process
     this is a no-op, as the reference's is — the single-process default of
     the launch CLIs. Idempotent: once a group is up it returns True and
-    starts nothing. Returns True when a group is up.
+    starts nothing. Returns True when a group is up; ``started_group``
+    says whether this function started it (``end_distributed`` ends only
+    such a group, never one the caller brought up).
 
     The backend is NCCL where ``device`` (default: the CUDA card when one
     is present) is a card, gloo otherwise; a card process takes the card
     of its ``LOCAL_RANK`` (default: its rank). ``timeout`` (seconds) bounds
     every collective of the group, so a rank that hangs fails the others
     instead of stalling them."""
-    global _TIMEOUT
+    global _TIMEOUT, _STARTED
     if dist.is_initialized():
         return True
     env = os.environ
@@ -100,7 +110,61 @@ def init_distributed(coordinator: str | None = None,
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
                             **kwargs)
+    _STARTED = dist.group.WORLD
     return True
+
+
+def started_group() -> bool:
+    """Whether the default group that is up now is the one
+    ``init_distributed`` started (False when none is up, or when the
+    caller brought the group up itself)."""
+    return (_STARTED is not None and dist.is_initialized()
+            and dist.group.WORLD is _STARTED)
+
+
+def end_distributed(*, barrier: bool = True) -> bool:
+    """End the default group where ``init_distributed`` started it: with
+    ``barrier``, wait until every rank got here (so none tears down its
+    connections while a peer still uses them), then
+    ``destroy_process_group()``, which ends every group of the process.
+    Leaves a group the caller brought up alone. Returns whether it ended
+    one."""
+    global _STARTED
+    if not started_group():
+        _STARTED = None
+        return False
+    if barrier and dist.get_world_size() > 1:
+        dist.barrier()
+    dist.destroy_process_group()
+    _STARTED = None
+    return True
+
+
+@contextlib.contextmanager
+def launch_session(coordinator: str | None = None,
+                   num_processes: int | None = None,
+                   process_id: int | None = None, *, device=None,
+                   timeout: float | None = None):
+    """A launcher's run: ``init_distributed`` on entry (yields whether a
+    group is up); on exit, every thread started inside is joined, then
+    ``end_distributed`` ends the group if this session started it — with
+    a barrier when the run ended normally, without one after an error (a
+    peer that failed would never reach it). A group that was up before
+    the session is left as it was."""
+    before = set(threading.enumerate())
+    was_up = dist.is_initialized()
+    up = init_distributed(coordinator, num_processes, process_id,
+                          device=device, timeout=timeout)
+    ok = False
+    try:
+        yield up
+        ok = True
+    finally:
+        for t in threading.enumerate():
+            if t not in before and t is not threading.current_thread():
+                t.join()
+        if not was_up:
+            end_distributed(barrier=ok)
 
 
 def host_boundary_groups() -> list[list[int]]:

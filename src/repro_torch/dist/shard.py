@@ -76,6 +76,14 @@ serving engine binds on a mesh of more than one rank.
 
 Every rank must make the same calls in the same order (SPMD), as the
 collectives of one group are matched by their order.
+
+Under an op walk (``repro_torch.analysis.op_walk``) each collective is
+recorded where it is issued — ``psum``, ``all_gather``, ``all_to_all``,
+the reduce-scatter of ``_GatherRows`` and the sums and exchanges of a
+``LocalMesh`` — with its axes and the bytes it leaves on a device; each
+sharded wrapper opens a scope naming the axes its operands are split over
+(``repro_torch.kernels.region``), so the analysis can check that those
+axes are merged by a collective inside it.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ import torch.distributed as dist
 from repro_torch.core import packing
 from repro_torch.dist.mesh import current_mesh
 from repro_torch.dist.sharding import recsys_table_pspecs
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.mpe_lookup.ops import packed_lookup
 from repro_torch.train.tree import leaves, unflatten
 
@@ -100,7 +109,8 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 
 __all__ = [
     "active_mesh", "pad_rows_to_shard", "rows_shard_index",
-    "local_row_block", "place_table_rows", "LocalMesh", "LOOKUP_COMMS",
+    "local_row_block", "place_table_rows", "LocalMesh", "DryMesh",
+    "LOOKUP_COMMS",
     "BucketPlan", "plan_buckets", "spill_capacity", "lookup_route_stats",
     "packed_lookup_local",
     "sharded_packed_lookup", "sharded_tiered_hot_lookup",
@@ -147,14 +157,25 @@ def _block(x, mesh, axes, dim: int = 0):
     return x.narrow(dim, mesh.axis_index(axes) * n, n)
 
 
+def _issue(kind: str, axes, group, out, op):
+    """Issue one collective of ``kind`` over ``axes``, ``op`` filling
+    ``out`` through ``group``, and record the bytes it leaves on the rank.
+    A ``DryGroup`` has no peer: ``op`` is not called and ``out`` (the
+    result's shape, unfilled) is returned as it is."""
+    if not isinstance(group, DryGroup):
+        op()
+    _region.collective(kind, axes, _region.nbytes(out))
+    return out
+
+
 def psum(x, mesh, axes):
     """``all_reduce(SUM)`` of ``x`` over ``axes`` (a new tensor)."""
     group = mesh.group(axes) if axes else None
     if group is None:
         return x
     x = x.contiguous().clone()
-    dist.all_reduce(x, group=group)
-    return x
+    return _issue("all-reduce", axes, group, x,
+                  lambda: dist.all_reduce(x, group=group))
 
 
 def all_gather(x, mesh, axes, dim: int = 0):
@@ -165,8 +186,8 @@ def all_gather(x, mesh, axes, dim: int = 0):
         return x
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((mesh.axes_size(axes) * xs.shape[0], *xs.shape[1:]))
-    _ALL_GATHER(out, xs, group=group)
-    return out.movedim(0, dim)
+    return _issue("all-gather", axes, group, out,
+                  lambda: _ALL_GATHER(out, xs, group=group)).movedim(0, dim)
 
 
 def all_to_all(x, mesh, axes):
@@ -177,8 +198,8 @@ def all_to_all(x, mesh, axes):
         return x
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
+    return _issue("all-to-all", axes, group, out,
+                  lambda: dist.all_to_all_single(out, x, group=group))
 
 
 class LocalMesh:
@@ -199,6 +220,49 @@ class LocalMesh:
 
     def __repr__(self) -> str:
         return f"LocalMesh({self.shape})"
+
+
+class DryMesh:
+    """The production mesh as one rank sees it in a dry run: the axes and
+    their sizes (16×16, or 2×16×16 across pods) and this rank's
+    coordinates, with no process group. Its groups are ``DryGroup``s, on
+    which ``_issue`` skips the transfer: each collective of this module
+    returns an empty result of the shape the real one returns (on the meta
+    device for meta inputs) and records the bytes it leaves on the rank,
+    so every sharded wrapper — the lookups,
+    the bag, flash, ``mpe_qat``, ``sharded_value_and_grad`` — runs its
+    local body on the rank's blocks without a peer."""
+
+    def __init__(self, shape, axis_names, rank: int = 0):
+        shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self.size = int(np.prod(shape))
+        self.rank = int(rank)
+        self.device_type = "meta"
+        self.coordinate = dict(zip(self.axis_names, (
+            int(c) for c in np.unravel_index(self.rank, shape))))
+
+    def axes_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in axes], dtype=np.int64))
+
+    def axis_index(self, axes) -> int:
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coordinate[a]
+        return idx
+
+    def group(self, axes):
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
+        return DryGroup(axes) if self.axes_size(axes) > 1 else None
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape}, rank={self.rank})"
+
+
+class DryGroup(NamedTuple):
+    """The group of ``axes`` on a ``DryMesh``: no peer, no transfer."""
+    axes: tuple
 
 
 class _GroupExchange:
@@ -222,33 +286,47 @@ class _GroupExchange:
 
 
 class _LocalExchange:
-    """The collectives of ``n`` shards that all run in this process: the
-    sum of their terms in shard order, the exchange of their slots, the
-    concatenation of their blocks."""
+    """The collectives of ``n`` shards along ``axes`` that all run in this
+    process: the sum of their terms in shard order, the exchange of their
+    slots, the concatenation of their blocks. An op walk records each as
+    the collective it stands for, with the bytes it leaves on one
+    device."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, axes=()):
         self.n = n
+        self.axes = tuple(axes)
         self.shards = tuple(range(n))
+
+    def _record(self, kind, out):
+        if self.n > 1:
+            _region.collective(kind, self.axes, _region.nbytes(out))
 
     def psum(self, xs):
         out = xs[0]
         for x in xs[1:]:
             out = out + x
+        self._record("all-reduce", out)
         return out
 
     def all_to_all(self, xs):
-        return list(torch.stack(xs).transpose(0, 1))
+        out = list(torch.stack(xs).transpose(0, 1))
+        self._record("all-to-all", out[0])
+        return out
 
     def all_gather(self, xs):
-        return torch.cat(xs) if len(xs) > 1 else xs[0]
+        out = torch.cat(xs) if len(xs) > 1 else xs[0]
+        self._record("all-gather", out)
+        return out
 
 
 def _exchange(mesh, axes):
-    """The exchange of ``axes`` (None or () for none: one shard)."""
+    """The exchange of ``axes`` (None or () for none: one shard); on a
+    ``DryMesh`` the group exchange, whose collectives are dry (the dry
+    run's third exchange)."""
     if not axes:
         return _LocalExchange(1)
     if isinstance(mesh, LocalMesh):
-        return _LocalExchange(mesh.axes_size(axes))
+        return _LocalExchange(mesh.axes_size(axes), axes)
     return _GroupExchange(mesh, axes)
 
 
@@ -628,6 +706,9 @@ def _lookup_rows(blocks, local_idx, width_idx, alpha, beta, fl, ex, *, bits,
     words = ex.all_to_all([
         a2a_owner_words(r, blocks[s], bits, local_idx, width_idx, s,
                         plan.n_words) for s, r in zip(ex.shards, recv)])
+    # the merge: the slices gathered, the spilled rows summed
+    _region.merged_by(("all-gather", ex.axes),
+                      *((("all-reduce", ex.axes),) if plan.n_spill else ()))
     full = ex.all_gather([a2a_collect(r, plan, s)
                           for s, r in zip(ex.shards, words)])
     if plan.n_spill > 0:
@@ -693,11 +774,13 @@ def sharded_packed_lookup(table, meta, ids, *, rows_axes=("model",),
     mesh = active_mesh(mesh)
     if mesh is None:
         return packed_lookup(table, meta, ids)
-    return _sharded_lookup(table, "local_idx", tuple(meta["bits"]),
-                           int(meta["d"]), ids, mesh=mesh,
-                           rows_axes=rows_axes, lookup_comms=lookup_comms,
-                           bucket_capacity=bucket_capacity,
-                           row_blocks=row_blocks)
+    with _region.sharded("sharded_packed_lookup",
+                         _present_axes(mesh, rows_axes)):
+        return _sharded_lookup(table, "local_idx", tuple(meta["bits"]),
+                               int(meta["d"]), ids, mesh=mesh,
+                               rows_axes=rows_axes, lookup_comms=lookup_comms,
+                               bucket_capacity=bucket_capacity,
+                               row_blocks=row_blocks)
 
 
 def sharded_tiered_hot_lookup(hot, bits, d: int, ids, *,
@@ -719,10 +802,13 @@ def sharded_tiered_hot_lookup(hot, bits, d: int, ids, *,
     mesh = active_mesh(mesh)
     if mesh is None:
         return tiered_hot_lookup(hot, bits, d, ids)
-    return _sharded_lookup(hot, "tier_local", tuple(bits), int(d), ids,
-                           mesh=mesh, rows_axes=rows_axes,
-                           lookup_comms=lookup_comms,
-                           bucket_capacity=bucket_capacity, ok_key="is_hot")
+    with _region.sharded("sharded_tiered_hot_lookup",
+                         _present_axes(mesh, rows_axes)):
+        return _sharded_lookup(hot, "tier_local", tuple(bits), int(d), ids,
+                               mesh=mesh, rows_axes=rows_axes,
+                               lookup_comms=lookup_comms,
+                               bucket_capacity=bucket_capacity,
+                               ok_key="is_hot")
 
 
 # ---------------------------------------------------------------------------
@@ -807,8 +893,11 @@ def sharded_embedding_bag(table, ids, mask, *, rows_axes=("model",),
         return embedding_bag_kernel(table, ids, mask)
     rows_ax = _present_axes(mesh, rows_axes)
     batch_ax = _batch_entry(mesh, ids.shape[0], _dp_axes_of(mesh, rows_ax))
-    return _ShardedBag.apply(table, ids.to(torch.int32), mask.to(torch.bool),
-                             mesh, rows_ax, batch_ax)
+    with _region.sharded("sharded_embedding_bag", rows_ax + (batch_ax or ()),
+                         merges=(("all-reduce", rows_ax),
+                                 ("all-gather", batch_ax or ()))):
+        return _ShardedBag.apply(table, ids.to(torch.int32),
+                                 mask.to(torch.bool), mesh, rows_ax, batch_ax)
 
 
 # ---------------------------------------------------------------------------
@@ -877,11 +966,17 @@ def sharded_flash_attention(q, k, v, *, n_kv_heads: int | None = None,
     head_ax = _present_axes(mesh, head_axes)
     batch_ax = _batch_entry(mesh, q.shape[0], _dp_axes_of(mesh, head_ax))
     head_ax = _batch_entry(mesh, hq, head_ax)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _ShardedFlash.apply(q, k, v, causal, mesh, batch_ax, head_ax)
-    o = flash_attention_fwd(*(_heads_block(x, mesh, batch_ax, head_ax)
-                              for x in (q, k, v)), causal)
-    return _heads_gather(o, mesh, batch_ax, head_ax)
+    with _region.sharded("sharded_flash_attention",
+                         (batch_ax or ()) + (head_ax or ()),
+                         merges=(("all-gather", head_ax or ()),
+                                 ("all-gather", batch_ax or ()))):
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v)):
+            return _ShardedFlash.apply(q, k, v, causal, mesh, batch_ax,
+                                       head_ax)
+        o = flash_attention_fwd(*(_heads_block(x, mesh, batch_ax, head_ax)
+                                  for x in (q, k, v)), causal)
+        return _heads_gather(o, mesh, batch_ax, head_ax)
 
 
 # ---------------------------------------------------------------------------
@@ -931,9 +1026,12 @@ def sharded_mixed_expectation(rows, probs, alpha, beta, bits, *, mesh=None):
         return mixed_expectation_kernel(rows, probs, alpha, beta, bits)
     d, m = rows.shape[-1], probs.shape[-1]
     lead = rows.shape[:-1]
-    out = _ShardedExpectation.apply(rows.reshape(-1, d), probs.reshape(-1, m),
-                                    alpha.contiguous(), beta.contiguous(),
-                                    bits, mesh)
+    with _region.sharded("sharded_mixed_expectation", mesh.axis_names,
+                         merges=(("all-gather", mesh.axis_names),)):
+        out = _ShardedExpectation.apply(rows.reshape(-1, d),
+                                        probs.reshape(-1, m),
+                                        alpha.contiguous(), beta.contiguous(),
+                                        bits, mesh)
     return out.reshape(*lead, d)
 
 
@@ -957,8 +1055,9 @@ class _GatherRows(torch.autograd.Function):
         n = ctx.mesh.axes_size(ctx.axes)
         g = g.contiguous()
         out = g.new_empty((g.shape[0] // n, *g.shape[1:]))
-        _REDUCE_SCATTER(out, g, group=group)
-        return out, None, None
+        return _issue("reduce-scatter", ctx.axes, group, out,
+                      lambda: _REDUCE_SCATTER(out, g, group=group)), \
+            None, None
 
 
 def table_shard_flags(params, mesh, rows_axes) -> list[bool]:
@@ -1044,6 +1143,14 @@ def sharded_value_and_grad(loss_fn, mesh, *, rows_axes=("model",),
     axes_all = tuple(mesh.axis_names)
 
     def vag(params, buffers, state, batch, *, step):
+        bsz = leaves(batch)[0].shape[0] if leaves(batch) else 0
+        with _region.sharded("sharded_value_and_grad",
+                             rows_ax + _batch_axes(mesh, bsz, other_axes),
+                             kept_axes=rows_ax,
+                             merges=(("all-reduce", axes_all),)):
+            return _vag(params, buffers, state, batch, step=step)
+
+    def _vag(params, buffers, state, batch, *, step):
         marks = flags
         flat = [p.detach() for p in leaves(params)]
         if marks is None:

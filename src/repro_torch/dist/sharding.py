@@ -40,6 +40,9 @@ PROD_AXIS_SIZE = {"pod": 2, "data": 16, "model": 16}
 #: Every mesh axis any pspec family may name.
 MESH_AXES = frozenset(PROD_AXIS_SIZE)
 
+#: The axes a table's rows (and a retrieval cell's candidates) split over.
+ROWS_AXES = ("model",)
+
 #: The axis groups a single pspec dim may combine, normalized to tuples in
 #: mesh order: ``("pod", "data")`` is the multi-pod batch dim;
 #: ``("data", "model")`` / ``("pod", "data", "model")`` the every-axis row

@@ -12,6 +12,9 @@ device, which the pass reads there (no step waits for the host).
 A leaf and its gradient are float32 (moments float32 or bfloat16), or
 bfloat16 with float32 moments, the reference's dtypes for a bfloat16 leaf
 from its first update on (``ref.py`` says how such a step rounds).
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it writes nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.adam.ref import adam_step_ref_, decay_factor
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 
 TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the pass's codes, leaf and moments
@@ -83,6 +87,12 @@ def adam_step_(p, g, m, v, scale, ok, bc1, bc2, *, lr, b1, b2, eps,
     """In place: ``p``, ``m`` and ``v`` take one Adam step with the gradient
     ``g * scale`` where the 0-d bool ``ok`` holds; where it does not, all
     three keep their bits. ``lr``: a float or a 0-d float32 tensor."""
+    if _region.WALK is not None or p.is_meta:
+        return _region.run("adam_step_", adam_step_,
+                           (p, g, m, v, scale, ok, bc1, bc2),
+                           {"lr": lr, "b1": b1, "b2": b2, "eps": eps,
+                            "weight_decay": weight_decay}, meta=p.is_meta,
+                           shape=lambda *a, **k: None, cost=cost)
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if p.device.type == "cpu":
         adam_step_ref_(p, g, m, v, scale, ok, bc1, bc2, **hyper)
@@ -111,3 +121,10 @@ def adam_step_(p, g, m, v, scale, ok, bc1, bc2, *, lr, b1, b2, eps,
 
 
 adam_step_.launches = 0
+
+
+def cost(p, g, m, v, *_, **__) -> dict:
+    """The pass from shapes: p, g, m and v read, p, m and v written, ~12
+    operations an element (moments, bias corrections, the step, decay)."""
+    return {"flops": 12 * p.numel(),
+            "bytes": _region.nbytes(p, g, m, v, p, m, v)}

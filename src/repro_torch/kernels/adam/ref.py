@@ -18,7 +18,8 @@ def decay_factor(lr: float, weight_decay: float, dtype) -> float:
     multiplies by: f32(lr·wd) for a float32 leaf (a Python float product,
     rounded once); for a bfloat16 leaf bf16(lr·wd), rounded once from the
     double, as jnp takes a Python scalar into a bfloat16 product."""
-    x = torch.tensor(lr * weight_decay, dtype=torch.float64)
+    # the decay factor lr·wd rounded once from float64, on the host
+    x = torch.tensor(lr * weight_decay, dtype=torch.float64)  # staticcheck: ignore[RL404]
     return float(x.to(torch.bfloat16 if dtype == torch.bfloat16
                       else torch.float32))
 

@@ -9,6 +9,10 @@ launches, and only those. Offsets and lengths are read on the device, so a
 CUDA graph that holds the launch serves any lengths. The wrapper allocates
 the float32 scratch: the logits (B·S·Hq, T), two (B·S·Hq, chunks) row
 statistics and the (chunks, B·S·Hq, hd) partial outputs.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns empties of the
+kernel's output shapes.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.device import on_card, raw_stream
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.kv_cache_write.ops import as_lengths
@@ -74,6 +79,14 @@ def decode_attention(q, k, v, k_scale=None, v_scale=None, *, q_offset,
     q's dtype: grouped-query attention of each query row i over the keys
     ``t < kv_valid_len`` and (causal) ``t <= q_offset + i``; offsets and
     lengths one shared value or one a row (B,)."""
+    if _region.WALK is not None or q.is_meta:
+        return _region.run("decode_attention", decode_attention,
+                           (q, k, v, k_scale, v_scale),
+                           {"q_offset": q_offset,
+                            "kv_valid_len": kv_valid_len, "causal": causal},
+                           meta=q.is_meta,
+                           shape=lambda q, *_, **__: torch.empty_like(q),
+                           cost=cost)
     _check(q, k, v, k_scale, v_scale)
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -121,3 +134,13 @@ def decode_attention(q, k, v, k_scale=None, v_scale=None, *, q_offset,
 
 
 decode_attention.launches = 0
+
+
+def cost(q, k, v, k_scale=None, v_scale=None, **_) -> dict:
+    """Attention from shapes, over every cached key (the valid lengths are
+    data): q·kᵀ and p·v, 2·hd operations each a (query, key) pair; the
+    caches and their scales read once, q read, the output written."""
+    b, s, hq, hd = q.shape
+    t = k.shape[1]
+    return {"flops": 4 * b * s * hq * t * hd,
+            "bytes": _region.nbytes(q, k, v, k_scale, v_scale, q)}

@@ -21,6 +21,10 @@ CPU through ``segment_sum_ref``).
 On CUDA tensors the forward launches the kernel or raises; there is no
 fallback. ``embedding_bag_fwd.launches`` counts forward kernel launches and
 ``segment_sum.launches`` the backward's, and only those.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns empties of the
+kernel's output shapes.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import functools
 import torch
 
 from repro_torch.device import on_card, raw_stream
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
                                                    embedding_bag_ref)
@@ -77,6 +82,10 @@ def embedding_bag_fwd(table, ids, mask) -> torch.Tensor:
     """table (N, d); ids, mask (B, L) -> (B, d) float32, the masked sum per
     bag: on the card through the kernel, on the CPU through the plain
     version."""
+    if _region.WALK is not None or table.is_meta:
+        return _region.run("embedding_bag_fwd", embedding_bag_fwd,
+                           (table, ids, mask), meta=table.is_meta,
+                           shape=_fwd_shape, cost=fwd_cost)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, mask)
     if table.device.type != "cuda":
@@ -110,7 +119,12 @@ def embedding_bag_bwd_segments(g, ids, mask, n_rows: int) -> torch.Tensor:
 def embedding_bag_bwd(g, ids, mask, n_rows: int) -> torch.Tensor:
     """The dense (n_rows, d) table gradient for the bag cotangent g (B, d):
     on the card ``embedding_bag_bwd_segments`` (one segment-sum launch,
-    deterministic), on the CPU the plain version."""
+    deterministic), on the CPU the plain version. Under an op walk it is
+    the region of the kernel it launches, ``segment_sum``."""
+    if _region.WALK is not None or g.is_meta:
+        return _region.run("segment_sum", embedding_bag_bwd,
+                           (g, ids, mask, n_rows), meta=g.is_meta,
+                           shape=_bwd_shape, cost=bwd_cost)
     if g.device.type == "cpu":
         return embedding_bag_bwd_ref(g, ids, mask, n_rows)
     if g.device.type != "cuda":
@@ -120,6 +134,34 @@ def embedding_bag_bwd(g, ids, mask, n_rows: int) -> torch.Tensor:
 
 
 embedding_bag_fwd.launches = 0
+
+
+def _fwd_shape(table, ids, mask):
+    return torch.empty((ids.shape[0], table.shape[1]), dtype=torch.float32,
+                       device=table.device)
+
+
+def _bwd_shape(g, ids, mask, n_rows):
+    return torch.zeros((n_rows, g.shape[-1]), dtype=torch.float32,
+                       device=g.device)
+
+
+def fwd_cost(table, ids, mask) -> dict:
+    """The bag's forward from shapes: every slot reads its id, mask and
+    row; each bag's sum is written once."""
+    (b, l), d = ids.shape, table.shape[1]
+    return {"flops": 2 * b * l * d,
+            "bytes": _region.nbytes(ids, mask) + 4 * b * l * d + 4 * b * d}
+
+
+def bwd_cost(g, ids, mask, n_rows) -> dict:
+    """The bag's backward (the segment sum's bag form) from shapes: every
+    slot reads its id, weight and bag cotangent; the (n_rows, d) gradient
+    is written once."""
+    d = g.shape[-1]
+    n = ids.numel()
+    return {"flops": 2 * n * d,
+            "bytes": _region.nbytes(ids, mask) + 4 * n * d + 4 * n_rows * d}
 
 
 class _EmbeddingBag(torch.autograd.Function):

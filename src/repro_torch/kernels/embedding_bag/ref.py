@@ -23,20 +23,22 @@ def embedding_bag_ref(table, ids, mask) -> torch.Tensor:
     """table (N, d); ids, mask (B, L) -> (B, d) masked sum per bag."""
     rows = table[ids.long()]                                   # (B, L, d)
     prods = rows * mask[..., None].to(table.dtype)
-    return prods.to(torch.float64).sum(dim=-2).to(table.dtype)
+    # the bag sums in float64, rounded once (the kernel's)
+    return prods.to(torch.float64).sum(dim=-2).to(table.dtype)  # staticcheck: ignore[RL404]
 
 
 def contributions(g, mask) -> torch.Tensor:
     """The (B·L, d) float64 contributions ``g[b] * mask[b, j]`` of a bag
     cotangent g (B, d), the products formed in g's dtype."""
     prods = g[:, None, :] * mask[..., None].to(g.dtype)
-    return prods.reshape(-1, g.shape[-1]).to(torch.float64)
+    # the bag backward's float64 sums (the segment sum's)
+    return prods.reshape(-1, g.shape[-1]).to(torch.float64)  # staticcheck: ignore[RL404]
 
 
 def embedding_bag_bwd_ref(g, ids, mask, n_rows: int) -> torch.Tensor:
     """The dense (n_rows, d) table gradient for the bag cotangent g (B, d):
     ``d_table[ids[b, j]] += g[b] * mask[b, j]``."""
-    total = torch.zeros((n_rows, g.shape[-1]), dtype=torch.float64,
+    total = torch.zeros((n_rows, g.shape[-1]), dtype=torch.float64,  # staticcheck: ignore[RL404]
                         device=g.device)
     total.index_add_(0, ids.reshape(-1).long(), contributions(g, mask))
     return total.to(g.dtype)

@@ -19,6 +19,10 @@ fallback. CPU tensors take the plain versions of ``ref.py``, on
 (B·H, S, hd). ``flash_attention_fwd.launches``,
 ``flash_attention_fwd_stats.launches`` and ``flash_attention_bwd.launches``
 count kernel launches, and only those.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns empties of the
+kernel's output shapes.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention.ref import (bwd_ref,
                                                      flash_attention_ref,
@@ -138,6 +143,11 @@ def _forward(q, k, v, causal: bool, lse) -> torch.Tensor:
 
 def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
     """Forward, no logsumexp rows: o in q's layout."""
+    if _region.WALK is not None or q.is_meta:
+        return _region.run("flash_attention_fwd", flash_attention_fwd,
+                           (q, k, v, causal), meta=q.is_meta,
+                           shape=lambda q, *_: torch.empty_like(q),
+                           cost=fwd_cost)
     _check(q, k=k, v=v)
     if not q.is_cuda:
         return _plain(flash_attention_ref, q, k, v, causal=causal)
@@ -149,6 +159,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True) -> torch.Tensor:
 def flash_attention_fwd_stats(q, k, v, causal: bool = True):
     """Forward with the logsumexp rows: (o in q's layout, lse (BH, S) or
     (B, H, S))."""
+    if _region.WALK is not None or q.is_meta:
+        return _region.run("flash_attention_fwd_stats",
+                           flash_attention_fwd_stats, (q, k, v, causal),
+                           meta=q.is_meta, shape=_stats_shape,
+                           cost=fwd_stats_cost)
     _check(q, k=k, v=v)
     if not q.is_cuda:
         return _plain(fwd_stats_ref, q, k, v, causal=causal)
@@ -162,6 +177,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """Backward from the stored ``lse``: (dq, dk, dv) in q's layout. The
     kernel forms ``delta = rowsum(do·o)`` from its staged rows; the
     reference forms the same sum outside its kernel."""
+    if _region.WALK is not None or q.is_meta:
+        return _region.run("flash_attention_bwd", flash_attention_bwd,
+                           (q, k, v, o, lse, do, causal), meta=q.is_meta,
+                           shape=lambda q, *_: tuple(torch.empty_like(q)
+                                                     for _ in range(3)),
+                           cost=bwd_cost)
     _check(q, k=k, v=v, o=o, lse=lse, do=do)
     if not q.is_cuda:
         return _plain(bwd_ref, q, k, v, o, lse, do, causal=causal)
@@ -181,6 +202,42 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
 flash_attention_fwd.launches = 0
 flash_attention_fwd_stats.launches = 0
 flash_attention_bwd.launches = 0
+
+
+def _stats_shape(q, k, v, causal=True):
+    return torch.empty_like(q), torch.empty(_rows_shape(q),
+                                            dtype=torch.float32,
+                                            device=q.device)
+
+
+def _pairs(s: int, causal: bool) -> int:
+    """(query, key) pairs a head attends: S² or, causal, S(S + 1)/2."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def fwd_cost(q, k, v, causal=True) -> dict:
+    """The forward from shapes: q·kᵀ and p·v, 2·hd operations each a
+    (query, key) pair; q, k, v read, o written."""
+    b, s, h, hd = _bshd(q)
+    return {"flops": 4 * b * h * hd * _pairs(s, causal),
+            "bytes": _region.nbytes(q, k, v, q)}
+
+
+def fwd_stats_cost(q, k, v, causal=True) -> dict:
+    """``fwd_cost`` and the float32 lse rows written."""
+    b, s, h, _ = _bshd(q)
+    cost = fwd_cost(q, k, v, causal)
+    cost["bytes"] += 4 * b * h * s
+    return cost
+
+
+def bwd_cost(q, k, v, o, lse, do, causal=True) -> dict:
+    """The backward from shapes: five products of 2·hd operations a pair
+    (the scores again, dv, dp, dq, dk); q, k, v, o, do, lse read, dq, dk,
+    dv written."""
+    b, s, h, hd = _bshd(q)
+    return {"flops": 10 * b * h * hd * _pairs(s, causal),
+            "bytes": _region.nbytes(q, k, v, o, lse, do, q, k, v)}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -10,6 +10,9 @@ launch or raise; there is no fallback. ``kv_cache_write.launches`` counts
 kernel launches of both, and only those. The lengths are read on the
 device, so one launch (or one CUDA-graph replay of it) serves any lengths:
 nothing waits on the host.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns the caches unwritten.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.device import on_card, raw_stream
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.kv_cache_write.ref import kv_cache_write_ref
 
@@ -126,6 +130,12 @@ def kv_cache_write_kv(k_cache: torch.Tensor, k_scale: torch.Tensor | None,
 
 
 def _write(writes, lens) -> tuple:
+    cache0 = writes[0][0]
+    if _region.WALK is not None or cache0.is_meta:
+        return _region.run("kv_cache_write", _write, (writes, lens),
+                           meta=cache0.is_meta,
+                           shape=lambda w, _: tuple(c for c, _, _ in w),
+                           cost=cost)
     for cache, scale, vals in writes:
         _check(cache, scale, vals)
     cache = writes[0][0]
@@ -159,3 +169,18 @@ def _write(writes, lens) -> tuple:
 
 
 kv_cache_write.launches = 0
+
+
+def cost(writes, lens) -> dict:
+    """The write from shapes: each value read and written at its position
+    in the cache (an int8 cache also reads and writes its scales, and
+    quantizes: ~4 operations an element). A scale that grows rewrites the
+    cache's valid prefix; that depends on the values and is not counted."""
+    flops = nb = 0
+    for cache, scale, vals in writes:
+        n = vals.numel()
+        nb += n * (vals.element_size() + cache.element_size())
+        if scale is not None:
+            nb += 2 * _region.nbytes(scale)
+            flops += 4 * n
+    return {"flops": flops, "bytes": nb}

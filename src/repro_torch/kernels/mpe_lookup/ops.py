@@ -14,6 +14,9 @@ in place gets a new descriptor. A descriptor holds weak references to its
 tensors and leaves the cache when any of them is freed: it keeps no table
 alive, and a new tensor at a freed one's address finds no descriptor. A
 call then checks the ids and makes one ctypes call.
+
+Under an op walk the call is one region (``repro_torch.kernels.region``)
+with ``lookup_cost``; on meta ids it returns an empty (*ids.shape, d).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.core.packing import words_per_row
 from repro_torch.device import on_card, raw_stream
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.mpe_lookup.ref import packed_lookup_ref
 
@@ -197,6 +201,10 @@ def _launch(table, meta, ids: torch.Tensor) -> torch.Tensor:
 
 def packed_lookup(table, meta, ids: torch.Tensor) -> torch.Tensor:
     """ids: global feature ids of any shape -> (*ids.shape, d) float32."""
+    if _region.WALK is not None or ids.is_meta:
+        return _region.run("mpe_lookup", packed_lookup, (table, meta, ids),
+                           meta=ids.is_meta, shape=_lookup_shape,
+                           cost=lookup_cost)
     flat = ids if ids.ndim == 1 else ids.reshape(-1)  # a reshape costs ~2 us
     if flat.is_cuda:
         out = _launch(table, meta, flat)
@@ -209,6 +217,23 @@ def packed_lookup(table, meta, ids: torch.Tensor) -> torch.Tensor:
 
 
 packed_lookup.launches = 0
+
+
+def _lookup_shape(table, meta, ids):
+    return torch.empty((*ids.shape, int(meta["d"])), dtype=torch.float32,
+                       device=ids.device)
+
+
+def lookup_cost(table, meta, ids) -> dict:
+    """The lookup's analytic cost from shapes: each id reads its width and
+    row index and at most the widest bucket's words, writes d floats; the
+    dequant is a multiply-add an element."""
+    n, d = ids.numel(), int(meta["d"])
+    bits = [int(b) for b in meta["bits"] if b]
+    wmax = max((words_per_row(d, b) for b in bits), default=0)
+    return {"flops": 2 * n * d,
+            "bytes": n * (ids.element_size() + 8 + 4 * wmax + 4 * d)
+            + 4 * (len(meta["bits"]) + d)}
 
 
 def packed_lookup_kernel_sharded(table, meta, ids, *, rows_axes=("model",),

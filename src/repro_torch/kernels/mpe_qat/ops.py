@@ -8,6 +8,10 @@ On CUDA tensors it launches the kernels or raises; there is no fallback.
 count kernel launches, and only those (one backward launch is the main
 kernel and its small reduction of the per-block partials). The kernels
 pick their vector width from d and the tensors' alignment themselves.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns empties of the
+kernel's output shapes.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.mpe_qat.ref import (mixed_expectation_bwd_ref,
                                              mixed_expectation_fwd_ref)
@@ -74,6 +79,10 @@ def _bits_array(bits):
 def mixed_expectation_fwd(rows, probs, alpha, beta, bits) -> torch.Tensor:
     """Eq. 9 forward: (T, d) on the card through the kernel, on the CPU
     through the plain version."""
+    if _region.WALK is not None or rows.is_meta:
+        return _region.run("mixed_expectation_fwd", mixed_expectation_fwd,
+                           (rows, probs, alpha, beta, bits),
+                           meta=rows.is_meta, shape=_fwd_shape, cost=fwd_cost)
     if rows.device.type == "cpu":
         return mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits)
     if rows.device.type != "cuda":
@@ -101,6 +110,10 @@ def mixed_expectation_bwd(rows, probs, alpha, beta, g, bits):
     """Eq. 9 backward: (drows, dprobs, dalpha, dbeta) on the card through the
     kernels (deterministic: no float atomics), on the CPU through the plain
     version."""
+    if _region.WALK is not None or rows.is_meta:
+        return _region.run("mixed_expectation_bwd", mixed_expectation_bwd,
+                           (rows, probs, alpha, beta, g, bits),
+                           meta=rows.is_meta, shape=_bwd_shape, cost=bwd_cost)
     if rows.device.type == "cpu":
         return mixed_expectation_bwd_ref(rows, probs, alpha, beta, g, bits)
     if rows.device.type != "cuda":
@@ -119,7 +132,7 @@ def mixed_expectation_bwd(rows, probs, alpha, beta, g, bits):
     with torch.cuda.device(dev):
         # float64 scratch for the per-block partials of dα and dβ
         partials = torch.empty((lib.mpe_qat_bwd_partial_rows(t, d), m + d),
-                               dtype=torch.float64, device=dev)
+                               dtype=torch.float64, device=dev)  # staticcheck: ignore[RL404]
         err = lib.mpe_qat_bwd(
             rows.data_ptr(), probs.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), g.data_ptr(), ctypes.addressof(c_bits), m, t, d,
@@ -133,6 +146,33 @@ def mixed_expectation_bwd(rows, probs, alpha, beta, g, bits):
 
 mixed_expectation_fwd.launches = 0
 mixed_expectation_bwd.launches = 0
+
+
+def _fwd_shape(rows, probs, alpha, beta, bits):
+    return torch.empty_like(rows)
+
+
+def _bwd_shape(rows, probs, alpha, beta, g, bits):
+    return (torch.empty_like(rows), torch.empty_like(probs),
+            torch.empty_like(alpha), torch.empty_like(beta))
+
+
+def fwd_cost(rows, probs, alpha, beta, bits) -> dict:
+    """Eq. 9 forward from shapes: each element quantized at every width
+    (scale, round, clamp, rescale: ~6 operations) and weighted into the
+    sum (2); rows and probs read, the output written."""
+    t, d, m = rows.shape[0], rows.shape[-1], len(bits)
+    return {"flops": 8 * t * d * m,
+            "bytes": _region.nbytes(rows, probs, alpha, beta, rows)}
+
+
+def bwd_cost(rows, probs, alpha, beta, g, bits) -> dict:
+    """Eq. 9 backward from shapes: ~12 operations an element and width;
+    rows, probs and g read, their gradients written."""
+    t, d, m = rows.shape[0], rows.shape[-1], len(bits)
+    return {"flops": 12 * t * d * m,
+            "bytes": _region.nbytes(rows, probs, alpha, beta, g, rows, probs,
+                                    alpha, beta)}
 
 
 class _MixedExpectation(torch.autograd.Function):

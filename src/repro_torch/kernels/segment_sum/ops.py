@@ -31,6 +31,10 @@ combine), and only those. ``scratch_bytes(t, w)`` is the scratch a call
 over ``t`` rows of ``w`` columns allocates beside its output.
 ``LIBRARY_SCATTER_ADDS`` names the library's kernels that these sums
 replace, as a trace names them (``is_library_scatter_add``).
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns empties of the
+kernel's output shapes.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
@@ -131,6 +136,10 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
     id is i, 0 where there is none; summed in float64, rounded once. With
     ``bag_weights`` (B, L), ``grad`` is (B, w), ``ids`` holds B·L entries
     and the rows summed are ``grad[b] * bag_weights[b, j]``."""
+    if _region.WALK is not None or grad.is_meta:
+        return _region.run("segment_sum", segment_sum, (grad, ids, n),
+                           {"bag_weights": bag_weights}, meta=grad.is_meta,
+                           shape=_shape, cost=cost)
     if bag_weights is not None:
         ids = ids.reshape(-1)
         _check_bag(grad, ids, bag_weights)
@@ -152,7 +161,7 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
     lib = _library()
     # float64 elements: the parts come first in it, 8-byte aligned
     scratch = torch.empty((-(-lib.segment_sum_scratch(t, w) // 8),),
-                          dtype=torch.float64, device=grad.device)
+                          dtype=torch.float64, device=grad.device)  # staticcheck: ignore[RL404]
     dev = grad.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -173,6 +182,21 @@ def segment_sum(grad: torch.Tensor, ids: torch.Tensor, n: int, *,
 
 
 segment_sum.launches = 0
+
+
+def _shape(grad, ids, n, *, bag_weights=None):
+    return torch.zeros((n, grad.shape[-1]), dtype=torch.float32,
+                       device=grad.device)
+
+
+def cost(grad, ids, n, *, bag_weights=None) -> dict:
+    """The sum from shapes: every summed row read once with its id (and
+    its bag weight), one add an element; the (n, w) result written once."""
+    w = grad.shape[-1]
+    t = ids.numel()
+    return {"flops": (1 if bag_weights is None else 2) * t * w,
+            "bytes": _region.nbytes(ids, bag_weights) + 4 * t * w
+            + 4 * n * w}
 
 
 class _Gather(torch.autograd.Function):

@@ -8,6 +8,9 @@ reads the entry counts from the staged buffer on the device, so one launch
 (or one CUDA-graph replay of it) serves any number of cold ids up to the
 buffer's capacity; a buffer whose counts do not fit it (negative, more
 entries than the capacity, more words than the buffer) writes nothing.
+
+Under an op walk each call is one region (``repro_torch.kernels.region``)
+charged its analytic cost; on meta tensors it returns ``out`` unwritten.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.core.packing import words_per_row
 from repro_torch.device import on_card, raw_stream
+from repro_torch.kernels import region as _region
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.tiered_cold.ref import cold_fill_ref
 
@@ -87,6 +91,10 @@ def cold_fill(out: torch.Tensor, buf: torch.Tensor, meta, alpha: torch.Tensor,
     """In place: ``out`` (..., d) float32 takes the dequantized cold rows
     staged in ``buf`` at their (flat) row indices; other rows keep their
     values. Returns ``out``."""
+    if _region.WALK is not None or out.is_meta:
+        return _region.run("tiered_cold", cold_fill,
+                           (out, buf, meta, alpha, beta), meta=out.is_meta,
+                           shape=lambda out, *_: out, cost=cost)
     bits, d = tuple(int(b) for b in meta["bits"]), int(meta["d"])
     _check(out, buf, alpha, beta, bits, d)
     flat = out.view(-1, d)
@@ -116,3 +124,11 @@ def cold_fill(out: torch.Tensor, buf: torch.Tensor, meta, alpha: torch.Tensor,
 
 
 cold_fill.launches = 0
+
+
+def cost(out, buf, meta, alpha, beta) -> dict:
+    """The fill from shapes, at most: the whole staged buffer read, every
+    row of ``out`` written with a multiply-add an element (the rows that
+    are cold depend on the request)."""
+    return {"flops": 2 * out.numel(),
+            "bytes": _region.nbytes(buf, alpha, beta, out)}

@@ -16,3 +16,13 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_device_mesh(shape, axes)
+
+
+def production_dry_mesh(*, multi_pod: bool = False, rank: int = 0):
+    """The production mesh as rank ``rank`` sees it in a dry run
+    (``repro_torch.dist.shard.DryMesh``): the same axes and sizes, this
+    rank's coordinates, no process group and so no peer."""
+    from repro_torch.dist.shard import DryMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return DryMesh(shape, axes, rank)

@@ -48,7 +48,9 @@ requests over the other axes) and merge by ``--lookup-comms`` — ``psum``,
 or ``a2a`` with ``--bucket-capacity`` ids a bucket — so every rank's scores
 are the one-device scores, bit for bit. A sharded cell on a mesh of more
 than one rank runs eager, not as a CUDA graph. Rank 0 writes ``--json``
-and ``--scores``.
+and ``--scores``. A run that started its process group ends it
+(``repro_torch.dist.mesh.launch_session``): every rank waits at a barrier,
+then destroys the group.
 
 Runs on the CUDA card unless ``--device`` names another:
 
@@ -75,7 +77,7 @@ from repro_torch.core.mpe import MPEConfig, make_groups
 from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.data.synthetic import CTRSpec, DriftingCTR, SyntheticCTR
 from repro_torch.device import full_float32, resolve_device
-from repro_torch.dist.mesh import (init_distributed, parse_mesh_flag,
+from repro_torch.dist.mesh import (launch_session, parse_mesh_flag,
                                    world_rank)
 from repro_torch.embeddings.table import FieldSpec, total_vocab
 from repro_torch.models.dlrm import DLRM, DLRMConfig
@@ -456,8 +458,13 @@ def main(argv=None):
     if args.cache_policy is not None and args.hot_frac is None:
         ap.error("--cache-policy requires --hot-frac (a tiered store)")
     device = resolve_device(args.device)
-    init_distributed(args.coordinator, args.num_hosts, args.host_id,
-                     device=device)
+    with launch_session(args.coordinator, args.num_hosts, args.host_id,
+                        device=device):
+        return _run(args, device)
+
+
+def _run(args, device):
+    """The run of ``main`` once the process group (if any) is up."""
     mesh = parse_mesh_flag(args.mesh)
     if mesh is not None:
         print(f"[serve] mesh: {mesh.shape} (rank {world_rank()}, "

@@ -20,6 +20,9 @@ rows sharded over "model" with row-shard-local updates. After the MPE
 pipeline the packed table is looked up on the mesh through
 ``--lookup-comms`` (and ``--bucket-capacity``) and held bit for bit against
 the single-device lookup (``[train] lookup check ...: bit_exact=True``).
+A run that started its process group ends it
+(``repro_torch.dist.mesh.launch_session``): every rank waits at a barrier,
+then destroys the group.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.core.mpe import MPEConfig
 from repro_torch.core.pipeline import run_mpe_pipeline
 from repro_torch.data.synthetic import CTRSpec, SyntheticCTR
 from repro_torch.device import full_float32, resolve_device
-from repro_torch.dist.mesh import init_distributed, parse_mesh_flag
+from repro_torch.dist.mesh import launch_session, parse_mesh_flag
 from repro_torch.dist.shard import rows_shard_index
 from repro_torch.train.loop import Trainer
 from repro_torch.train.optimizer import adam
@@ -163,8 +166,13 @@ def main(argv=None) -> dict:
         raise SystemExit(f"unknown --compressor {args.compressor!r}")
     device = resolve_device(args.device)
     full_float32(device)
-    init_distributed(args.coordinator, args.num_hosts, args.host_id,
-                     device=device)
+    with launch_session(args.coordinator, args.num_hosts, args.host_id,
+                        device=device):
+        return _run(args, device)
+
+
+def _run(args, device) -> dict:
+    """The run of ``main`` once the process group (if any) is up."""
     mesh = parse_mesh_flag(args.mesh)
     if mesh is not None:
         print(f"[train] mesh: {mesh.shape} (rank {mesh.rank})")

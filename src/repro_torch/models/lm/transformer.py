@@ -158,7 +158,8 @@ class LM:
         LM head, in ``cfg.dtype`` (the table and the router in float32)."""
         comp = get_compressor(cfg.compressor)
         if freqs is None:
-            freqs = torch.ones((cfg.vocab,), dtype=torch.float64)
+            # a uniform prior, float64 as the compressors' priors are
+            freqs = torch.ones((cfg.vocab,), dtype=torch.float64)  # staticcheck: ignore[RL404]
         emb_params, emb_buffers = comp.init(gen, cfg.vocab, cfg.d_model,
                                             freqs, _comp_cfg(cfg))
         per_layer = [_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
@@ -241,9 +242,12 @@ class LM:
 
     @staticmethod
     def _trunk(params, buffers, tokens, cfg: LMConfig, *, positions=None,
-               kv_caches=None, train: bool = False, step=None):
+               kv_caches=None, train: bool = False, step=None,
+               empty: bool | None = None):
         """The token lookup and the layers: (x (B, S, d) before the final
-        norm, the summed aux loss, the caches or None)."""
+        norm, the summed aux loss, the caches or None). ``empty``: whether
+        a prompt of S > 1 goes into caches that hold nothing yet (None:
+        read their length on the host)."""
         comp = get_compressor(cfg.compressor)
         x = comp.lookup(params["embedding"], buffers["embedding"], tokens,
                         _comp_cfg(cfg), train=train, step=step).to(_dt(cfg))
@@ -258,9 +262,10 @@ class LM:
             positions = offset.reshape(-1, 1) + torch.arange(s, device=dev)[None, :]
         # a prompt into caches that hold nothing yet: read on the host, so
         # only where S > 1 (a decode step never waits on the host)
-        empty = (kv_caches is not None and s > 1
-                 and torch.as_tensor(cache_len).ndim == 0
-                 and int(cache_len) == 0)
+        if empty is None:
+            empty = (kv_caches is not None and s > 1
+                     and torch.as_tensor(cache_len).ndim == 0
+                     and int(cache_len) == 0)
         quant = kv_caches is not None and "k_scale" in kv_caches
         aux = torch.zeros((), dtype=torch.float32, device=dev)
         remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
@@ -291,11 +296,11 @@ class LM:
     @staticmethod
     def _forward(params, buffers, tokens, cfg: LMConfig, *, positions=None,
                  kv_caches=None, train: bool = False, step=None,
-                 last_only: bool = False):
+                 last_only: bool = False, empty: bool | None = None):
         x, aux, new_caches = LM._trunk(params, buffers, tokens, cfg,
                                        positions=positions,
                                        kv_caches=kv_caches, train=train,
-                                       step=step)
+                                       step=step, empty=empty)
         if last_only:
             x = x[:, -1:]
         logits = RMSNorm.apply(params["ln_f"], x) @ params["lm_head"]
@@ -389,6 +394,8 @@ class LM:
         LM head runs at that position only: the one row returned."""
         caches = LM.make_kv_caches(cfg, tokens.shape[0], max_len, cache_dtype,
                                    device=tokens.device)
+        # the caches are this call's own, fresh: no host read of their length
         logits, _, caches = LM._forward(params, buffers, tokens, cfg,
-                                        kv_caches=caches, last_only=True)
+                                        kv_caches=caches, last_only=True,
+                                        empty=tokens.shape[1] > 1)
         return logits[:, -1], caches

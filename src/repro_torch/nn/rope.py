@@ -19,7 +19,8 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
     does this, in float64 rounded once."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return torch.pow(float(theta), -exponent.to(torch.float64)).to(
+    # XLA's correctly rounded pow: float64, rounded once
+    return torch.pow(float(theta), -exponent.to(torch.float64)).to(  # staticcheck: ignore[RL404,PF101]
         torch.float32)
 
 

@@ -40,8 +40,8 @@ runs an engine over the same requests, the score and tiered cells'
 gathers go through the sharded lookups (``shard_lookup``, with
 ``lookup_comms`` psum or a2a) and every rank gets the one-device scores,
 bit for bit. A sharded cell on a mesh of more than one rank runs eager,
-not as a CUDA graph. ``ServeCellDef.abstract_signature`` comes with
-ROADMAP Queue 1 item 7.
+not as a CUDA graph. ``ServeCellDef.abstract_signature`` and the declared
+specs feed the static checker (``repro_torch.analysis``).
 """
 from repro_torch.serve.batcher import Chunk, RequestBatcher, Span
 from repro_torch.serve.cache import (CellCache, CellKey, CompiledCell,

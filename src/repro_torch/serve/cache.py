@@ -359,7 +359,8 @@ class CellCache:
                             if n != before[name]}
                 for name, n in before.items():
                     kernels.COUNTERS[name].launches = n
-            torch.cuda.synchronize(dev)
+            # registration, not a request: the capture ends before the cell serves
+            torch.cuda.synchronize(dev)  # staticcheck: ignore[RL403]
         return CompiledCell(key, step, compile_s=time.perf_counter() - t0,
                             meta=meta, rows=_leading(request_specs),
                             graph=graph, inputs=inputs, output=output,

@@ -9,9 +9,13 @@ A ``ServeCellDef`` separates *bound* inputs (params/state/buffers — moved to
 the engine's device once, at registration) from *request* inputs (ids,
 tokens, KV caches — fresh every call); ``repro_torch.serve.cache.CellCache``
 turns the pair into one executable: a CUDA graph captured once on the card,
-the eager step on the CPU. The reference's partition specs are not carried:
-in eager SPMD a cell's placement is its wrappers' own
-(``repro_torch.dist.shard``, specs from ``repro_torch.dist.sharding``).
+the eager step on the CPU. In eager SPMD a cell's placement is its
+wrappers' own (``repro_torch.dist.shard``); the cell still declares the
+reference's partition specs (``bound_pspecs``, ``request_pspecs``,
+``out_pspecs``, from the ``repro_torch.dist.sharding`` families), which the
+static checker holds to the mesh contract. They are not part of the cache
+key or the fingerprint. ``abstract_signature`` lists every input leaf's
+(shape, dtype, weak) for the recompile-hazard pass.
 
 On a mesh (``repro_torch.dist``), ``shard_lookup`` routes a score or tiered
 cell's gather through the sharded lookups of ``repro_torch.dist.shard``:
@@ -35,8 +39,14 @@ import torch
 
 from repro_torch.cache.tiers import cold_buffer_words, tiered_hot_lookup_fn
 from repro_torch.core.inference import packed_lookup_fn
+from repro_torch.dist.sharding import (ROWS_AXES, P, dp_axes,
+                                       lm_kv_cache_pspecs, lm_logits_pspecs,
+                                       lm_param_pspecs, packed_serve_pspecs,
+                                       packed_table_pspecs, replicate_like,
+                                       tiered_hot_pspecs)
 from repro_torch.kernels.tiered_cold.ops import cold_fill
 from repro_torch.models.lm import LM
+from repro_torch.train.tree import leaves
 
 
 class ServeCellDef(NamedTuple):
@@ -57,6 +67,11 @@ class ServeCellDef(NamedTuple):
     meta: dict
     static: Any = None     # config baked into step_fn closures (cfg, top_k…)
     make_request_state: Callable | None = None  # fresh KV caches (device=)
+    # the declared partition specs (``repro_torch.dist.sharding.P`` trees
+    # matching bound / request_specs / the output); empty: replicated
+    bound_pspecs: tuple = ()
+    request_pspecs: tuple = ()
+    out_pspecs: Any = None
 
     @property
     def name(self) -> str:
@@ -76,6 +91,57 @@ class ServeCellDef(NamedTuple):
         meta. Part of the cache key: two same-named registrations with
         different baked-in config must not share an executable."""
         return hashlib.sha1(self.fingerprint_blob.encode()).hexdigest()[:12]
+
+    def abstract_signature(self) -> tuple:
+        """``((shape, dtype name, weak), ...)`` of every leaf of ``bound``
+        and ``request_specs``, in call order: what distinguishes
+        executables beyond the cache key. A tensor leaf is ``(shape,
+        dtype, False)``, a request spec ``((shape), dtype)`` likewise; a
+        Python number is ``((), type, True)`` — torch promotes it weakly
+        and a CUDA graph bakes it in as a constant, the port's counterpart
+        of a weak-typed leaf (the recompile-hazard pass flags it)."""
+        sig = []
+        for leaf in leaves(self.bound):
+            sig.append(_leaf_signature(leaf))
+        for spec in self.request_specs:
+            for shape, dtype in _spec_leaves(spec):
+                sig.append((tuple(shape), _dtype_name(dtype), False))
+        return tuple(sig)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _leaf_signature(leaf) -> tuple:
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), _dtype_name(leaf.dtype), False
+    if isinstance(leaf, bool):
+        return (), "bool", True
+    if isinstance(leaf, int):
+        return (), "int64", True
+    if isinstance(leaf, float):
+        return (), "float32", True
+    return (), type(leaf).__name__, False
+
+
+def _spec_leaves(spec):
+    """The ``(shape, dtype)`` leaves of one request spec: a pair, or a dict
+    of them (a decode cell's KV caches)."""
+    if isinstance(spec, dict):
+        for v in spec.values():
+            yield from _spec_leaves(v)
+    else:
+        yield spec
+
+
+def _serve_param_pspecs(params, rows_axes):
+    """A serving param tree's specs: the packed-table layout where
+    ``params["embedding"]`` is a packed table, else replicated."""
+    emb = params.get("embedding") if isinstance(params, dict) else None
+    if isinstance(emb, dict) and "subtables" in emb:
+        return packed_serve_pspecs(params, rows_axes=tuple(rows_axes))
+    return replicate_like(params)
 
 
 def packed_score_step(model, cfg, *, top_k: int | None = None,
@@ -150,6 +216,10 @@ def packed_score_cell(model, cfg, params, state, buffers, *, batch: int,
               "bucket_capacity": bucket_capacity, "rows_axes": rows_axes,
               "row_blocks": row_blocks},
         static=cfg,
+        bound_pspecs=(_serve_param_pspecs(params, rows_axes),
+                      replicate_like(state), replicate_like(buffers)),
+        request_pspecs=(P(dp_axes(), None),),
+        out_pspecs=P(dp_axes()),
     )
 
 
@@ -199,6 +269,10 @@ def packed_lookup_cell(table, meta, offsets, *, batch: int, n_fields: int,
               "bucket_capacity": bucket_capacity, "rows_axes": rows_axes,
               "row_blocks": row_blocks},
         static=(tuple(meta["bits"]), meta["d"], meta["n"]),
+        bound_pspecs=(packed_table_pspecs(table, rows_axes=tuple(rows_axes)),
+                      P(None)),
+        request_pspecs=(P(dp_axes(), None),),
+        out_pspecs=P(dp_axes(), None, None),
     )
 
 
@@ -240,6 +314,14 @@ def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
     else:
         hot_lookup = tiered_hot_lookup_fn(bits, d)
     fill_meta = {"bits": bits, "d": d}
+    param_pspecs = replicate_like(params)
+    for k in ("wide", "fm_linear"):    # the reference's row-sharded leaves
+        if k in params:
+            param_pspecs[k] = P(tuple(rows_axes))
+    # the port's hot tier also holds the lookup's width index: replicated
+    hot_pspecs = tiered_hot_pspecs(hot, rows_axes=tuple(rows_axes))
+    hot_pspecs.update({k: replicate_like(v) for k, v in hot.items()
+                       if k not in hot_pspecs})
 
     def tiered_step(p, st, bufs, hot_tree, ids, cold):
         gids = ids + bufs["offsets"][None, :]
@@ -259,6 +341,10 @@ def tiered_score_cell(model, cfg, params, state, buffers, hot, meta, *,
               "shard_lookup": shard_lookup, "lookup_comms": lookup_comms,
               "bucket_capacity": bucket_capacity},
         static=(cfg, bits, d),
+        bound_pspecs=(param_pspecs, replicate_like(state),
+                      replicate_like(buffers), hot_pspecs),
+        request_pspecs=(P(dp_axes(), None), P(None)),
+        out_pspecs=P(dp_axes()),
     )
 
 
@@ -273,8 +359,8 @@ def two_tower_retrieval_cell(model, cfg, params, state, buffers, *,
     never enter the top-k of a real request. The towers read their
     BatchNorm running statistics (eval mode); ``cfg`` carries the
     ``packed`` compressor, so each tower is one packed lookup. The
-    reference's partition specs (candidates over ``rows_axes``) are not
-    carried: on a mesh the cell runs whole on every rank."""
+    reference's specs (candidates over ``rows_axes``) are declared; on a
+    mesh the cell still runs whole on every rank."""
     fu, fi = len(cfg.user_fields), len(cfg.item_fields)
 
     def retrieve_step(p, st, bufs, user_ids, cand_ids, cand_mask):
@@ -292,6 +378,10 @@ def two_tower_retrieval_cell(model, cfg, params, state, buffers, *,
                        ((n_cands,), torch.bool)),
         meta={"kind": "retrieve", "n_cands": n_cands, "top_k": top_k},
         static=cfg,
+        bound_pspecs=(_serve_param_pspecs(params, ROWS_AXES),
+                      replicate_like(state), replicate_like(buffers)),
+        request_pspecs=(P(None, None), P(ROWS_AXES, None), P(ROWS_AXES)),
+        out_pspecs=(P(None), P(None)),
     )
 
 
@@ -328,6 +418,9 @@ def lm_decode_slotted_cell(cfg, params, buffers, *, batch: int, max_len: int,
 
     specs = _cache_specs(cfg, batch, max_len, kv_dtype)
     specs.pop("len")
+    cache_ps = {k: v for k, v in lm_kv_cache_pspecs(quantized=kv_int8).items()
+                if k != "len"}
+    dp = dp_axes()
     return ServeCellDef(
         arch=arch, shape=shape, kind="decode_slotted", batch=batch,
         step_fn=decode_step,
@@ -338,6 +431,10 @@ def lm_decode_slotted_cell(cfg, params, buffers, *, batch: int, max_len: int,
               "kv_int8": kv_int8},
         static=cfg,
         make_request_state=make_caches,
+        bound_pspecs=(lm_param_pspecs(params, cfg), replicate_like(buffers)),
+        request_pspecs=(P(dp, None) if batch > 1 else P(None, None),
+                        P(dp) if batch > 1 else P(None), cache_ps),
+        out_pspecs=(lm_logits_pspecs(batch, dp=dp), cache_ps),
     )
 
 
@@ -358,6 +455,8 @@ def lm_decode_cell(cfg, params, buffers, *, batch: int, max_len: int,
     def make_caches(device=None):
         return LM.make_kv_caches(cfg, batch, max_len, kv_dtype, device=device)
 
+    cache_ps = lm_kv_cache_pspecs(quantized=kv_int8)
+    dp = dp_axes()
     return ServeCellDef(
         arch=arch, shape=shape, kind="decode", batch=batch,
         step_fn=decode_step,
@@ -368,4 +467,8 @@ def lm_decode_cell(cfg, params, buffers, *, batch: int, max_len: int,
               "kv_int8": kv_int8},
         static=cfg,
         make_request_state=make_caches,
+        bound_pspecs=(lm_param_pspecs(params, cfg), replicate_like(buffers)),
+        request_pspecs=(P(dp, None) if batch > 1 else P(None, None),
+                        cache_ps),
+        out_pspecs=(lm_logits_pspecs(batch, dp=dp), cache_ps),
     )

@@ -309,7 +309,7 @@ class Scheduler:
                 self._mark_dispatch(ready, chunk, cursor)
                 y, total_ms = engine._timed_call(reg, *x)
                 # read before the next replay: the cells share one pool
-                y = y.cpu().numpy()
+                y = y.cpu().numpy()  # staticcheck: ignore[RL403]
             except Exception as err:   # fault injection: fail only this chunk
                 self._fail_chunk(ready, chunk, err, cursor, kind)
                 continue
@@ -369,10 +369,11 @@ class Scheduler:
                     staged = safe_stage(chunks[k + 1])   # under y's replay
                 if cuda:
                     # deliberate timing barrier: chunk latency feeds stats
-                    torch.cuda.synchronize(engine.device)
+                    torch.cuda.synchronize(engine.device)  # staticcheck: ignore[RL403]
                 total_ms = (engine._clock() - t0) * 1e3
                 # read before the next replay: the cells share one pool
-                y = y.cpu().numpy()
+                # the chunk's answer goes to the host
+                y = y.cpu().numpy()  # staticcheck: ignore[RL403]
             except Exception as err:   # fault injection: fail only this chunk
                 self._fail_chunk(ready, chunk, err, cursor, "tiered")
                 if overlap and k + 1 < len(chunks):
@@ -446,7 +447,7 @@ class Scheduler:
                 (logits, new_caches), total_ms = engine._timed_call(
                     session.reg, staged[0], staged[1], session.caches)
                 # read before the next replay writes the graph's outputs
-                logits = logits.to(torch.float32).cpu().numpy()
+                logits = logits.to(torch.float32).cpu().numpy()  # staticcheck: ignore[RL403]
             except Exception as err:   # fail active jobs, recycle their slots
                 session.fail_active(err, cursor, engine.rstats, engine.queue)
                 session.join_waiting(cursor)

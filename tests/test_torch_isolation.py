@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (the LM's too),
-nor ``chip_smoke.py``, nor the examples' twins ``examples/*_torch.py``,
-imports JAX or the JAX package, and the chip smoke run refuses to report without a CUDA card or
+"""The port stands alone: no module of ``repro_torch`` (the LM's and the
+static checker's too), nor ``chip_smoke.py``, nor
+``scripts/staticcheck_torch.py``, nor the examples' twins
+``examples/*_torch.py``, imports JAX or the JAX package, and the chip smoke run refuses to report without a CUDA card or
 outside the repository."""
 import os
 import re
@@ -84,9 +85,18 @@ LM_PATH = ("nn.rope", "nn.chunked", "nn.moe", "models.lm.transformer",
 DIST_PATH = ("dist.mesh", "dist.sharding", "dist.shard", "launch.mesh")
 
 
+# the tooling: the static contract checker, the kernels' region marker,
+# the dry-run cells and their per-device trace analysis
+TOOLING_PATH = ("analysis.findings", "analysis.lint", "analysis.op_walk",
+                "analysis.precision", "analysis.recompile",
+                "analysis.shardspec", "analysis.budgets", "analysis.corpus",
+                "analysis.runner", "kernels.region", "launch.cells",
+                "launch.dryrun", "launch.trace_analysis")
+
+
 def test_training_path_modules_are_in_the_port():
     for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
-                 + LM_PATH + DIST_PATH):
+                 + LM_PATH + DIST_PATH + TOOLING_PATH):
         assert (PORT / (name.replace(".", "/") + ".py")).is_file(), name
 
 
@@ -97,16 +107,19 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked, names = proc.stdout.strip().splitlines()[-3:]
     assert int(n_modules) >= 25 + len(TRAINING_PATH) + len(SERVING_PATH) \
-        + len(TIERED_PATH) + len(MODEL_PATH) + len(LM_PATH) + len(DIST_PATH)
+        + len(TIERED_PATH) + len(MODEL_PATH) + len(LM_PATH) + len(DIST_PATH) \
+        + len(TOOLING_PATH)
     assert leaked == "[]"
     for name in (TRAINING_PATH + SERVING_PATH + TIERED_PATH + MODEL_PATH
-                 + LM_PATH + DIST_PATH):
+                 + LM_PATH + DIST_PATH + TOOLING_PATH):
         assert f"'repro_torch.{name}'" in names, name
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         [*PORT.rglob("*.py"), *TWINS,
-                                         ROOT / "chip_smoke.py"]))
+                                         ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" /
+                                         "staticcheck_torch.py"]))
 def test_source_names_no_jax_or_reference_import(path):
     text = (ROOT / path).read_text()
     assert FORBIDDEN.findall(text) == []

@@ -83,10 +83,17 @@ def test_cpu_lookup_counts_no_launch(rng):
 
 
 def test_lookup_rejects_other_devices(rng):
+    # the meta device is no longer refused: there the wrapper computes
+    # nothing and returns the kernel's output shape (the dry run's route),
+    # launching nothing
     _, meta, t_table = _table(rng, (0, 4), 64, 16)
-    with pytest.raises(ValueError, match="CUDA or the CPU"):
-        ops.packed_lookup(t_table, meta,
-                          torch.zeros(4, dtype=torch.int32, device="meta"))
+    before = ops.packed_lookup.launches
+    out = ops.packed_lookup(t_table, meta,
+                            torch.zeros((4, 3), dtype=torch.int32,
+                                        device="meta"))
+    assert out.is_meta and out.shape == (4, 3, 16)
+    assert out.dtype == torch.float32
+    assert ops.packed_lookup.launches == before
 
 
 @pytest.mark.parametrize("b", range(9))

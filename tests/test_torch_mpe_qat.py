@@ -219,9 +219,10 @@ def test_wrapper_checks_what_the_kernels_take(rng):
     # rows of any width up to it: the LM's token tables (2,048; 6,144)
     ops._check_inputs(torch.zeros(10, 2048), probs, alpha, torch.zeros(2048),
                       bits)
-    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
-        ops.mixed_expectation_fwd(rows.to("meta"), probs.to("meta"),
-                                  alpha.to("meta"), beta.to("meta"), bits)
+    # meta tensors take the shape rule (the dry run's route): no launch
+    out = ops.mixed_expectation_fwd(rows.to("meta"), probs.to("meta"),
+                                    alpha.to("meta"), beta.to("meta"), bits)
+    assert out.is_meta and out.shape == rows.shape
 
 
 def test_division_step_gives_the_division_over_the_alpha_range_in_use():

@@ -170,8 +170,9 @@ def test_wrapper_checks_what_the_kernel_takes(rng):
     ops._check(torch.zeros(10, 300), ids, 5)     # wide rows: column tiles
     with pytest.raises(ValueError, match="w >= 1"):
         ops._check(torch.zeros(10, 0), ids, 5)
-    with pytest.raises(ValueError, match="runs on CUDA or the CPU"):
-        ops.segment_sum(grad.to("meta"), ids.to("meta"), 5)
+    # meta tensors take the shape rule (the dry run's route): no launch
+    out = ops.segment_sum(grad.to("meta"), ids.to("meta"), 5)
+    assert out.is_meta and out.shape == (5, grad.shape[1])
 
 
 @pytest.mark.parametrize("w", [7, 32])
