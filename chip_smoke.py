@@ -24,7 +24,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    attention kernels against theirs over BH {1, 3, 37} × S {8, 21, 32, 50,
    64, 65, 128, 256} × hd {4, 16, 50, 64, 128} × causal and not, and on the
    models' (B, S, H, hd) layout at H = 8 over B {1, 3} × S {8, 21, 50, 64,
-   65, 128} × hd {4, 16, 50}: both routes (S <= 64 staged, S > 64 tiled),
+   65, 128} × hd {4, 16, 50} and at H = 16 (the LM's heads) over B 2 × S
+   {65, 100, 127, 384, 1,024} × hd {64, 128}: both routes (S <= 64 staged,
+   S > 64 tiled, partial key tiles at S 100 and 127),
    o and lse within rtol = atol = 3e-5, dq, dk, dv within 2e-4 (the
    reference's contracts), the backward run twice bit-identical. The embedding bag's forward kernel
    and backward against theirs over B {1, 4, 16, 1024} × L {1, 3, 7, 20,
@@ -352,8 +354,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    d = 2,048 (the LM's rows: 384 words at 6 bits).
 23. flash attention at internlm2-1.8b's prefill shapes (16 heads of 128,
    causal, the tiled route): S = 4,096 against the plain version on every
-   head, S = 32,768 on two (b, h) slices; timed beside the bound, the plain
-   version over every head and SDPA's forward.
+   head, S = 32,768 on two (b, h) slices; timed beside both bounds (the
+   tensor pipe's in split TF32, and the SIMT float32 one of earlier runs),
+   the tiled route's time before its redesign (PERF.md), the plain version
+   over every head and SDPA's forward.
 24. internlm2-1.8b at full width (24 layers, d 2,048, 16 / 8 heads of 128,
    d_ff 8,192, vocab 92,544, bf16), its token table packed on the card
    (``Packed.init`` over ``TokenStream``'s Zipf frequencies). The slotted
@@ -415,8 +419,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    flash arguments kept: the last layer's recomputed forward bit-identical
    to its first run, the forward with statistics and the backward at
    (8, 4,096, 16, 128) against their plain versions on three (b, h)
-   slices, twice bit-identical, timed beside the bound, the plain version
-   over every head and SDPA's forward and forward plus backward; the
+   slices, twice bit-identical, timed beside both bounds (tensor pipe and
+   SIMT), the tiled route's time before its redesign (PERF.md), the plain
+   version over every head and SDPA's forward and forward plus backward; the
    chunked cross-entropy against the whole logit matrix on one sequence;
    every leaf updated in place, every moment float32; one traced step.
 29. the vocabulary search: the same model with ``mpe_search`` on its token
@@ -570,8 +575,8 @@ QAT_SOURCE = "src/repro_torch/csrc/mpe_qat.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_TOL = dict(rtol=3e-5, atol=3e-5)  # the reference's forward contract
 FLASH_BWD_TOL = dict(rtol=2e-4, atol=2e-4)  # and its backward's
-FLASH_STAGED_MAX_S = 64         # kMaxStaged: the longest S of the staged route
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12       # its dense TF32 tensor-core rate (data sheet)
 SASREC_LAM = 1e-5               # the reference's SASRec train cell
 TRAIN_ROWS = 65536              # the reference's train_batch cell
 SERVE_CANDS = 1000              # its serve_p99 candidate set for SASRec
@@ -776,6 +781,16 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: dict,
     check(ok, f"{what}: outside rtol={tol['rtol']} atol={tol['atol']} (max "
           f"|diff| {max_abs(got, want):.3e})")
     return max_abs(got, want)
+
+
+def unit_rms(x: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """x scaled by a power of two to an RMS in [1, 2), and x's RMS. A
+    training step's own cotangents can lie far below the flash backward's
+    atol, where a kernel that wrote zeros would pass; the backward is
+    linear in do, so it is held to its contract at this scale, do scaled
+    alike for the kernel and its plain version."""
+    rms = float(x.square().mean(dtype=torch.float64).sqrt())
+    return x * 2.0 ** -math.floor(math.log2(rms)), rms
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
@@ -2913,7 +2928,7 @@ def heads_flat(x: torch.Tensor) -> torch.Tensor:
 
 def flash_route(s: int) -> str:
     """The kernels' route for a sequence length (csrc/flash_attention.cu)."""
-    return "staged" if s <= FLASH_STAGED_MAX_S else "tiled"
+    return "staged" if s <= flash_ops.MAX_STAGED else "tiled"
 
 
 def check_flash(q, k, v, do, causal: bool, what: str, errs: dict) -> None:
@@ -2946,9 +2961,10 @@ def check_flash(q, k, v, do, causal: bool, what: str, errs: dict) -> None:
 
 def phase_flash_grid(dev) -> dict:
     """The three flash attention kernels against their plain versions, on
-    (BH, S, hd) and, at H = 8, on the models' (B, S, H, hd); both routes
-    (S <= 64 staged, S > 64 tiled). Returns the largest |differences| by
-    kernel, and by route."""
+    (BH, S, hd) and on the models' (B, S, H, hd): at H = 8, and at the LM's
+    H = 16 with hd 64 and 128 over S {65, 100, 127, 384, 1,024} (partial
+    key tiles at 100 and 127); both routes (S <= 64 staged, S > 64 tiled).
+    Returns the largest |differences| by kernel, and by route."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     routes = {r: {"S": set(), "cases": 0,
                   "errs": {"fwd": 0.0, "fwd_stats": 0.0, "bwd": 0.0}}
@@ -2959,6 +2975,8 @@ def phase_flash_grid(dev) -> dict:
     heads = [((b, s, 8, hd), causal) for causal in (True, False)
              for b in (1, 3) for s in (8, 21, 50, 64, 65, 128)
              for hd in (4, 16, 50)]
+    heads += [((2, s, 16, hd), causal) for causal in (True, False)
+              for s in (65, 100, 127, 384, 1024) for hd in (64, 128)]
     cases += heads
     for shape, causal in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
@@ -2973,8 +2991,8 @@ def phase_flash_grid(dev) -> dict:
     errs["routes"] = {name: {**r, "S": sorted(r["S"])}
                       for name, r in routes.items()}
     log(f"flash grid: {len(cases)} cases ({routes['staged']['cases']} staged, "
-        f"{routes['tiled']['cases']} tiled; H = 8 through the (B, S, H, hd) "
-        f"wrappers in {len(heads)}) within the contracts, the backward "
+        f"{routes['tiled']['cases']} tiled; H = 8 and 16 through the (B, S, H, "
+        f"hd) wrappers in {len(heads)}) within the contracts, the backward "
         f"repeatable; max |diff| o {errs['fwd']:.3e}, o and lse "
         f"{errs['fwd_stats']:.3e}, dq/dk/dv {errs['bwd']:.3e}")
     return errs
@@ -3624,15 +3642,29 @@ def flash_work(bh: int, s: int, hd: int, kind: str, causal: bool = True) -> dict
     """Bytes the function must move (each input read once, each output
     written once; the backward reads q, k, v, o, do and lse and writes dq,
     dk, dv, forming delta inside) and float32 operations of its products for
-    these shapes (the causal ones skip the keys above the diagonal)."""
+    these shapes (the causal ones skip the keys above the diagonal). The
+    bound takes the products at the tensor pipe in split TF32 (three TF32
+    products a product, the least the card needs for float32 accuracy);
+    ``simt_bound_ms`` at the float32 rate outside the tensor cores, the
+    bound earlier rows gave."""
     tensor, rows = 4 * bh * s * hd, 4 * bh * s
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     nbytes = {"fwd": 4 * tensor, "fwd_stats": 4 * tensor + rows,
               "bwd": 8 * tensor + rows}[kind]
     flops = (10 if kind == "bwd" else 4) * hd * pairs
-    byte_ms, flop_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(byte_ms, flop_ms),
-            "bound_by": "bytes" if byte_ms >= flop_ms else "operations"}
+            "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+            "simt_bound_ms": max(byte_ms, flops / F32_FLOPS_PER_S * 1e3)}
+
+
+def bounds_text(row: dict) -> str:
+    """A timed flash row's two bounds and its share of each."""
+    return (f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (tensor "
+            f"pipe, split TF32): {row['bound_ms'] / row['ms']:.1%} of it; "
+            f"SIMT bound {row['simt_bound_ms']:.4f} ms: "
+            f"{row['simt_bound_ms'] / row['ms']:.1%}")
 
 
 def sdpa_ms(q, k, v, do, iters: int, causal: bool) -> dict:
@@ -3713,9 +3745,7 @@ def time_flash(q, k, v, do, causal: bool, kinds: tuple, iters: int,
             f"{'causal' if causal else 'not causal'}, {tuple(q.shape)}): "
             f"max |diff| {r['max_abs_err']:.3e} against the plain version; "
             f"{r['ms']:.4f} ms per call (plain {r['plain_ms']:.4f} ms; "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bytes']} bytes, {r['flops']} flops: "
-            f"{r['bound_ms'] / r['ms']:.1%} of it; SDPA "
+            f"{r['bytes']} bytes, {r['flops']} flops, {bounds_text(r)}; SDPA "
             f"{'forward + backward' if kind == 'bwd' else 'forward'} "
             f"{r['library_ms']:.4f} ms)")
     return row
@@ -3756,8 +3786,9 @@ FLASH_FWD_NAME = "(anonymous namespace)::flash_fwd_"
 
 def flash_kernel_ms(by_name: dict, kind: str) -> float:
     """Traced device ms of the port's flash kernels of ``kind`` ("fwd" or
-    "bwd"), both routes: ``flash_fwd_kernel``, ``flash_fwd_tiled_kernel``
-    and their backward twins (not PyTorch's own ``pytorch_flash::``)."""
+    "bwd"), both routes: ``flash_fwd_kernel``, ``flash_fwd_tiled_kernel``,
+    ``flash_bwd_kernel`` and the tiled backward's ``flash_bwd_dq_kernel``
+    and ``flash_bwd_dkdv_kernel`` (not PyTorch's own ``pytorch_flash::``)."""
     return sum(ms for name, ms in by_name.items()
                if f"(anonymous namespace)::flash_{kind}_" in name)
 
@@ -3781,7 +3812,8 @@ def flash_records(grid_errs, serve, train, times, bst_errs) -> list:
                  row[kind]["max_abs_err"] for row in times.values()
                  if kind in row)),
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "bound_by": r["bound_by"], "simt_bound_ms": r["simt_bound_ms"],
+             "library_ms": r["library_ms"],
              "library_call": call, "bytes": r["bytes"], "flops": r["flops"],
              "shapes": {shape: row[kind] for shape, row in times.items()
                         if kind in row},
@@ -3999,7 +4031,8 @@ def check_bst_step_inputs(trainer, batch, step: int, cfg) -> dict:
     saved for the backward, and the cotangents): on those, each kernel
     against its plain version at the path's shapes — the flash forward with
     stats (o and lse at ``FLASH_TOL``; its o and lse also equal to the
-    step's own) and backward (``FLASH_BWD_TOL``, twice bit-identical), the
+    step's own) and backward (``FLASH_BWD_TOL`` at the step's do brought
+    to unit RMS by ``unit_rms``, twice bit-identical), the
     ``mpe_qat`` forward and backward by ``check_qat``. Returns the largest
     |difference| of each kernel and the shapes."""
     calls = captured(lambda: trainer.train_step(batch, step),
@@ -4011,9 +4044,11 @@ def check_bst_step_inputs(trainer, batch, step: int, cfg) -> dict:
     flash = calls["flash_attention_bwd"]
     check(len(flash) == cfg.n_blocks, f"bst step: {len(flash)} flash "
           f"backward calls, not {cfg.n_blocks}")
-    shapes = {"flash": [], "mpe_qat": []}
+    shapes, do_rms = {"flash": [], "mpe_qat": []}, []
     for q, k, v, o, lse, do, causal in flash:
         what = f"bst step: flash at {tuple(q.shape)}, causal={causal}"
+        do, rms = unit_rms(do)
+        do_rms.append(rms)
         check(tuple(q.shape) == want_shape and not causal,
               f"{what}: not the path's non-causal (B, S, H, hd) {want_shape}")
         shapes["flash"].append(list(q.shape))
@@ -4055,10 +4090,12 @@ def check_bst_step_inputs(trainer, batch, step: int, cfg) -> dict:
     del calls, flash, qat
     log(f"bst step inputs: flash {shapes['flash']} non-causal, o and lse "
         f"within 3e-5 (max |diff| {errs['fwd_stats']:.3e}), dq/dk/dv within "
-        f"2e-4 ({errs['bwd']:.3e}), backward repeatable; mpe_qat "
+        f"2e-4 ({errs['bwd']:.3e}) at do scaled to unit RMS (the step's RMS "
+        f"{min(do_rms):.3e}-{max(do_rms):.3e}), backward "
+        f"repeatable; mpe_qat "
         f"{shapes['mpe_qat']}: out and drows bit-identical to the plain "
         f"version, sums max |diff| {errs['qat_bwd']:.3e}, backward repeatable")
-    return {"errs": errs, "shapes": shapes}
+    return {"errs": errs, "shapes": shapes, "do_rms": do_rms}
 
 
 def phase_bst_train(dev, prior) -> dict:
@@ -5536,10 +5573,9 @@ def lm_flash_row(q, k, v, what: str, slices=None) -> dict:
            "S": s, "input_shape": list(q.shape), "causal": True,
            "checked_heads": len(heads)}
     log(f"flash fwd at {what} ({tuple(q.shape)}, tiled route): max |diff| "
-        f"{err:.3e} on {len(heads)} (b, h); {row['ms']:.3f} ms (plain "
-        f"{row['plain_ms']:.3f}, SDPA {row['library_ms']:.3f}); bound "
-        f"{row['bound_ms']:.3f} ms by {row['bound_by']}: "
-        f"{row['bound_ms'] / row['ms']:.1%} of it")
+        f"{err:.3e} on {len(heads)} (b, h); {row['ms']:.3f} ms ("
+        f"plain {row['plain_ms']:.3f}, "
+        f"SDPA {row['library_ms']:.3f}); {bounds_text(row)}")
     return row
 
 
@@ -6503,7 +6539,8 @@ def lm_flash_train_rows(seen: dict, n_layers: int, what: str) -> dict:
     arguments at (8, 4,096, 16, 128), causal (``recorded_flash``): the
     kernels on the whole batch held against their plain versions on the
     (b, h) slices of ``LM_FLASH_SLICES`` (o and lse within 3e-5, dq, dk, dv
-    within 2e-4; the backward twice bit-identical); the last layer's
+    within 2e-4 at the step's do brought to unit RMS by ``unit_rms``; the
+    backward twice bit-identical); the last layer's
     recomputed forward bit-identical to its first run (inputs, o and lse),
     so the backward is repeatable under remat; then each timed beside its
     bound, its plain version over every head (one sequence at a time) and
@@ -6518,6 +6555,7 @@ def lm_flash_train_rows(seen: dict, n_layers: int, what: str) -> dict:
     del q2, k2, v2, o2, lse2, o1, lse1
     (q, k, v, causal), _ = seen["flash_attention_fwd_stats"][0]
     (bq, bk, bv, bo, blse, bdo, _), _ = seen["flash_attention_bwd"][0]
+    bdo, do_rms = unit_rms(bdo)
     b, s, h, hd = q.shape
     rows = {}
     o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, True)
@@ -6566,13 +6604,16 @@ def lm_flash_train_rows(seen: dict, n_layers: int, what: str) -> dict:
                "sdpa_fwd_ms": lib["fwd"], "sdpa_fwd_bwd_ms": lib["fwd_bwd"],
                "S": s, "input_shape": list(q.shape), "causal": True,
                "checked_heads": len(LM_FLASH_SLICES)}
+        if kind == "bwd":
+            row["step_do_rms"] = do_rms
         rows[kind] = row
+        at = (f" at do scaled to unit RMS (the step's {do_rms:.3e})"
+              if kind == "bwd" else "")
         log(f"flash {kind} at {what} ({tuple(q.shape)}, causal, tiled "
-            f"route): max |diff| {err:.3e} on {len(LM_FLASH_SLICES)} (b, h); "
-            f"{row['ms']:.3f} ms a call (plain {row['plain_ms']:.3f} ms; "
-            f"SDPA forward {lib['fwd']:.3f}, forward + backward "
-            f"{lib['fwd_bwd']:.3f} ms); bound {row['bound_ms']:.3f} ms by "
-            f"{row['bound_by']}: {row['bound_ms'] / row['ms']:.1%} of it")
+            f"route): max |diff| {err:.3e} on {len(LM_FLASH_SLICES)} (b, h)"
+            f"{at}; {row['ms']:.3f} ms a call (plain {row['plain_ms']:.3f} "
+            f"ms; SDPA forward {lib['fwd']:.3f}, forward + backward "
+            f"{lib['fwd_bwd']:.3f} ms); {bounds_text(row)}")
     rows["recompute_bit_identical"] = recompute_same
     return rows
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's ``segment_sum``, ``decode_attention``, ``kv_cache_write``
-and ``tiered_cold`` wrappers at the paths' shapes on one CUDA card, taken
-apart into their pieces, and, with ``--parent-src``, beside another
-checkout's wrappers in the same process.
+"""Time the port's ``segment_sum``, ``decode_attention``, ``kv_cache_write``,
+``tiered_cold`` and flash-attention wrappers at the paths' shapes on one
+CUDA card, taken apart into their pieces, and, with ``--parent-src``,
+beside another checkout's wrappers in the same process.
 
     python3 scripts/kernel_ab.py [--parent-src DIR] [--only KERNEL ...] [--json OUT]
 
 ``KERNEL`` is one of ``segment_sum``, ``decode_attention``,
-``kv_cache_write`` and ``tiered_cold``; ``--only`` may be given more than
-once.
+``kv_cache_write``, ``tiered_cold`` and ``flash``; ``--only`` may be given
+more than once.
 
 ``DIR`` is another checkout's ``src`` (``git archive HEAD src | tar -x -C
 build/parent``): its ``kernels/build.py`` builds its own ``csrc`` into its
@@ -55,6 +55,19 @@ hot 0.1 (208,006), and the 512-row cell's fill at hot 0.1 (406) and 0
 graph (one call a graph, and ten) and traced; both sides' outputs equal
 to the plain version's bit for bit.
 
+``flash``: the three flash-attention wrappers on (B, S, H, hd), causal:
+the forward at internlm2's prefill of 4,096 and 32,768 (16 heads of 128),
+the forward with statistics and the backward at ``train_4k`` (8 × 4,096)
+and at deepseek-moe's training shape (2 × 4,096, 16 heads of 128), all on
+the tiled route; and all three at SASRec's (65,536, 50, 1, 50), causal,
+and BST's (65,536, 21, 8, 4), not causal, on the staged route, where the
+two sides' outputs must be equal bit for bit. Both sides' backwards take
+the same o and lse (the change's forward); the change's call traced by
+kernel (the tiled backward's dQ and dK/dV kernels apart). Each row holds both bounds
+(split TF32 at the tensor pipe, and SIMT float32), SDPA's forward (and
+forward plus backward beside the backward; timed only) and, where the
+sides differ, their largest |difference|.
+
 Prints one JSON object (also to ``--json``), with the card's name and
 power limit.
 """
@@ -77,6 +90,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.cache.tiers import cold_buffer_words  # noqa: E402
 from repro_torch.core.packing import words_per_row  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.kv_cache_write import ops as kvw_ops  # noqa: E402
 from repro_torch.kernels.kv_cache_write.ref import (  # noqa: E402
     kv_cache_write_ref)
@@ -85,7 +99,9 @@ from repro_torch.kernels.tiered_cold import ops as cold_ops  # noqa: E402
 from repro_torch.kernels.tiered_cold.ref import cold_fill_ref  # noqa: E402
 
 SEED = 0
-KERNELS = ("segment_sum", "decode_attention", "kv_cache_write", "tiered_cold")
+KERNELS = ("segment_sum", "decode_attention", "kv_cache_write", "tiered_cold",
+           "flash")
+MODULES = {"flash": "flash_attention"}   # a kernel's directory, where not its name
 
 
 def load_parent(src: Path) -> dict:
@@ -101,7 +117,8 @@ def load_parent(src: Path) -> dict:
     saved = sys.modules["repro_torch.kernels.build"]
     sys.modules["repro_torch.kernels.build"] = build
     try:
-        return {name: load(f"parent_{name}_ops", kernels / name / "ops.py")
+        return {name: load(f"parent_{name}_ops",
+                           kernels / MODULES.get(name, name) / "ops.py")
                 for name in KERNELS}
     finally:
         sys.modules["repro_torch.kernels.build"] = saved
@@ -467,6 +484,66 @@ def tiered_cold_ab(sides: dict, dev) -> list:
     return rows
 
 
+FLASH_SHAPES = (
+    ("internlm2 prefill 4,096", (1, 4096, 16, 128), True, ("fwd",), 20),
+    ("internlm2 prefill 32,768", (1, 32768, 16, 128), True, ("fwd",), 3),
+    ("internlm2 train_4k", (8, 4096, 16, 128), True, ("fwd_stats", "bwd"), 5),
+    ("deepseek-moe train", (2, 4096, 16, 128), True, ("fwd_stats", "bwd"), 10),
+    ("sasrec train_batch (staged)", (65536, 50, 1, 50), True,
+     ("fwd", "fwd_stats", "bwd"), 20),
+    ("bst train step (staged)", (65536, 21, 8, 4), False,
+     ("fwd", "fwd_stats", "bwd"), 20))
+
+
+FLASH_KEYS = {"fwd_tiled": ("flash_fwd_tiled",), "bwd_dq": ("flash_bwd_dq",),
+              "bwd_dkdv": ("flash_bwd_dkdv",), "staged": ("flash_fwd_kernel",
+                                                          "flash_bwd_kernel")}
+
+
+def flash_ab(sides: dict, dev) -> list:
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for name, shape, causal, kinds, iters in FLASH_SHAPES:
+        b, s, h, hd = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        o, lse = flash_ops.flash_attention_fwd_stats(q, k, v, causal)
+        lib = cs.sdpa_ms(q, k, v, do, max(iters // 2, 2), causal)
+        for kind in kinds:
+            calls = {side: {
+                "fwd": lambda m=mod: (m.flash_attention_fwd(q, k, v, causal),),
+                "fwd_stats": lambda m=mod: m.flash_attention_fwd_stats(
+                    q, k, v, causal),
+                "bwd": lambda m=mod: m.flash_attention_bwd(q, k, v, o, lse, do,
+                                                           causal)}[kind]
+                for side, mod in sides.items()}
+            row = {"shape": name, "kind": kind, "input_shape": list(shape),
+                   "causal": causal,
+                   "route": cs.flash_route(s),
+                   **cs.flash_work(b * h, s, hd, kind, causal),
+                   "sdpa_fwd_ms": lib["fwd"], "sdpa_fwd_bwd_ms": lib["fwd_bwd"]}
+            outs = {}
+            order = ["parent", "change", "change", "parent"] \
+                if len(sides) > 1 else ["change"]
+            for side in order:
+                if side not in outs:
+                    outs[side] = calls[side]()
+                row.setdefault(f"{side}_ms", []).append(
+                    cs.cuda_ms(calls[side], iters, warmup=1))
+            row["change_traced"] = traced(calls["change"], FLASH_KEYS, reps=2)
+            if "parent" in outs:
+                row["equal"] = all(torch.equal(x, y) for x, y in
+                                   zip(outs["parent"], outs["change"]))
+                row["max_abs_diff"] = max(float((x - y).abs().max()) for x, y
+                                          in zip(outs["parent"], outs["change"]))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del outs
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-src", type=Path)
@@ -486,7 +563,8 @@ def main() -> int:
     for kernel, fn, mod in (("segment_sum", segment_sum_ab, seg_ops),
                             ("decode_attention", decode_attention_ab, da_ops),
                             ("kv_cache_write", kv_cache_write_ab, kvw_ops),
-                            ("tiered_cold", tiered_cold_ab, cold_ops)):
+                            ("tiered_cold", tiered_cold_ab, cold_ops),
+                            ("flash", flash_ab, flash_ops)):
         if args.only is None or kernel in args.only:
             sides = {"change": mod}
             if kernel in parent:

@@ -15,14 +15,15 @@
 //   o = acc / max(den, 1e-30), rounded as the division rounds (divide());
 //   lse = m + log(max(den, 1e-30));
 //   backward: p = exp(s - lse), dp = do . v, ds = p * (dp - delta) * scale,
-//   with delta = rowsum(do * o), formed here from the staged do and o rows
-//   (the reference forms it outside its kernel; the sum is the same).
-// At hd <= 4 and on the tiled route the products are float32 FMAs in order
-// of d; at hd > 4 they run on the tensor cores in split TF32 (three TF32
-// products per product, about 2^-20 of it dropped; see mma3()). expf and
-// logf are the accurate ones: build without --use_fast_math. Every sum runs
-// in a fixed order and no float atomics are used, so the backward gives the
-// same bits when repeated.
+//   with delta = rowsum(do * o), formed inside, once a row (the reference
+//   forms it outside its kernel; the sum is the same).
+// On the staged route at hd <= 4 the products are float32 FMAs in order of
+// d; everywhere else (the staged route at hd > 4, the tiled route at every
+// hd) they run on the tensor cores in split TF32 (three TF32 products per
+// product, about 2^-20 of it dropped; see mma3()). expf and logf are the
+// accurate ones: build without --use_fast_math. Every sum runs in a fixed
+// order and no float atomics are used, so the backward gives the same bits
+// when repeated.
 //
 // Two routes, chosen by S inside the C entry points (both launch or fail;
 // neither falls back on the other):
@@ -58,13 +59,46 @@
 //     band, splitting the key columns of S and dP, then the columns of hd
 //     of dQ = dS.K, dV = P^T.dO and dK = dS^T.Q; each output written once.
 //     Bound by the tensor pipe and the TF32 splits.
-// * S > 64, tiled (flash_fwd_tiled_kernel, flash_bwd_tiled_kernel): SIMT
-//   float32, 64 x 64 tiles in shared memory, loaded from rows H*hd apart.
-//   The forward runs one block per (bh, query tile) over the key tiles with
-//   the online softmax; the backward one block per bh over the key tiles,
-//   keeping dk and dv in registers and adding dq in a fixed order (only this
-//   block and thread touch it); delta is formed per query tile from do and
-//   o.
+// * S > 64, tiled (flash_fwd_tiled_kernel; the backward flash_bwd_dq_kernel
+//   then flash_bwd_dkdv_kernel): the LM's prefill and training at hd 128.
+//   What bounds it is the tensor pipe: at train_4k (8 x 4,096, 16 heads of
+//   128, causal) the forward's two products are 5.5e11 float32 operations
+//   against 1.07 GB, so in split TF32 at 495 TFLOP/s they take 3.3 ms where
+//   the bytes take 0.32 ms; the backward's five products 8.3 ms. Where the
+//   time goes on mma.sync (scripts/flash_variants.py --set tiled, H100 at
+//   700 W): splitting each operand into its TF32 pair, which every warp
+//   does for each tile it reads, is about a third of each kernel (34% of
+//   the forward at 4,096 keys, 32% of the backward at train_4k); the two
+//   extra TF32 products a fifth to a quarter (20-24%); the rest is the
+//   one product left, the softmax and the copies. The design:
+//   - Forward: one block per (b·h, 64-row query tile), four warps of 16
+//     query rows, a sequence's tiles together and its heaviest (last) first,
+//     so the blocks in flight share its keys in L2. Q staged once; K and V
+//     tiles of 64 keys in two buffers, each refilled by 16-byte cp.async as
+//     soon as every warp has read it (K_{j+1} lands during the softmax and
+//     P.V of tile j, V_{j+1} during the scores of tile j + 1); deeper
+//     rings gained nothing (32-key tiles, alone or two deep, within 1.5%;
+//     two 64-key stages or three 32-key ones, one block an SM, 20-37%
+//     slower). S = Q.K^T with fragments loaded by ldmatrix (four 8 x 4 float blocks a load);
+//     the online softmax on the accumulator fragments, quad shuffles for a
+//     row's max and sum; P stays in registers for O += P.V (the k order is
+//     permuted instead of the registers). When causal only the key tiles up
+//     to the query tile's last row.
+//   - Backward: the dQ kernel, a block per (b·h, 64-row query tile) over
+//     key steps of 32 up to the diagonal, forms delta once a row (into a
+//     (B, H, S) scratch), recomputes S and dP, and sums dQ = dS.K; then the
+//     dK/dV kernel, a block per (b·h, 64-row key tile) over query steps of
+//     32 from the diagonal on, sums dV = P^T.dO and dK = dS^T.Q. K and V (Q
+//     and dO) of a step take two buffers whose roles swap every step, so
+//     both land during compute. Each output is written once, no atomics;
+//     the price is S and dP formed twice (seven products for five). The
+//     grid is (b·h) x tiles: 8,192 blocks of each kind at train_4k.
+//   - Columns padded to hd rounded up to 16, 32, 64 or 128, rows to that
+//     plus 4 floats (132 at hd 128: an odd multiple of 4, so fragment loads
+//     meet 32 distinct banks and rows stay 16-byte aligned); at hd 128 each
+//     kernel takes 99-99.5 KB of shared memory and 160-255 registers a
+//     thread: two blocks (eight warps) an SM. Any S > 64: rows past S are
+//     copied in as zeros and masked.
 //
 // Built by repro_torch/kernels/build.py with nvcc into a shared library with
 // a plain C interface, bound with ctypes.
@@ -843,337 +877,521 @@ flash_bwd_kernel(Tensors t, Shape sh, Staging g, float scale, int causal) {
 // Tiled route (S > 64)
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;           // query rows and key rows of a tile
-constexpr int kThreads = 256;       // 16 row groups x 16 column groups
-constexpr int kPLd = kTile + 1;     // row stride of the P and dS tiles
+constexpr int kTiledThreads = 128;  // four warps, 16 rows of a tile each
+constexpr int kTileRows = 64;       // query rows of a forward or dQ block,
+                                    // key rows of a dK/dV block
+constexpr int kStepRows = 32;       // key rows of a dQ step, query rows of
+                                    // a dK/dV step
+// The forward's key tiles: kFwdKeyRows keys, K and V each in a ring of
+// kFwdStages buffers (scripts/flash_variants.py --set tiled times other
+// settings: none was faster at hd 128).
+constexpr int kFwdKeyRows = 64;
+constexpr int kFwdStages = 1;
 
-// Odd row stride of a (kTile, hd) tile in shared memory.
-__host__ __device__ __forceinline__ int tile_ld(int hd) { return hd | 1; }
+// Row stride (floats) of a tile whose columns are padded to 8 ND: 8 ND + 4,
+// an odd multiple of 4. An ldmatrix's eight 16-byte rows and the 32-bit
+// loads that walk rows by 2 tig (B operands with the keys or queries along
+// k) then meet distinct banks, and every row stays 16-byte aligned for
+// cp.async and ldmatrix.
+template <int ND>
+__host__ __device__ constexpr int tiled_ld() {
+  return 8 * ND + 4;
+}
 
-// Rows [row0, row0 + kTile) of a sequence whose rows lie `stride` floats
-// apart from `src` on, into dst (row stride ld); rows at or past S become 0.
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int s, int hd, int ld,
-                                          int stride) {
-  const int n = kTile * hd;
-  const int valid = (s - row0) * hd;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / hd, d = e - r * hd;
-    dst[r * ld + d] =
-        e < valid ? src[static_cast<size_t>(row0 + r) * stride + d] : 0.f;
+// cp.async of kBytes (16 or 4) that writes zeros where !live (src-size 0;
+// src is not read then).
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
+                                               bool live) {
+  const int n = live ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
   }
 }
 
-// acc[i][j] = sum_d a[(rg*4 + i) * ld + d] * b[(cg + 16*j) * ld + d], in
-// order of d, each term one fused multiply-add.
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4],
-                                         const float* a, const float* b,
-                                         int hd, int ld, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const float* ar = a + rg * 4 * ld;
-  const float* br = b + cg * ld;
-#pragma unroll 2
-  for (int d = 0; d < hd; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = ar[i * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = br[16 * j * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+// Rows [row0, row0 + kRows) of a (b, h) sequence whose rows lie `stride`
+// floats apart from `src` on, columns [0, hd), into dst (row stride LD):
+// 16 bytes a copy where vec4 (hd % 4 == 0, pointers 16-byte aligned), else
+// 4; rows at or past S become zeros. Columns [hd, LD) are not written.
+template <int kRows, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int s, int hd, int stride,
+                                          int vec4) {
+  if (vec4) {
+    const int per_row = hd >> 2;
+    for (int c = threadIdx.x; c < kRows * per_row; c += kTiledThreads) {
+      const int r = c / per_row, e = (c - r * per_row) << 2;
+      const bool live = row0 + r < s;
+      cp_async_zfill<16>(
+          dst + r * LD + e,
+          live ? src + static_cast<size_t>(row0 + r) * stride + e : src, live);
+    }
+  } else {
+    for (int c = threadIdx.x; c < kRows * hd; c += kTiledThreads) {
+      const int r = c / hd, e = c - r * hd;
+      const bool live = row0 + r < s;
+      cp_async_zfill<4>(
+          dst + r * LD + e,
+          live ? src + static_cast<size_t>(row0 + r) * stride + e : src, live);
     }
   }
 }
 
-// Max and sum over the 16 lanes of a half warp (one row group).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+// Entries [row0, row0 + n) of a (B, H, S) row vector from `src` (the
+// sequence's start) into dst; entries at or past S become zeros.
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int n, int s) {
+  for (int r = threadIdx.x; r < n; r += kTiledThreads) {
+    const bool live = row0 + r < s;
+    cp_async_zfill<4>(dst + r, live ? src + row0 + r : src, live);
   }
-  return x;
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
+// Columns [hd, 8 ND) of `rows` rows (stride tiled_ld<ND>()) to zero: the
+// fragments read them, cp.async never writes them.
+template <int ND>
+__device__ __forceinline__ void zero_pad(float* p, int rows, int hd) {
+  const int pad = 8 * ND - hd;
+  for (int e = threadIdx.x; e < rows * pad; e += kTiledThreads) {
+    const int r = e / pad;
+    p[r * tiled_ld<ND>() + hd + (e - r * pad)] = 0.f;
+  }
+}
+
+// Four 8 x 4 float blocks of shared memory in one instruction: lane l
+// names row l % 8 of block l / 8 (16 bytes, 16-byte aligned); read as 8 x
+// 8 b16 matrices, thread (gid, tig) receives float (gid, tig) of each block
+// in r[block], which is the TF32 fragment layout.
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], const float* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row))
+      : "memory");
+}
+
+// c[nt] += A . B^T over the 8 ND columns: A the 16 rows at a, B^T the rows
+// 8 nt .. 8 nt + 7 at b, both stride LD. A k-step's A fragment is one
+// ldmatrix, split once for the NT B fragments it meets; each pair of n-tiles
+// takes one more. The k-steps are unrolled by four, not wholly: at hd 128
+// a whole unroll hoists more fragments than the registers hold, and spills
+// (by two, 0.7-3% slower on the card: scripts/flash_variants.py).
+template <int ND, int NT>
+__device__ __forceinline__ void abt(float (&c)[NT][4], const float* a,
+                                    const float* b, int lane) {
+  constexpr int LD = tiled_ld<ND>();
+  const int r = lane & 7, m = lane >> 3;
+  // A's blocks: rows 0-7 and 8-15 of columns 0-3, then of columns 4-7;
+  // B's: columns 0-3 and 4-7 of n-tile nt, then of n-tile nt + 1
+  const float* arow = a + (r + 8 * (m & 1)) * LD + 4 * (m >> 1);
+  const float* brow = b + (r + 8 * (m >> 1)) * LD + 4 * (m & 1);
+#pragma unroll 4
+  for (int ks = 0; ks < ND; ++ks) {
+    uint32_t x[4];
+    ldmatrix4(x, arow + 8 * ks);
+    FragA fa;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(x[i]), fa.hi[i], fa.lo[i]);
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t y[4];
+      ldmatrix4(y, brow + 8 * nt * LD + 8 * ks);
+      FragB f0, f1;
+      split(__uint_as_float(y[0]), f0.hi[0], f0.lo[0]);
+      split(__uint_as_float(y[1]), f0.hi[1], f0.lo[1]);
+      split(__uint_as_float(y[2]), f1.hi[0], f1.lo[0]);
+      split(__uint_as_float(y[3]), f1.hi[1], f1.lo[1]);
+      mma3(c[nt], fa, f0);
+      mma3(c[nt + 1], fa, f1);
+    }
+  }
 }
 
-size_t fwd_tiled_smem_bytes(int hd) {
-  return (3 * static_cast<size_t>(kTile) * tile_ld(hd) + kTile * kPLd) *
-         sizeof(float);
+// c[nd] += A . B over NT k-steps of 8, A the accumulator fragments x (16 x
+// 8 NT: row gid holds columns 2 tig and 2 tig + 1 of each 8) and B the rows
+// at b (stride LD), 8 ND columns. The accumulator layout is not the A
+// layout, so the k order is permuted instead of the registers: A's k-slots
+// tig and tig + 4 carry columns 2 tig and 2 tig + 1, and B's rows are read
+// in the same order. No shuffle, no round trip through shared memory.
+// The tensor cores round each mma's sum toward zero, so a sum carried
+// through every tile of a sequence drifts (~1e-4 of o after 4,096 keys when
+// v has a common part, as at init): each call sums into fresh accumulators,
+// four n-tiles at a time, and adds them to c in float32, rounded to
+// nearest. A chain is then one tile long (3 NT mma).
+template <int ND, int NT>
+__device__ __forceinline__ void ab_regs(float (&c)[ND][4],
+                                        const float (&x)[NT][4],
+                                        const float* b, int gid, int tig) {
+  constexpr int LD = tiled_ld<ND>();
+  constexpr int G = ND < 4 ? ND : 4;  // n-tiles summed at a time
+#pragma unroll
+  for (int g = 0; g < ND; g += G) {
+    float t[G][4];
+    zero(t);
+#pragma unroll
+    for (int kt = 0; kt < NT; ++kt) {
+      FragA fa;
+      split(x[kt][0], fa.hi[0], fa.lo[0]);  // (gid, 2 tig)
+      split(x[kt][2], fa.hi[1], fa.lo[1]);  // (gid + 8, 2 tig)
+      split(x[kt][1], fa.hi[2], fa.lo[2]);  // (gid, 2 tig + 1)
+      split(x[kt][3], fa.hi[3], fa.lo[3]);  // (gid + 8, 2 tig + 1)
+      const float* row = b + (8 * kt + 2 * tig) * LD + gid + 8 * g;
+#pragma unroll
+      for (int nd = 0; nd < G; ++nd) {
+        FragB fb;
+        split(row[8 * nd], fb.hi[0], fb.lo[0]);
+        split(row[LD + 8 * nd], fb.hi[1], fb.lo[1]);
+        mma3(t[nd], fa, fb);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < G; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[g + nd][e] += t[nd][e];
+    }
+  }
 }
 
-size_t bwd_tiled_smem_bytes(int hd) {
-  return (4 * static_cast<size_t>(kTile) * tile_ld(hd) + 2 * kTile * kPLd +
-          kTile) * sizeof(float);
+// The (b, h) of this block, `tiles` blocks a sequence, and its tile:
+// counted from the sequence's last tile where from_last.
+__device__ __forceinline__ void block_tile(int tiles, bool from_last, int& bh,
+                                           int& tile) {
+  bh = static_cast<int>(blockIdx.x / tiles);
+  tile = static_cast<int>(blockIdx.x - static_cast<unsigned>(bh) * tiles);
+  if (from_last) tile = tiles - 1 - tile;
 }
 
-// grid (B * H, ceil(S / kTile)); lse may be null when kStats is false.
-template <int NC, bool kStats>
-__global__ void __launch_bounds__(kThreads)
+// Forward: one block per (b·h, 64-row query tile), the heaviest (last)
+// query tiles of a sequence first and a sequence's tiles together, so the
+// blocks in flight share its keys in L2. Warp w owns query rows q0 + 16 w
+// .. + 15, staged once in shared memory with the first key tile (in
+// registers they would leave too few for the rest at hd 128). Key tiles of
+// KR rows in a ring of NS stages of K and V, each buffer refilled by
+// cp.async as soon as every warp has read it: tile j's K with K_{j+NS}
+// after its scores, its V with V_{j+NS} after P.V (at NS = 1, K_{j+1}
+// lands during the softmax and P.V of tile j, V_{j+1} during the scores of
+// tile j + 1). S = Q.K^T and O += P.V in split TF32; the online softmax
+// on the score fragments (quad shuffles for a row's max and sum), P handed
+// to P.V in registers (ab_regs). When causal only the key tiles up to the
+// query tile's last row.
+template <int ND, bool kStats>
+__global__ void __launch_bounds__(kTiledThreads, 2)
 flash_fwd_tiled_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, int s, int h, int hd,
-                       float scale, int causal, float* __restrict__ o,
-                       float* __restrict__ lse) {
-  extern __shared__ float smem[];
-  const int ld = tile_ld(hd), stride = h * hd;
-  float* sq = smem;
-  float* sk = sq + kTile * ld;
-  float* sv = sk + kTile * ld;
-  float* sp = sv + kTile * ld;
-  const int bh = blockIdx.x;
+                       float scale, int causal, int vec4,
+                       float* __restrict__ o, float* __restrict__ lse) {
+  constexpr int LD = tiled_ld<ND>();
+  constexpr int KR = kFwdKeyRows, NS = kFwdStages, NT = KR / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;  // then stage t: K at KR (2 t) rows past Q, V after it
+  const auto sk = [&](int t) { return smem + (kTileRows + 2 * t * KR) * LD; };
+  const auto sv = [&](int t) { return sk(t) + KR * LD; };
+  int bh, qt;
+  block_tile((s + kTileRows - 1) / kTileRows, true, bh, qt);
+  const int stride = h * hd, q0 = qt * kTileRows;
   const size_t base =
       (static_cast<size_t>(bh / h) * s * h + bh % h) * static_cast<size_t>(hd);
-  const int q0 = blockIdx.y * kTile;
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, row0 = q0 + 16 * w;
+  // keys past the query tile's last row are all masked when causal
+  const int n_kt = ((causal ? min(q0 + kTileRows, s) : s) + KR - 1) / KR;
 
-  load_tile(sq, q + base, q0, s, hd, ld, stride);
-  float m[4], den[4], acc[4][NC];
+  // two cp.async groups a tile, K_j's then V_j's (Q goes with K_0's), so
+  // 2 NS - 1 groups may still be in flight when either is needed
+  zero_pad<ND>(smem, kTileRows + 2 * NS * KR, hd);
+  load_rows<kTileRows, LD>(sq, q + base, q0, s, hd, stride, vec4);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    den[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int t = 0; t < NS; ++t) {
+    if (t < n_kt) load_rows<KR, LD>(sk(t), k + base, t * KR, s, hd, stride, vec4);
+    cp_async_commit();
+    if (t < n_kt) load_rows<KR, LD>(sv(t), v + base, t * KR, s, hd, stride, vec4);
+    cp_async_commit();
   }
-  // keys past the last query row of the tile are all masked when causal
-  const int k_end = causal ? min(q0 + kTile, s) : s;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers of sk, sv, sp are done
-    load_tile(sk, k + base, k0, s, hd, ld, stride);
-    load_tile(sv, v + base, k0, s, hd, ld, stride);
+  const float* qw = sq + 16 * w * LD;
+  float acc[ND][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf}, den[2] = {0.f, 0.f};
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * KR, t = j % NS;
+    cp_async_wait<2 * NS - 1>();  // Q and K_j have landed
     __syncthreads();
-    float sc[4][4];
-    dot_tile(sc, sq, sk, hd, ld, rg, cg);
+    float sc[NT][4];
+    zero(sc);
+    abt<ND, NT>(sc, qw, sk(t), lane);
+    __syncthreads();  // every warp has read K_j
+    if (j + NS < n_kt) {
+      load_rows<KR, LD>(sk(t), k + base, k0 + NS * KR, s, hd, stride, vec4);
+    }
+    cp_async_commit();
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
-      float mx = kNegInf;
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + cg + 16 * j;
-        float x = sc[i][j] * scale;
-        if (causal && col > row) x = kNegInf;
-        sc[i][j] = x;
-        if (col < s) mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + gid + 8 * (e >> 1);
+        const int col = k0 + 8 * nt + 2 * tig + (e & 1);
+        const bool live = col < s && !(causal && col > row);
+        sc[nt][e] = live ? sc[nt][e] * scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + cg + 16 * j;
-        const float p = col < s ? expf(sc[i][j] - m_new) : 0.f;
-        sp[(rg * 4 + i) * kPLd + cg + 16 * j] = p;
-        sum += p;
-      }
-      den[i] = den[i] * alpha + half_warp_sum(sum);
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = expf(m[i] - m_new);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
+        sum[e >> 1] += sc[nt][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) den[i] = den[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+    }
+    cp_async_wait<2 * NS - 1>();  // V_j has landed
     __syncthreads();
-    const int n_keys = min(kTile, s - k0);
-    for (int j = 0; j < n_keys; ++j) {
-      float p[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sp[(rg * 4 + i) * kPLd + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = cg + 16 * c;
-        vv[c] = col < hd ? sv[j * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-      }
+    ab_regs<ND, NT>(acc, sc, sv(t), gid, tig);
+    __syncthreads();  // every warp has read V_j
+    if (j + NS < n_kt) {
+      load_rows<KR, LD>(sv(t), v + base, k0 + NS * KR, s, hd, stride, vec4);
     }
+    cp_async_commit();
   }
+  const float dd[2] = {fmaxf(den[0], kMinDen), fmaxf(den[1], kMinDen)};
+  const Divisor div[2] = {divisor(dd[0]), divisor(dd[1])};
+  store_tiles<true>(o + base, stride, acc, row0, s, hd, gid, tig, div);
+  if (kStats && tig == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    if (row >= s) continue;
-    const float dd = fmaxf(den[i], kMinDen);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = cg + 16 * c;
-      if (col < hd) {
-        o[base + static_cast<size_t>(row) * stride + col] = acc[i][c] / dd;
-      }
-    }
-    if (kStats && cg == 0) {
-      lse[static_cast<size_t>(bh) * s + row] = m[i] + logf(dd);
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + gid + 8 * i;
+      if (row < s) lse[static_cast<size_t>(bh) * s + row] = m[i] + logf(dd[i]);
     }
   }
 }
 
-// grid (B * H): one block walks every key tile of its (b, h).
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_tiled_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ o,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse, int s, int h, int hd,
-                       float scale, int causal, float* __restrict__ dq,
-                       float* __restrict__ dk, float* __restrict__ dv) {
-  extern __shared__ float smem[];
-  const int ld = tile_ld(hd), stride = h * hd;
-  float* sk = smem;
-  float* sv = sk + kTile * ld;
-  float* sq = sv + kTile * ld;
-  float* sdo = sq + kTile * ld;
-  float* sp = sdo + kTile * ld;
-  float* sds = sp + kTile * kPLd;
-  float* slse = sds + kTile * kPLd;
-  const int bh = blockIdx.x;
+// Backward, first kernel: dQ and delta. One block per (b·h, 64-row query
+// tile), ordered as the forward's. Warp w owns query rows q0 + 16 w .. +
+// 15: it forms delta = rowsum(do·o) of its rows once (into the (B, H, S)
+// scratch the dK/dV kernel reads), reads its Q and dO rows from shared
+// memory (staged once), and walks key steps of 32 rows up to the diagonal:
+// S = Q.K^T, dP = dO.V^T, P = exp(S·scale - lse), dS = P (dP - delta)
+// scale, dQ += dS.K (dS from registers). K and V of a step take two
+// buffers whose roles swap every step: K_{j+1} goes into V_j's buffer once
+// dP has read it, V_{j+1} into K_j's once dQ has, so both land during
+// compute. dQ is written once.
+template <int ND>
+__global__ void __launch_bounds__(kTiledThreads, 2)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, int s, int h, int hd,
+                    float scale, int causal, int vec4,
+                    float* __restrict__ dq, float* __restrict__ delta_out) {
+  constexpr int LD = tiled_ld<ND>();
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;
+  float* sdo = smem + kTileRows * LD;
+  float* buf[2] = {smem + 2 * kTileRows * LD,
+                   smem + (2 * kTileRows + kStepRows) * LD};
+  int bh, qt;
+  block_tile((s + kTileRows - 1) / kTileRows, true, bh, qt);
+  const int stride = h * hd, q0 = qt * kTileRows;
   const size_t base =
       (static_cast<size_t>(bh / h) * s * h + bh % h) * static_cast<size_t>(hd);
   const size_t rbase = static_cast<size_t>(bh) * s;
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, row0 = q0 + 16 * w;
+  const int n_kt =
+      ((causal ? min(q0 + kTileRows, s) : s) + kStepRows - 1) / kStepRows;
 
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();  // the previous key tile's readers of sk, sv are done
-    load_tile(sk, k + base, k0, s, hd, ld, stride);
-    load_tile(sv, v + base, k0, s, hd, ld, stride);
-    float dk_acc[4][NC], dv_acc[4][NC];
+  zero_pad<ND>(smem, 2 * kTileRows + 2 * kStepRows, hd);
+  load_rows<kTileRows, LD>(sq, q + base, q0, s, hd, stride, vec4);
+  load_rows<kTileRows, LD>(sdo, dout + base, q0, s, hd, stride, vec4);
+  load_rows<kStepRows, LD>(buf[0], k + base, 0, s, hd, stride, vec4);
+  cp_async_commit();
+  load_rows<kStepRows, LD>(buf[1], v + base, 0, s, hd, stride, vec4);
+  cp_async_commit();
+  const float* qw = sq + 16 * w * LD;
+  const float* dw = sdo + 16 * w * LD;
+  float lr[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + gid + 8 * i;
+    float part = 0.f;
+    if (row < s) {
+      const size_t at = base + static_cast<size_t>(row) * stride;
+      for (int d = tig; d < hd; d += 4) part = fmaf(dout[at + d], o[at + d], part);
     }
-    const int n_k = min(kTile, s - k0);
-    // query rows before k0 see none of these keys when causal
-    for (int q0 = causal ? k0 : 0; q0 < s; q0 += kTile) {
-      __syncthreads();  // the previous query tile's readers are done
-      load_tile(sq, q + base, q0, s, hd, ld, stride);
-      load_tile(sdo, dout + base, q0, s, hd, ld, stride);
-      if (threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        slse[threadIdx.x] = row < s ? lse[rbase + row] : 0.f;
-      }
-      __syncthreads();
-      // delta = rowsum(do * o) of this thread's rows, the same in the 16
-      // lanes of its half warp
-      float delta[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i, row = q0 + r;
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = cg + 16 * c;
-          if (row < s && col < hd) {
-            part = fmaf(sdo[r * ld + col],
-                        o[base + static_cast<size_t>(row) * stride + col], part);
-          }
-        }
-        delta[i] = half_warp_sum(part);
-      }
-      float sc[4][4], dp[4][4];
-      dot_tile(sc, sq, sk, hd, ld, rg, cg);
-      dot_tile(dp, sdo, sv, hd, ld, rg, cg);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i, row = q0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + cg + 16 * j;
-          float x = sc[i][j] * scale;
-          if (causal && col > row) x = kNegInf;
-          const float p = (row < s && col < s) ? expf(x - slse[r]) : 0.f;
-          sp[r * kPLd + cg + 16 * j] = p;
-          sds[r * kPLd + cg + 16 * j] = p * (dp[i][j] - delta[i]) * scale;
-        }
-      }
-      __syncthreads();
-      // dv += P^T dO and dk += dS^T Q over this tile's query rows; this
-      // thread's key rows are rg*4 .. rg*4+3 of the key tile
-      const int n_q = min(kTile, s - q0);
-      for (int r = 0; r < n_q; ++r) {
-        float p[4], ds[4], dov[NC], qv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = sp[r * kPLd + rg * 4 + i];
-          ds[i] = sds[r * kPLd + rg * 4 + i];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = cg + 16 * c;
-          dov[c] = col < hd ? sdo[r * ld + col] : 0.f;
-          qv[c] = col < hd ? sq[r * ld + col] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[i][c] = fmaf(p[i], dov[c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds[i], qv[c], dk_acc[i][c]);
-          }
-        }
-      }
-      // dq += dS K for this thread's query rows rg*4 .. rg*4+3
-      float dq_t[4][NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq_t[i][c] = 0.f;
-      }
-      for (int j = 0; j < n_k; ++j) {
-        float ds[4], kv[NC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ds[i] = sds[(rg * 4 + i) * kPLd + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = cg + 16 * c;
-          kv[c] = col < hd ? sk[j * ld + col] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dq_t[i][c] = fmaf(ds[i], kv[c], dq_t[i][c]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + rg * 4 + i;
-        if (row >= s) continue;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = cg + 16 * c;
-          if (col >= hd) continue;
-          const size_t at = base + static_cast<size_t>(row) * stride + col;
-          // key tile 0 reaches every query row first (causal or not)
-          dq[at] = k0 == 0 ? dq_t[i][c] : dq[at] + dq_t[i][c];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = k0 + rg * 4 + i;
-      if (row >= s) continue;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = cg + 16 * c;
-        if (col >= hd) continue;
-        const size_t at = base + static_cast<size_t>(row) * stride + col;
-        dk[at] = dk_acc[i][c];
-        dv[at] = dv_acc[i][c];
-      }
-    }
+    delta[i] = quad_sum(part);
+    lr[i] = row < s ? lse[rbase + row] : 0.f;
+    if (tig == 0 && row < s) delta_out[rbase + row] = delta[i];
   }
+  float acc[ND][4];
+  zero(acc);
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kStepRows;
+    float* kb = buf[j & 1];
+    float* vb = buf[(j & 1) ^ 1];
+    cp_async_wait<1>();  // Q, dO and K_j have landed (V_j may be in flight)
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    zero(sc);
+    zero(dp);
+    abt<ND, 4>(sc, qw, kb, lane);
+    cp_async_wait<0>();  // V_j has landed
+    __syncthreads();
+    abt<ND, 4>(dp, dw, vb, lane);
+    __syncthreads();  // every warp has read V_j: K_{j+1} takes its buffer
+    if (j + 1 < n_kt) {
+      load_rows<kStepRows, LD>(vb, k + base, k0 + kStepRows, s, hd, stride,
+                               vec4);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + gid + 8 * (e >> 1);
+        const int col = k0 + 8 * nt + 2 * tig + (e & 1);
+        const bool live = row < s && col < s && !(causal && col > row);
+        const float p = expf((live ? sc[nt][e] * scale : kNegInf) - lr[e >> 1]);
+        dp[nt][e] = p * (dp[nt][e] - delta[e >> 1]) * scale;
+      }
+    }
+    ab_regs<ND, 4>(acc, dp, kb, gid, tig);
+    __syncthreads();  // every warp has read K_j: V_{j+1} takes its buffer
+    if (j + 1 < n_kt) {
+      load_rows<kStepRows, LD>(kb, v + base, k0 + kStepRows, s, hd, stride,
+                               vec4);
+    }
+    cp_async_commit();
+  }
+  store_tiles<false>(dq + base, stride, acc, row0, s, hd, gid, tig);
+}
+
+// Backward, second kernel: dK and dV. One block per (b·h, 64-row key
+// tile), key tile 0 (when causal the longest walk) first. Warp w owns key
+// rows k0 + 16 w .. + 15; K and V of the tile stay in shared memory. It
+// walks query steps of 32 rows from the diagonal on: S^T = K.Q^T, dP^T =
+// V.dO^T, P^T = exp(S^T·scale - lse), dS^T = P^T (dP^T - delta) scale (lse
+// and delta of the step's rows staged beside its Q), dV += P^T.dO and dK +=
+// dS^T.Q from registers. Q (with lse and delta) and dO of a step take two
+// buffers whose roles swap every step: Q_{i+1} goes into dO_i's buffer once
+// dV has read it, dO_{i+1} into Q_i's once dK has. dK and dV are written
+// once.
+template <int ND>
+__global__ void __launch_bounds__(kTiledThreads, 2)
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, int s, int h, int hd,
+                      float scale, int causal, int vec4,
+                      float* __restrict__ dk, float* __restrict__ dv) {
+  constexpr int LD = tiled_ld<ND>();
+  constexpr int kBuf = kStepRows * LD + 2 * kStepRows;  // rows, lse, delta
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;
+  float* sv = smem + kTileRows * LD;
+  float* buf[2] = {smem + 2 * kTileRows * LD,
+                   smem + 2 * kTileRows * LD + kBuf};
+  int bh, kt;
+  block_tile((s + kTileRows - 1) / kTileRows, false, bh, kt);
+  const int stride = h * hd, k0 = kt * kTileRows;
+  const size_t base =
+      (static_cast<size_t>(bh / h) * s * h + bh % h) * static_cast<size_t>(hd);
+  const size_t rbase = static_cast<size_t>(bh) * s;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, key0 = k0 + 16 * w;
+  // query rows before k0 see none of these keys when causal
+  const int i0 = causal ? k0 / kStepRows : 0;
+  const int n_qi = (s + kStepRows - 1) / kStepRows;
+
+  zero_pad<ND>(smem, 2 * kTileRows, hd);
+  zero_pad<ND>(buf[0], kStepRows, hd);
+  zero_pad<ND>(buf[1], kStepRows, hd);
+  load_rows<kTileRows, LD>(sk, k + base, k0, s, hd, stride, vec4);
+  load_rows<kTileRows, LD>(sv, v + base, k0, s, hd, stride, vec4);
+  load_rows<kStepRows, LD>(buf[0], q + base, i0 * kStepRows, s, hd, stride,
+                           vec4);
+  load_vec(buf[0] + kStepRows * LD, lse + rbase, i0 * kStepRows, kStepRows, s);
+  load_vec(buf[0] + kStepRows * LD + kStepRows, delta + rbase,
+           i0 * kStepRows, kStepRows, s);
+  cp_async_commit();
+  load_rows<kStepRows, LD>(buf[1], dout + base, i0 * kStepRows, s, hd, stride,
+                           vec4);
+  cp_async_commit();
+  float acc_k[ND][4], acc_v[ND][4];
+  zero(acc_k);
+  zero(acc_v);
+  const float* ka = sk + 16 * w * LD;
+  const float* va = sv + 16 * w * LD;
+  for (int i = i0; i < n_qi; ++i) {
+    const int c0 = i * kStepRows;
+    float* qb = buf[(i - i0) & 1];
+    float* ob = buf[((i - i0) & 1) ^ 1];
+    cp_async_wait<1>();  // K, V, Q_i, lse and delta have landed
+    __syncthreads();
+    float st[4][4], dpt[4][4];
+    zero(st);
+    zero(dpt);
+    abt<ND, 4>(st, ka, qb, lane);
+    cp_async_wait<0>();  // dO_i has landed
+    __syncthreads();
+    abt<ND, 4>(dpt, va, ob, lane);
+    const float* slse = qb + kStepRows * LD;
+    const float* sdelta = slse + kStepRows;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + gid + 8 * (e >> 1);
+        const int c = 8 * nt + 2 * tig + (e & 1), query = c0 + c;
+        const bool live = key < s && query < s && !(causal && key > query);
+        const float p = expf((live ? st[nt][e] * scale : kNegInf) - slse[c]);
+        dpt[nt][e] = p * (dpt[nt][e] - sdelta[c]) * scale;
+        st[nt][e] = p;
+      }
+    }
+    ab_regs<ND, 4>(acc_v, st, ob, gid, tig);
+    __syncthreads();  // every warp has read dO_i: Q_{i+1} takes its buffer
+    if (i + 1 < n_qi) {
+      load_rows<kStepRows, LD>(ob, q + base, c0 + kStepRows, s, hd, stride,
+                               vec4);
+      load_vec(ob + kStepRows * LD, lse + rbase, c0 + kStepRows, kStepRows, s);
+      load_vec(ob + kStepRows * LD + kStepRows, delta + rbase,
+               c0 + kStepRows, kStepRows, s);
+    }
+    cp_async_commit();
+    ab_regs<ND, 4>(acc_k, dpt, qb, gid, tig);
+    __syncthreads();  // every warp has read Q_i: dO_{i+1} takes its buffer
+    if (i + 1 < n_qi) {
+      load_rows<kStepRows, LD>(qb, dout + base, c0 + kStepRows, s, hd, stride,
+                               vec4);
+    }
+    cp_async_commit();
+  }
+  store_tiles<false>(dk + base, stride, acc_k, key0, s, hd, gid, tig);
+  store_tiles<false>(dv + base, stride, acc_v, key0, s, hd, gid, tig);
 }
 
 // ---------------------------------------------------------------------------
@@ -1392,69 +1610,104 @@ cudaError_t bwd_staged(const Plan& pl, const Tensors& t, const Shape& sh,
 #undef FLASH_BWD
 }
 
-// Column groups per thread of the tiled route (1, 2, 4 or 8).
-int column_groups(int hd) {
-  if (hd <= 16) return 1;
-  if (hd <= 32) return 2;
-  if (hd <= 64) return 4;
-  return 8;
-}
-
-// prepare() for a kernel of the tiled route, whose grid is one block per
-// tile.
-cudaError_t prepare_tiled(const void* fn, size_t smem) {
+// The tiled route's launches: one block per tile, its shared memory set
+// once per kernel (prepare()).
+template <typename Kernel, typename... Args>
+cudaError_t launch_tiled(Kernel kernel, size_t smem, long long blocks,
+                         cudaStream_t stream, Args... args) {
   int dev = 0;
-  long long blocks = 0;
+  long long resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  return err != cudaSuccess ? err : prepare(fn, dev, kThreads, smem, &blocks);
-}
-
-template <int NC, bool kStats>
-cudaError_t launch_fwd_tiled(const float* q, const float* k, const float* v,
-                             const Shape& sh, float scale, int causal,
-                             float* o, float* lse, cudaStream_t stream) {
-  const size_t smem = fwd_tiled_smem_bytes(sh.hd);
-  const cudaError_t err = prepare_tiled(
-      reinterpret_cast<const void*>(flash_fwd_tiled_kernel<NC, kStats>), smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(sh.b * sh.h),
-                  static_cast<unsigned>((sh.s + kTile - 1) / kTile));
-  flash_fwd_tiled_kernel<NC, kStats><<<grid, kThreads, smem, stream>>>(
-      q, k, v, sh.s, sh.h, sh.hd, scale, causal, o, lse);
+  err = prepare(reinterpret_cast<const void*>(kernel), dev, kTiledThreads,
+                smem, &resident);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kTiledThreads, smem, stream>>>(
+      args...);
   return cudaGetLastError();
 }
 
-template <int NC>
+long long tiled_blocks(const Shape& sh) {
+  return sh.b * sh.h * ((sh.s + kTileRows - 1) / kTileRows);
+}
+
+template <int ND, bool kStats>
+cudaError_t launch_fwd_tiled(const float* q, const float* k, const float* v,
+                             const Shape& sh, float scale, int causal,
+                             int vec4, float* o, float* lse,
+                             cudaStream_t stream) {
+  const size_t smem = (kTileRows + 2 * kFwdStages * kFwdKeyRows) *
+                      tiled_ld<ND>() * sizeof(float);
+  return launch_tiled(flash_fwd_tiled_kernel<ND, kStats>, smem,
+                      tiled_blocks(sh), stream, q, k, v, sh.s, sh.h, sh.hd,
+                      scale, causal, vec4, o, lse);
+}
+
+// dQ and delta first, then dK and dV, which read delta: one stream, so in
+// that order.
+template <int ND>
 cudaError_t launch_bwd_tiled(const float* q, const float* k, const float* v,
                              const float* o, const float* dout,
                              const float* lse, const Shape& sh, float scale,
-                             int causal, float* dq, float* dk, float* dv,
-                             cudaStream_t stream) {
-  const size_t smem = bwd_tiled_smem_bytes(sh.hd);
-  const cudaError_t err = prepare_tiled(
-      reinterpret_cast<const void*>(flash_bwd_tiled_kernel<NC>), smem);
+                             int causal, int vec4, float* dq, float* dk,
+                             float* dv, float* delta, cudaStream_t stream) {
+  constexpr int LD = tiled_ld<ND>();
+  const size_t dq_smem = 2 * (kTileRows + kStepRows) * LD * sizeof(float);
+  const size_t dkdv_smem =
+      (2 * kTileRows * LD + 2 * (kStepRows * LD + 2 * kStepRows)) *
+      sizeof(float);
+  const cudaError_t err = launch_tiled(
+      flash_bwd_dq_kernel<ND>, dq_smem, tiled_blocks(sh), stream, q, k, v, o,
+      dout, lse, sh.s, sh.h, sh.hd, scale, causal, vec4, dq, delta);
   if (err != cudaSuccess) return err;
-  flash_bwd_tiled_kernel<NC>
-      <<<static_cast<unsigned>(sh.b * sh.h), kThreads, smem, stream>>>(
-          q, k, v, o, dout, lse, sh.s, sh.h, sh.hd, scale, causal, dq, dk, dv);
-  return cudaGetLastError();
+  return launch_tiled(flash_bwd_dkdv_kernel<ND>, dkdv_smem, tiled_blocks(sh),
+                      stream, q, k, v, dout, lse,
+                      static_cast<const float*>(delta), sh.s, sh.h, sh.hd,
+                      scale, causal, vec4, dk, dv);
 }
 
 template <bool kStats>
 cudaError_t fwd_tiled(const float* q, const float* k, const float* v,
-                      const Shape& sh, float scale, int causal, float* o,
-                      float* lse, cudaStream_t st) {
-  switch (column_groups(sh.hd)) {
-    case 1: return launch_fwd_tiled<1, kStats>(q, k, v, sh, scale, causal, o, lse, st);
-    case 2: return launch_fwd_tiled<2, kStats>(q, k, v, sh, scale, causal, o, lse, st);
-    case 4: return launch_fwd_tiled<4, kStats>(q, k, v, sh, scale, causal, o, lse, st);
-    default: return launch_fwd_tiled<8, kStats>(q, k, v, sh, scale, causal, o, lse, st);
+                      const Shape& sh, float scale, int causal, int vec4,
+                      float* o, float* lse, cudaStream_t st) {
+#define FLASH_FWD(ND) \
+  launch_fwd_tiled<ND, kStats>(q, k, v, sh, scale, causal, vec4, o, lse, st)
+  switch (out_tiles(sh.hd)) {
+    case 2: return FLASH_FWD(2);
+    case 4: return FLASH_FWD(4);
+    case 8: return FLASH_FWD(8);
+    default: return FLASH_FWD(16);
   }
+#undef FLASH_FWD
+}
+
+cudaError_t bwd_tiled(const float* q, const float* k, const float* v,
+                      const float* o, const float* dout, const float* lse,
+                      const Shape& sh, float scale, int causal, int vec4,
+                      float* dq, float* dk, float* dv, float* delta,
+                      cudaStream_t st) {
+#define FLASH_BWD(ND)                                                       \
+  launch_bwd_tiled<ND>(q, k, v, o, dout, lse, sh, scale, causal, vec4, dq, \
+                       dk, dv, delta, st)
+  switch (out_tiles(sh.hd)) {
+    case 2: return FLASH_BWD(2);
+    case 4: return FLASH_BWD(4);
+    case 8: return FLASH_BWD(8);
+    default: return FLASH_BWD(16);
+  }
+#undef FLASH_BWD
+}
+
+// 16-byte copies where every row of the (B, S, H, hd) tensors starts on a
+// 16-byte boundary.
+int vec4_rows(int hd, const void* const* ptrs, int n) {
+  return hd % 4 == 0 && aligned(ptrs, n, 16) ? 1 : 0;
 }
 
 bool bad_shape(long long b, int s, int h, int hd) {
   return b < 1 || h < 1 || s < 1 || hd < 1 || hd > kMaxHeadDim ||
-         b > INT_MAX / h || (s + kTile - 1) / kTile > 65535;
+         b > INT_MAX / h ||
+         b * h * ((s + kTileRows - 1) / kTileRows) > INT_MAX;
 }
 
 }  // namespace
@@ -1484,23 +1737,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     err = lse == nullptr ? fwd_staged<false>(pl, t, sh, scale, causal, st)
                          : fwd_staged<true>(pl, t, sh, scale, causal, st);
   } else {
+    const void* ptrs[] = {q, k, v};
+    const int vec4 = vec4_rows(hd, ptrs, 3);
     err = lse == nullptr
-              ? fwd_tiled<false>(fq, fk, fv, sh, scale, causal, fo, fl, st)
-              : fwd_tiled<true>(fq, fk, fv, sh, scale, causal, fo, fl, st);
+              ? fwd_tiled<false>(fq, fk, fv, sh, scale, causal, vec4, fo, fl, st)
+              : fwd_tiled<true>(fq, fk, fv, sh, scale, causal, vec4, fo, fl, st);
   }
   return static_cast<int>(err);
 }
 
 // Backward on `stream`; returns cudaGetLastError() (0 = ok). Device pointers
 // q, k, v, o, dout, dq, dk, dv (b, s, h, hd) and lse (b, h, s), float32 and
-// contiguous. delta = rowsum(dout * o) is formed inside; dq, dk and dv are
-// written whole.
+// contiguous. delta = rowsum(dout * o) is formed inside, once a row: the
+// staged route keeps it in shared memory; the tiled route writes it into
+// `delta` (b, h, s) float32 scratch, which it needs (S > 64) and the staged
+// route ignores (may be null). dq, dk and dv are written whole.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    long long b, int s, int h, int hd,
                                    float scale, int causal, void* dq, void* dk,
-                                   void* dv, void* stream) {
+                                   void* dv, void* delta, void* stream) {
   if (bad_shape(b, s, h, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{b, s, h, hd};
   const auto* fq = static_cast<const float*>(q);
@@ -1520,12 +1777,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     const Tensors t{{fq, fk, fv, fg, fo}, fl, {x, y, z}, nullptr};
     err = bwd_staged(pl, t, sh, scale, causal, st);
   } else {
-    switch (column_groups(hd)) {
-      case 1: err = launch_bwd_tiled<1>(fq, fk, fv, fo, fg, fl, sh, scale, causal, x, y, z, st); break;
-      case 2: err = launch_bwd_tiled<2>(fq, fk, fv, fo, fg, fl, sh, scale, causal, x, y, z, st); break;
-      case 4: err = launch_bwd_tiled<4>(fq, fk, fv, fo, fg, fl, sh, scale, causal, x, y, z, st); break;
-      default: err = launch_bwd_tiled<8>(fq, fk, fv, fo, fg, fl, sh, scale, causal, x, y, z, st); break;
-    }
+    if (delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const void* ptrs[] = {q, k, v, dout};
+    err = bwd_tiled(fq, fk, fv, fo, fg, fl, sh, scale, causal,
+                    vec4_rows(hd, ptrs, 4), x, y, z, static_cast<float*>(delta),
+                    st);
   }
   return static_cast<int>(err);
 }

@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (bwd_ref,
                                                      fwd_stats_ref)
 
 MAX_HEAD_DIM = 128   # kMaxHeadDim in csrc/flash_attention.cu
+MAX_STAGED = 64      # kMaxStaged: the longest S of the staged route
 BLOCK = 128          # the reference's bq = bk, capped at S
 
 
@@ -48,7 +49,7 @@ def _library():
     lib.flash_attention_fwd.argtypes = [p, p, p, ll, i, i, i, f, i, p, p, p]
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, f, i,
-                                        p, p, p, p]
+                                        p, p, p, p, p]
     lib.flash_attention_bwd.restype = i
     return lib
 
@@ -175,8 +176,9 @@ def flash_attention_fwd_stats(q, k, v, causal: bool = True):
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """Backward from the stored ``lse``: (dq, dk, dv) in q's layout. The
-    kernel forms ``delta = rowsum(do·o)`` from its staged rows; the
-    reference forms the same sum outside its kernel."""
+    kernels form ``delta = rowsum(do·o)`` once a row (the tiled route into
+    a (B, H, S) scratch this wrapper allocates); the reference forms the
+    same sum outside its kernel."""
     if _region.WALK is not None or q.is_meta:
         return _region.run("flash_attention_bwd", flash_attention_bwd,
                            (q, k, v, o, lse, do, causal), meta=q.is_meta,
@@ -188,10 +190,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
         return _plain(bwd_ref, q, k, v, o, lse, do, causal=causal)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     b, s, h, hd = _bshd(q)
+    # the tiled route's delta rows, written by its dQ kernel, read by its
+    # dK/dV kernel
+    delta = (torch.empty(_rows_shape(q), dtype=torch.float32, device=q.device)
+             if s > MAX_STAGED else None)
     err = _on_device(q, _library().flash_attention_bwd, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), b, s, h, hd, hd ** -0.5, int(causal),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     None if delta is None else delta.data_ptr())
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")

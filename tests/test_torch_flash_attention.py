@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (bwd_ref,
                                                      flash_attention_ref,
                                                      fwd_stats_ref)
+from repro_torch.models.lm.transformer import causal_attention
 
 FWD_TOL = dict(rtol=3e-5, atol=3e-5)
 BWD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -199,6 +200,75 @@ def test_wrappers_take_the_models_layout(case):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == (b, s, h, hd)
         np.testing.assert_allclose(g.numpy(), heads(w), err_msg=name, **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_route_shape_matches_pallas(causal):
+    """The yardstick of the tiled route at the LM's head width: (BH, S, hd)
+    = (2, 256, 128), two blocks of 128 a side (the reference's bq = bk =
+    128), so the online softmax and the backward's sums cross blocks. o
+    and lse against ``flash_attention_fwd_stats``, dq, dk, dv against
+    ``flash_attention_bwd`` from the same o and lse, all in interpret
+    mode."""
+    q, k, v, do = inputs(28, 2, 256, 128, n=4)
+    want_o, want_lse = flash_attention_fwd_stats(q, k, v, causal=causal,
+                                                 bq=128, bk=128)
+    o, lse = ops.flash_attention_fwd_stats(*t(q, k, v), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FWD_TOL)
+    np.testing.assert_allclose(
+        ops.flash_attention_fwd(*t(q, k, v), causal).numpy(),
+        np.asarray(flash_attention_pallas(q, k, v, causal=causal, bq=128,
+                                          bk=128)), **FWD_TOL)
+    o, lse = np.array(want_o), np.array(want_lse)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, bq=128,
+                               bk=128)
+    got = ops.flash_attention_bwd(*t(q, k, v, o, lse, do), causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **BWD_TOL)
+
+
+def _lm_heads(seed, b, s, hd=128):
+    """internlm2's grouped heads: q with 16 heads, k and v with 8."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, 1, (b, s, h, hd)).astype(np.float32)
+            for h in (16, 8, 8)]
+
+
+def test_gqa_wrapper_at_the_lms_heads():
+    """``flash_attention`` at internlm2's 16 query over 8 kv heads of 128,
+    S = 256 (the tiled route's shape): o against the reference's
+    ``gqa_attention``, and autograd's dq, dk, dv (each kv head's gradient
+    summed over its two query heads) against ``jax.grad`` of it, on
+    sum(o²)."""
+    q, k, v = _lm_heads(16, 1, 256)
+
+    def ref(*a):
+        return gqa_attention(*a, n_heads=16, n_kv_heads=8, causal=True)
+    np.testing.assert_allclose(
+        ops.flash_attention(*t(q, k, v), n_kv_heads=8, causal=True).numpy(),
+        np.asarray(ref(q, k, v)), **FWD_TOL)
+    want = jax.grad(lambda *a: jnp.sum(ref(*a) ** 2), argnums=(0, 1, 2))(
+        q, k, v)
+    leaves = [x.requires_grad_(True) for x in t(q, k, v)]
+    torch.sum(ops.flash_attention(*leaves, n_kv_heads=8, causal=True) ** 2
+              ).backward()
+    for name, x, w in zip("qkv", leaves, want):
+        assert x.grad.shape == x.shape
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w),
+                                   err_msg=f"d{name}", **VJP_TOL)
+
+
+def test_causal_attention_pads_to_the_blocks():
+    """The LM's ``causal_attention`` at S = 200, which it pads to 256 for
+    the kernel's blocks: its 200 rows against the reference's
+    ``gqa_attention`` on the unpadded sequence (16 over 8 heads of 128)."""
+    q, k, v = _lm_heads(200, 2, 200)
+    got = causal_attention(*t(q, k, v), n_kv_heads=8)
+    assert got.shape == (2, 200, 16, 128)
+    want = gqa_attention(q, k, v, n_heads=16, n_kv_heads=8, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
 def test_no_grad_takes_the_plain_forward_and_counts_no_launch():
