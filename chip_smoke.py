@@ -447,6 +447,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``internlm2-1.8b/decode_32k`` on the 16×16 mesh: one rank's step on
    meta tensors, whose per-device FLOPs, bytes and collective bytes are
    printed — static counts, not card times.
+32. the package surface: ``globalize_ids``, ``binary_accuracy``,
+   ``apply_updates`` and ``clip_by_global_norm``, imported through the
+   port's package names (``repro_torch.embeddings``, ``repro_torch.train``),
+   on CUDA tensors at ``dlrm-criteo``'s width (a 262,144-row batch of its 39
+   fields; its MLP's leaves, one in bfloat16), each held against the same
+   call on the CPU: bit for bit, the clip above its norm and the norm
+   within rtol 1e-6 (the sums of squares run in another order).
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
 seven ported TPU kernels, the segment sum and the Adam pass, which
@@ -7022,6 +7029,77 @@ def phase_staticcheck(dev) -> dict:
     return out
 
 
+def phase_api(dev) -> dict:
+    """Phase 32: the reference's last public functions through the port's
+    package names, on the card against the CPU (no kernel of their own)."""
+    from repro_torch.embeddings import field_offsets, globalize_ids
+    from repro_torch.train import (apply_updates, binary_accuracy,
+                                   clip_by_global_norm)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(32)
+    cfg = get_arch("dlrm-criteo").make_config()
+    rows = SERVE_ROWS["serve_bulk"]
+    local = torch.from_numpy(np.stack(
+        [rng.integers(0, f.vocab, rows) for f in cfg.fields], 1
+    ).astype(np.int32))
+    offsets = field_offsets(cfg.fields)
+    want = globalize_ids(local, offsets)
+    got = globalize_ids(local.to(dev), offsets)
+    check(got.dtype == want.dtype == torch.int32
+          and torch.equal(got.cpu(), want),
+          "api: globalize_ids on the card differs from the CPU's")
+    labels = torch.from_numpy(rng.integers(0, 2, rows).astype(np.float32))
+    probs = torch.from_numpy(rng.uniform(0, 1, rows).astype(np.float32))
+    probs[::7] = 0.5                                  # ties at the threshold
+    want = binary_accuracy(labels, probs)
+    got = binary_accuracy(labels.to(dev), probs.to(dev))
+    check(torch.equal(got.cpu(), want),
+          f"api: binary_accuracy {got.item()!r} on the card, "
+          f"{want.item()!r} on the CPU")
+    d_in = len(cfg.fields) * cfg.d_embed
+    widths = (d_in, *cfg.mlp_hidden, 1)
+
+    def tree(seed):
+        g = torch.Generator().manual_seed(seed)
+        return {"layers": [torch.randn(a, b, generator=g)
+                           for a, b in zip(widths, widths[1:])],
+                "bias": torch.randn(widths[1], generator=g).bfloat16()}
+    params, updates = tree(0), tree(1)
+    updates["bias"] = updates["bias"].float()   # float32 into bfloat16
+
+    def on_dev(t):
+        return {"layers": [x.to(dev) for x in t["layers"]],
+                "bias": t["bias"].to(dev)}
+
+    def same(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x.cpu(), y)
+                   for x, y in zip(leaves(a), leaves(b)))
+    check(same(apply_updates(on_dev(params), on_dev(updates)),
+               apply_updates(params, updates)),
+          "api: apply_updates on the card differs from the CPU's")
+    errs = {}
+    for name, max_norm in (("below", 1e6), ("above", 1.0)):
+        want, want_norm = clip_by_global_norm(params, max_norm)
+        got, gnorm = clip_by_global_norm(on_dev(params), max_norm)
+        err = abs(gnorm.item() - want_norm.item()) / want_norm.item()
+        check(err <= 1e-6, f"api: clip {name}: norm {gnorm.item()!r} on "
+              f"the card, {want_norm.item()!r} on the CPU")
+        errs[name] = err
+        if name == "below":
+            check(same(got, want), "api: clip below its norm differs")
+            continue
+        for x, y in zip(leaves(got), leaves(want)):
+            check(x.dtype == y.dtype == torch.float32, "api: clip dtype")
+            torch.testing.assert_close(x.cpu(), y, rtol=1e-6, atol=0)
+    out = {"rows": rows, "fields": len(cfg.fields),
+           "leaves": len(leaves(params)), "clip_norm_rel_err": errs,
+           "phase_s": time.perf_counter() - t0}
+    log(f"api: globalize_ids, binary_accuracy, apply_updates and "
+        f"clip_by_global_norm on the card equal the CPU's "
+        f"({json.dumps(out)})")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -7124,6 +7202,7 @@ def main() -> int:
     static = phase_staticcheck(dev)
     log(json.dumps({"staticcheck": {k: v for k, v in static.items()
                                     if k != "launches"}}))
+    phase_api(dev)
     bst_errs = bst_train["step_inputs"]["errs"]
     kernel["shapes"].update({**sasrec_serve.pop("lookup"),
                              **bst_serve.pop("lookup"),

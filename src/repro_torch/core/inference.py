@@ -8,7 +8,9 @@ device that holds the trained table and is byte-identical to the reference.
 
 A lookup gathers the packed words, unpacks them and dequantizes
 ``α_b · code + β``: on the card that is the hand-written CUDA kernel
-(``repro_torch.kernels.mpe_lookup``), on the CPU its plain version.
+(``repro_torch.kernels.mpe_lookup``), on the CPU its plain version. This
+module's ``packed_lookup(table, meta, ids)`` is that kernel's wrapper, under
+the reference's name.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.core.quantizer import int_bounds, quantize_codes
 from repro_torch.kernels.mpe_lookup.ops import packed_lookup
 
 __all__ = ["build_packed_table", "packed_lookup", "packed_lookup_fn",
-           "packed_storage_bytes"]
+           "packed_specs", "packed_storage_bytes"]
 
 
 def _pad_rows(n: int, multiple: int) -> int:
@@ -102,3 +104,26 @@ def packed_lookup_fn(meta):
 def packed_storage_bytes(table) -> int:
     """Bytes of the packed subtables (index vectors reported separately)."""
     return sum(int(v.numel()) * 4 for v in table["subtables"].values())
+
+
+def packed_specs(n: int, d: int, cfg: MPEConfig, width_histogram,
+                 row_pad_multiple: int = 512) -> dict:
+    """Stand-ins for a packed table, meta tensors for the dry run: the
+    reference's ``packed_specs``, with int32 words where it holds uint32.
+
+    ``width_histogram``: fraction of rows per candidate width (sums to 1).
+    """
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    subtables = {}
+    for i, b in enumerate(cfg.bits):
+        if b == 0:
+            continue
+        rows = _pad_rows(int(n * width_histogram[i]), row_pad_multiple)
+        subtables[f"b{b}"] = sds((rows, packing.words_per_row(d, b)),
+                                 torch.int32)
+    return {"subtables": subtables,
+            "local_idx": sds((n,), torch.int32),
+            "width_idx": sds((n,), torch.int32),
+            "alpha": sds((len(cfg.bits),), torch.float32),
+            "beta": sds((d,), torch.float32)}

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 
 class FieldSpec(NamedTuple):
@@ -22,3 +23,14 @@ def field_offsets(fields: Sequence[FieldSpec]) -> np.ndarray:
 
 def total_vocab(fields: Sequence[FieldSpec]) -> int:
     return int(sum(f.vocab for f in fields))
+
+
+def globalize_ids(local_ids, offsets) -> torch.Tensor:
+    """local_ids: (B, F) per-field ids -> (B, F) global table rows, int32 on
+    ``local_ids``' device. The reference returns int32 with x64 off, as it
+    runs; the port does the same whatever the integer type it is given (the
+    packed table's index vectors are int32 too)."""
+    local_ids = torch.as_tensor(local_ids)
+    offsets = torch.as_tensor(offsets, dtype=torch.int32,
+                              device=local_ids.device)
+    return local_ids.to(torch.int32) + offsets[None, :]

@@ -279,6 +279,12 @@ def flash_attention(q, k, v, *, n_kv_heads: int | None = None,
     return flash_attention_fwd(q, k, v, causal)
 
 
+# the reference's name; its ``interpret=`` (the Pallas interpreter) and
+# block sizes ``bq``/``bk`` are not taken: a CUDA tensor takes the kernel,
+# which picks its own tiles, a CPU tensor the plain version
+flash_attention_kernel = flash_attention
+
+
 def flash_attention_kernel_sharded(q, k, v, *, n_kv_heads: int | None = None,
                                    causal: bool = True, head_axes=("model",),
                                    mesh=None) -> torch.Tensor:

@@ -218,6 +218,10 @@ def packed_lookup(table, meta, ids: torch.Tensor) -> torch.Tensor:
 
 packed_lookup.launches = 0
 
+# the reference's name; its ``interpret=`` (the Pallas interpreter) is not
+# taken: a CUDA tensor takes the kernel, a CPU tensor its plain version
+packed_lookup_kernel = packed_lookup
+
 
 def _lookup_shape(table, meta, ids):
     return torch.empty((*ids.shape, int(meta["d"])), dtype=torch.float32,

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the fused Eq. 9 mixture and its backward: the
 oracle the CUDA kernels are held against, and the path CPU tensors take.
 
-The forward is ``core.quantizer.mixed_expectation`` without autograd. The
+``mixed_expectation_ref`` is ``core.quantizer.mixed_expectation``, the
+composition with its gradients through autograd (the reference's oracle of
+that name); the forward here is the same without autograd. The
 backward is written out from the reference's TPU kernel body
 (``_bwd_kernel``), width by width. The products that the CUDA kernels round
 once are ``torch.addcmul`` in both (one fused multiply-add): the dequant
@@ -29,6 +31,12 @@ def _quantize(rows, alpha_i, beta, b):
     v = (rows - beta) / alpha_i
     codes = torch.clamp(torch.round(v), n_b, p_b)
     return v, codes, torch.addcmul(beta, codes, alpha_i)
+
+
+def mixed_expectation_ref(rows, probs, alpha, beta, *, bits) -> torch.Tensor:
+    """The reference's oracle: Eq. 9 as the plain composition of the LSQ+
+    quantizer, its STE gradients through autograd."""
+    return mixed_expectation(rows, probs, alpha, beta, bits)
 
 
 def mixed_expectation_fwd_ref(rows, probs, alpha, beta, bits) -> torch.Tensor:

@@ -50,7 +50,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import get_arch
-from repro_torch.core.packing import words_per_row
+from repro_torch.core.inference import packed_specs
+from repro_torch.core.mpe import MPEConfig
 from repro_torch.dist.shard import (active_mesh, local_row_block,
                                     place_table_rows, sharded_value_and_grad,
                                     table_shard_flags)
@@ -64,7 +65,6 @@ from repro_torch.train.optimizer import adam
 from repro_torch.train.tree import leaves, unflatten
 
 PACKED_HIST = (0.0, 0.30, 0.20, 0.20, 0.10, 0.10, 0.10)  # widths 0..6
-MPE_BITS = (0, 1, 2, 3, 4, 5, 6)
 META = torch.device("meta")
 
 
@@ -372,30 +372,12 @@ def _mpe_buffer_specs(n: int, group_size: int = 128):
             "freq_sum": sds((g,), torch.float32)}
 
 
-def _pad_rows(n: int, multiple: int) -> int:
-    return max(multiple, -(-n // multiple) * multiple)
-
-
-def packed_specs(n: int, d: int, width_histogram=PACKED_HIST,
-                 bits=MPE_BITS, row_pad_multiple: int = 512) -> dict:
-    """Stand-ins for a packed table whose rows fall on the widths as
-    ``width_histogram`` says (the reference's ``packed_specs``): int32
-    words where the reference holds uint32."""
-    subtables = {}
-    for i, b in enumerate(bits):
-        if b == 0:
-            continue
-        rows = _pad_rows(int(n * width_histogram[i]), row_pad_multiple)
-        subtables[f"b{b}"] = sds((rows, words_per_row(d, b)), torch.int32)
-    return {"subtables": subtables,
-            "local_idx": sds((n,), torch.int32),
-            "width_idx": sds((n,), torch.int32),
-            "alpha": sds((len(bits),), torch.float32),
-            "beta": sds((d,), torch.float32)}
+def _packed_param_specs(n, d):
+    return packed_specs(n, d, MPEConfig(), PACKED_HIST)
 
 
 def _packed_cfg(n, d):
-    return {"bits": MPE_BITS, "d": d, "n": n}
+    return {"bits": MPEConfig().bits, "d": d, "n": n}
 
 
 def _one_id_a_field(cfg):
@@ -487,7 +469,7 @@ def _packed_params(model, cfg, n, d):
     buffers and state (the table's meta is the cell's config)."""
     params, buffers, state = _init_small(model, cfg, compressor="plain",
                                          comp_cfg=None)
-    params = _vocab_leaves(dict(params, embedding=packed_specs(n, d)), n)
+    params = _vocab_leaves(dict(params, embedding=_packed_param_specs(n, d)), n)
     return params, dict(buffers, embedding={}), state
 
 
@@ -707,7 +689,7 @@ def _sasrec_cell(spec, shape, batch, train, dp, rows_axes, multi_pod,
     scfg = base._replace(compressor="packed", comp_cfg=_packed_cfg(n, d))
     params, _, _ = _init_small(SASRec, scfg, compressor="plain",
                                comp_cfg=None)
-    params = dict(params, embedding=packed_specs(n, d))
+    params = dict(params, embedding=_packed_param_specs(n, d))
     p_pspecs = packed_serve_pspecs(params, rows_axes=rows_axes)
     buffers = {"embedding": {}}
     whole = {"kind": "serve", "family": "recsys", "rows": n,

@@ -1,4 +1,4 @@
-"""Evaluation metrics: AUC (rank-based Mann-Whitney) and logloss.
+"""Evaluation metrics: AUC (rank-based Mann-Whitney), logloss and accuracy.
 
 Ties get average ranks (matches sklearn on CTR data). Both run on whatever
 device their inputs lie on; the evaluation loop hands them CPU tensors.
@@ -37,3 +37,15 @@ def auc(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     u = sum_pos_ranks - n_pos * (n_pos + 1) / 2.0
     return torch.where((n_pos == 0) | (n_neg == 0), 0.5,
                        u / torch.clamp(n_pos * n_neg, min=1.0))
+
+
+def binary_accuracy(labels: torch.Tensor, probs: torch.Tensor,
+                    threshold: float = 0.5) -> torch.Tensor:
+    """The float32 share of thresholded probabilities (``probs >
+    threshold``: a tie counts as 0) equal to the labels. The count is
+    multiplied by the float32 reciprocal of the size, as the reference's
+    mean is on the CPU (a division rounds differently for ~1 size in 4)."""
+    hits = ((probs > threshold).to(torch.float32) == labels).to(torch.float32)
+    return torch.sum(hits) * torch.tensor(1.0 / hits.numel(),
+                                          dtype=torch.float32,
+                                          device=hits.device)

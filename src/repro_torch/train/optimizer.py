@@ -7,6 +7,10 @@ jitted step updates its donated carry in place, and so does this one:
     scale, gnorm = clip_scale(grads, max_norm)
     opt.update_(params, grads, opt_state, scale, ok)
 
+``apply_updates`` and ``clip_by_global_norm`` are the reference's functional
+forms, which return new trees; the ``Trainer`` takes the in-place path
+above.
+
 ``update_`` updates every parameter leaf, the optimizer's state and its step
 in place, and leaves them all bit-unchanged where the 0-d bool ``ok`` is
 false. No second tree is made. Adam runs leaf by leaf through
@@ -146,4 +150,20 @@ def clip_scale(grads, max_norm: float):
     sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)]
     gnorm = torch.sqrt(torch.sum(torch.stack(sq)))
     return torch.clamp(max_norm / (gnorm + 1e-12), max=1.0), gnorm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """The reference's functional clip: ``(grads · scale, gnorm)`` with
+    ``clip_scale``'s factor and norm, as new tensors. A leaf comes out in
+    its dtype promoted with float32, as the reference's ``g * scale``
+    promotes it: a bfloat16 gradient comes out float32."""
+    scale, gnorm = clip_scale(grads, max_norm)
+    return tree_map(
+        lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+        grads), gnorm
+
+
+def apply_updates(params, updates):
+    """A new tree ``p + u``, each leaf in ``p``'s dtype."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 

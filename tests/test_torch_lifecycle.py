@@ -4,9 +4,13 @@ replays (``run_open_loop`` and ``run_open_loop_mix``: same seed, rate,
 deadline, capacity, window, quotas and watermark), give every ticket the
 same status and the same queue / assembly / compute / latency ms, and the
 same counters (completed, shed, failed, occupancy, queue, goodput, cache).
-The port's logits equal its unbatched forward bit for bit and the
-reference's within rtol = atol = 1e-4. Also: coalescing, fault isolation,
-ticket consumption, the max-wait window."""
+Every chunk the port dispatches equals the port's forward of that padded
+block, sliced back, bit for bit, and so does a lone request's result; a
+request's logits are within a few float32 ulps of its unbatched forward
+(the CPU's BLAS picks its kernel by row count, so a product over other rows
+may differ in the last bits) and within rtol = atol = 1e-4 of the
+reference's. Also: coalescing, fault isolation, ticket consumption, the
+max-wait window."""
 import numpy as np
 import pytest
 import torch
@@ -24,11 +28,16 @@ from repro_torch.launch import serve as launch
 from repro_torch.models.dlrm import DLRM
 from repro_torch.serve import (CellCache, Engine, ManualClock,
                                RequestFailedError, TenantQuota, TickClock)
+from repro_torch.serve.batcher import RequestBatcher
 from test_torch_dlrm import make_reference_dlrm
 
 VOCABS = (600, 400, 500)
 SHAPES = {"serve_p99": 64, "serve_bulk": 256}
 TOL = dict(rtol=1e-4, atol=1e-4)
+# the same rows in a block of another row count: at most eight float32 ulps
+# of a logit (2**-23 ~ 1.2e-7 relative), and as much at the logits' scale
+# (~0.1) for one near zero
+ULPS = dict(rtol=1e-6, atol=1e-7)
 REQ_FIELDS = ("status", "queue_ms", "assembly_ms", "compute_ms",
               "latency_ms", "arrival_t", "dispatch_t", "complete_t",
               "rows_done", "tenant", "priority")
@@ -83,18 +92,65 @@ def request_ids(model, i, rows=None):
         1000 + i)["ids"]
 
 
-def port_unbatched(model, ids):
+def port_forward(model, ids):
+    """The port's eval forward of ``ids`` as one block of ``len(ids)`` rows."""
     params, state, buffers = model["port"]
     with torch.inference_mode():
         return DLRM.apply(params, buffers, state,
                           {"ids": torch.from_numpy(ids)}, model["cfg"])[0].numpy()
 
 
-def check_tickets(model, port, ref, tickets, jtickets, ids_of):
+def port_padded(model, ids):
+    """The port's forward of each chunk the batcher plans for ``ids``,
+    zero-padded to its cell's rows and sliced back: what a lone request
+    gets from the engine."""
+    return np.concatenate([
+        RequestBatcher.unpad(port_forward(model, RequestBatcher.pad(
+            ids[c.start:c.start + c.n_valid], c.rows)[0]), c.n_valid)
+        for c in RequestBatcher(SHAPES).plan(len(ids))])
+
+
+def record_chunks(engine):
+    """Log every score chunk the engine's scheduler scatters back: the
+    requests of its spans, the chunk, and the cell's output rows."""
+    log, scatter = [], engine.scheduler._scatter
+
+    def recording(ready, chunk, y, *rest):
+        log.append(([ready[s.req] for s in chunk.spans], chunk, np.array(y)))
+        return scatter(ready, chunk, y, *rest)
+    engine.scheduler._scatter = recording
+    return log
+
+
+def check_chunks(model, log, ids_by_req):
+    """Each logged chunk's output is the port's forward of its padded block,
+    sliced back, bit for bit -> each request's logits as those blocks give
+    them, and whether the request rode every chunk alone."""
+    want, lone = {}, {}
+    for reqs, chunk, y in log:
+        rows = np.concatenate([ids_by_req[id(r)][s.src_start:s.src_start + s.n]
+                               for r, s in zip(reqs, chunk.spans)])
+        block = RequestBatcher.unpad(port_forward(
+            model, RequestBatcher.pad(rows, chunk.rows)[0]), chunk.n_valid)
+        np.testing.assert_array_equal(
+            RequestBatcher.unpad(y, chunk.n_valid), block)
+        for r, s in zip(reqs, chunk.spans):
+            out = want.setdefault(id(r), np.full(r.n_rows, np.nan, np.float32))
+            out[s.src_start:s.src_start + s.n] = \
+                block[s.dst_start:s.dst_start + s.n]
+            lone[id(r)] = lone.get(id(r), True) and len(chunk.spans) == 1
+    return want, lone
+
+
+def check_tickets(model, port, ref, tickets, jtickets, ids_of, log):
     """Every ticket: the same lifecycle record in both engines; a finished
-    request's logits equal the port's unbatched forward and are within
-    TOL of the reference's."""
+    request's logits are its chunks' padded forwards bit for bit (a lone
+    request's: its own plan's), within ULPS of the port's unbatched
+    forward and within TOL of the reference's."""
     assert [t is None for t in tickets] == [t is None for t in jtickets]
+    ids_by_req = {id(port._requests[t]): ids_of(i)
+                  for i, t in enumerate(tickets) if t is not None}
+    want, lone = check_chunks(model, log, ids_by_req)
     done = 0
     for i, (t, jt) in enumerate(zip(tickets, jtickets)):
         if t is None:
@@ -104,8 +160,12 @@ def check_tickets(model, port, ref, tickets, jtickets, ids_of):
             [getattr(jreq, f) for f in REQ_FIELDS], i
         if req.status == "done":
             ids = ids_of(i)
-            np.testing.assert_array_equal(req.result,
-                                          port_unbatched(model, ids))
+            np.testing.assert_array_equal(req.result, want[id(req)])
+            if lone[id(req)]:
+                np.testing.assert_array_equal(req.result,
+                                              port_padded(model, ids))
+            np.testing.assert_allclose(req.result, port_forward(model, ids),
+                                       **ULPS)
             np.testing.assert_allclose(req.result, jreq.result, **TOL)
             done += 1
     return done
@@ -136,12 +196,14 @@ def test_open_loop_replay_equals_reference(model, case):
     seed, qps, n = case.pop("seed"), case.pop("qps"), case.pop("n")
     deadline = case.pop("deadline_ms")
     port, ref = engines(model, fresh=True, **case)
+    log = record_chunks(port)
     out = launch.run_open_loop(port, lambda i: request_ids(model, i), n, qps,
                                seed=seed, deadline_ms=deadline)
     jout = jlaunch.run_open_loop(ref, lambda i: request_ids(model, i), n, qps,
                                  seed=seed, deadline_ms=deadline)
     done = check_tickets(model, port, ref, out.pop("tickets"),
-                         jout.pop("tickets"), lambda i: request_ids(model, i))
+                         jout.pop("tickets"), lambda i: request_ids(model, i),
+                         log)
     assert out == jout
     assert done == out["completed"] > 0
     c = check_counters(port, ref)
@@ -193,10 +255,15 @@ def test_coalescing_fewer_dispatches_higher_occupancy(model):
     jtickets = [jco.submit(r) for r in reqs]
     co.drain()
     jco.drain()
-    for r, t, jt, want in zip(reqs, tickets, jtickets, per_request):
+    # one 256-row cell holds the eight: its padded forward, sliced per span
+    block = port_padded(model, np.concatenate(reqs))
+    for k, (r, t, jt, want) in enumerate(zip(reqs, tickets, jtickets,
+                                             per_request)):
         got = co.poll(t)
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(got, port_unbatched(model, r))
+        np.testing.assert_array_equal(got, block[20 * k:20 * (k + 1)])
+        np.testing.assert_array_equal(want, port_padded(model, r))
+        np.testing.assert_allclose(got, want, **ULPS)
+        np.testing.assert_allclose(got, port_forward(model, r), **ULPS)
         np.testing.assert_allclose(got, jco.poll(jt), **TOL)
 
     def dispatches(engine):
@@ -215,7 +282,7 @@ def test_coalescing_fewer_dispatches_higher_occupancy(model):
 
 def test_fault_fails_only_its_chunk(model):
     a, b = request_ids(model, 1, 256), request_ids(model, 2, 64)
-    want_b = port_unbatched(model, b)
+    want_b = port_forward(model, b)
     port, ref = engines(model)
     for engine in (port, ref):
         orig = engine._timed_call
@@ -248,7 +315,9 @@ def test_poll_and_try_poll_consume_tickets(model):
     t = port.submit(ids)
     assert port.poll(t) is None and port.try_poll(t) == {"status": "pending"}
     port.drain()
-    np.testing.assert_array_equal(port.poll(t), port_unbatched(model, ids))
+    got = port.poll(t)
+    np.testing.assert_array_equal(got, port_padded(model, ids))
+    np.testing.assert_allclose(got, port_forward(model, ids), **ULPS)
     with pytest.raises(KeyError):
         port.poll(t)
     assert port.try_poll(t) == {"status": "unknown"}
@@ -256,7 +325,9 @@ def test_poll_and_try_poll_consume_tickets(model):
     port.drain()
     out = port.try_poll(t2)
     assert out["status"] == "done"
-    np.testing.assert_array_equal(out["result"], port_unbatched(model, ids))
+    np.testing.assert_array_equal(out["result"], port_padded(model, ids))
+    np.testing.assert_allclose(out["result"], port_forward(model, ids),
+                               **ULPS)
     assert port.try_poll(t2) == {"status": "unknown"}
     # a deadline shed, polled both ways
     t3 = port.submit(ids, now=0.0, deadline_ms=50.0)

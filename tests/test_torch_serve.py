@@ -1,7 +1,9 @@
 """Port parity for the serving path: the engine scores a reference packed
-DLRM exactly as the port's unbatched forward and within rtol 1e-4 /
-atol 1e-4 of the reference's unbatched forward; the batcher plans and packs
-like the reference's; entry points need a device."""
+DLRM exactly as the port's forward of each planned chunk, zero-padded to its
+cell and sliced back; within a few float32 ulps of the port's unbatched
+forward (the CPU's BLAS picks its kernel by row count) and within rtol 1e-4
+/ atol 1e-4 of the reference's; the batcher plans and packs like the
+reference's; entry points need a device."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,10 @@ from repro_torch.serve.stats import LatencyStats
 from test_torch_dlrm import make_reference_dlrm
 
 VOCABS = (600, 400, 500)
+# the same rows in a block of another row count: at most eight float32 ulps
+# of a logit (2**-23 ~ 1.2e-7 relative), and as much at the logits' scale
+# (~0.1) for one near zero
+ULPS = dict(rtol=1e-6, atol=1e-7)
 
 
 @pytest.fixture(scope="module")
@@ -51,6 +57,16 @@ def _port_unbatched(served, ids):
                       served["cfg"])[0].numpy()
 
 
+def _port_padded(served, ids):
+    """The port's forward of each chunk the engine's batcher plans, padded
+    with ``RequestBatcher.pad``'s zeros and sliced back with ``unpad``."""
+    batcher = RequestBatcher(served["engine"].registered_shapes)
+    return np.concatenate([
+        batcher.unpad(_port_unbatched(served, batcher.pad(
+            ids[c.start:c.start + c.n_valid], c.rows)[0]), c.n_valid)
+        for c in batcher.plan(len(ids))])
+
+
 def _reference_unbatched(served, ids):
     params, state, buffers = served["ref"]
     logits, _, _ = JDLRM.apply(params, buffers, state,
@@ -64,7 +80,8 @@ def test_score_matches_unbatched_forwards(served, n):
     ids = _requests(served, n)
     got = served["engine"].score(ids, return_logits=True)
     assert got.shape == (n,)
-    np.testing.assert_array_equal(got, _port_unbatched(served, ids))
+    np.testing.assert_array_equal(got, _port_padded(served, ids))
+    np.testing.assert_allclose(got, _port_unbatched(served, ids), **ULPS)
     np.testing.assert_allclose(got, _reference_unbatched(served, ids),
                                rtol=1e-4, atol=1e-4)
 
