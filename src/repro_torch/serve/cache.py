@@ -52,6 +52,7 @@ from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import host_mesh, use_mesh
 from repro_torch.serve.batcher import RequestBatcher
+from repro_torch.spans import span
 from repro_torch.train.tree import leaves, tree_map
 
 WARMUP_CALLS = 3       # eager calls on a side stream before the capture
@@ -132,7 +133,8 @@ class CompiledCell:
     inputs, through pinned
     staging buffers padded in place, and returns them all; on the CPU into
     tensors, and returns those. A call that stages the leading inputs only
-    always stages those.
+    always stages those. Traced, it is the span ``serve.stage``, its wait
+    for the staging buffers a ``serve.wait``.
     ``compiled(*request)`` runs the executable on them and returns its
     output — on the card the graph's static output, valid until the next
     replay of any cell of the cache."""
@@ -172,32 +174,34 @@ class CompiledCell:
         return {name: self.replays * n for name, n in self.captured.items()}
 
     def stage(self, *request) -> tuple:
-        if self._graph is None:
-            return tuple(torch.from_numpy(np.ascontiguousarray(
-                RequestBatcher.pad(r, rows)[0])).to(self.device)
-                for r, rows in zip(request, self.rows))
-        if not self._staging:
-            # pinned buffers for the inputs staged here (a tiered cell's
-            # cold buffer comes staged by the engine)
-            self._staging = tuple(
-                torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                for x in self._inputs[:len(request)])
-            self._staged = torch.cuda.Event()
-            self._dirty = list(self.rows[:len(self._staging)])
-        self._staged.synchronize()    # the last copy out of them has ended
-        for k, (buf, x, r) in enumerate(zip(self._staging, self._inputs,
-                                            request)):
-            n = r.shape[0]
-            if n > self.rows[k]:
-                raise ValueError(f"chunk of {n} rows exceeds the cell's "
-                                 f"{self.rows[k]}")
-            rows = buf.numpy()
-            np.copyto(rows[:n], r, casting="no")
-            rows[n:self._dirty[k]] = 0     # the padding: rows of id 0
-            self._dirty[k] = n
-            x.copy_(buf, non_blocking=True)
-        self._staged.record()
-        return self._inputs
+        with span("serve.stage"):
+            if self._graph is None:
+                return tuple(torch.from_numpy(np.ascontiguousarray(
+                    RequestBatcher.pad(r, rows)[0])).to(self.device)
+                    for r, rows in zip(request, self.rows))
+            if not self._staging:
+                # pinned buffers for the inputs staged here (a tiered cell's
+                # cold buffer comes staged by the engine)
+                self._staging = tuple(
+                    torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for x in self._inputs[:len(request)])
+                self._staged = torch.cuda.Event()
+                self._dirty = list(self.rows[:len(self._staging)])
+            with span("serve.wait"):
+                self._staged.synchronize()   # the last copy out has ended
+            for k, (buf, x, r) in enumerate(zip(self._staging, self._inputs,
+                                                request)):
+                n = r.shape[0]
+                if n > self.rows[k]:
+                    raise ValueError(f"chunk of {n} rows exceeds the cell's "
+                                     f"{self.rows[k]}")
+                rows = buf.numpy()
+                np.copyto(rows[:n], r, casting="no")
+                rows[n:self._dirty[k]] = 0     # the padding: rows of id 0
+                self._dirty[k] = n
+                x.copy_(buf, non_blocking=True)
+            self._staged.record()
+            return self._inputs
 
     def compiled(self, *request):
         if any(isinstance(r, np.ndarray) for r in request):

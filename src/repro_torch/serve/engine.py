@@ -20,7 +20,13 @@ products; on the CPU the eager step. The model's tensors move to the
 engine's device once, at registration. Per-cell wall-clock is recorded with
 the lookup-only companion cell timed alongside, for the paper's Figure-5
 lookup-vs-compute split, plus per-dispatch occupancy; per-request
-queue-wait / batch-assembly / compute land in ``RequestStats``.
+queue-wait / batch-assembly / compute land in ``RequestStats``. Under a
+``torch.profiler`` each scheduling round is traced (``repro_torch.spans``):
+``serve.round`` over each ``sched_step``, and
+inside it the scheduler's phases, the cell's call (``serve.replay``) and
+each host block on the device (``serve.wait``). ``submit`` has no span: at
+thousands of requests a second, one a request under the profiler slowed
+the traced run it was meant to describe.
 
 The tiered lane serves from a ``repro_torch.cache.TieredTableStore``: its
 cells bind the store's own tensors (the hot tier), which tier moves,
@@ -72,6 +78,7 @@ from repro_torch.serve.queue import (DONE, FAILED, SHED, AdmissionQueue,
                                      RequestFailedError, TenantQuota)
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.stats import LatencyStats, RequestStats
+from repro_torch.spans import span
 from repro_torch.train.tree import tree_map
 
 class RegisteredCell(NamedTuple):
@@ -523,10 +530,12 @@ class Engine:
 
     def _timed_call(self, reg: RegisteredCell, *request):
         t0 = self._clock()
-        out = reg.cell.compiled(*request)
-        if self.device.type == "cuda":
-            # deliberate timing barrier: wall-clock per call is the product
-            torch.cuda.synchronize(self.device)  # staticcheck: ignore[RL403]
+        with span("serve.replay"):
+            out = reg.cell.compiled(*request)
+        with span("serve.wait"):
+            if self.device.type == "cuda":
+                # deliberate timing barrier: wall-clock per call is the product
+                torch.cuda.synchronize(self.device)  # staticcheck: ignore[RL403]
         return out, (self._clock() - t0) * 1e3
 
     def submit(self, ids, *, kind: str = "score",
@@ -639,9 +648,10 @@ class Engine:
         the same table. The tier policy and drift adapters run right after
         the swap point (``_policy_step``), so tier moves are likewise never
         observed mid-round."""
-        self._apply_swaps()
-        self._policy_step()
-        return self.scheduler.step(now=now)
+        with span("serve.round"):
+            self._apply_swaps()
+            self._policy_step()
+            return self.scheduler.step(now=now)
 
     def drain(self, *, now: float | None = None) -> float:
         """Scheduling rounds until the queue is empty. Returns the final

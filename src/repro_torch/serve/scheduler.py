@@ -37,12 +37,21 @@ Time is driven by the caller: ``step(now=None)`` uses the engine's clock
 measured work (deterministic open-loop replay — ``launch/serve.py --qps``).
 The clock is read at the reference's points and in its order, so a replay
 under ``TickClock`` follows the reference's trajectory.
+
+Under a ``torch.profiler`` the scored lanes' phases are spans
+(``repro_torch.spans``), children of the engine's ``serve.round``:
+``serve.take`` (the take, its shedding and the result buffers) and
+``serve.pack``, then for each score chunk ``serve.gather``, ``serve.stage``
+(``CompiledCell.stage``), ``serve.replay``, ``serve.wait``,
+``serve.readback``, ``serve.lookup_split`` (the Figure-5 companion's call)
+and ``serve.scatter`` (the stats and the requests' results).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.serve.batcher import RequestBatcher
 from repro_torch.serve.queue import DISPATCHED, DONE, FAILED
 
@@ -282,17 +291,19 @@ class Scheduler:
 
     def _dispatch_scored(self, kind: str, cursor: float, wall: bool) -> float:
         engine = self.engine
-        ready, expired = self._take(kind, cursor)
-        self._shed_expired(expired)
+        with spans.span("serve.take"):
+            ready, expired = self._take(kind, cursor)
+            self._shed_expired(expired)
+            for req in ready:
+                req.result = np.empty((req.n_rows,), np.float32)
         if not ready:
             return cursor
         self._progress = True
 
-        for req in ready:
-            req.result = np.empty((req.n_rows,), np.float32)
         batcher = (engine._score_batcher if kind == "score"
                    else engine._tiered_batcher)
-        chunks = batcher.pack([r.n_rows for r in ready])
+        with spans.span("serve.pack"):
+            chunks = batcher.pack([r.n_rows for r in ready])
 
         if kind == "tiered":
             return self._dispatch_tiered(ready, chunks, cursor, wall)
@@ -301,31 +312,36 @@ class Scheduler:
             reg = engine._score[chunk.bucket]
             try:
                 t0 = engine._clock()
-                rows = RequestBatcher.gather([r.payload for r in ready], chunk)
+                with spans.span("serve.gather"):
+                    rows = RequestBatcher.gather([r.payload for r in ready],
+                                                 chunk)
                 # padded to the cell's rows in its pinned staging buffer, on
                 # to its static input: no padded copy of the ids on the host
                 x = reg.cell.stage(rows)
                 assembly_ms = (engine._clock() - t0) * 1e3
                 self._mark_dispatch(ready, chunk, cursor)
                 y, total_ms = engine._timed_call(reg, *x)
-                # read before the next replay: the cells share one pool
-                y = y.cpu().numpy()  # staticcheck: ignore[RL403]
+                with spans.span("serve.readback"):
+                    # read before the next replay: the cells share one pool
+                    y = y.cpu().numpy()  # staticcheck: ignore[RL403]
             except Exception as err:   # fault injection: fail only this chunk
                 self._fail_chunk(ready, chunk, err, cursor, kind)
                 continue
             lookup_ms = None
             if reg.lookup is not None:
-                try:
-                    _, lookup_ms = engine._timed_call(reg.lookup, *x)
-                except Exception:   # stats companion only — the chunk's
-                    lookup_ms = None    # results already computed fine
-            engine.stats.record(reg.celldef.name, total_ms, lookup_ms,
-                                valid_rows=chunk.n_valid,
-                                capacity_rows=chunk.rows)
-            cursor = self._advance(cursor, (assembly_ms + total_ms) / 1e3,
-                                   wall)
-            self._scatter(ready, chunk, y, assembly_ms, total_ms, cursor,
-                          kind)
+                with spans.span("serve.lookup_split"):
+                    try:
+                        _, lookup_ms = engine._timed_call(reg.lookup, *x)
+                    except Exception:   # stats companion only — the chunk's
+                        lookup_ms = None    # results already computed fine
+            with spans.span("serve.scatter"):
+                engine.stats.record(reg.celldef.name, total_ms, lookup_ms,
+                                    valid_rows=chunk.n_valid,
+                                    capacity_rows=chunk.rows)
+                cursor = self._advance(cursor,
+                                       (assembly_ms + total_ms) / 1e3, wall)
+                self._scatter(ready, chunk, y, assembly_ms, total_ms, cursor,
+                              kind)
         return cursor
 
     def _dispatch_tiered(self, ready, chunks, cursor: float,

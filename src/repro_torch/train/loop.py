@@ -50,6 +50,7 @@ from repro_torch.cache.prefetch import PrefetchPipeline
 from repro_torch.dist.shard import (active_mesh, gather_table_leaves,
                                     shard_table_leaves, sharded_clip_scale,
                                     sharded_value_and_grad, table_shard_flags)
+from repro_torch.spans import span
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.compression import make_error_feedback_transform
 from repro_torch.train.optimizer import clip_scale
@@ -111,45 +112,61 @@ class Trainer:
 
     def train_step(self, batch: dict, step: int) -> dict:
         """One update on ``batch`` (tensors on the trainer's device). Returns
-        {"loss", "metric", "grad_norm", "skipped"} as device tensors."""
-        params, state, opt_state = (self.carry["params"], self.carry["state"],
-                                    self.carry["opt"])
-        step_t = torch.full((), step, dtype=torch.int32, device=self.device)
-        if self._vag is not None:
-            (loss, (new_state, metric)), grads = self._vag(
-                params, self.buffers, state, batch, step=step_t)
-            scale, gnorm = sharded_clip_scale(grads, self._flags, self.mesh,
-                                              self.table_rows_axes,
-                                              self.clip_norm)
-        else:
-            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-            live = unflatten(params, flat)
-            with torch.enable_grad():
-                loss, (new_state, metric) = self.loss_fn(
-                    live, self.buffers, state, batch, step=step_t)
-                grads = list(torch.autograd.grad(loss, flat))
-            del flat, live
-            scale, gnorm = clip_scale(grads, self.clip_norm)
-        loss, metric = loss.detach(), metric.detach()
-        # NaN guard: skip the whole update on a non-finite norm or loss
-        ok = torch.isfinite(gnorm) & torch.isfinite(loss)
-        if self.grad_compression:
-            # the reference's order: the clip, then the error feedback,
-            # whose residuals are carried whether or not the guard skips
-            clipped = [g.mul_(scale) for g in grads]
-            ef = self.carry["ef"]
-            grads, new_ef = self._ef_apply(clipped, leaves(ef))
-            del clipped
-            for e, n in zip(leaves(ef), new_ef):
-                e.copy_(n)
-            del new_ef
-            scale = torch.ones((), dtype=torch.float32, device=self.device)
-        self.optimizer.update_(params, unflatten(params, list(grads)),
-                               opt_state, scale, ok)
-        del grads
-        self.carry["state"] = _detached(new_state)
-        return {"loss": loss, "metric": metric, "grad_norm": gnorm,
-                "skipped": ~ok}
+        {"loss", "metric", "grad_norm", "skipped"} as device tensors.
+        Traced, the step is the span ``train.step`` over ``train.forward``,
+        ``train.backward`` (on a mesh the two are one
+        ``train.forward_backward``), ``train.clip`` and ``train.update``;
+        the forward, backward, clip and update are timed on the device they
+        run on (``repro_torch.spans``)."""
+        dev = self.device
+        with span("train.step"):
+            params, state, opt_state = (self.carry["params"],
+                                        self.carry["state"], self.carry["opt"])
+            step_t = torch.full((), step, dtype=torch.int32, device=dev)
+            if self._vag is not None:
+                with span("train.forward_backward"):
+                    (loss, (new_state, metric)), grads = self._vag(
+                        params, self.buffers, state, batch, step=step_t)
+                with span("train.clip", device=dev):
+                    scale, gnorm = sharded_clip_scale(
+                        grads, self._flags, self.mesh, self.table_rows_axes,
+                        self.clip_norm)
+            else:
+                flat = [p.detach().requires_grad_(True)
+                        for p in leaves(params)]
+                live = unflatten(params, flat)
+                with torch.enable_grad():
+                    with span("train.forward", device=dev):
+                        loss, (new_state, metric) = self.loss_fn(
+                            live, self.buffers, state, batch, step=step_t)
+                    with span("train.backward", device=dev):
+                        grads = list(torch.autograd.grad(loss, flat))
+                del flat, live
+                with span("train.clip", device=dev):
+                    scale, gnorm = clip_scale(grads, self.clip_norm)
+            with span("train.update", device=dev):
+                loss, metric = loss.detach(), metric.detach()
+                # NaN guard: skip the whole update on a non-finite norm or
+                # loss
+                ok = torch.isfinite(gnorm) & torch.isfinite(loss)
+                if self.grad_compression:
+                    # the reference's order: the clip, then the error
+                    # feedback, whose residuals are carried whether or not
+                    # the guard skips
+                    clipped = [g.mul_(scale) for g in grads]
+                    ef = self.carry["ef"]
+                    grads, new_ef = self._ef_apply(clipped, leaves(ef))
+                    del clipped
+                    for e, n in zip(leaves(ef), new_ef):
+                        e.copy_(n)
+                    del new_ef
+                    scale = torch.ones((), dtype=torch.float32, device=dev)
+                self.optimizer.update_(params, unflatten(params, list(grads)),
+                                       opt_state, scale, ok)
+                del grads
+            self.carry["state"] = _detached(new_state)
+            return {"loss": loss, "metric": metric, "grad_norm": gnorm,
+                    "skipped": ~ok}
 
     # -- fault tolerance ----------------------------------------------------
     def restore(self) -> bool:

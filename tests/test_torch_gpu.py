@@ -1995,3 +1995,45 @@ def test_moe_training_step_runs_no_library_scatter_add(cuda_device):
     assert seg_ops.segment_sum.launches - before >= 3 * cfg.n_layers
     assert any("segment" in n for n in names)
     assert [n for n in names if seg_ops.is_library_scatter_add(n)] == []
+
+
+def test_span_event_pair_times_the_device(cuda_device):
+    """A span given the card times its work by a pair of CUDA events, which
+    ``records()`` resolves to device milliseconds: at least the kernels it
+    enclosed, at most its host interval (the events' own records aside)
+    once the host waited for them; a span without a device carries its
+    host milliseconds. No device event carries a span's name unless it is
+    flagged as a user annotation (the benchmark's trace drops those from
+    the device's work). A profile with no device activity is taken
+    again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    a = torch.randn(4096, 4096, device=cuda_device)
+    (a @ a).sum().item()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        spans.clear()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with spans.span("train.forward", device=cuda_device):
+                    for _ in range(4):
+                        b = a @ a
+                    with spans.span("serve.readback"):
+                        b.cpu()
+            step, readback = spans.records()
+        finally:
+            spans.clear()
+        dev = [e for e in prof.events() if e.device_type == cuda]
+        if dev:
+            break
+    gemm_ms = sum(e.time_range.elapsed_us() for e in dev
+                  if "gemm" in e.name.lower()) / 1e3
+    assert gemm_ms > 0
+    assert 0.95 * gemm_ms <= step.ms <= step.host_ms + 1.0
+    assert step._events is None          # resolved once, then freed
+    assert readback.parent is step and readback.ms == readback.host_ms
+    names = ("train.forward", "serve.readback")
+    assert [e.name for e in dev if e.name in names
+            and not getattr(e, "is_user_annotation", False)] == []

@@ -452,6 +452,18 @@ def test_trainer_on_mesh_matches_reference_trainer(compressor, mesh,
 
 
 @pytest.mark.parametrize("compressor,mesh", TRAIN_MODELS)
+def test_trainer_on_mesh_step_spans(compressor, mesh, train_worlds):
+    """A traced step on the mesh, on every rank: ``train.step`` over one
+    ``train.forward_backward`` (the sharded loss and gradient), then
+    ``train.clip`` and ``train.update``."""
+    *_, outs = train_worlds(compressor, mesh)
+    for rank in outs:
+        assert [tuple(s) for s in rank["spans"]] == [
+            ("train.step", None), ("train.forward_backward", "train.step"),
+            ("train.clip", "train.step"), ("train.update", "train.step")]
+
+
+@pytest.mark.parametrize("compressor,mesh", TRAIN_MODELS)
 def test_trainer_clip_scale_is_global(compressor, mesh, train_worlds):
     """At a clip that binds, the mesh step's norm — and so its scale — is
     the one-device step's, and so is the step it takes."""

@@ -15,6 +15,7 @@ outputs; the parent compares them.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import pickle
 import subprocess
@@ -181,7 +182,8 @@ def _ctr_model(inp):
 def suite_train(mesh, inp) -> dict:
     """``sharded_value_and_grad`` on one batch (its table gradients
     gathered whole), then ``Trainer(mesh=)`` steps: the trajectory, the
-    gathered parameters, and one step at a clip tight enough to bind."""
+    gathered parameters, one step at a clip tight enough to bind, and the
+    spans of a step under the profiler."""
     import torch
     from repro_torch.dist import shard
     from repro_torch.train.loop import Trainer
@@ -236,6 +238,19 @@ def suite_train(mesh, inp) -> dict:
     tight.run(ds.batch, 1, log_every=0)
     out["tight/history"] = tight.history
     out["tight/params"] = leaves(tight.params)
+
+    # a step traced: the mesh step's spans
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import spans
+    params, buffers, state, loss_fn, ds = _ctr_model(inp)
+    traced = Trainer(loss_fn, params, buffers, state, adam(1e-3), mesh=mesh)
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in ds.batch(1).items()}
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced.train_step(batch, 1)
+    out["spans"] = [(r.name, r.parent and r.parent.name)
+                    for r in spans.records()]
     return {k: _np(v) for k, v in out.items()}
 
 
@@ -370,6 +385,10 @@ def main(suite: str, rank: int, world: int, tmp: str):
     try:
         out = SUITES[suite](_mesh(inp["mesh_shape"]), inp)
     finally:
+        # an engine is a reference cycle that holds its mesh's process
+        # groups: freed at exit, after the groups ended, a gloo group's
+        # destructor aborts the process
+        gc.collect()
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
