@@ -10,8 +10,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reference trains and serves.
 2. build: compile the CUDA kernels (``mpe_lookup``, ``mpe_qat``,
    ``flash_attention``, ``embedding_bag``, ``segment_sum``, ``adam``,
-   ``tiered_cold``, ``kv_cache_write``, ``decode_attention``) from
-   the sources in this checkout, one nvcc each, started together; print
+   ``tiered_cold``, ``kv_cache_write``, ``decode_attention``,
+   ``global_norm``) from the sources in this checkout, one nvcc each, started together; print
    the ptxas reports.
 3. kernel vs plain: hold the ``mpe_lookup`` kernel against its plain PyTorch
    version on the card over b ∈ 1..8 × d ∈ {8, 16, 50, 64, 2048} (rtol 1e-6), and
@@ -114,8 +114,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    launch counts set to 0; then the exported table is served by
    ``build_engine`` for a few requests. Every step must launch the
    ``mpe_qat`` forward and backward, the segment sum once a gather (two a
-   search step, one a retrain step) and the Adam pass once a parameter
-   leaf, every loss be finite and no step be skipped, every request launch
+   search step, one a retrain step), the clip's pass once and the Adam
+   pass once a parameter leaf, every loss be finite and no step be skipped, every request launch
    ``mpe_lookup``, and the served scores equal the plain lookup's (rtol
    1e-4, atol 1e-4). Peak memory as a multiple of the table, beside PR
    15's.
@@ -125,6 +125,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``lsq_quantize`` composition (``out`` at rtol 1e-5 / atol 1e-7, ``drows``
    likewise against autograd's own order, reductions at rtol 1e-4 /
    atol 1e-6), and the backward twice.
+8a. the clip's global norm (``global_norm``) at both search cells' leaf
+   sets (random N(0, 0.01) leaves of DLRM's 18 and BST's 31 parameter
+   shapes, ~548 M elements): within 1e-6 of the plain chain and 1e-7 of
+   a float64 sum, the same bits on every call, one launch a call,
+   nothing allocated but its two floats; timed against the plain chain
+   and ``torch._foreach_norm`` beside the bound of one read.
 8b. mesh: the distribution layer (``repro_torch.dist``) on one card. (a)
    ``init_distributed`` from the environment the smoke sets for itself
    (an NCCL group of one rank on a free local port), a ``--mesh 1,1``
@@ -182,8 +188,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    sequences), on batches made once before the steps. Each step must launch
    the flash forward with stats and the flash backward twice each and the
    ``mpe_qat`` forward and backward three times each, the segment sum six
-   times and the Adam pass once a leaf; every loss finite, no step
-   skipped; peak memory as a multiple of the table beside the two-tree
+   times, the clip's pass once and the Adam pass once a leaf; every loss
+   finite, no step skipped; peak memory as a multiple of the table beside the two-tree
    trainer's. One
    more step with the ``mpe_qat`` backward, segment-sum and Adam wrappers
    recording their arguments: on those, the ``mpe_qat`` kernels against
@@ -233,8 +239,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 14. BST training: the same config under ``mpe_search``, 8 ``Trainer`` steps
    with ``adam(1e-3)`` and λ = 1e-5 at 65,536 rows on batches made once.
    Each step must launch ``mpe_qat`` forward and backward twice each and
-   the flash forward with stats and backward once each; every loss
-   finite, no step skipped. One more step with the kernels' arguments
+   the flash forward with stats and backward once each, the clip's pass
+   once; every loss finite, no step skipped. One more step with the kernels' arguments
    recorded: the flash forward with stats and backward ((65,536, 21, 8, 4),
    non-causal) and the ``mpe_qat`` forward and backward
    (1,376,256 sequence rows and 262,144 context rows, d = 32) against their
@@ -274,8 +280,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    each through ``launch.train.main --prefetch`` for 4 steps at 65,536
    rows, the counts at 0. Each step must launch ``mpe_qat`` forward and
    backward once (LSQ, ALPT: one width) or never, the segment sum once a
-   gather and the Adam pass once a leaf; every loss finite, no step
-   skipped, every leaf at its ``data_ptr``, ALPT's table on its grid after
+   gather, the clip's pass once and the Adam pass once a leaf; every loss
+   finite, no step skipped, every leaf at its ``data_ptr``, ALPT's table on its grid after
    every step (flags kept on the card, read after the run). One traced
    step each runs the segment sum and no library dense embedding
    backward; LSQ's, ALPT's, QR's and OptFS's next step is recorded and its
@@ -299,8 +305,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1e-5); 8 ``Trainer`` steps with ``adam(1e-3)`` and λ = 1e-5 at 65,536
    rows on batches made once (Zipf user and item ids, logQ from the item
    prior), each launching the ``mpe_qat`` forward and backward once a
-   tower, the segment sum once a gather (four) and the Adam pass once a
-   leaf, every loss finite, no step skipped, the peak under 70 GB (and as
+   tower, the segment sum once a gather (four), the clip's pass once and
+   the Adam pass once a leaf, every loss finite, no step skipped, the peak under 70 GB (and as
    tables); one step traced; one more step's ``mpe_qat``, segment-sum and
    Adam arguments held against their plain versions as in 11 (the Adam
    pass on the 2,684,354,560-element table leaf too, timed in the traced
@@ -324,8 +330,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``make_sbm_graph``, its host seconds printed) 2 steps. Each step's
    launches are counted and checked (the segment sum for each scatter and
    each gather whose input takes a gradient, the lookup's two gathers on
-   the molecule cell, the Adam pass once a leaf); every loss finite, no
-   step skipped, every ε moved. The molecule and cora steps' kernel
+   the molecule cell, the clip's pass once, the Adam pass once a leaf);
+   every loss finite, no step skipped, every ε moved. The molecule and cora steps' kernel
    arguments are recorded and held against their plain versions as in 11.
    One ``ogb_products`` step traced: the segment-sum kernels ran, and no
    library ``index_add_``, scatter-add, gather or dense embedding backward
@@ -412,8 +418,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1.0 of ln V; four ``Trainer`` steps on batches made once, each
    launching the flash forward with statistics 48 times (a layer's forward
    and its recompute), the backward 24, the segment sum once (the token
-   table's gather) and the Adam pass once a leaf; every loss finite, no
-   step skipped, the reserved peak under 70 GB. One more step's segment-sum
+   table's gather), the clip's pass once and the Adam pass once a leaf;
+   every loss finite, no step skipped, the reserved peak under 70 GB. One more step's segment-sum
    and Adam arguments held against their plain versions and timed (Adam on
    the largest bf16 leaf and on the float32 table); one more with the
    flash arguments kept: the last layer's recomputed forward bit-identical
@@ -456,8 +462,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    within rtol 1e-6 (the sums of squares run in another order).
 
 The line before the last holds the ``{"kernels": [...]}`` record (the
-seven ported TPU kernels, the segment sum and the Adam pass, which
-replace library calls and no TPU kernel, the tiered cold fill, which
+seven ported TPU kernels, the segment sum, the Adam pass and the clip's
+global norm, which replace library calls and no TPU kernel, the tiered cold fill, which
 replaces the reference's eager cold path, and the LM's ``kv_cache_write``
 and ``decode_attention``; ``launches_by_path`` has the lifecycle's,
 ``dlrm lifecycle``, the tiered lane's, ``dlrm tiered``, since phases
@@ -520,6 +526,9 @@ from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.global_norm import ops as norm_ops  # noqa: E402
+from repro_torch.kernels.global_norm.ref import (  # noqa: E402
+    global_norm_clip_ref)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     bwd_ref, flash_attention_ref, fwd_stats_ref)
 from repro_torch.kernels.kv_cache_write import ops as kvw_ops  # noqa: E402
@@ -911,7 +920,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     names = ("mpe_lookup", "mpe_qat", "flash_attention", "embedding_bag",
              "segment_sum", "adam", "tiered_cold", "kv_cache_write",
-             "decode_attention")
+             "decode_attention", "global_norm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {name: pool.submit(build, name) for name in names}
@@ -2147,13 +2156,17 @@ def phase_train_path(dev) -> dict:
           f"{n_steps} steps launched the mpe_qat forward {fwd} and the "
           f"backward {bwd} times: each step must launch each once")
     # a search step sums two gathers' gradients (rows and probabilities), a
-    # retrain step one; every step runs the Adam pass once a leaf
+    # retrain step one; every step runs the clip's pass once and the Adam
+    # pass once a leaf
     seg, passes = counts()["segment_sum"], counts()["adam_step_"]
+    norms = counts()["global_norm"]
     want_passes = (len(leaves(res["search_params"])) * SEARCH_STEPS
                    + len(leaves(res["final_params"])) * RETRAIN_STEPS)
-    check(seg == 2 * SEARCH_STEPS + RETRAIN_STEPS and passes == want_passes,
-          f"the steps launched segment_sum {seg} and the Adam pass {passes} "
-          f"times, not {2 * SEARCH_STEPS + RETRAIN_STEPS} and {want_passes}")
+    check(seg == 2 * SEARCH_STEPS + RETRAIN_STEPS and passes == want_passes
+          and norms == n_steps,
+          f"the steps launched segment_sum {seg}, the Adam pass {passes} and "
+          f"the clip's pass {norms} times, not "
+          f"{2 * SEARCH_STEPS + RETRAIN_STEPS}, {want_passes} and {n_steps}")
     check(all(np.isfinite(h["loss"]) for h in steps), "a loss was not finite")
     check(not any(h["skipped"] for h in steps), "a step was skipped")
 
@@ -2181,7 +2194,7 @@ def phase_train_path(dev) -> dict:
             served += 1
     launches = {"mixed_expectation_fwd": fwd, "mixed_expectation_bwd": bwd,
                 "mpe_lookup": lookup_launches(engine),
-                "segment_sum": seg, "adam_step_": passes}
+                "segment_sum": seg, "adam_step_": passes, "global_norm": norms}
     table_bytes = cfg_table_bytes(res["final_params"]["embedding"]["emb"])
     sec = res["seconds"]
     out = {"launches": launches, "steps": n_steps, "requests_served": served,
@@ -2900,6 +2913,116 @@ def segment_sum_record(train, step, sasrec_inputs, bst_inputs, extra=(),
             "bytes": head["bytes"], "shapes": shapes}
 
 
+NORM_SOURCE = "src/repro_torch/csrc/global_norm.cu"
+
+
+def norm_leaf_sets(dev) -> list:
+    """(name, leaves): random float32 leaves (N(0, 0.01)) of the search
+    cells' parameter shapes, the dry-run cells' trees (DLRM's 18 leaves,
+    550,741,232 elements; BST's 31, 547,684,840)."""
+    from repro_torch.launch.cells import build_recsys_cell
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for arch in ("dlrm-criteo", "bst"):
+        tree = build_recsys_cell(arch, "train_batch", False).input_specs[0]
+        out.append((arch, [torch.randn(tuple(x.shape), generator=gen,
+                                       device=dev) * 1e-2
+                           for x in leaves(tree)]))
+    return out
+
+
+def extra_bytes(fn) -> int:
+    """Device bytes ``fn()`` allocates at its peak beyond what was live."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - live
+
+
+def global_norm_rows(dev, kernel, trace=None) -> dict:
+    """The global-norm pass ``kernel`` (a ``global_norm_clip``) at both
+    search cells' leaf sets (``norm_leaf_sets``): within 1e-6 of the plain
+    chain (``ref.py``, what ``clip_scale`` ran before the pass) and 1e-7 of
+    a float64 sum, the same bits on every call, one launch a call, and
+    nothing allocated but its two floats; timed against the plain chain in
+    turns (plain, kernel, kernel, plain) and beside ``torch._foreach_norm``
+    with its leaves' norms combined (timed only), with the bound of one
+    read of the leaves. ``trace(fn)``, if given, adds the kernel's traced
+    device ms. Rows by leaf set."""
+    rows = {}
+    for name, grads in norm_leaf_sets(dev):
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        row = {"leaves": len(grads), "elements": sum(g.numel() for g in grads),
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        fns = {"kernel": lambda: kernel(grads, 10.0),
+               "plain": lambda: global_norm_clip_ref(grads, 10.0),
+               "library": lambda: torch.linalg.vector_norm(
+                   torch.stack(torch._foreach_norm(grads)))}
+        for side in ("plain", "kernel", "kernel", "plain", "library"):
+            row.setdefault(f"{side}_ms", []).append(cuda_ms(fns[side], 20))
+        row["roofline_pct"] = 100 * row["bound_ms"] / min(row["kernel_ms"])
+        if trace is not None:
+            row["kernel_traced"] = trace(fns["kernel"])
+        before = kernel.launches
+        fns["kernel"]()
+        row["launches_a_call"] = kernel.launches - before
+        row["extra_bytes"] = {side: extra_bytes(fns[side])
+                              for side in ("kernel", "plain", "library")}
+        scale, gnorm = fns["kernel"]()
+        want_scale, want_norm = fns["plain"]()
+        exact = float(torch.sqrt(sum(torch.sum(torch.square(g.double()))
+                                     for g in grads)))
+        again = [fns["kernel"]() for _ in range(3)]
+        row.update({
+            "gnorm": float(gnorm), "plain_gnorm": float(want_norm),
+            "float64_gnorm": exact,
+            "rel_to_plain": abs(float(gnorm) / float(want_norm) - 1),
+            "rel_to_float64": abs(float(gnorm) / exact - 1),
+            "scale_rel_to_plain": abs(float(scale) / float(want_scale) - 1),
+            "repeatable": all(torch.equal(a[1], gnorm)
+                              and torch.equal(a[0], scale) for a in again)})
+        check(row["rel_to_plain"] <= 1e-6 and row["rel_to_float64"] <= 1e-7
+              and row["scale_rel_to_plain"] <= 1e-6 and row["repeatable"]
+              and row["launches_a_call"] == 1
+              and row["extra_bytes"]["kernel"] < 2 ** 12,
+              f"global_norm at {name}: {row}")
+        log(f"global_norm at {name}: {json.dumps(row)}")
+        rows[name] = row
+        del grads, fns, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_global_norm(dev) -> dict:
+    """The clip's pass held against its plain chain and a float64 sum at
+    both search cells' leaf sets, and timed (``global_norm_rows``); its
+    launches are a comparison's and are not counted."""
+    def run():
+        norm_ops.global_norm_clip([torch.zeros(8, device=dev)], 1.0)  # scratch
+        return global_norm_rows(dev, norm_ops.global_norm_clip)
+    return uncounted(run)
+
+
+def global_norm_record(train, norm) -> dict:
+    """The clip's pass: ms at DLRM's leaf set, the largest relative gap to
+    the plain chain over both sets under ``shapes``."""
+    dlrm = norm["dlrm-criteo"]
+    return {"name": "global_norm", "route": "cuda", "source": NORM_SOURCE,
+            "replaces": "clip_scale's chain in src/repro_torch/train/"
+                        "optimizer.py (a square and a sum a leaf, then "
+                        "stack, sum, sqrt, clamp); no TPU kernel",
+            "launches": train["launches"]["global_norm"],
+            "max_rel_err": max(r["rel_to_plain"] for r in norm.values()),
+            "ms": min(dlrm["kernel_ms"]), "plain_ms": min(dlrm["plain_ms"]),
+            "bound_ms": dlrm["bound_ms"], "bound_by": "bytes",
+            "library_ms": min(dlrm["library_ms"]),
+            "library_call": "torch.linalg.vector_norm(torch.stack("
+                            "torch._foreach_norm(leaves)))",
+            "bytes": dlrm["bytes"], "shapes": norm}
+
+
 def adam_record(train, step, sasrec_inputs, bst_inputs, extra=(),
                 schedule=None) -> dict:
     """The in-place Adam pass: ms on the BST table, each recorded step's
@@ -3577,7 +3700,8 @@ def phase_sasrec_train(dev, prior) -> dict:
     per_step = {"flash_attention_fwd_stats": cfg.n_blocks,
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
                 "mixed_expectation_fwd": 3, "mixed_expectation_bwd": 3,
-                "segment_sum": 6, "adam_step_": len(leaves(trainer.params))}
+                "segment_sum": 6, "adam_step_": len(leaves(trainer.params)),
+                "global_norm": 1}
     t_all = time.perf_counter()
     for step in range(SASREC_STEPS):
         before = counts()
@@ -3623,7 +3747,8 @@ def phase_sasrec_train(dev, prior) -> dict:
                           prior["cdf"], "sasrec trained table", bulk=False)
     del sparams, table
 
-    traced = trace(lambda: trainer.train_step(batches[0], SASREC_STEPS), 1)
+    traced = trace(lambda: trainer.train_step(batches[0], SASREC_STEPS), 1,
+                   expect=FLASH_FWD_NAME)
     step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
                                         "top")}
     step_view["flash_ms"] = {kind: flash_kernel_ms(traced["by_name"], kind)
@@ -4134,8 +4259,8 @@ def phase_bst_train(dev, prior) -> dict:
                 "flash_attention_bwd": cfg.n_blocks, "flash_attention_fwd": 0,
                 "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
                 "mpe_lookup": 0, "embedding_bag_fwd": 0, "segment_sum": 4,
-                "adam_step_": len(leaves(trainer.params)), "tiered_cold": 0,
-                "kv_cache_write": 0, "decode_attention": 0}
+                "adam_step_": len(leaves(trainer.params)), "global_norm": 1,
+                "tiered_cold": 0, "kv_cache_write": 0, "decode_attention": 0}
     outs, step_ms = [], []
     t_all = time.perf_counter()
     for step in range(BST_STEPS):
@@ -4187,7 +4312,8 @@ def phase_bst_train(dev, prior) -> dict:
                        ("serve_p99", "retrieval_cand"))
     del sparams, table
 
-    traced = trace(lambda: trainer.train_step(batches[0], BST_STEPS + 3), 1)
+    traced = trace(lambda: trainer.train_step(batches[0], BST_STEPS + 3), 1,
+                   expect=FLASH_FWD_NAME)
     step_view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share",
                                         "top")}
     step_view["kernel_ms"] = {
@@ -4469,7 +4595,8 @@ def phase_table3(dev) -> dict:
             want = {"mixed_expectation_fwd": int(name in ONE_WIDTH),
                     "mixed_expectation_bwd": int(name in ONE_WIDTH),
                     "segment_sum": BASELINE_GATHERS[name],
-                    "adam_step_": n_leaves, "mpe_lookup": 0}
+                    "adam_step_": n_leaves, "global_norm": 1,
+                    "mpe_lookup": 0}
             check(len(hist) == BASELINE_STEPS
                   and len(trainer.step_launches) == BASELINE_STEPS,
                   f"{name}: {len(hist)} steps ran, not {BASELINE_STEPS}")
@@ -4573,7 +4700,8 @@ def phase_wide_deep(dev) -> dict:
             "mixed_expectation_bwd": 2 * WD_STEPS,
             "segment_sum": 3 * WD_STEPS + 2 * WD_STEPS,
             "adam_step_": (len(leaves(res["search_params"]))
-                           + len(leaves(res["final_params"]))) * WD_STEPS}
+                           + len(leaves(res["final_params"]))) * WD_STEPS,
+            "global_norm": 2 * WD_STEPS}
     check(len(steps) == 2 * WD_STEPS, f"wide-deep: {len(steps)} steps ran")
     check({k: launched[k] for k in want} == want,
           f"wide-deep: launches {launched}, not {want}")
@@ -4967,10 +5095,11 @@ def phase_two_tower(dev) -> dict:
     reset_counts()
     # a step: one lookup a tower (the mpe_qat forward and backward once
     # each), the two gathers of each lookup summed back (rows and group
-    # probabilities), the Adam pass once a leaf
+    # probabilities), the clip's pass once, the Adam pass once a leaf
     per_step = {**{name: 0 for name in COUNTERS},
                 "mixed_expectation_fwd": 2, "mixed_expectation_bwd": 2,
-                "segment_sum": 4, "adam_step_": len(leaves(trainer.params))}
+                "segment_sum": 4, "adam_step_": len(leaves(trainer.params)),
+                "global_norm": 1}
     outs, step_ms = [], []
     t_all = time.perf_counter()
     for step in range(TT_STEPS):
@@ -5084,14 +5213,15 @@ def gin_per_step(cfg, n_leaves: int) -> dict:
     each message gather whose input takes a gradient (every layer's but the
     first on dense features, which take none) and, on categorical input,
     the lookup's two gathers (backwards); the ``mpe_qat`` forward and
-    backward once on categorical input; the Adam pass once a leaf."""
+    backward once on categorical input; the clip's pass once; the Adam pass
+    once a leaf."""
     categorical = cfg.input_mode == "categorical"
     seg = (cfg.n_layers + (cfg.readout == "graph")
            + cfg.n_layers - (not categorical) + 2 * categorical)
     return {**{name: 0 for name in COUNTERS},
             "mixed_expectation_fwd": int(categorical),
             "mixed_expectation_bwd": int(categorical),
-            "segment_sum": seg, "adam_step_": n_leaves}
+            "segment_sum": seg, "adam_step_": n_leaves, "global_norm": 1}
 
 
 def gin_device_graph(graph: dict, dev) -> dict:
@@ -6759,18 +6889,20 @@ def lm_per_step(cfg, trainer, gathers: int, qat: int = 0) -> dict:
     a layer (remat: the forward and its recompute), the backward once, the
     plain forward never; the segment sum once a gather (and, in an MoE,
     the combine's scatter twice and its two gathers' backward once a
-    layer); ``mpe_qat`` ``qat`` times each way; Adam once a leaf."""
+    layer); ``mpe_qat`` ``qat`` times each way; the clip's pass once; Adam
+    once a leaf."""
     moe = 4 * cfg.n_layers if cfg.moe is not None else 0
     return {"flash_attention_fwd_stats": 2 * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers, "flash_attention_fwd": 0,
             "segment_sum": gathers + moe, "mixed_expectation_fwd": qat,
             "mixed_expectation_bwd": qat,
-            "adam_step_": len(leaves(trainer.params)), "mpe_lookup": 0,
-            "kv_cache_write": 0, "decode_attention": 0}
+            "adam_step_": len(leaves(trainer.params)), "global_norm": 1,
+            "mpe_lookup": 0, "kv_cache_write": 0, "decode_attention": 0}
 
 
 def traced_train_step(trainer, batch, step: int, what: str) -> dict:
-    traced = trace(lambda: trainer.train_step(batch, step), 1)
+    traced = trace(lambda: trainer.train_step(batch, step), 1,
+                   expect=FLASH_FWD_NAME)
     view = {k: traced[k] for k in ("wall_ms", "busy_ms", "idle_share", "top")}
     view["flash_ms"] = {kind: flash_kernel_ms(traced["by_name"], kind)
                         for kind in ("fwd", "bwd")}
@@ -7132,6 +7264,7 @@ def main() -> int:
     torch.cuda.empty_cache()   # the cells' graph pool goes back
     train = phase_train_path(dev)
     step = phase_step_inputs(dev, train)
+    norm = phase_global_norm(dev)
     mesh = phase_mesh(dev, train)
     del train["res"]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "cfg"},
@@ -7227,6 +7360,7 @@ def main() -> int:
                adam_record(train, step, sasrec_train["step_inputs"],
                            bst_train["step_inputs"], extra,
                            reduced["schedule"]),
+               global_norm_record(train, norm),
                bag_record(bag_grid_errs, bag), tiered["record"],
                *flash_records(flash_grid_errs, sasrec_serve, sasrec_train,
                               flash_times, bst_errs),

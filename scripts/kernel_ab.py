@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Time the port's ``segment_sum``, ``decode_attention``, ``kv_cache_write``,
-``tiered_cold`` and flash-attention wrappers at the paths' shapes on one
-CUDA card, taken apart into their pieces, and, with ``--parent-src``,
-beside another checkout's wrappers in the same process.
+``tiered_cold``, flash-attention and global-norm wrappers at the paths'
+shapes on one CUDA card, taken apart into their pieces, and, with
+``--parent-src``, beside another checkout's wrappers in the same process.
 
     python3 scripts/kernel_ab.py [--parent-src DIR] [--only KERNEL ...] [--json OUT]
 
 ``KERNEL`` is one of ``segment_sum``, ``decode_attention``,
-``kv_cache_write``, ``tiered_cold`` and ``flash``; ``--only`` may be given
-more than once.
+``kv_cache_write``, ``tiered_cold``, ``flash`` and ``global_norm``;
+``--only`` may be given more than once.
 
 ``DIR`` is another checkout's ``src`` (``git archive HEAD src | tar -x -C
 build/parent``): its ``kernels/build.py`` builds its own ``csrc`` into its
-own ``build/kernels``, and its two ``ops.py`` are loaded beside this tree's.
+own ``build/kernels``, and its ``ops.py`` are loaded beside this tree's
+(a kernel it lacks is timed on this tree alone).
 Sides are timed in turns (parent, change, change, parent); each number is
 the mean of a run of back-to-back calls between CUDA events.
 
@@ -68,6 +69,12 @@ kernel (the tiled backward's dQ and dK/dV kernels apart). Each row holds both bo
 forward plus backward beside the backward; timed only) and, where the
 sides differ, their largest |difference|.
 
+``global_norm``: ``chip_smoke.global_norm_rows`` (the smoke's phase 8a):
+the clip's scale and norm over random leaves (N(0, 0.01)) of both search
+cells' parameter shapes, against the plain chain (``ref.py``) in turns
+and beside ``torch._foreach_norm`` (timed only), the same checks, and
+here the kernel's traced device time too. Timed on this tree alone.
+
 Prints one JSON object (also to ``--json``), with the card's name and
 power limit.
 """
@@ -91,6 +98,7 @@ from repro_torch.cache.tiers import cold_buffer_words  # noqa: E402
 from repro_torch.core.packing import words_per_row  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.global_norm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.kv_cache_write import ops as kvw_ops  # noqa: E402
 from repro_torch.kernels.kv_cache_write.ref import (  # noqa: E402
     kv_cache_write_ref)
@@ -100,7 +108,7 @@ from repro_torch.kernels.tiered_cold.ref import cold_fill_ref  # noqa: E402
 
 SEED = 0
 KERNELS = ("segment_sum", "decode_attention", "kv_cache_write", "tiered_cold",
-           "flash")
+           "flash", "global_norm")
 MODULES = {"flash": "flash_attention"}   # a kernel's directory, where not its name
 
 
@@ -117,9 +125,10 @@ def load_parent(src: Path) -> dict:
     saved = sys.modules["repro_torch.kernels.build"]
     sys.modules["repro_torch.kernels.build"] = build
     try:
-        return {name: load(f"parent_{name}_ops",
-                           kernels / MODULES.get(name, name) / "ops.py")
-                for name in KERNELS}
+        paths = {name: kernels / MODULES.get(name, name) / "ops.py"
+                 for name in KERNELS}
+        return {name: load(f"parent_{name}_ops", path)
+                for name, path in paths.items() if path.exists()}
     finally:
         sys.modules["repro_torch.kernels.build"] = saved
 
@@ -544,6 +553,19 @@ def flash_ab(sides: dict, dev) -> list:
     return rows
 
 
+def global_norm_ab(sides: dict, dev) -> list:
+    """``chip_smoke.global_norm_rows`` on this tree's wrapper, each call
+    also traced by kernel."""
+    def trace(fn):
+        return traced(fn, {"global_norm_kernel": ("global_norm_kernel",)})
+    rows = cs.global_norm_rows(dev, sides["change"].global_norm_clip, trace)
+    out = []
+    for name, row in rows.items():
+        out.append({"leaf_set": name, **row})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-src", type=Path)
@@ -564,7 +586,8 @@ def main() -> int:
                             ("decode_attention", decode_attention_ab, da_ops),
                             ("kv_cache_write", kv_cache_write_ab, kvw_ops),
                             ("tiered_cold", tiered_cold_ab, cold_ops),
-                            ("flash", flash_ab, flash_ops)):
+                            ("flash", flash_ab, flash_ops),
+                            ("global_norm", global_norm_ab, norm_ops)):
         if args.only is None or kernel in args.only:
             sides = {"change": mod}
             if kernel in parent:

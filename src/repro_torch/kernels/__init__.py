@@ -16,6 +16,7 @@ from repro_torch.kernels.embedding_bag.ops import (
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_stats,
     flash_attention_kernel, flash_attention_kernel_sharded)
+from repro_torch.kernels.global_norm.ops import global_norm_clip
 from repro_torch.kernels.kv_cache_write.ops import kv_cache_write
 from repro_torch.kernels.mpe_lookup.ops import (packed_lookup,
                                                 packed_lookup_kernel,
@@ -35,6 +36,7 @@ COUNTERS = {"mpe_lookup": packed_lookup,
             "embedding_bag_fwd": embedding_bag_fwd,
             "segment_sum": segment_sum,
             "adam_step_": adam_step_,
+            "global_norm": global_norm_clip,
             "tiered_cold": cold_fill,
             "kv_cache_write": kv_cache_write,
             "decode_attention": decode_attention}

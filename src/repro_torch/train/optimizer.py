@@ -13,9 +13,11 @@ above.
 
 ``update_`` updates every parameter leaf, the optimizer's state and its step
 in place, and leaves them all bit-unchanged where the 0-d bool ``ok`` is
-false. No second tree is made. Adam runs leaf by leaf through
-``kernels/adam`` (one fused pass on the card, its plain version in torch
-calls on the CPU); SGD is plain tensor operations. A learning rate is a
+false. No second tree is made. ``clip_scale`` reads the whole gradient
+tree through ``kernels/global_norm`` (one pass on the card) and Adam runs
+leaf by leaf through ``kernels/adam`` (one fused pass on the card), each
+with its plain version in torch calls on the CPU; SGD is plain tensor
+operations. A learning rate is a
 float or a schedule ``fn(step) -> lr``, which both take on the device from
 their int32 step, as the reference's jitted step does.
 
@@ -30,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.kernels.adam.ops import adam_step_
+from repro_torch.kernels.global_norm.ops import global_norm_clip
 from repro_torch.train.tree import leaves, tree_map
 
 
@@ -146,10 +149,9 @@ def warmup_cosine(base_lr: float, warmup: int, total: int, floor: float = 0.0):
 def clip_scale(grads, max_norm: float):
     """The global-norm clip's factor ``min(1, max_norm / (norm + 1e-12))``
     (always applied, as the reference does) and the global norm, as 0-d
-    float32 tensors on the gradients' device."""
-    sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)]
-    gnorm = torch.sqrt(torch.sum(torch.stack(sq)))
-    return torch.clamp(max_norm / (gnorm + 1e-12), max=1.0), gnorm
+    float32 tensors on the gradients' device: one pass over every leaf on
+    the card (``kernels/global_norm``), the plain chain on the CPU."""
+    return global_norm_clip(leaves(grads), max_norm)
 
 
 def clip_by_global_norm(grads, max_norm: float):
